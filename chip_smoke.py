@@ -9,11 +9,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  (``nvidia-smi``); no CUDA means exit 1 with no result.
 2. ``build``     nvcc builds ``src/repro_torch/kernels/csrc/*.cu`` into
                  ``build/repro_torch_kernels/`` (or loads the built library).
-3. ``kernels``   every kernel of the main path against its plain PyTorch
-                 version on the card, at the main path's shapes (M = 4096)
-                 and at a ragged M = 4093: gate_cell within 1e-5, ccg_solve,
-                 c6_tail and lpt_queue exact; kernel, plain and library times
-                 (CUDA events, median after warm-up) and each kernel's bound.
+3. ``kernels``   every kernel against its plain PyTorch version on the card,
+                 at the paths' shapes (M = 4096) and at a ragged M = 4093:
+                 gate_cell within 1e-5, ccg_solve, c6_tail, lpt_queue,
+                 ccg_encode (also with a real availability mask) and
+                 ccg_master (also on slabs with ties, empty scenario rows
+                 and all-infeasible rows) exact; kernel, plain and library
+                 times (CUDA events, median after warm-up) and each
+                 kernel's bound.
 4. ``main_path`` ``make_policy("r2evid") → ServeSession.run`` on M = 4096
                  streams for R = 16 rounds of a seeded ``sample_stream``, with
                  random seeded gate weights, launch counters zeroed just
@@ -24,6 +27,21 @@ Phases, one JSON line each; any failure exits non-zero:
 5. ``trace``     one profiled run of the main path: device busy time and
                  idle share per round, device activities and host<->device
                  copies per round, the costliest device activities.
+6. ``solve_ccg`` the unrolled CCG solver at M = 4096 on round 0 of the
+                 stream, cold and warm-started from Stage 1: on the kernels
+                 (launch counters zeroed just before and read just after:
+                 ccg_encode 1, ccg_master 8 per solve), on the plain
+                 versions with the running-η master, and as the fused
+                 ``solve_ccg_fused`` on the ccg_solve kernel; the three must
+                 agree on route/r/p/v/iters/infeasible on every lane.
+7. ``policies``  the paper's method comparison: a2_cloud_only, jcab, rdap,
+                 sniper, r2evid in τ-proxy mode and its no-Stage-1 and
+                 no-Stage-2 ablations through ``ServeSession.run`` on the
+                 main path's stream (M = 4096, R = 16, no motion features):
+                 launch counts, rounds/s (median of three runs after a
+                 warm-up) and ``Simulator.aggregate``'s paper scalars; the
+                 τ-proxy run also on the plain versions, with bit-equal
+                 decisions.
 
 The last three lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``--out DIR`` also
@@ -32,6 +50,8 @@ writes the nvcc/ptxas build log and every phase's record there.
 from __future__ import annotations
 
 import argparse
+import collections
+import dataclasses
 import json
 import shutil
 import statistics
@@ -110,7 +130,10 @@ def kernel_phase(torch, stream, dev):
     from repro_torch.core.gating import GateConfig, init_gate_params
     from repro_torch.core.lattice import BIG
     from repro_torch.core.robust import RobustProblem
+    from repro_torch.core.router import stage1_configure
     from repro_torch.kernels.c6_tail.ops import c6_tail
+    from repro_torch.kernels.ccg_encode.ops import ccg_encode
+    from repro_torch.kernels.ccg_master.ops import ccg_master
     from repro_torch.kernels.ccg_solve.ops import ccg_solve
     from repro_torch.kernels.lpt_queue.ops import lpt_queue
     from repro_torch.kernels.temporal_gate.ops import gate_cell
@@ -134,6 +157,50 @@ def kernel_phase(torch, stream, dev):
         return torch.randint(0, hi, (m,), generator=gen,
                              dtype=torch.int32).to(dev)
 
+    enc_kw = dict(margin=sys_.acc_margin_robust, num_versions=K)
+
+    def enc_args(z, aq):
+        return (z, aq, lat.rn_flat, lat.pn_flat, lat.tier_flat,
+                prob.b2_scaled, prob.rec_table)
+
+    def master_first_step(z, aq):
+        """The master's inputs at the first step of a solve warm-started
+        from Stage 1: the round's slab, its feasibility, and each task's
+        warm pole as its one generated scenario."""
+        m = z.shape[0]
+        code, rec_all, _ = ccg_encode(*enc_args(z, aq), force="ref",
+                                      **enc_kw)
+        none = torch.full((m,), -1, dtype=torch.int64, device=dev)
+        route, r = stage1_configure(lat, z, z, aq, none, torch.zeros_like(z))
+        wy = lat.flatten_index(route, r, sys_.n_fps - 1)
+        fs_ok = code > 0
+        rec_wy = rec_all.gather(2, wy[:, None, None].expand(-1, P, 1))[..., 0]
+        use = fs_ok.gather(1, wy[:, None])[:, 0]
+        pole = rec_wy.argmax(1)[:, None]
+        scen = ((torch.arange(P, device=dev)[None] == pole)
+                & use[:, None]).to(torch.float32)
+        return rec_all, scen, fs_ok, lat.c1_flat
+
+    def master_ties(m):
+        """A slab on a coarse grid (ties everywhere), with empty scenario
+        rows, full ones, all-infeasible rows and BIG recourse entries."""
+        rec = (torch.randint(0, 6, (m, P, F), generator=gen) * 0.125)
+        rec[torch.rand((m, P, F), generator=gen) < 0.05] = BIG
+        scen = (torch.rand((m, P), generator=gen) < 0.3).float()
+        scen[::5] = 0.0
+        scen[1::7] = 1.0
+        fs_ok = torch.rand((m, F), generator=gen) < 0.7
+        fs_ok[2::6] = False
+        c1 = torch.randint(0, 4, (F,), generator=gen) * 0.25
+        return rec.to(dev), scen.to(dev), fs_ok.to(dev), c1.float().to(dev)
+
+    def extra_checks(m):
+        z, aq = stream.z[0, :m].contiguous(), stream.aq[0, :m].contiguous()
+        cloud_down = (lat.tier_flat < 0.5).to(torch.float32)
+        return {"ccg_encode": [(ccg_encode, enc_args(z, aq),
+                                dict(enc_kw, y_ok=cloud_down))],
+                "ccg_master": [(ccg_master, master_ties(m), {})]}
+
     def cases(m):
         z, aq = stream.z[0, :m].contiguous(), stream.aq[0, :m].contiguous()
         route = ints(m, 2)
@@ -153,29 +220,35 @@ def kernel_phase(torch, stream, dev):
                                   pn), dict(n_fps=f_k)),
             "lpt_queue": (lpt_queue, (rand((m,), 0.001, 0.5), route, 4, 1),
                           {}),
+            "ccg_encode": (ccg_encode, enc_args(z, aq), enc_kw),
+            "ccg_master": (ccg_master, master_first_step(z, aq), {}),
         }
 
     tol = {"gate_cell": 1e-5, "ccg_solve": 0.0, "c6_tail": 0.0,
-           "lpt_queue": 0.0}
+           "lpt_queue": 0.0, "ccg_encode": 0.0, "ccg_master": 0.0}
     source = {"gate_cell": "temporal_gate.cu", "ccg_solve": "ccg_solve.cu",
-              "c6_tail": "c6_tail.cu", "lpt_queue": "lpt_queue.cu"}
+              "c6_tail": "c6_tail.cu", "lpt_queue": "lpt_queue.cu",
+              "ccg_encode": "ccg_encode.cu", "ccg_master": "ccg_master.cu"}
     replaces = {
         "gate_cell": "src/repro/kernels/temporal_gate/kernel.py:50",
         "ccg_solve": "src/repro/kernels/ccg_solve/kernel.py:168",
         "c6_tail": "src/repro/kernels/c6_tail/kernel.py:69",
         "lpt_queue": "src/repro/serving/simulator.py:70 (not a TPU kernel: "
                      "realization helper)",
+        "ccg_encode": "src/repro/kernels/ccg_encode/kernel.py:74",
+        "ccg_master": "src/repro/kernels/ccg_master/kernel.py:53",
     }
-    symbol = {"gate_cell": "gate_cell_kernel",
-              "ccg_solve": "ccg_solve_kernel", "c6_tail": "c6_tail_kernel",
-              "lpt_queue": "lpt_queue_kernel"}
+    symbol = {name: f"{name}_kernel" for name in source}
     plain_reps = {"lpt_queue": 3}
     rows = {}
     main_cases = cases(M)
     ragged_cases = cases(M_RAGGED)
+    extra = {m: extra_checks(m) for m in (M, M_RAGGED)}
     for name, (fn, args, kw) in main_cases.items():
         err = 0.0
-        for fn_, args_, kw_ in (main_cases[name], ragged_cases[name]):
+        checks = [main_cases[name], ragged_cases[name],
+                  *extra[M].get(name, []), *extra[M_RAGGED].get(name, [])]
+        for fn_, args_, kw_ in checks:
             got = fn_(*args_, force="kernel", **kw_)
             want = fn_(*args_, force="ref", **kw_)
             torch.cuda.synchronize()
@@ -193,7 +266,7 @@ def kernel_phase(torch, stream, dev):
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source[name]}",
             "replaces": replaces[name], "max_abs_err": err,
-            "tolerance": tol[name],
+            "tolerance": tol[name], "cases_compared": len(checks),
             "ms": ms_dev if ms_dev is not None else ms_events,
             "ms_from": "profiler" if ms_dev is not None else "cuda_events",
             "call_ms": ms_events,
@@ -245,16 +318,41 @@ def kernel_phase(torch, stream, dev):
     on_edge = float((r_lpt == 0).sum())
     lpt_bytes = M * (4 + 4 + 8 + 4)
     lpt_flops = on_edge * n_edge + (M - on_edge) * n_cloud
+    # ccg_encode: writes the (M, P, F) slab, the (M, F) bitmask and the (M,)
+    # argmax; reads z, aq, four (F,) vectors and the (K, P, F) costs.  With
+    # a_max·sat per (option, version) and the (P, F, 2^K) subset lookup
+    # built once, per task the two z products and their sum per option (3F)
+    # and per (option, version) the subtraction, clamp (2), test, bit and
+    # argmax compare (6FK); the recourse is a lookup.
+    enc_bytes = 4 * (M * P * F + M * F + M + 2 * M + 4 * F + K * P * F)
+    enc_flops = (11 * F * K + P * F * 2 ** K + M * (3 * F + 6 * F * K))
+    # ccg_master on the first warm step's inputs: it needs the recourse of
+    # each task's generated poles at its feasible options only, the whole
+    # (M, P) mask and (M, F) feasibility, c1, and writes y* and o_down; per
+    # feasible option the η max over the poles, c1 + η and the argmin
+    # compare, per option the select
+    rec_m, scen_m, ok_m, _ = main_cases["ccg_master"][1]
+    n_poles = scen_m.sum(1).double()
+    n_feas = ok_m.sum(1).double()
+    master_bytes = float(4 * (n_poles * n_feas).sum() + 4 * M * P + M * F
+                         + 4 * F + 8 * M)
+    master_flops = float((n_feas * (n_poles + 2)).sum() + M * F)
     work = {"gate_cell": (gate_bytes, gate_flops),
             "ccg_solve": (ccg_bytes, ccg_flops),
             "c6_tail": (c6_bytes, c6_flops),
-            "lpt_queue": (lpt_bytes, lpt_flops)}
+            "lpt_queue": (lpt_bytes, lpt_flops),
+            "ccg_encode": (enc_bytes, enc_flops),
+            "ccg_master": (master_bytes, master_flops)}
     for name, (nbytes, flops) in work.items():
         rows[name]["bytes"], rows[name]["flops"] = nbytes, flops
         rows[name]["bound_ms"], rows[name]["bound_by"] = bound(nbytes, flops)
     rows["ccg_solve"]["ccg_steps_in_run"] = steps
     rows["ccg_solve"]["infeasible_tasks"] = n_infeasible
     rows["c6_tail"]["feasible_demotions"] = n_demote
+    rows["ccg_master"]["inputs"] = (
+        "first master step of the Stage-1 warm-started solve of round 0")
+    rows["ccg_master"]["mean_poles_per_task"] = float(n_poles.mean())
+    rows["ccg_master"]["dense_slab_bytes"] = 4 * M * P * F
 
     # the nearest library yardstick of gate_cell: its packed dx·W_x GEMM
     dx = main_cases["gate_cell"][1][0]
@@ -381,6 +479,180 @@ def main_path_phase(torch, dev, stream, counts_reset, counts_read):
     }
 
 
+def solve_phase(torch, dev, stream, counts_reset, counts_read):
+    """The unrolled CCG solver on its kernels, on the plain versions with
+    the running-η master, and as the fused solve: equal decisions."""
+    from repro_torch.core.cost_model import SystemConfig
+    from repro_torch.core.robust import (
+        RobustProblem,
+        solve_ccg,
+        solve_ccg_fused,
+    )
+    from repro_torch.core.router import stage1_configure
+
+    sys_ = SystemConfig()
+    prob = RobustProblem.build(sys_, dev)
+    lat = prob.lat
+    n_steps = min(8, prob.poles.shape[0] + 1)
+    z, aq = stream.z[0].contiguous(), stream.aq[0].contiguous()
+    none = torch.full((M,), -1, dtype=torch.int64, device=dev)
+    route, r = stage1_configure(lat, z, z, aq, none, torch.zeros_like(z))
+    warm_y = lat.flatten_index(route, r, sys_.n_fps - 1)
+    decisions = ("route", "r", "p", "v", "iters", "infeasible")
+    per_solve = {"ccg_encode": 1, "ccg_master": n_steps}
+    totals = collections.Counter()
+    rec = {"phase": "solve_ccg", "streams": M, "round": 0,
+           "master_steps": n_steps}
+    for start, wy in (("cold", None), ("warm", warm_y)):
+        def kernels():
+            return solve_ccg(prob, z, aq, warm_y=wy)
+
+        def plain():
+            return solve_ccg(prob, z, aq, warm_y=wy, force="ref",
+                             slab_master=False)
+
+        def fused():
+            return solve_ccg_fused(prob, z, aq, warm_y=wy)
+
+        counts_reset()
+        sol = kernels()
+        torch.cuda.synchronize()
+        launches = counts_read()
+        if launches != per_solve:
+            raise AssertionError(f"solve_ccg ({start}) launched {launches}, "
+                                 f"want {per_solve}")
+        totals.update(launches)
+        counts_reset()
+        sol_plain = plain()
+        torch.cuda.synchronize()
+        if counts_read():
+            raise AssertionError("the plain solve launched a kernel")
+        counts_reset()
+        sol_fused = fused()
+        torch.cuda.synchronize()
+        if counts_read() != {"ccg_solve": 1}:
+            raise AssertionError("solve_ccg_fused did not launch ccg_solve")
+        row = {"launches": launches}
+        for other, o in (("plain_running_eta", sol_plain),
+                         ("fused", sol_fused)):
+            lanes = torch.ones((M,), dtype=torch.bool, device=dev)
+            for k in decisions:
+                lanes &= sol[k] == o[k].to(sol[k].dtype)
+            n_eq = int(lanes.sum())
+            if n_eq != M:
+                raise AssertionError(f"solve_ccg ({start}) vs {other}: "
+                                     f"{M - n_eq} lanes differ")
+            row[f"lanes_equal_vs_{other}"] = n_eq
+            for k in ("o_up", "o_down"):
+                row[f"{k}_max_abs_vs_{other}"] = float(
+                    (sol[k] - o[k]).abs().max())
+        row.update({
+            "iters_mean": float(sol["iters"].double().mean()),
+            "iters_max": int(sol["iters"].max()),
+            "infeasible_tasks": int(sol["infeasible"].sum()),
+            "cloud_frac": float(sol["route"].double().mean()),
+            "ms_kernels": event_ms(torch, kernels, reps=20),
+            "ms_plain_running_eta": event_ms(torch, plain, reps=5, warmup=1),
+            "ms_fused": event_ms(torch, fused, reps=20),
+        })
+        rec[start] = row
+    warm = lambda: solve_ccg(prob, z, aq, warm_y=warm_y)
+    rec["device_ms_per_launch_in_warm_solve"] = {
+        name: device_ms(torch, warm, f"{name}_kernel", reps=10)
+        for name in per_solve}
+    return totals, rec
+
+
+POLICY_VARIANTS = {
+    "a2_cloud_only": ("a2_cloud_only", {}),
+    "jcab": ("jcab", {}),
+    "rdap": ("rdap", {}),
+    "sniper": ("sniper", {}),
+    "r2evid_tau_proxy": ("r2evid", {}),
+    "r2evid_no_stage1": ("r2evid", {"use_stage1": False}),
+    "r2evid_no_stage2": ("r2evid", {"use_stage2": False}),
+}
+
+
+def policies_phase(torch, dev, stream, counts_reset, counts_read):
+    """Every registered policy through ``ServeSession.run``, scored with
+    the simulator's noise model as the paper's tables are."""
+    from repro_torch.core.cost_model import SystemConfig
+    from repro_torch.serving.policy import make_policy
+    from repro_torch.serving.session import ServeSession
+    from repro_torch.serving.simulator import SimConfig, Simulator
+
+    sys_ = SystemConfig()
+    obs = dataclasses.replace(stream, dx=None)    # no policy here reads dx
+    ranges = {"route": 2, "r": sys_.n_res, "p": sys_.n_fps,
+              "v": sys_.num_versions}
+    rows = {}
+    for label, (name, kw) in POLICY_VARIANTS.items():
+        def session(force):
+            pol = make_policy(name, sys_, device=dev, force=force, **kw)
+            return ServeSession(pol, n_streams=M, device=dev)
+
+        counts_reset()
+        mets = session("auto").run(obs)
+        torch.cuda.synchronize()
+        launches = counts_read()
+        want = {"lpt_queue": ROUNDS}
+        if label == "r2evid_tau_proxy":
+            want["ccg_solve"] = ROUNDS
+            n_c6 = launches.get("c6_tail", 0)
+            if not 1 <= n_c6 <= ROUNDS * 8:
+                raise AssertionError(f"{label}: c6_tail launches {n_c6}")
+            want["c6_tail"] = n_c6
+        if launches != want:
+            raise AssertionError(f"{label} launched {launches}, want {want}")
+        for k in ("delay", "energy", "cost", "accuracy"):
+            if tuple(mets[k].shape) != (ROUNDS, M) or \
+                    not bool(torch.isfinite(mets[k]).all()):
+                raise AssertionError(f"{label}: metric {k} bad shape or "
+                                     f"non-finite")
+        for k, hi in ranges.items():
+            if tuple(mets[k].shape) != (ROUNDS, M) or \
+                    not bool(((mets[k] >= 0) & (mets[k] < hi)).all()):
+                raise AssertionError(f"{label}: decision {k} out of range")
+        scalars = Simulator(sys_, SimConfig(n_tasks=M, seed=0),
+                            device=dev).aggregate(mets, stream.aq)
+        row = {"policy": name, "kw": kw, "launches": launches, **scalars}
+        if label == "r2evid_tau_proxy":
+            counts_reset()
+            ref = session("ref").run(obs)
+            torch.cuda.synchronize()
+            if counts_read():
+                raise AssertionError("force='ref' run launched a kernel")
+            same = torch.ones((ROUNDS, M), dtype=torch.bool, device=dev)
+            for k in ranges:
+                same &= mets[k] == ref[k]
+            n_same = int(same.sum())
+            if n_same != ROUNDS * M:
+                raise AssertionError(f"{label}: kernel vs plain decisions "
+                                     f"differ on {ROUNDS * M - n_same} "
+                                     f"lane-rounds")
+            row["lane_rounds_bitequal_vs_plain"] = n_same
+            row["metric_max_rel_vs_plain"] = {
+                k: float(((mets[k] - ref[k]).abs()
+                          / ref[k].abs().clamp_min(1e-12)).max())
+                for k in ("delay", "energy", "cost", "accuracy")}
+
+        def timed():
+            sess = session("auto")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.run(obs)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        secs = statistics.median(timed() for _ in range(3))
+        row.update({"run_s": secs, "rounds_per_s": ROUNDS / secs,
+                    "segments_per_s": ROUNDS * M / secs})
+        rows[label] = row
+    return {"phase": "policies", "streams": M, "rounds": ROUNDS,
+            "variants": rows}
+
+
 def trace_round(torch, sess, stream, untraced_s: float) -> dict:
     """Where the time goes: one profiled run of the main path.
 
@@ -475,8 +747,18 @@ def main() -> int:
         torch, dev, stream, reset_launch_counts, launch_counts)
     record(main_rec)
     record(trace)
+    solve_launches, solve_rec = solve_phase(
+        torch, dev, stream, reset_launch_counts, launch_counts)
+    record(solve_rec)
+    record(policies_phase(torch, dev, stream, reset_launch_counts,
+                          launch_counts))
+    # launches of each kernel on its path: the main path's serving round
+    # for the slice-1 kernels, the cold and the warm solve for ccg_encode
+    # and ccg_master
     for name, row in rows.items():
-        row["launches"] = launches.get(name, 0)
+        row["launches"] = launches.get(name, 0) + solve_launches.get(name, 0)
+        row["launches_from"] = ("solve_ccg" if name in solve_launches
+                                else "main_path")
     kernels = {"kernels": list(rows.values())}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(

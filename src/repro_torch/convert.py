@@ -1,9 +1,11 @@
 """Carry weights and state across from the JAX reference as numpy arrays.
 
 The reference's gate parameters are a dict of arrays (its
-``init_params(gate_specs(cfg), key)``) and its router carry a
-``RouterState`` with a ``GateBatchState``; ``np.asarray`` of either side's
-leaves is all these functions need, so nothing here imports JAX.
+``init_params(gate_specs(cfg), key)``), its router carry a ``RouterState``
+with a ``GateBatchState``, and its baselines' and τ-proxy carries the
+named tuples ``RDAPState``, ``SniperState`` and ``HistoryState``;
+``np.asarray`` of either side's leaves is all these functions need, so
+nothing here imports JAX.  Indices become int64 in the port.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from repro_torch.core.gating import GateBatchState
 from repro_torch.core.router import RouterState
 from repro_torch.device import resolve_device
+from repro_torch.serving.policy import HistoryState, RDAPState, SniperState
 
 _GATE_FIELDS = ("h", "var_buf", "var_idx", "var_sum", "var_sumsq")
 
@@ -52,3 +55,28 @@ def router_state_to_numpy(state: RouterState) -> dict:
     for k in _GATE_FIELDS:
         out[f"gate.{k}"] = getattr(state.gate, k).cpu().numpy()
     return out
+
+
+# field dtypes of the policy carries in the port
+_CARRIES = {
+    RDAPState: {"z_ema": torch.float32, "has": torch.bool},
+    SniperState: {"key": torch.float32, "route": torch.int64,
+                  "r": torch.int64, "p": torch.int64, "v": torch.int64,
+                  "has": torch.bool, "warmup": torch.bool},
+    HistoryState: {"prev_route": torch.int64, "prev_tau": torch.float32},
+}
+
+
+def policy_state_from_numpy(kind, state, device="cuda"):
+    """A reference ``RDAPState``, ``SniperState`` or ``HistoryState`` (or
+    anything with the same fields) -> the port's ``kind`` on device."""
+    dev = resolve_device(device)
+    return kind(**{
+        k: torch.from_numpy(np.array(getattr(state, k))).to(device=dev,
+                                                            dtype=dt)
+        for k, dt in _CARRIES[kind].items()})
+
+
+def policy_state_to_numpy(state) -> dict:
+    """A port policy carry -> {field: numpy array}."""
+    return {k: getattr(state, k).cpu().numpy() for k in state._fields}

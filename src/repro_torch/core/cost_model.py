@@ -95,6 +95,19 @@ def _accuracy_formula(z, r, p, k, tier):
     return torch.clamp(f, 0.0, 1.0)
 
 
+def accuracy_table(sys: SystemConfig, difficulty):
+    """f(r, p, v, tier | z): (..., N, Z, K, 2) accuracy for difficulty z
+    (...,), the full surface (port of ``cost_model.py:98``)."""
+    dev = difficulty.device
+    z = difficulty[..., None, None, None, None]
+    r = res_norm(sys, dev)[:, None, None, None]
+    p = fps_norm(sys, dev)[None, :, None, None]
+    k = torch.arange(sys.num_versions, dtype=torch.float32,
+                     device=dev)[None, None, :, None]
+    tier = torch.arange(2, dtype=torch.float32, device=dev)[None, None, None]
+    return _accuracy_formula(z, r, p, k, tier)
+
+
 def accuracy_at(sys: SystemConfig, difficulty, r, p, v, route):
     """Accuracy at chosen (r, p, v, route) index tensors (pointwise)."""
     dev = difficulty.device

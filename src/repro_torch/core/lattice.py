@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.cost_model import (
     SystemConfig,
+    accuracy_table,
     cost_tables,
     fps_norm,
     res_norm,
@@ -101,6 +102,44 @@ class DecisionLattice:
         route = y // nz
         rp = y % nz
         return route, rp // self.sys.n_fps, rp % self.sys.n_fps
+
+    def to_flat(self, table):
+        """Reorder a (..., N, Z, K, 2) table into the flat (..., F, K)
+        layout."""
+        moved = torch.movedim(table, -1, -4)              # (..., 2, N, Z, K)
+        return moved.reshape(*table.shape[:-4], self.n_flat,
+                             self.sys.num_versions)
+
+    def accuracy(self, difficulty):
+        """f(r, p, v, tier | z): (..., N, Z, K, 2)."""
+        return accuracy_table(self.sys, difficulty)
+
+    def accuracy_flat(self, difficulty):
+        """Accuracy in the flat layout: (..., F, K)."""
+        return self.to_flat(self.accuracy(difficulty))
+
+    def tier_y_ok(self, tier_ok):
+        """(..., 2) per-tier availability -> (..., F) flat option mask
+        (``tier_ok[..., t] <= 0`` marks tier t outaged)."""
+        return torch.where(self.tier_flat > 0.5, tier_ok[..., 1:],
+                           tier_ok[..., :1])
+
+    def feasible_flat(self, difficulty, acc_req, margin, tier_ok=None):
+        """(accuracy_flat (M, F, K), feasibility f >= A^q + margin) for a
+        task batch; an outaged tier's options get accuracy -BIG."""
+        f = self.accuracy_flat(difficulty)
+        if tier_ok is not None:
+            f = torch.where(self.tier_y_ok(tier_ok)[..., None] > 0, f, -BIG)
+        return f, f >= (acc_req + margin)[..., None, None]
+
+    def solution_cost(self, sol, u=None):
+        """Realized cost c1 + b2·(1 + u_v) of a (route, r, p, v) solution."""
+        route, r, p, v = sol["route"], sol["r"], sol["p"], sol["v"]
+        c1 = self.c1[r, p, route]
+        b = self.b2[r, p, v, route]
+        if u is not None:
+            b = b * (1.0 + u[v])
+        return c1 + b
 
     def solution_bandwidth(self, sol):
         """Per-task bandwidth draw (Mbps) of a (route, r, p) solution."""

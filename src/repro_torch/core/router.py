@@ -191,7 +191,9 @@ def route_segment(prob: RobustProblem, gate_cfg: GateConfig, gate_params,
                   tier_ok=None):
     """Per-stream portion of the step: gate → Stage-1 → CCG → temporal
     consistency.  Returns ``(new_gate, taus, sol)`` with the pre-repair
-    solution.  ``state.gate``'s ring buffer is updated in place."""
+    solution.  ``state.gate``'s ring buffer is updated in place, so an
+    unported option is refused before it."""
+    _no_tier_ok(tier_ok)
     new_gate, (taus, _g_mean) = gate_step_batch(
         gate_cfg, gate_params, state.gate, dx, force=force)
     sol = _two_stage_select(prob, taus, difficulty, acc_req,

@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels (nvcc → one ``.so`` → ``ctypes``).
 
-Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) with ``-fmad=false``
-and IEEE math (no ``--use_fast_math``): the kernels must reproduce the plain
-PyTorch versions' float32 operations one for one, and a contracted
-multiply-add rounds once where PyTorch rounds twice.  The sources compile in
-parallel (one ``nvcc -c`` each, all started together) and link into one
-shared library under ``<repo>/build/repro_torch_kernels/``, named by a hash of
-the sources and flags, so a fresh checkout builds it on first use and later
-calls load it.  Nothing here runs at import time.
+Every ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers they include) is
+compiled for Hopper (``sm_90a``) with ``-fmad=false`` and IEEE math (no
+``--use_fast_math``): the kernels must reproduce the plain PyTorch versions'
+float32 operations one for one, and a contracted multiply-add rounds once
+where PyTorch rounds twice.  The sources compile in parallel (one
+``nvcc -c`` each, all started together) and link into one shared library
+under ``<repo>/build/repro_torch_kernels/``, named by a hash of the flags,
+the sources and the headers, so a fresh checkout builds it on first use,
+later calls load it, and an edited header builds anew.  Nothing here runs
+at import time.
 
 Each C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
@@ -27,7 +29,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("temporal_gate.cu", "ccg_solve.cu", "c6_tail.cu", "lpt_queue.cu")
+SOURCES = ("temporal_gate.cu", "ccg_solve.cu", "c6_tail.cu", "lpt_queue.cu",
+           "ccg_encode.cu", "ccg_master.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,6 +55,11 @@ _SIGNATURES = {
     "c6_tail_launch": [_P] * 12 + [_I, _I, _I, _P],
     # t_comp, route, order, start, R, M, n_edge, n_cloud, stream
     "lpt_queue_launch": [_P] * 4 + [_I] * 4 + [_P],
+    # z, aq, rn, pn, tier, y_ok, b2s, code, rec_all, best, M, F, K, P,
+    # margin, stream
+    "ccg_encode_launch": [_P] * 10 + [_I] * 4 + [_F, _P],
+    # rec_all, scen_mask, fs_ok, c1, y_star, o_down, M, P, F, stream
+    "ccg_master_launch": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 
@@ -69,8 +77,10 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
+    """Hash of the flags, the sources and every header they may include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -177,6 +187,13 @@ def pad_rows(t, rows: int, value=0):
     fill = torch.full((rows,) + tuple(t.shape[1:]), value, dtype=t.dtype,
                       device=t.device)
     return torch.cat([t, fill])
+
+
+@functools.lru_cache(maxsize=None)
+def all_ones(f: int, device: torch.device):
+    """A cached (F,) float32 availability mask with every option up, for
+    kernels that take one (cached and shared: callers must not write it)."""
+    return torch.ones((f,), dtype=torch.float32, device=device)
 
 
 def stream_ptr(device) -> int:

@@ -3,21 +3,12 @@
 (``force=`` pins either)."""
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ccg_solve.ref import ccg_solve_ref
 
 BLOCK_M = 8       # tasks per CUDA block (one warp each)
-
-
-@functools.lru_cache(maxsize=None)
-def _all_available(f: int, device: torch.device):
-    """The kernel's (F,) availability mask with every option up; tier
-    outages (a real mask) are ROADMAP queue A.9."""
-    return torch.ones((f,), dtype=torch.float32, device=device)
 
 
 def ccg_solve(z, aq, rn_flat, pn_flat, tier_flat, b2_flat, u_all, c1_flat,
@@ -45,7 +36,7 @@ def ccg_solve(z, aq, rn_flat, pn_flat, tier_flat, b2_flat, u_all, c1_flat,
     pad = (-m) % BLOCK_M
     lanes = [_build.pad_rows(z, pad), _build.pad_rows(aq, pad)]
     wy = _build.pad_rows(warm_y, pad, value=-1)
-    tables = [rn_flat, pn_flat, tier_flat, _all_available(f, z.device),
+    tables = [rn_flat, pn_flat, tier_flat, _build.all_ones(f, z.device),
               b2_flat.t().contiguous(), u_all.contiguous(), c1_flat]
     _build.check_cuda("ccg_solve", *lanes, wy, *tables)
     _build.check_dtype("ccg_solve", torch.float32,

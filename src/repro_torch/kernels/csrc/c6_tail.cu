@@ -20,20 +20,12 @@
 // order as the plain version, compiled with -fmad=false: exact on one card.
 #include <cuda_runtime.h>
 
+#include "accuracy.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
 constexpr float kBig = 1e9f;
-
-__device__ __forceinline__ float accuracy(float z, float r, float p, float k,
-                                          float tier) {
-  // repro/core/cost_model.py:_accuracy_formula, same op order
-  const float a_max = 0.60f + 0.045f * k + 0.04f * tier;
-  const float sat = 1.0f - expf(-(2.5f + 0.3f * k) * r);
-  float f = a_max * sat;
-  f = f - 0.10f * z * (1.0f - p) - 0.06f * z * (1.0f - r);
-  return fminf(fmaxf(f, 0.0f), 1.0f);
-}
 
 __global__ void c6_tail_kernel(const float* __restrict__ panel,
                                const int* __restrict__ r_in,

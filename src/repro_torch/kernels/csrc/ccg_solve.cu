@@ -32,41 +32,16 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "accuracy.cuh"
+#include "warp_reduce.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;        // tasks per block
 constexpr int kMaxF = 64;
 constexpr int kMaxK = 8;
 constexpr int kMaxP = 32;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 1e9f;
-
-__device__ __forceinline__ float accuracy(float z, float r, float p, float k,
-                                          float tier) {
-  // repro/core/cost_model.py:_accuracy_formula, same op order
-  const float a_max = 0.60f + 0.045f * k + 0.04f * tier;
-  const float sat = 1.0f - expf(-(2.5f + 0.3f * k) * r);
-  float f = a_max * sat;
-  f = f - 0.10f * z * (1.0f - p) - 0.06f * z * (1.0f - r);
-  return fminf(fmaxf(f, 0.0f), 1.0f);
-}
-
-// (value, index) reductions across the warp; the lower index wins ties.
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, off);
-    const int oi = __shfl_xor_sync(kFull, i, off);
-    if (ov < v || (ov == v && oi < i)) { v = ov; i = oi; }
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, off);
-    const int oi = __shfl_xor_sync(kFull, i, off);
-    if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-  }
-}
 
 struct Tables {
   float c1[kMaxF], rn[kMaxF], pn[kMaxF], tier[kMaxF], ok[kMaxF];
@@ -133,14 +108,14 @@ __global__ void ccg_solve_kernel(
   int by = f0;
   if (bv1 > bmax) { bmax = bv1; by = f1; }
   warp_argmax(bmax, by);
-  const int bk_by = __shfl_sync(kFull, by < 32 ? bk0 : bk1, by & 31);
+  const int bk_by = __shfl_sync(kFullMask, by < 32 ? bk0 : bk1, by & 31);
   const int best = by * K + bk_by;
   const bool fs0 = has0 && code0 > 0, fs1 = has1 && code1 > 0;
-  const bool none_ok = !__any_sync(kFull, fs0 || fs1);
+  const bool none_ok = !__any_sync(kFullMask, fs0 || fs1);
 
   // (q, worst pole) of option y: one pole per lane, K-fold masked min
   auto sp_worst = [&](int y, float& q, int& pole) {
-    const int cy = __shfl_sync(kFull, y < 32 ? code0 : code1, y & 31);
+    const int cy = __shfl_sync(kFullMask, y < 32 ? code0 : code1, y & 31);
     float sp = -CUDART_INF_F;
     if (lane < P) {
       sp = kBig;
@@ -166,7 +141,7 @@ __global__ void ccg_solve_kernel(
   // ---- warm start: seed the scenario set with the warm y's worst pole ----
   const int wy = warm_y[task];
   const int wyc = wy > 0 ? wy : 0;
-  const bool fs_wy = __shfl_sync(kFull, (int)(wyc < 32 ? fs0 : fs1), wyc & 31) != 0;
+  const bool fs_wy = __shfl_sync(kFullMask, (int)(wyc < 32 ? fs0 : fs1), wyc & 31) != 0;
   const bool use_warm = wy >= 0 && fs_wy;
   float q_w;
   int warm_pole;
@@ -206,7 +181,7 @@ __global__ void ccg_solve_kernel(
   float qf;
   int wp;
   sp_worst(y_best, qf, wp);
-  const int code_y = __shfl_sync(kFull, y_best < 32 ? code0 : code1, y_best & 31);
+  const int code_y = __shfl_sync(kFullMask, y_best < 32 ? code0 : code1, y_best & 31);
   if (lane == 0) {
     float vmin = CUDART_INF_F;
     int v_star = 0;

@@ -5,8 +5,12 @@
 the tier uplink, LPT queueing on 4 edge / 1 cloud servers (the ``lpt_queue``
 CUDA helper on the card), compute time under the realized deviation u,
 energy, cost and the pointwise accuracy.  :class:`Simulator` keeps the
-reference's host-numpy stream generator, copied, so a stream can be made
-without JAX; its numbers are identical to the reference's for one seed.
+reference's host-numpy stream generator and observation-noise model, copied,
+so a stream can be made and a run scored without JAX; for one seed its
+numbers are the reference's.  ``Simulator.run`` serves a policy through
+``ServeSession.run`` and returns the paper's scalars (delay, energy, cost,
+accuracy, success, cloud_frac), as ``benchmarks/paper_tables.run_method``
+reads them from the reference.
 """
 from __future__ import annotations
 
@@ -103,7 +107,8 @@ def realize_rounds(lat: DecisionLattice, z, bw_mult, u, route, r, p, v, *,
 
 
 class Simulator:
-    """Stream generator of the reference simulator (host numpy, copied)."""
+    """Stream generator, observation noise and run scoring of the reference
+    simulator (host numpy, copied)."""
 
     def __init__(self, sys: SystemConfig, sim: SimConfig, device="cuda"):
         self.sys = sys
@@ -150,3 +155,36 @@ class Simulator:
             bw_mult=f32(np.stack([rd["bw_mult"] for rd in rnds])),
             u=f32(np.stack([rd["u"] for rd in rnds])),
         )
+
+    def observe(self, acc, aq):
+        """Observation noise (σ = 0.008, from ``self.rng``) and SLA success:
+        ``(noisy accuracy, success)`` as float64 numpy arrays."""
+        acc = np.clip(np.asarray(acc) + self.rng.normal(0, 0.008,
+                                                        np.shape(acc)), 0, 1)
+        return acc, (acc >= np.asarray(aq) - 1e-6).astype(np.float32)
+
+    def aggregate(self, mets, aq) -> dict:
+        """Scalar run metrics from the per-round (R, M) metrics of
+        ``ServeSession.run``: draws the observation noise and averages over
+        streams, then over rounds."""
+        host = lambda x: x.cpu().numpy()
+        acc, success = self.observe(host(mets["accuracy"]), host(aq))
+        out = {k: float(host(mets[k]).mean(axis=1).mean())
+               for k in ("delay", "energy", "cost")}
+        out["accuracy"] = float(acc.mean(axis=1).mean())
+        out["success"] = float(success.mean(axis=1).mean())
+        out["cloud_frac"] = float(host(mets["route"]).mean(axis=1).mean())
+        return out
+
+    def run(self, policy, n_rounds=None, dx_seq=None,
+            feature_seed=None) -> dict:
+        """Serve a sampled stream through ``ServeSession.run`` on the
+        simulator's device and score it with :meth:`aggregate`.  All rounds
+        are sampled before any observation noise is drawn, as in the
+        reference."""
+        from repro_torch.serving.session import ServeSession
+
+        stream = self.sample_stream(n_rounds, dx_seq, feature_seed)
+        session = ServeSession(policy, n_streams=self.sim.n_tasks,
+                               sim=self.sim, device=self.device)
+        return self.aggregate(session.run(stream), stream.aq)

@@ -5,9 +5,10 @@ machine with the card and without JAX (whose import ``tests/conftest.py``
 needs), run ``PYTHONPATH=src python -m pytest -q --noconftest
 tests/test_torch_kernels_cuda.py``.
 ``gate_cell`` is held to 1e-5 absolute (its dot products sum in another
-order than torch's GEMM); ``ccg_solve``, ``c6_tail`` and ``lpt_queue`` run
-the plain versions' float32 operations in the same order with
-``-fmad=false``, so they must match exactly.
+order than torch's GEMM); ``ccg_solve``, ``c6_tail``, ``lpt_queue``,
+``ccg_encode`` and ``ccg_master`` run the plain versions' float32 operations
+in the same order with ``-fmad=false`` (or only exact ones: min, max,
+compares), so they must match exactly.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,8 @@ from repro_torch.core.gating import GateConfig, init_gate_params
 from repro_torch.core.robust import RobustProblem
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.c6_tail.ops import c6_tail
+from repro_torch.kernels.ccg_encode.ops import ccg_encode
+from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
 from repro_torch.kernels.temporal_gate.ops import gate_cell
@@ -102,3 +105,45 @@ def test_lpt_queue_kernel(dev, shape):
     got = lpt_queue(_t(t, dev), _t(route, dev), 4, 1, force="kernel")
     want = lpt_queue(_t(t, dev), _t(route, dev), 4, 1, force="ref")
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dead", [None, 1])
+@pytest.mark.parametrize("m", [4096, 4093, 37])
+def test_ccg_encode_kernel(dev, m, dead):
+    prob = RobustProblem.build(SystemConfig(), dev)
+    lat = prob.lat
+    rng = _gen(m)
+    z = rng.uniform(0, 1, m).astype(np.float32)
+    aq = rng.uniform(0.5, 0.8, m).astype(np.float32)
+    aq[:3] = [0.99, 0.97, 1.2]
+    z[3:5] = 0.0
+    y_ok = None
+    if dead is not None:
+        y_ok = (lat.tier_flat != dead).to(torch.float32)
+    args = (_t(z, dev), _t(aq, dev), lat.rn_flat, lat.pn_flat, lat.tier_flat,
+            prob.b2_scaled, prob.rec_table)
+    kw = dict(margin=0.02, num_versions=5, y_ok=y_ok)
+    reset_launch_counts()
+    got = ccg_encode(*args, force="kernel", **kw)
+    assert launch_counts() == {"ccg_encode": 1}
+    want = ccg_encode(*args, force="ref", **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(4096, 16, 50), (4093, 16, 50),
+                                   (37, 40, 70)])
+def test_ccg_master_kernel(dev, shape):
+    m, p, f = shape
+    rng = _gen(m + p)
+    rec = (rng.integers(0, 6, (m, p, f)) * 0.125).astype(np.float32)
+    scen = (rng.uniform(size=(m, p)) < 0.3).astype(np.float32)
+    scen[::5] = 0.0
+    fs_ok = rng.uniform(size=(m, f)) < 0.7
+    fs_ok[2::6] = False
+    c1 = (rng.integers(0, 4, f) * 0.25).astype(np.float32)
+    args = (_t(rec, dev), _t(scen, dev), _t(fs_ok, dev), _t(c1, dev))
+    got = ccg_master(*args, force="kernel")
+    want = ccg_master(*args, force="ref")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)

@@ -16,6 +16,8 @@ from repro_torch.core.robust import RobustProblem, solve_ccg_fused
 from repro_torch.core.router import init_router_state
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 from repro_torch.kernels.c6_tail.ops import c6_tail
+from repro_torch.kernels.ccg_encode.ops import ccg_encode
+from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
 from repro_torch.kernels.temporal_gate.ops import gate_cell
@@ -56,6 +58,29 @@ def test_kernel_sources_present():
         assert "cudaGetLastError" in src, name
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+    # one accuracy device function, included by every kernel that tests
+    # feasibility
+    for name in ("ccg_solve.cu", "ccg_encode.cu", "c6_tail.cu"):
+        src = (_build.CSRC / name).read_text()
+        assert '#include "accuracy.cuh"' in src, name
+        assert "expf" not in src, name
+
+
+def test_editing_a_header_changes_the_library_path(tmp_path, monkeypatch):
+    """The built library is named by a hash that covers the headers the
+    sources include, so an edited header never loads a stale library."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path()
+    assert _build.library_path() == before
+    header = csrc / "accuracy.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after_header = _build.library_path()
+    assert after_header != before
+    (csrc / "new_helper.cuh").write_text("#pragma once\n")
+    assert _build.library_path() not in (before, after_header)
 
 
 def _no_cuda():
@@ -65,7 +90,7 @@ def _no_cuda():
 
 @pytest.mark.parametrize("entry", [
     "make_policy", "lattice", "robust_problem", "router_state", "gate_state",
-    "gate_params", "simulator"])
+    "gate_params", "simulator", "baseline_policy"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     _no_cuda()
     calls = {
@@ -78,6 +103,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         "gate_state": lambda: init_batch_state(GCFG, 4),
         "gate_params": lambda: init_gate_params(GCFG, torch.Generator()),
         "simulator": lambda: Simulator(SystemConfig(), SimConfig()),
+        "baseline_policy": lambda: make_policy("sniper", SystemConfig()),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -113,11 +139,18 @@ def _kernel_calls():
                                      fps_norm(SystemConfig(), "cpu"),
                                      n_fps=5, force=f),
         "lpt_queue": lambda f: lpt_queue(f32, i32, 4, 1, force=f),
+        "ccg_encode": lambda f: ccg_encode(
+            f32, f32, lat.rn_flat, lat.pn_flat, lat.tier_flat,
+            prob.b2_scaled, prob.rec_table, margin=0.02, num_versions=5,
+            force=f),
+        "ccg_master": lambda f: ccg_master(
+            torch.zeros(m, 16, 50), torch.zeros(m, 16),
+            torch.ones(m, 50, dtype=torch.bool), lat.c1_flat, force=f),
     }
 
 
 @pytest.mark.parametrize("name", ["gate_cell", "ccg_solve", "c6_tail",
-                                  "lpt_queue"])
+                                  "lpt_queue", "ccg_encode", "ccg_master"])
 def test_force_kernel_on_cpu_tensor_raises(name):
     call = _kernel_calls()[name]
     reset_launch_counts()
@@ -132,26 +165,30 @@ def test_force_kernel_on_cpu_tensor_raises(name):
 
 
 def test_unported_branches_raise():
+    """Only the branches still to port raise, naming their ROADMAP item:
+    tier outages in serving and in the fused solve (A.9) and the mesh
+    (A.15).  Every registered policy builds, including R2E-VID's τ-proxy
+    mode and its ablations."""
     prob = RobustProblem.build(SystemConfig(), "cpu")
     z = torch.full((3,), 0.5)
     with pytest.raises(NotImplementedError, match="A.9"):
         solve_ccg_fused(prob, z, z, tier_ok=torch.ones(2))
-    for name in ("jcab", "A2", "sniper", "rdap"):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            make_policy(name, SystemConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        make_policy("r2evid", SystemConfig(), device="cpu")   # τ-proxy mode
+    for name in ("jcab", "A2", "sniper", "rdap", "r2evid"):
+        make_policy(name, SystemConfig(), device="cpu")
+    for kw in ({"use_stage1": False}, {"use_stage2": False}):
+        make_policy("r2evid", SystemConfig(), device="cpu", **kw)
     with pytest.raises(KeyError):
         make_policy("nope", SystemConfig(), device="cpu")
     pol = make_policy("r2evid", SystemConfig(), device="cpu", gate_cfg=GCFG,
                       generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="A.15"):
         ServeSession(pol, n_streams=3, device="cpu", mesh=object())
-    sess = ServeSession(pol, n_streams=3, device="cpu")
     obs = Observation(z=z, aq=z, dx=torch.zeros(3, 35), bw_mult=torch.ones(2),
                       u=torch.zeros(5), tier_ok=torch.ones(2))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        sess.step(obs)
+    for p in (pol, make_policy("sniper", SystemConfig(), device="cpu")):
+        sess = ServeSession(p, n_streams=3, device="cpu")
+        with pytest.raises(NotImplementedError, match="A.9"):
+            sess.step(obs)
 
 
 def test_pad_rows_appends_neutral_lanes():
