@@ -14,9 +14,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  gate_cell within 1e-5, ccg_solve, c6_tail, lpt_queue,
                  ccg_encode (also with a real availability mask) and
                  ccg_master (also on slabs with ties, empty scenario rows
-                 and all-infeasible rows) exact; kernel, plain and library
-                 times (CUDA events, median after warm-up) and each
-                 kernel's bound.
+                 and all-infeasible rows) exact; decode_attention and
+                 flash_attention at the dispatch path's shapes for both tier
+                 models (slab of 16 × 144 entries at ragged lengths 1..144;
+                 prefills of B ∈ {1, 2, 4, 8} × 16..80 tokens) and at ragged,
+                 windowed and non-causal shapes, within 2e-2 + 2e-2·|plain|
+                 in bf16 and 2e-5 + 2e-5·|plain| in float32; kernel, plain
+                 and library times (CUDA events or the profiler, median
+                 after warm-up) and each kernel's bound.
 4. ``main_path`` ``make_policy("r2evid") → ServeSession.run`` on M = 4096
                  streams for R = 16 rounds of a seeded ``sample_stream``, with
                  random seeded gate weights, launch counters zeroed just
@@ -42,6 +47,23 @@ Phases, one JSON line each; any failure exits non-zero:
                  warm-up) and ``Simulator.aggregate``'s paper scalars; the
                  τ-proxy run also on the plain versions, with bit-equal
                  decisions.
+8. ``dispatch``  the tier pools at full width and depth (Qwen1.5-0.5B edge,
+                 Qwen3-8B cloud, bf16, random weights from seeded
+                 generators): (a) ``ServeSession.dispatch`` of a gate-mode
+                 round over the first 256 streams of the main path's stream,
+                 (b) a fixed request set on both tiers at every prompt length
+                 16..80; after an untimed warm-up of (b) on both paths, each
+                 on the kernels (launch counters zeroed just
+                 before and read just after: flash_attention = layers ×
+                 prefills, decode_attention = layers × decode steps) and on
+                 the plain versions (``force="ref"``, the same weights).
+                 Per tier: requests, tokens/s, p50/p99 latency, decoded ids
+                 equal wherever the plain path's top-2 logit margin exceeds
+                 0.125, the max |Δ| of first-token logits.  Then
+                 ``apply_feedback`` and one more routed round on the
+                 fed-back observation; last, a decode step and a prefill
+                 per tier, timed on both paths in turns and profiled
+                 (device busy time, idle share, top device and host costs).
 
 The last three lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``--out DIR`` also
@@ -60,10 +82,17 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 M, M_RAGGED, ROUNDS = 4096, 4093, 16
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 (tensor cores)
+SLOTS, SLAB = 16, 80 + 64        # the dispatch slab: slots × cache entries
+PROMPTS = (16, 32, 48, 64, 80)   # prompt lengths 16·(1 + r)
+LOGIT_MARGIN = 0.125             # bf16 greedy-id comparison margin
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # atol = rtol
 
 
 def emit(obj) -> None:
@@ -113,9 +142,9 @@ def device_ms(torch, fn, symbol: str, reps: int = 20):
     return total / 1e3 / count if count and total > 0 else None
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -361,6 +390,135 @@ def kernel_phase(torch, stream, dev):
     rows["gate_cell"]["library_call"] = (
         "torch.matmul(dx, W_x), the packed (35, 96) GEMM only: no single "
         "PyTorch call computes the gate cell")
+    return rows
+
+
+def attention_rows(torch, dev):
+    """decode_attention and flash_attention against their plain versions
+    at the dispatch path's shapes and at ragged ones, then timed at the
+    cloud tier's shapes (the edge tier's beside them)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    gen = torch.Generator(dev).manual_seed(11)
+    tiers = {"edge": get_config("qwen1.5-0.5b"),
+             "cloud": get_config("qwen3-8b")}
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def decode_case(cfg, dtype, b=SLOTS, s=SLAB):
+        """A (B, S, KV, D) slab read through a permuted view, ragged
+        lengths 1..S."""
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        k_slab, v_slab = (normal((b, s, kv, d), dtype) for _ in range(2))
+        length = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        length[0], length[-1] = 1, s
+        return (normal((b, h, d), dtype), k_slab.permute(0, 2, 1, 3),
+                v_slab.permute(0, 2, 1, 3), length), {}
+
+    def flash_case(cfg, dtype, b, sq, sk=None, **kw):
+        """(B, S, heads, D) projections read through permuted views."""
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        sk = sq if sk is None else sk
+        return (normal((b, sq, h, d), dtype).transpose(1, 2),
+                normal((b, sk, kv, d), dtype).transpose(1, 2),
+                normal((b, sk, kv, d), dtype).transpose(1, 2)), kw
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {"decode_attention": [], "flash_attention": []}
+    for cfg in tiers.values():
+        for dt in (bf16, f32):
+            cases["decode_attention"].append(
+                (str(dt)[6:], decode_case(cfg, dt)))
+        for b, s in zip((1, 2, 4, 8, 8), PROMPTS):
+            cases["flash_attention"].append(
+                ("bfloat16", flash_case(cfg, bf16, b, s)))
+        for dt in (bf16, f32):
+            cases["flash_attention"] += [
+                (str(dt)[6:], flash_case(cfg, dt, 8, 80)),
+                (str(dt)[6:], flash_case(cfg, dt, 2, 37)),
+                (str(dt)[6:], flash_case(cfg, dt, 2, 100, window=16)),
+                (str(dt)[6:], flash_case(cfg, dt, 1, 5, 70, causal=False))]
+    fns = {"decode_attention": decode_attention,
+           "flash_attention": flash_attention}
+    rows = {}
+    for name, fn in fns.items():
+        errs = {"bfloat16": 0.0, "float32": 0.0}
+        for dtype, (args, kw) in cases[name]:
+            got = fn(*args, force="kernel", **kw).double()
+            want = fn(*args, force="ref", **kw).double()
+            torch.cuda.synchronize()
+            tol = ATTN_TOL[dtype]
+            diff = (got - want).abs()
+            if not bool((diff <= tol + tol * want.abs()).all()):
+                raise AssertionError(
+                    f"{name} ({dtype}): kernel vs plain max |diff| "
+                    f"{float(diff.max())} over {tol} + {tol}·|plain|")
+            errs[dtype] = max(errs[dtype], float(diff.max()))
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}/kernel.py:"
+                        + ("64" if name == "decode_attention" else "92"),
+            "max_abs_err": errs["bfloat16"],
+            "max_abs_err_float32": errs["float32"],
+            "tolerance": "2e-2 + 2e-2·|plain| (bf16); 2e-5 + 2e-5·|plain| "
+                         "(float32)",
+            "cases_compared": len(cases[name])}
+
+    def timed(name, fn, args, kw, library, nbytes, flops):
+        call = lambda: fn(*args, force="kernel", **kw)
+        ms_events = event_ms(torch, call, reps=50)
+        ms_dev = device_ms(torch, call, f"{name}_kernel")
+        t_bound, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        return {"ms": ms_dev if ms_dev is not None else ms_events,
+                "ms_from": "profiler" if ms_dev is not None else "cuda_events",
+                "call_ms": ms_events,
+                "plain_ms": event_ms(torch, lambda: fn(*args, force="ref",
+                                                       **kw), reps=20),
+                "library_ms": event_ms(torch, library, reps=50),
+                "bytes": nbytes, "flops": flops, "bound_ms": t_bound,
+                "bound_by": by}
+
+    shapes = {}
+    for tier, cfg in tiers.items():
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        # decode: the slab at ragged lengths; bytes: q, the K/V entries up
+        # to each row's length, out, lengths; 4·H·D operations per entry
+        (q, kc, vc, length), _ = decode_case(cfg, bf16)
+        n_kv = float(length.double().sum())
+        mask = (torch.arange(SLAB, device=dev)[None, :]
+                < length[:, None])[:, None, None, :]
+        lib = lambda q=q, kc=kc, vc=vc, mask=mask: \
+            F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                           attn_mask=mask, enable_gqa=True)
+        dec = timed("decode_attention", decode_attention, (q, kc, vc, length),
+                    {}, lib, 2 * (2 * SLOTS * h * d + 2 * n_kv * kv * d)
+                    + 4 * SLOTS, 4 * n_kv * h * d)
+        dec["shape"] = (f"B={SLOTS} S={SLAB} H={h} KV={kv} D={d} bf16, "
+                        f"mean length {n_kv / SLOTS:.1f}")
+        # flash: the longest prefill bucket; bytes: q, k, v, out once;
+        # 4·D operations per (head, causal query-key pair)
+        (fq, fk, fv), _ = flash_case(cfg, bf16, 8, 80)
+        lib = lambda fq=fq, fk=fk, fv=fv: F.scaled_dot_product_attention(
+            fq, fk, fv, is_causal=True, enable_gqa=True)
+        pairs = 80 * 81 / 2
+        fl = timed("flash_attention", flash_attention, (fq, fk, fv), {}, lib,
+                   2 * 8 * 80 * d * (2 * h + 2 * kv), 4 * 8 * h * d * pairs)
+        fl["shape"] = f"B=8 Sq=Sk=80 H={h} KV={kv} D={d} causal bf16"
+        shapes[tier] = {"decode_attention": dec, "flash_attention": fl}
+    for name, row in rows.items():
+        row.update(shapes["cloud"][name])
+        row["library_call"] = (
+            "torch.nn.functional.scaled_dot_product_attention(enable_gqa="
+            "True" + (", attn_mask=lengths)" if name == "decode_attention"
+                      else ", is_causal=True)"))
+        row["edge"] = shapes["edge"][name]
     return rows
 
 
@@ -653,6 +811,269 @@ def policies_phase(torch, dev, stream, counts_reset, counts_read):
             "variants": rows}
 
 
+def _plain_margin(torch, pool, tokens, ids, t):
+    """The plain pool's top-2 logit margin at decoded position ``t`` of one
+    request (its prompt, then its first ``t`` ids, decoded alone)."""
+    from repro_torch.models.model import decode_step, prefill
+
+    logits, cache = prefill(pool.ctx, pool.params,
+                            {"tokens": torch.as_tensor(tokens[None]).long()
+                             .to(pool.device)})
+    for i in range(t):
+        tok = torch.tensor([[int(ids[i])]], device=pool.device)
+        logits, cache = decode_step(pool.ctx, pool.params, cache,
+                                    {"tokens": tok})
+    top2 = logits[0].topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def _compare_ids(torch, got, want, reqs, ref_pools):
+    """Per tier: streams whose decoded ids agree; a stream that differs
+    must differ first where the plain path's margin is under LOGIT_MARGIN."""
+    out = {}
+    for req in reqs:
+        rec = out.setdefault(req.tier, {"streams": 0, "ids_equal": 0,
+                                        "flips_under_margin": 0,
+                                        "flip_margins": []})
+        rec["streams"] += 1
+        g, w = got[req.stream], want[req.stream]
+        if (g == w).all():
+            rec["ids_equal"] += 1
+            continue
+        t = int((g != w).argmax())
+        margin = _plain_margin(torch, ref_pools[req.tier], req.tokens, w, t)
+        if margin > LOGIT_MARGIN:
+            raise AssertionError(
+                f"stream {req.stream} (tier {req.tier}): kernel and plain "
+                f"ids differ at token {t} where the plain margin is "
+                f"{margin} > {LOGIT_MARGIN}")
+        rec["flips_under_margin"] += 1
+        rec["flip_margins"].append(margin)
+    return out
+
+
+def trace_pools(torch, pools: dict, reps: int = 5) -> dict:
+    """Where a tier's time goes, on each path ({"kernels": pool, "plain":
+    pool}, the same weights): a decode step over a full slab (every slot at
+    80 entries) and a prefill of 8 × 80 tokens.  Wall time per call (host
+    clock to a synchronize, mean of ``reps``) is taken in the order
+    kernels, plain, plain, kernels, so that a drift of the host's speed
+    shows as a spread; then one profiled window per path: device busy time,
+    idle share, the attention kernels' device time, device activities per
+    call, the costliest device activities and host operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = {}
+    for path, pool in pools.items():
+        slab = pool.make_slab(SLOTS, PROMPTS[-1])
+        slab["length"].fill_(PROMPTS[-1])
+        ids = torch.zeros(SLOTS, dtype=torch.long, device=pool.device)
+        toks = torch.zeros((8, PROMPTS[-1]), dtype=torch.long,
+                           device=pool.device)
+        calls[path] = {
+            "decode_step_16_slots":
+                lambda pool=pool, slab=slab, ids=ids: pool.decode_slab(slab,
+                                                                       ids),
+            "prefill_8x80": lambda pool=pool, toks=toks: pool.prefill_batch(
+                toks)}
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    out = {}
+    for what in ("decode_step_16_slots", "prefill_8x80"):
+        for path in pools:
+            calls[path][what]()                          # warm-up
+        walls = {path: [] for path in pools}
+        for path in ("kernels", "plain", "plain", "kernels"):
+            walls[path].append(wall_ms(calls[path][what]))
+        for path in pools:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    calls[path][what]()
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
+            host_ev = [e for e in events if e.device_type == DeviceType.CPU]
+            busy = sum(e.self_device_time_total for e in dev_ev) / 1e3 / reps
+            wall = statistics.mean(walls[path])
+            out[f"{path}_{what}"] = {
+                "wall_ms": walls[path], "device_busy_ms": busy,
+                "device_idle_share": 1.0 - busy / wall,
+                "attention_kernels_ms": sum(
+                    e.self_device_time_total for e in dev_ev
+                    if "attention_kernel" in e.key) / 1e3 / reps,
+                "device_activities": sum(e.count for e in dev_ev) / reps,
+                "top_device_time": [
+                    {"name": e.key[:80],
+                     "ms": e.self_device_time_total / 1e3 / reps}
+                    for e in sorted(dev_ev, key=lambda e:
+                                    -e.self_device_time_total)[:5]],
+                "top_host_time": [
+                    {"name": e.key[:60], "per_call": e.count / reps,
+                     "ms": e.self_cpu_time_total / 1e3 / reps}
+                    for e in sorted(host_ev, key=lambda e:
+                                    -e.self_cpu_time_total)[:5]]}
+    return out
+
+
+def dispatch_phase(torch, dev, stream, counts_reset, counts_read):
+    """The tier pools on the kernels and on the plain versions: a routed
+    round through ``ServeSession.dispatch`` and a fixed mixed request set,
+    then the feedback loop."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import SystemConfig
+    from repro_torch.core.gating import GateConfig
+    from repro_torch.models.model import prefill
+    from repro_torch.serving.dispatch import DispatchExecutor, Request
+    from repro_torch.serving.policy import make_policy
+    from repro_torch.serving.pools import ModelPool, make_tier_pools
+    from repro_torch.serving.session import ServeSession
+
+    m = 256
+    sys_ = SystemConfig()
+    cfgs = {0: get_config("qwen1.5-0.5b"), 1: get_config("qwen3-8b")}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pools = make_tier_pools(cfgs[0], cfgs[1], device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ref_pools = {t: ModelPool(p.cfg, name=p.name, device=dev, force="ref",
+                              params=p.params) for t, p in pools.items()}
+    layers = {t: c.num_layers for t, c in cfgs.items()}
+
+    def first(obs_round):
+        return dataclasses.replace(obs_round, **{
+            k: getattr(obs_round, k)[:m].contiguous()
+            for k in ("z", "aq", "dx")})
+
+    pol = make_policy("r2evid", sys_, device=dev,
+                      gate_cfg=GateConfig(d_feature=35),
+                      generator=torch.Generator().manual_seed(0))
+    sess = ServeSession(pol, n_streams=m, device=dev, pools=pools)
+    ref_sess = ServeSession(pol, n_streams=m, device=dev, pools=ref_pools)
+    routed = sess.step(first(stream.round(0)))
+
+    vocab = cfgs[0].vocab_size
+    mixed = [Request(stream=i, tier=t, decode_tokens=8,
+                     tokens=((i * 131 + np.arange(n)) % vocab).astype(
+                         np.int32))
+             for i, (t, n) in enumerate((t, n) for t in (0, 1)
+                                        for n in PROMPTS for _ in range(3))]
+
+    def run(kernels: bool, which: str):
+        """One request set on one path -> (ids, stats, launches, calls)."""
+        ps = pools if kernels else ref_pools
+        before = {t: (p.stats.prefills, p.stats.decode_steps)
+                  for t, p in ps.items()}
+        counts_reset()
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        if which == "routed":
+            s = sess if kernels else ref_sess
+            stats = s.dispatch(routed)
+            ex = s.executor
+        else:
+            ex = DispatchExecutor(ps, max_prefill_len=PROMPTS[-1])
+            stats = ex.serve([dataclasses.replace(r) for r in mixed])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches = counts_read()
+        calls = {t: (p.stats.prefills - before[t][0],
+                     p.stats.decode_steps - before[t][1])
+                 for t, p in ps.items()}
+        ids = {c.stream: c.ids for t in ex.execs
+               for c in ex.execs[t].completions}
+        return ids, stats, launches, calls, wall
+
+    # warm-up, untimed and uncounted: every prefill and decode shape of the
+    # mixed set on both tiers and both paths (cuBLAS and module loading)
+    for ps in (pools, ref_pools):
+        DispatchExecutor(ps, max_prefill_len=PROMPTS[-1]).serve(
+            [dataclasses.replace(r) for r in mixed])
+    torch.cuda.synchronize()
+
+    rec = {"phase": "dispatch", "edge": cfgs[0].name, "cloud": cfgs[1].name,
+           "layers": layers, "depth_cut": None, "dtype": "bfloat16",
+           "weights_init_s": init_s, "slab": [SLOTS, SLAB]}
+    totals = collections.Counter()
+    for which in ("routed", "mixed"):
+        reqs = ([Request(stream=i, tier=int(t), tokens=(
+            (i * 131 + np.arange(16 * (1 + int(r)))) % vocab).astype(
+                np.int32)) for i, (t, r) in enumerate(
+            zip(routed["route"].tolist(), routed["r"].tolist()))]
+            if which == "routed" else mixed)
+        ids_k, stats_k, launches, calls, wall_k = run(True, which)
+        want = {"flash_attention": sum(layers[t] * c[0]
+                                       for t, c in calls.items()),
+                "decode_attention": sum(layers[t] * c[1]
+                                        for t, c in calls.items())}
+        if launches != want:
+            raise AssertionError(f"dispatch ({which}) launched {launches}, "
+                                 f"want {want} (layers × calls {calls})")
+        totals.update(launches)
+        ids_p, stats_p, plain_launches, _, wall_p = run(False, which)
+        if plain_launches:
+            raise AssertionError("force='ref' pools launched a kernel")
+        if set(ids_k) != {r.stream for r in reqs} or set(ids_p) != set(ids_k):
+            raise AssertionError(f"dispatch ({which}): streams missing")
+        for ids in (ids_k, ids_p):
+            if any(v.shape != (8,) or not ((v >= 0) & (v < vocab)).all()
+                   for v in ids.values()):
+                raise AssertionError(f"dispatch ({which}): bad ids")
+        rec[which] = {
+            "requests": len(reqs), "launches": launches,
+            "prefills_and_decode_steps": calls,
+            "wall_s_kernels": wall_k, "wall_s_plain": wall_p,
+            "kernels": stats_k, "plain": stats_p,
+            "ids_vs_plain": _compare_ids(torch, ids_k, ids_p, reqs,
+                                         ref_pools)}
+
+    # first-token logits on both paths, one prefill per tier and length
+    dlog = {}
+    for t in (0, 1):
+        worst = 0.0
+        for n in PROMPTS:
+            toks = torch.as_tensor(np.stack([r.tokens for r in mixed
+                                             if r.tier == t
+                                             and len(r.tokens) == n]),
+                                   device=dev).long()
+            lk, _ = prefill(pools[t].ctx, pools[t].params, {"tokens": toks})
+            lp, _ = prefill(ref_pools[t].ctx, pools[t].params,
+                            {"tokens": toks})
+            if not bool(torch.isfinite(lk).all()):
+                raise AssertionError("non-finite first-token logits")
+            worst = max(worst, float((lk - lp).abs().max()))
+        dlog[t] = worst
+    rec["first_token_logits_max_abs_diff"] = dlog
+
+    # the router <-> serving loop: the measured feedback into the next round
+    fb = sess.feedback()
+    adjusted = sess.apply_feedback(first(stream.round(1)))
+    nxt = sess.step(adjusted)
+    for k in ("delay", "energy", "cost", "accuracy"):
+        if not bool(torch.isfinite(nxt[k]).all()):
+            raise AssertionError(f"fed-back round: non-finite {k}")
+    rec["feedback"] = {
+        "bw_mult": [float(x) for x in fb["bw_mult"][:2]],
+        "bw_scale": float(adjusted.bw_scale),
+        "cloud_frac_round0": float(routed["route"].double().mean()),
+        "cloud_frac_fed_back_round": float(nxt["route"].double().mean()),
+        "mean_r_round0": float(routed["r"].double().mean()),
+        "mean_r_fed_back_round": float(nxt["r"].double().mean())}
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["trace"] = {pools[t].name: trace_pools(
+        torch, {"kernels": pools[t], "plain": ref_pools[t]}) for t in pools}
+    return totals, rec
+
+
 def trace_round(torch, sess, stream, untraced_s: float) -> dict:
     """Where the time goes: one profiled run of the main path.
 
@@ -739,6 +1160,7 @@ def main() -> int:
                        device=dev).sample_stream(n_rounds=ROUNDS,
                                                  feature_seed=1)
     rows = kernel_phase(torch, stream, dev)
+    rows.update(attention_rows(torch, dev))
     record({"phase": "kernels", "compared": [
         {k: rows[n][k] for k in ("name", "max_abs_err", "tolerance")}
         for n in rows]})
@@ -752,12 +1174,18 @@ def main() -> int:
     record(solve_rec)
     record(policies_phase(torch, dev, stream, reset_launch_counts,
                           launch_counts))
+    dispatch_launches, dispatch_rec = dispatch_phase(
+        torch, dev, stream, reset_launch_counts, launch_counts)
+    record(dispatch_rec)
     # launches of each kernel on its path: the main path's serving round
     # for the slice-1 kernels, the cold and the warm solve for ccg_encode
-    # and ccg_master
+    # and ccg_master, the dispatch phase's two kernel-path request sets for
+    # the attention kernels
     for name, row in rows.items():
-        row["launches"] = launches.get(name, 0) + solve_launches.get(name, 0)
+        row["launches"] = (launches.get(name, 0) + solve_launches.get(name, 0)
+                           + dispatch_launches.get(name, 0))
         row["launches_from"] = ("solve_ccg" if name in solve_launches
+                                else "dispatch" if name in dispatch_launches
                                 else "main_path")
     kernels = {"kernels": list(rows.values())}
     if args.out is not None:

@@ -2,10 +2,12 @@
 
 The reference's gate parameters are a dict of arrays (its
 ``init_params(gate_specs(cfg), key)``), its router carry a ``RouterState``
-with a ``GateBatchState``, and its baselines' and τ-proxy carries the
-named tuples ``RDAPState``, ``SniperState`` and ``HistoryState``;
-``np.asarray`` of either side's leaves is all these functions need, so
-nothing here imports JAX.  Indices become int64 in the port.
+with a ``GateBatchState``, its baselines' and τ-proxy carries the named
+tuples ``RDAPState``, ``SniperState`` and ``HistoryState``, and its model
+parameters and KV caches nested dicts and lists of arrays; ``np.asarray``
+of either side's leaves is all these functions need, so nothing here
+imports JAX.  Indices become int64 in the port; bfloat16 leaves cross as
+float32 (exact both ways).
 """
 from __future__ import annotations
 
@@ -15,6 +17,9 @@ import torch
 from repro_torch.core.gating import GateBatchState
 from repro_torch.core.router import RouterState
 from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import model_specs
+from repro_torch.models.params import leaf_dtype, tree_map
 from repro_torch.serving.policy import HistoryState, RDAPState, SniperState
 
 _GATE_FIELDS = ("h", "var_buf", "var_idx", "var_sum", "var_sumsq")
@@ -80,3 +85,39 @@ def policy_state_from_numpy(kind, state, device="cuda"):
 def policy_state_to_numpy(state) -> dict:
     """A port policy carry -> {field: numpy array}."""
     return {k: getattr(state, k).cpu().numpy() for k in state._fields}
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x).astype(np.float32)
+
+
+def model_params_from_numpy(params, cfg: ModelConfig, device="cuda"):
+    """A reference parameter tree (``init_params(model_specs(cfg), key)``)
+    -> the port's: each leaf in its spec's dtype (the compute dtype, or
+    float32 for the norm scales) on ``device``."""
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.compute_dtype)
+    return tree_map(
+        lambda spec, x: torch.from_numpy(_f32(x)).to(
+            device=dev, dtype=leaf_dtype(spec, dt)),
+        model_specs(cfg), params)
+
+
+def cache_from_numpy(cache, cfg: ModelConfig, device="cuda") -> dict:
+    """A reference KV cache or slab ({length, segments}) -> the port's:
+    K/V leaves in the compute dtype, ``length`` (scalar or (B,)) int32."""
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.compute_dtype)
+    return {
+        "length": torch.from_numpy(np.array(cache["length"], np.int32)).to(dev),
+        "segments": tree_map(lambda x: torch.from_numpy(_f32(x)).to(
+            device=dev, dtype=dt), cache["segments"]),
+    }
+
+
+def tree_to_numpy(tree):
+    """Port tensors -> numpy copies (floating leaves as float32), which
+    later in-place writes of the port (a decode step into its slab) leave
+    unchanged."""
+    return tree_map(lambda t: np.array((t.float() if t.is_floating_point()
+                                        else t).cpu()), tree)

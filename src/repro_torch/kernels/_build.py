@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("temporal_gate.cu", "ccg_solve.cu", "c6_tail.cu", "lpt_queue.cu",
-           "ccg_encode.cu", "ccg_master.cu")
+           "ccg_encode.cu", "ccg_master.cu", "decode_attention.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +42,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entry points: pointers and the stream are void*
 _SIGNATURES = {
     # dx, h, vol, w_x, u_gr, b_g, alpha, b_r, u_h, b_h, w_o, b_o,
@@ -60,6 +62,12 @@ _SIGNATURES = {
     "ccg_encode_launch": [_P] * 10 + [_I] * 4 + [_F, _P],
     # rec_all, scen_mask, fs_ok, c1, y_star, o_down, M, P, F, stream
     "ccg_master_launch": [_P] * 6 + [_I] * 3 + [_P],
+    # q, k, v, length, out, q strides (b, h), k and v strides (b, h, s),
+    # B, H, KV, S, D, scale, dtype, stream
+    "decode_attention_launch": [_P] * 5 + [_L] * 8 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, out, q/k/v strides (b, h, s), B, H, KV, Sq, Sk, D, BQ,
+    # window, causal, scale, dtype, stream
+    "flash_attention_launch": [_P] * 4 + [_L] * 9 + [_I] * 9 + [_F, _I, _P],
 }
 
 
@@ -161,6 +169,36 @@ def check_dtype(name: str, dtype, **tensors) -> None:
     for key, t in tensors.items():
         if t.dtype != dtype:
             raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
+
+
+# dtype codes of the attention kernels' C entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_strided(name: str, *tensors) -> int:
+    """Operands of a kernel that reads by strides: on one CUDA device, of
+    one dtype of ``DTYPE_CODES``, with a contiguous last dimension and, in
+    bfloat16, 4-byte aligned element pairs (the kernels load pairs).
+    Returns the dtype code."""
+    dev, dt = tensors[0].device, tensors[0].dtype
+    if dt not in DTYPE_CODES:
+        raise TypeError(f"{name}: operands must be float32 or bfloat16, "
+                        f"got {dt}")
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name}: every operand must be on one CUDA "
+                             f"device, got {t.device} and {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: operands must share one dtype, got "
+                            f"{t.dtype} and {dt}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last dimension must be "
+                             f"contiguous")
+        if dt == torch.bfloat16 and (
+                t.data_ptr() % 4 or any(st % 2 for st in t.stride()[:-1])):
+            raise ValueError(f"{name}: bfloat16 operands must start on a "
+                             f"4-byte boundary and have even strides")
+    return DTYPE_CODES[dt]
 
 
 def dispatch(name: str, force: str, device) -> bool:

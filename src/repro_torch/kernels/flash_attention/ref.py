@@ -1,0 +1,34 @@
+"""Plain PyTorch version of the flash-attention kernel (GQA, causal,
+optionally sliding-window): port of ``repro/kernels/flash_attention/ref.py``
+— float32 scores and softmax, output in the input dtype."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, window: Optional[int] = None,
+                  causal: bool = True):
+    """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D).
+
+    Query i and key j are positions i and j of their own sequences (causal:
+    j <= i; window: i - j < window)."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, kv, g, sq, d)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float()) * (d ** -0.5)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= q_pos - k_pos < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return o.reshape(b, h, sq, d).to(q.dtype)

@@ -1,0 +1,222 @@
+"""GQA attention: port of ``repro/models/attention.py`` (specs, the per-head
+qk-norm, ``attn_forward``) on the two attention kernels.
+
+On the kernel path the prefill runs ``kernels/flash_attention`` and each
+decode step ``kernels/decode_attention``.  The plain path runs
+:func:`chunked_attention` and :func:`decode_attention`, ports of the
+reference model's jnp code with its roundings (in a bf16 model the score
+product is rounded to bf16 before the float32 softmax; the kernels keep
+the scores in float32).  ``ctx.force`` chooses as on every kernel wrapper:
+the kernels for CUDA tensors, the plain functions for CPU tensors.
+
+The decode step writes its K/V row into the cache slab in place (the
+reference returns an updated copy); the slab is the caller's and every
+later step reads it.  The reference's O(S·W) gather for windowed prefill
+(``_windowed_blocks``) is an optimisation of the same function and is not
+ported: :func:`chunked_attention` masks the window over the full key range.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Ctx, apply_mrope, apply_rope
+from repro_torch.models.params import ParamSpec
+
+NEG_INF = -1e30
+
+
+def attn_specs(cfg: ModelConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s_in = d ** -0.5
+    s_out = (h * hd) ** -0.5 / math.sqrt(2 * cfg.num_layers)
+    specs = {
+        "wq": ParamSpec((d, h * hd), stddev=s_in),
+        "wk": ParamSpec((d, kv * hd), stddev=s_in),
+        "wv": ParamSpec((d, kv * hd), stddev=s_in),
+        "wo": ParamSpec((h * hd, d), stddev=s_out),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((h * hd,), init="zeros")
+        specs["bk"] = ParamSpec((kv * hd,), init="zeros")
+        specs["bv"] = ParamSpec((kv * hd,), init="zeros")
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec((hd,), dtype="float32", init="ones")
+        specs["k_norm"] = ParamSpec((hd,), dtype="float32", init="ones")
+    return specs
+
+
+def _head_rmsnorm(x, scale, eps):
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Plain paths (the reference model's jnp code)
+# q: (B, Sq, H, D)  k/v: (B, Sk, KV, D)
+# ---------------------------------------------------------------------------
+def chunked_attention(q, k, v, positions, *, window: Optional[int] = None,
+                      q_chunk: int = 1024, k_chunk: int = 1024):
+    """positions: (B, S) token positions of both q and k (self-attention).
+
+    Online softmax over (q chunk × k chunk) blocks, as the reference's
+    ``_full_blocks``; padded keys get position 2^30 so causality masks them.
+    """
+    b, sq, h, d = q.shape
+    _, sk, kvh, _ = k.shape
+    g = h // kvh
+    scale = d ** -0.5
+    q_chunk, k_chunk = min(q_chunk, sq), min(k_chunk, sk)
+    sq_pad, sk_pad = (-sq) % q_chunk, (-sk) % k_chunk
+    q_pos = k_pos = positions.to(torch.int32)
+    if sq_pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, sq_pad))
+        q_pos = torch.nn.functional.pad(q_pos, (0, sq_pad))
+    if sk_pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, sk_pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, sk_pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, sk_pad), value=2 ** 30)
+    orig_sq, sq, sk = sq, sq + sq_pad, sk + sk_pad
+    nq, nk = sq // q_chunk, sk // k_chunk
+
+    # (nq, B, KV, G, Cq, D) and (nk, B, KV, Ck, D)
+    qg = q.reshape(b, nq, q_chunk, kvh, g, d).permute(1, 0, 3, 4, 2, 5)
+    qp = q_pos.reshape(b, nq, q_chunk).transpose(0, 1)
+    kb = k.transpose(1, 2).reshape(b, kvh, nk, k_chunk, d).permute(2, 0, 1, 3, 4)
+    vb = v.transpose(1, 2).reshape(b, kvh, nk, k_chunk, d).permute(2, 0, 1, 3, 4)
+    kpb = k_pos.reshape(b, nk, k_chunk).transpose(0, 1)
+
+    outs = []
+    for qi in range(nq):
+        q_blk, q_p = qg[qi], qp[qi]
+        m = torch.full((b, kvh, g, q_chunk), NEG_INF, device=q.device)
+        l = torch.zeros((b, kvh, g, q_chunk), device=q.device)
+        acc = torch.zeros((b, kvh, g, q_chunk, d), device=q.device)
+        for ki in range(nk):
+            k_blk, v_blk, kp = kb[ki], vb[ki], kpb[ki]
+            s = torch.einsum("bkgqd,bkcd->bkgqc", q_blk, k_blk).float()
+            s = s * scale
+            mask = q_p[:, :, None] >= kp[:, None, :]           # (B, Cq, Ck)
+            if window is not None:
+                mask &= q_p[:, :, None] - kp[:, None, :] < window
+            s = torch.where(mask[:, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqc,bkcd->bkgqd", p.to(v_blk.dtype),
+                              v_blk).float()
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    out = torch.stack(outs)                           # (nq, B, KV, G, Cq, D)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, d)
+    return out[:, :orig_sq]
+
+
+def decode_attention(q, k_cache, v_cache, *, length):
+    """Single-token attention against a cache: q (B, 1, H, D), caches
+    (B, S, KV, D), ``length`` a scalar or (B,) count of valid entries
+    (every slot < min(length, S) is valid)."""
+    b, _, h, d = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float() * d ** -0.5
+    lengths = torch.broadcast_to(torch.atleast_1d(length), (b,))
+    valid = torch.arange(s, device=q.device)[None, :] < \
+        torch.clamp_max(lengths, s)[:, None]
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", w.to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, h, d)
+
+
+# ---------------------------------------------------------------------------
+# Full attention block forward
+# ---------------------------------------------------------------------------
+def _prefill_attention(ctx: Ctx, q, k, v, positions):
+    cfg = ctx.cfg
+    if _build.dispatch("flash_attention", ctx.force, q.device):
+        # prefill positions are arange(S): causality by index, as the kernel
+        out = flash_ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            window=cfg.attn_window, causal=True, force="kernel")
+        return out.transpose(1, 2)
+    return chunked_attention(q, k, v, positions, window=cfg.attn_window,
+                             q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)
+
+
+def _decode_attention(ctx: Ctx, q, k_cache, v_cache, length):
+    if _build.dispatch("decode_attention", ctx.force, q.device):
+        b, s = q.shape[0], k_cache.shape[1]
+        n = torch.clamp_max(torch.broadcast_to(torch.atleast_1d(length), (b,)),
+                            s).to(torch.int32)
+        out = decode_ops.decode_attention(
+            q[:, 0], k_cache.permute(0, 2, 1, 3), v_cache.permute(0, 2, 1, 3),
+            n, force="kernel")
+        return out[:, None]
+    return decode_attention(q, k_cache, v_cache, length=length)
+
+
+def attn_forward(ctx: Ctx, p, x, *, positions, cache=None,
+                 cache_out_len: Optional[int] = None):
+    """x: (B, S, d); positions: (B, S).  Decode (``ctx.mode == "decode"``):
+    ``cache`` = {k, v: (B, C, KV, D), length: scalar or (B,)}, written in
+    place at ``length mod C``.  Prefill: emits a cache of ``cache_out_len``
+    entries when given.  Returns (y, new_cache or None)."""
+    cfg = ctx.cfg
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = _head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = _head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.mrope:
+        apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if ctx.mode == "decode":
+        idx = cache["length"]            # scalar or (B,) per-row progress
+        k_cache, v_cache = cache["k"], cache["v"]
+        # rolling-window write position (== idx for full caches)
+        wpos = torch.broadcast_to(torch.remainder(idx, k_cache.shape[1]),
+                                  (b,)).long()
+        rows = torch.arange(b, device=x.device)
+        k_cache[rows, wpos] = k[:, 0]
+        v_cache[rows, wpos] = v[:, 0]
+        out = _decode_attention(ctx, q, k_cache, v_cache, idx + 1)
+        new_cache = {"k": k_cache, "v": v_cache, "length": idx + 1}
+    else:
+        out = _prefill_attention(ctx, q, k, v, positions)
+        if cache_out_len is not None:
+            keep = min(cache_out_len, s)
+            k_keep, v_keep = k[:, s - keep:], v[:, s - keep:]
+            if keep < cache_out_len:
+                pad = (0, 0, 0, 0, 0, cache_out_len - keep)
+                k_keep = torch.nn.functional.pad(k_keep, pad)
+                v_keep = torch.nn.functional.pad(v_keep, pad)
+            new_cache = {"k": k_keep, "v": v_keep,
+                         "length": torch.tensor(s, dtype=torch.int32,
+                                                device=x.device)}
+    y = out.reshape(b, s, h * hd) @ p["wo"]
+    return y, new_cache

@@ -1,0 +1,159 @@
+"""Top-level decoder: port of the serving half of ``repro/models/model.py``
+(segments, spec trees, ``forward``, ``logits_last``, ``prefill``,
+``decode_step``).
+
+Layers are grouped into segments as in the reference (the repeating
+``layer_pattern`` unit stacked ``n`` times, leaves with a leading layer
+axis); where the reference scans a segment with ``lax.scan``, the port runs
+a Python loop over the stacked layers, indexing each leaf (a view, no
+copy).  The training loss (``loss_fn``, ``chunked_ce_loss``) is ROADMAP
+queue A.16.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.models.blocks import block_apply, block_cache_specs, block_specs
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    Ctx,
+    embed_specs,
+    embed_tokens,
+    output_weights,
+    rmsnorm,
+    rmsnorm_specs,
+)
+from repro_torch.models.params import ParamSpec, tree_map
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise, naming ROADMAP queue A.14, for what the port cannot run yet:
+    MoE, SSM and RG-LRU blocks, M-RoPE and embedding-input front ends."""
+    kinds = set(cfg.layer_kinds())
+    if kinds != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: {sorted(kinds - {'attn'})} blocks are ROADMAP "
+            f"queue A.14")
+    for flag, what in ((cfg.moe is not None, "MoE MLPs"),
+                       (cfg.mrope, "M-RoPE"),
+                       (not cfg.embed_inputs, "embedding-input front ends")):
+        if flag:
+            raise NotImplementedError(f"{cfg.name}: {what} are ROADMAP "
+                                      f"queue A.14")
+
+
+def build_segments(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
+    pattern = tuple(cfg.layer_pattern)
+    full, rem = divmod(cfg.num_layers, len(pattern))
+    segs = []
+    if full:
+        segs.append((pattern, full))
+    if rem:
+        segs.append((pattern[:rem], 1))
+    return segs
+
+
+def _stack_specs(specs: dict, n: int) -> dict:
+    return tree_map(lambda s: dataclasses.replace(s, shape=(n,) + s.shape),
+                    specs)
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    check_supported(cfg)
+    segments = [{f"pos{i}": _stack_specs(block_specs(cfg, kind), n)
+                 for i, kind in enumerate(pattern)}
+                for pattern, n in build_segments(cfg)]
+    return {"embed": embed_specs(cfg), "segments": segments,
+            "final_norm": rmsnorm_specs(cfg.d_model)}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    check_supported(cfg)
+    segments = [{f"pos{i}": _stack_specs(
+        block_cache_specs(cfg, kind, batch, seq_len), n)
+        for i, kind in enumerate(pattern)}
+        for pattern, n in build_segments(cfg)]
+    return {"length": ParamSpec((), dtype="int32", init="zeros"),
+            "segments": segments}
+
+
+def _layer(tree, i: int):
+    return tree_map(lambda t: t[i], tree)
+
+
+def forward(ctx: Ctx, params: dict, inputs: dict, *,
+            cache: Optional[dict] = None, emit_cache: bool = False):
+    """inputs: {"tokens": (B, S)}.  Returns (hidden (B, S, d), new_cache).
+
+    Decode (``cache`` given): the cache's K/V leaves are updated in place
+    and returned under the new ``length`` (scalar or per-row (B,))."""
+    cfg = ctx.cfg
+    tokens = inputs["tokens"]
+    x = embed_tokens(ctx, params["embed"], tokens)
+    b, s = tokens.shape
+    length = cache["length"] if cache is not None else None
+    if ctx.mode == "decode":
+        pos = length.reshape(1, 1) if length.dim() == 0 else length[:, None]
+        positions = torch.broadcast_to(pos, (b, 1)).to(torch.int32)
+    else:
+        positions = torch.broadcast_to(
+            torch.arange(s, dtype=torch.int32, device=tokens.device)[None],
+            (b, s))
+
+    new_segments = []
+    for seg_idx, (pattern, n) in enumerate(build_segments(cfg)):
+        seg_params = params["segments"][seg_idx]
+        seg_cache = cache["segments"][seg_idx] if cache is not None else None
+        emitted = []
+        for i in range(n):
+            layer_p = _layer(seg_params, i)
+            layer_c = _layer(seg_cache, i) if seg_cache is not None else None
+            new_c = {}
+            for j, kind in enumerate(pattern):
+                key = f"pos{j}"
+                x, nc = block_apply(
+                    ctx, kind, layer_p[key], x, positions=positions,
+                    length=length,
+                    cache=layer_c[key] if layer_c is not None else None,
+                    emit_cache=emit_cache)
+                if nc is not None:
+                    new_c[key] = nc
+            emitted.append(new_c)
+        if seg_cache is not None:
+            new_segments.append(seg_cache)       # written in place
+        elif emitted[0]:
+            new_segments.append(tree_map(lambda *ls: torch.stack(ls),
+                                         emitted[0], *emitted[1:]))
+        else:
+            new_segments.append(None)
+
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    new_cache = None
+    if any(sg is not None for sg in new_segments):
+        new_len = length + s if length is not None else torch.tensor(
+            s, dtype=torch.int32, device=tokens.device)
+        new_cache = {"length": new_len, "segments": new_segments}
+    return x, new_cache
+
+
+def logits_last(ctx: Ctx, x_last, w_out):
+    """x_last: (B, 1, d) -> (B, V) float32 logits (the product in the
+    compute dtype, as the reference's einsum)."""
+    return (x_last @ w_out)[:, 0].float()
+
+
+def prefill(ctx: Ctx, params, batch):
+    ctx = dataclasses.replace(ctx, mode="prefill")
+    x, cache = forward(ctx, params, batch, emit_cache=True)
+    w_out = output_weights(ctx.cfg, params["embed"])
+    return logits_last(ctx, x[:, -1:], w_out), cache
+
+
+def decode_step(ctx: Ctx, params, cache, batch):
+    ctx = dataclasses.replace(ctx, mode="decode")
+    x, new_cache = forward(ctx, params, batch, cache=cache)
+    w_out = output_weights(ctx.cfg, params["embed"])
+    return logits_last(ctx, x, w_out), new_cache

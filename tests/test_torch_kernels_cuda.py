@@ -8,7 +8,12 @@ tests/test_torch_kernels_cuda.py``.
 order than torch's GEMM); ``ccg_solve``, ``c6_tail``, ``lpt_queue``,
 ``ccg_encode`` and ``ccg_master`` run the plain versions' float32 operations
 in the same order with ``-fmad=false`` (or only exact ones: min, max,
-compares), so they must match exactly.
+compares), so they must match exactly.  ``decode_attention`` and
+``flash_attention`` sum in another order than the plain versions and round
+each probability to the value type before P·V (as the TPU kernels do): they
+are held to |kernel − plain| <= 2e-5 + 2e-5·|plain| in float32 and
+2e-2 + 2e-2·|plain| in bfloat16 (two bf16 ulps near 1), the tolerances of
+the reference's own kernel tests.
 """
 import numpy as np
 import pytest
@@ -22,6 +27,8 @@ from repro_torch.kernels.c6_tail.ops import c6_tail
 from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
 from repro_torch.kernels.temporal_gate.ops import gate_cell
 
@@ -147,3 +154,64 @@ def test_ccg_master_kernel(dev, shape):
     want = ccg_master(*args, force="ref")
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+_ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _normal(rng, shape, dtype, dev):
+    return _t(rng.normal(size=shape).astype(np.float32), dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d", [
+    (16, 16, 16, 144, 64),     # the edge tier's slab (Qwen1.5-0.5B)
+    (16, 32, 8, 144, 128),     # the cloud tier's slab (Qwen3-8B)
+    (3, 8, 1, 200, 32),        # MQA, G = 8, a ragged last tile
+    (2, 6, 3, 65, 256),        # G = 2, the widest head
+])
+def test_decode_attention_kernel(dev, dtype, b, h, kv, s, d):
+    """The cache is a (B, S, KV, D) slab read through a permuted view, at
+    per-row lengths from 1 to S."""
+    rng = _gen(b * s + d)
+    q = _normal(rng, (b, h, d), dtype, dev)
+    k_slab = _normal(rng, (b, s, kv, d), dtype, dev)
+    v_slab = _normal(rng, (b, s, kv, d), dtype, dev)
+    length = rng.integers(1, s + 1, b)
+    length[0], length[-1] = 1, s
+    length = _t(length.astype(np.int32), dev)
+    k_c, v_c = k_slab.permute(0, 2, 1, 3), v_slab.permute(0, 2, 1, 3)
+    reset_launch_counts()
+    got = decode_attention(q, k_c, v_c, length, force="kernel")
+    assert launch_counts() == {"decode_attention": 1}
+    want = decode_attention(q, k_c, v_c, length, force="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,window,causal", [
+    (8, 16, 16, 80, 80, 64, None, True),     # edge prefill, longest prompt
+    (8, 32, 8, 80, 80, 128, None, True),     # cloud prefill
+    (1, 32, 8, 16, 16, 128, None, True),     # shortest prompt
+    (2, 8, 2, 37, 37, 128, None, True),      # ragged lengths
+    (2, 8, 2, 100, 100, 64, 16, True),       # sliding window
+    (1, 4, 4, 5, 70, 64, None, False),       # non-causal, Sq < Sk
+    (2, 12, 4, 70, 45, 32, 30, False),       # non-causal window, Sq > Sk
+])
+def test_flash_attention_kernel(dev, dtype, b, h, kv, sq, sk, d, window,
+                                causal):
+    """q, k and v are (B, S, heads, D) projections read through permuted
+    views, as the model passes them."""
+    rng = _gen(b * sq + sk + d)
+    q = _normal(rng, (b, sq, h, d), dtype, dev).transpose(1, 2)
+    k = _normal(rng, (b, sk, kv, d), dtype, dev).transpose(1, 2)
+    v = _normal(rng, (b, sk, kv, d), dtype, dev).transpose(1, 2)
+    kw = dict(window=window, causal=causal)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, force="kernel", **kw)
+    assert launch_counts() == {"flash_attention": 1}
+    want = flash_attention(q, k, v, force="ref", **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])

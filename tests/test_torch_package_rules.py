@@ -3,12 +3,14 @@ nor the JAX package, imports Triton nowhere at module level, defaults every
 entry point to CUDA (raising without a card), and never falls back from a
 pinned kernel to the plain version."""
 import ast
+import dataclasses
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.cost_model import SystemConfig, fps_norm, res_norm
 from repro_torch.core.gating import GateConfig, init_batch_state, init_gate_params
 from repro_torch.core.lattice import DecisionLattice
@@ -19,9 +21,15 @@ from repro_torch.kernels.c6_tail.ops import c6_tail
 from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
 from repro_torch.kernels.temporal_gate.ops import gate_cell
+from repro_torch.models.config import MoEConfig, SSMConfig
+from repro_torch.models.model import model_specs
+from repro_torch.models.params import init_params
 from repro_torch.serving.policy import Observation, make_policy
+from repro_torch.serving.pools import ModelPool, make_tier_pools
 from repro_torch.serving.session import ServeSession
 from repro_torch.serving.simulator import Simulator, SimConfig
 
@@ -90,7 +98,8 @@ def _no_cuda():
 
 @pytest.mark.parametrize("entry", [
     "make_policy", "lattice", "robust_problem", "router_state", "gate_state",
-    "gate_params", "simulator", "baseline_policy"])
+    "gate_params", "simulator", "baseline_policy", "model_pool",
+    "tier_pools", "model_params"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     _no_cuda()
     calls = {
@@ -104,6 +113,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         "gate_params": lambda: init_gate_params(GCFG, torch.Generator()),
         "simulator": lambda: Simulator(SystemConfig(), SimConfig()),
         "baseline_policy": lambda: make_policy("sniper", SystemConfig()),
+        "model_pool": lambda: ModelPool(get_smoke_config("qwen3-8b")),
+        "tier_pools": lambda: make_tier_pools(
+            get_smoke_config("qwen1.5-0.5b"), get_smoke_config("qwen3-8b")),
+        "model_params": lambda: init_params(
+            model_specs(get_smoke_config("qwen3-8b")), torch.Generator()),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -146,11 +160,18 @@ def _kernel_calls():
         "ccg_master": lambda f: ccg_master(
             torch.zeros(m, 16, 50), torch.zeros(m, 16),
             torch.ones(m, 50, dtype=torch.bool), lat.c1_flat, force=f),
+        "decode_attention": lambda f: decode_attention(
+            torch.zeros(m, 8, 64), torch.zeros(m, 2, 20, 64),
+            torch.zeros(m, 2, 20, 64), torch.full((m,), 3), force=f),
+        "flash_attention": lambda f: flash_attention(
+            torch.zeros(1, 8, 12, 64), torch.zeros(1, 2, 12, 64),
+            torch.zeros(1, 2, 12, 64), force=f),
     }
 
 
 @pytest.mark.parametrize("name", ["gate_cell", "ccg_solve", "c6_tail",
-                                  "lpt_queue", "ccg_encode", "ccg_master"])
+                                  "lpt_queue", "ccg_encode", "ccg_master",
+                                  "decode_attention", "flash_attention"])
 def test_force_kernel_on_cpu_tensor_raises(name):
     call = _kernel_calls()[name]
     reset_launch_counts()
@@ -166,9 +187,11 @@ def test_force_kernel_on_cpu_tensor_raises(name):
 
 def test_unported_branches_raise():
     """Only the branches still to port raise, naming their ROADMAP item:
-    tier outages in serving and in the fused solve (A.9) and the mesh
-    (A.15).  Every registered policy builds, including R2E-VID's τ-proxy
-    mode and its ablations."""
+    tier outages in serving and in the fused solve (A.9), the mesh (A.15),
+    and model pools of configs with MoE, SSM or RG-LRU blocks, M-RoPE or
+    an embedding-input front end (A.14).  Every registered policy builds,
+    including R2E-VID's τ-proxy mode and its ablations, and a session takes
+    live tier pools."""
     prob = RobustProblem.build(SystemConfig(), "cpu")
     z = torch.full((3,), 0.5)
     with pytest.raises(NotImplementedError, match="A.9"):
@@ -189,6 +212,24 @@ def test_unported_branches_raise():
         sess = ServeSession(p, n_streams=3, device="cpu")
         with pytest.raises(NotImplementedError, match="A.9"):
             sess.step(obs)
+    dense = get_smoke_config("qwen1.5-0.5b")
+    unported = {
+        "moe": dataclasses.replace(dense, family="moe", moe=MoEConfig(
+            num_experts=4, top_k=2, d_expert=32)),
+        "ssm": dataclasses.replace(dense, family="ssm",
+                                   layer_pattern=("ssm",), ssm=SSMConfig()),
+        "rglru": dataclasses.replace(dense, layer_pattern=("rglru", "attn")),
+        "mrope": dataclasses.replace(dense, mrope=True),
+        "front_end": dataclasses.replace(dense, embed_inputs=False),
+    }
+    for cfg in unported.values():
+        with pytest.raises(NotImplementedError, match="A.14"):
+            ModelPool(cfg, device="cpu")
+    for arch in ("mixtral-8x22b", "falcon-mamba-7b", "qwen2-vl-2b"):
+        with pytest.raises(NotImplementedError, match="A.14"):
+            get_config(arch)
+    ServeSession(pol, n_streams=3, device="cpu",
+                 pools={0: ModelPool(dense, device="cpu")})
 
 
 def test_pad_rows_appends_neutral_lanes():
