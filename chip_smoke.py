@@ -18,10 +18,16 @@ Phases, one JSON line each; any failure exits non-zero:
                  flash_attention at the dispatch path's shapes for both tier
                  models (slab of 16 × 144 entries at ragged lengths 1..144;
                  prefills of B ∈ {1, 2, 4, 8} × 16..80 tokens) and at ragged,
-                 windowed and non-causal shapes, within 2e-2 + 2e-2·|plain|
-                 in bf16 and 2e-5 + 2e-5·|plain| in float32; kernel, plain
-                 and library times (CUDA events or the profiler, median
-                 after warm-up) and each kernel's bound.
+                 windowed and non-causal shapes, and at RecurrentGemma's
+                 (MQA with G = 16, D = 256, a slab of 16 × 80 entries,
+                 window 2048), within 2e-2 + 2e-2·|plain| in bf16 and
+                 2e-5 + 2e-5·|plain| in float32; mamba_scan and rglru_scan
+                 at the recurrent pools' decode step (16 rows) and longest
+                 prefill (8 × 80) and at ragged shapes, x in bf16 and
+                 float32, h0 given, None and aliasing h_out, within
+                 1e-5 + 1e-5·|plain|; kernel, plain and library times (CUDA
+                 events or the profiler, median after warm-up) and each
+                 kernel's bound.
 4. ``main_path`` ``make_policy("r2evid") → ServeSession.run`` on M = 4096
                  streams for R = 16 rounds of a seeded ``sample_stream``, with
                  random seeded gate weights, launch counters zeroed just
@@ -64,6 +70,18 @@ Phases, one JSON line each; any failure exits non-zero:
                  fed-back observation; last, a decode step and a prefill
                  per tier, timed on both paths in turns and profiled
                  (device busy time, idle share, top device and host costs).
+9. ``dispatch_recurrent``  the same phase on the sub-quadratic tier pools,
+                 after the dense pools are freed: Falcon-Mamba-7B (64 Mamba
+                 layers) as the edge tier and RecurrentGemma-9B (26 RG-LRU
+                 and 12 local-attention layers) as the cloud tier, full
+                 width and depth in bf16; launches: mamba_scan = layers ×
+                 (prefills + decode steps), rglru_scan likewise,
+                 flash_attention and decode_attention = attention layers ×
+                 prefills and × decode steps.  Its routed round takes the
+                 first 64 streams, not 256, and its profiled windows 2
+                 calls, not 5: the plain selective scan is a Python loop
+                 over the steps of every layer (~1 s for an 8 × 80
+                 prefill), and every id flip is replayed on it.
 
 The last three lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``--out DIR`` also
@@ -74,7 +92,9 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -93,6 +113,9 @@ SLOTS, SLAB = 16, 80 + 64        # the dispatch slab: slots × cache entries
 PROMPTS = (16, 32, 48, 64, 80)   # prompt lengths 16·(1 + r)
 LOGIT_MARGIN = 0.125             # bf16 greedy-id comparison margin
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # atol = rtol
+SCAN_TOL = 1e-5                  # atol = rtol, the scans (float32 outputs)
+PORTED_MODEL_KERNELS = ("flash_attention_kernel", "decode_attention_kernel",
+                        "mamba_scan_kernel", "rglru_scan_kernel")
 
 
 def emit(obj) -> None:
@@ -405,7 +428,12 @@ def attention_rows(torch, dev):
 
     gen = torch.Generator(dev).manual_seed(11)
     tiers = {"edge": get_config("qwen1.5-0.5b"),
-             "cloud": get_config("qwen3-8b")}
+             "cloud": get_config("qwen3-8b"),
+             "recurrentgemma": get_config("recurrentgemma-9b")}
+    # cache entries of a tier's slab: prompts up to 80 + the decode
+    # headroom, or min(window, 80) for RecurrentGemma's local attention
+    slab_len = {t: min(c.attn_window, PROMPTS[-1]) if c.attn_window else SLAB
+                for t, c in tiers.items()}
 
     def normal(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -431,13 +459,14 @@ def attention_rows(torch, dev):
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = {"decode_attention": [], "flash_attention": []}
-    for cfg in tiers.values():
+    for tier, cfg in tiers.items():
+        win = {"window": cfg.attn_window} if cfg.attn_window else {}
         for dt in (bf16, f32):
             cases["decode_attention"].append(
-                (str(dt)[6:], decode_case(cfg, dt)))
+                (str(dt)[6:], decode_case(cfg, dt, s=slab_len[tier])))
         for b, s in zip((1, 2, 4, 8, 8), PROMPTS):
             cases["flash_attention"].append(
-                ("bfloat16", flash_case(cfg, bf16, b, s)))
+                ("bfloat16", flash_case(cfg, bf16, b, s, **win)))
         for dt in (bf16, f32):
             cases["flash_attention"] += [
                 (str(dt)[6:], flash_case(cfg, dt, 8, 80)),
@@ -488,11 +517,12 @@ def attention_rows(torch, dev):
     shapes = {}
     for tier, cfg in tiers.items():
         h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        sl = slab_len[tier]
         # decode: the slab at ragged lengths; bytes: q, the K/V entries up
         # to each row's length, out, lengths; 4·H·D operations per entry
-        (q, kc, vc, length), _ = decode_case(cfg, bf16)
+        (q, kc, vc, length), _ = decode_case(cfg, bf16, s=sl)
         n_kv = float(length.double().sum())
-        mask = (torch.arange(SLAB, device=dev)[None, :]
+        mask = (torch.arange(sl, device=dev)[None, :]
                 < length[:, None])[:, None, None, :]
         lib = lambda q=q, kc=kc, vc=vc, mask=mask: \
             F.scaled_dot_product_attention(q[:, :, None], kc, vc,
@@ -500,17 +530,22 @@ def attention_rows(torch, dev):
         dec = timed("decode_attention", decode_attention, (q, kc, vc, length),
                     {}, lib, 2 * (2 * SLOTS * h * d + 2 * n_kv * kv * d)
                     + 4 * SLOTS, 4 * n_kv * h * d)
-        dec["shape"] = (f"B={SLOTS} S={SLAB} H={h} KV={kv} D={d} bf16, "
+        dec["shape"] = (f"B={SLOTS} S={sl} H={h} KV={kv} D={d} bf16, "
                         f"mean length {n_kv / SLOTS:.1f}")
         # flash: the longest prefill bucket; bytes: q, k, v, out once;
-        # 4·D operations per (head, causal query-key pair)
+        # 4·D operations per (head, causal query-key pair; the window of
+        # 2048 masks none of them at 80 tokens)
+        win = {"window": cfg.attn_window} if cfg.attn_window else {}
         (fq, fk, fv), _ = flash_case(cfg, bf16, 8, 80)
         lib = lambda fq=fq, fk=fk, fv=fv: F.scaled_dot_product_attention(
             fq, fk, fv, is_causal=True, enable_gqa=True)
         pairs = 80 * 81 / 2
-        fl = timed("flash_attention", flash_attention, (fq, fk, fv), {}, lib,
-                   2 * 8 * 80 * d * (2 * h + 2 * kv), 4 * 8 * h * d * pairs)
-        fl["shape"] = f"B=8 Sq=Sk=80 H={h} KV={kv} D={d} causal bf16"
+        fl = timed("flash_attention", flash_attention, (fq, fk, fv), win,
+                   lib, 2 * 8 * 80 * d * (2 * h + 2 * kv),
+                   4 * 8 * h * d * pairs)
+        fl["shape"] = (f"B=8 Sq=Sk=80 H={h} KV={kv} D={d} causal"
+                       + (f" window {cfg.attn_window}" if win else "")
+                       + " bf16")
         shapes[tier] = {"decode_attention": dec, "flash_attention": fl}
     for name, row in rows.items():
         row.update(shapes["cloud"][name])
@@ -519,7 +554,141 @@ def attention_rows(torch, dev):
             "True" + (", attn_mask=lengths)" if name == "decode_attention"
                       else ", is_causal=True)"))
         row["edge"] = shapes["edge"][name]
+        row["recurrentgemma"] = shapes["recurrentgemma"][name]
     return rows
+
+
+def scan_rows(torch, dev):
+    """mamba_scan and rglru_scan against their plain versions at the
+    recurrent tier pools' shapes (a decode step of 16 slots and the longest
+    prefill, 8 × 80) and at ragged ones (S = 1 and 37, channels not a
+    multiple of the 128-channel block), x in bf16 and in float32, h0 given
+    and None, and with h_out aliasing h0 (the decode step's in-place
+    update); then timed at the decode step, the prefill beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan.ops import selective_scan
+    from repro_torch.kernels.rglru.ops import rglru_scan
+
+    gen = torch.Generator(dev).manual_seed(12)
+    fm, rg = get_config("falcon-mamba-7b"), get_config("recurrentgemma-9b")
+    r = fm.dt_rank
+
+    def normal(shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    def mamba_case(b, s, di, n, dtype, with_h0):
+        """x and the x_proj output in ``dtype`` (B and C its column
+        slices), dt float32, as the model makes them."""
+        proj = normal((b, s, r + 2 * n), dtype)
+        return (normal((b, s, di), dtype),
+                torch.nn.functional.softplus(normal((b, s, di), scale=0.5)),
+                proj[..., r:r + n], proj[..., r + n:],
+                -torch.exp(normal((di, n), scale=0.2)), normal((di,)),
+                normal((b, di, n)) if with_h0 else None)
+
+    def rglru_case(b, s, w, dtype, with_h0):
+        return (normal((b, s, w), dtype), torch.sigmoid(normal((b, s, w))),
+                torch.sigmoid(normal((b, s, w))),
+                -8.0 * torch.nn.functional.softplus(normal((w,))),
+                normal((b, w)) if with_h0 else None)
+
+    di, n, w = fm.d_inner, fm.ssm.d_state, rg.lru_width
+    kernels = {
+        "mamba_scan": (selective_scan, mamba_case,
+                       {"decode": (SLOTS, 1, di, n),
+                        "prefill": (8, 80, di, n)},
+                       [(3, 37, 200, n), (2, 1, 130, 4)], 64),
+        "rglru_scan": (rglru_scan, rglru_case,
+                       {"decode": (SLOTS, 1, w), "prefill": (8, 80, w)},
+                       [(3, 37, 200), (2, 1, 130)], 26),
+    }
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+    for name, (fn, make, path, ragged, layers) in kernels.items():
+        errs, n_cases, bit_equal = {"bfloat16": 0.0, "float32": 0.0}, 0, True
+        for shape in (*path.values(), *ragged):
+            for dt in (bf16, f32):
+                for with_h0 in (False, True):
+                    args = make(*shape, dt, with_h0)
+                    runs = [fn(*args, force="kernel")]
+                    if with_h0:   # h_out aliasing h0, as the decode step
+                        state = args[-1].clone()
+                        runs.append(fn(*args[:-1], state, h_out=state,
+                                       force="kernel"))
+                    want = fn(*args, force="ref")
+                    torch.cuda.synchronize()
+                    for got in runs:
+                        for g, wt in zip(got, want):
+                            diff = (g.double() - wt.double()).abs()
+                            if not bool((diff <= SCAN_TOL + SCAN_TOL
+                                         * wt.double().abs()).all()):
+                                raise AssertionError(
+                                    f"{name} {shape} ({dt}): kernel vs plain"
+                                    f" max |diff| {float(diff.max())} over "
+                                    f"{SCAN_TOL} + {SCAN_TOL}·|plain|")
+                            key = str(dt)[6:]
+                            errs[key] = max(errs[key], float(diff.max()))
+                            bit_equal &= bool(torch.equal(g, wt))
+                    n_cases += len(runs)
+        timing = {}
+        for what, shape in path.items():
+            # the model's call: bf16 x; the decode step carries its state
+            args = make(*shape, bf16, what == "decode")
+            call = lambda args=args: fn(*args, force="kernel")
+            ms_events = event_ms(torch, call, reps=50)
+            ms_dev = device_ms(torch, call, f"{name}_kernel")
+            nbytes, flops = scan_work(name, args)
+            t_bound, by = bound(nbytes, flops)
+            timing[what] = {
+                "ms": ms_dev if ms_dev is not None else ms_events,
+                "ms_from": "profiler" if ms_dev is not None else "cuda_events",
+                "call_ms": ms_events,
+                "plain_ms": event_ms(torch, lambda args=args: fn(
+                    *args, force="ref"), reps=10, warmup=1),
+                "bytes": nbytes, "flops": flops, "bound_ms": t_bound,
+                "bound_by": by,
+                "shape": "x (B, S, C) = " + str(tuple(shape[:3])) + " bf16"
+                         + (f", N={shape[3]}" if len(shape) > 3 else "")
+                         + (", h0 given" if what == "decode" else ", h0 None")}
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": ("src/repro/kernels/mamba_scan/kernel.py:55"
+                         if name == "mamba_scan"
+                         else "src/repro/kernels/rglru/kernel.py:45"),
+            "max_abs_err": errs["bfloat16"],
+            "max_abs_err_float32": errs["float32"],
+            "tolerance": f"{SCAN_TOL} + {SCAN_TOL}·|plain| (y and h, float32 "
+                         "outputs)",
+            "cases_compared": n_cases, "bit_equal_to_plain": bit_equal,
+            **timing["decode"], "prefill": timing["prefill"],
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes the scan",
+            "layers_per_call": layers}
+    return rows
+
+
+def scan_work(name, args):
+    """Bytes each input read once and each output written once (y and
+    h_final float32), and float32 operations, of one scan call."""
+    if name == "mamba_scan":
+        x, dt, bm, cm, a, d, h0 = args
+        b, s, di = x.shape
+        n = a.shape[1]
+        nbytes = (x.numel() * x.element_size() + 4 * dt.numel()
+                  + 2 * b * s * n * bm.element_size() + 4 * (a.numel() + di)
+                  + 4 * b * di * n * (2 if h0 is not None else 1)
+                  + 4 * b * s * di)
+        # per state value: dt·A, exp, dt·B, ·x, dA·h, +, h·C, +; per
+        # channel: D·x, +
+        return float(nbytes), float(b * s * di * (8 * n + 2))
+    x, rg, ig, la, h0 = args
+    b, s, w = x.shape
+    nbytes = (x.numel() * x.element_size() + 8 * rg.numel() + 4 * w
+              + 4 * b * w * (2 if h0 is not None else 1) + 4 * b * s * w)
+    # la·r, exp, a·a, 1 −, max, sqrt, i·x, a·h, ·, +
+    return float(nbytes), float(10 * b * s * w)
 
 
 def main_path_phase(torch, dev, stream, counts_reset, counts_read):
@@ -907,9 +1076,10 @@ def trace_pools(torch, pools: dict, reps: int = 5) -> dict:
             out[f"{path}_{what}"] = {
                 "wall_ms": walls[path], "device_busy_ms": busy,
                 "device_idle_share": 1.0 - busy / wall,
-                "attention_kernels_ms": sum(
+                "ported_kernels_ms": sum(
                     e.self_device_time_total for e in dev_ev
-                    if "attention_kernel" in e.key) / 1e3 / reps,
+                    if any(k in e.key for k in PORTED_MODEL_KERNELS))
+                / 1e3 / reps,
                 "device_activities": sum(e.count for e in dev_ev) / reps,
                 "top_device_time": [
                     {"name": e.key[:80],
@@ -924,22 +1094,52 @@ def trace_pools(torch, pools: dict, reps: int = 5) -> dict:
     return out
 
 
-def dispatch_phase(torch, dev, stream, counts_reset, counts_read):
-    """The tier pools on the kernels and on the plain versions: a routed
-    round through ``ServeSession.dispatch`` and a fixed mixed request set,
-    then the feedback loop."""
+# the kernel each layer kind launches once per prefill and per decode step
+LAYER_KERNELS = {"attn": ("flash_attention", "decode_attention"),
+                 "ssm": ("mamba_scan", "mamba_scan"),
+                 "rglru": ("rglru_scan", "rglru_scan")}
+
+
+def expected_launches(cfgs: dict, calls: dict) -> dict:
+    """Launches per kernel = layers of its kind × calls, summed over the
+    tiers; ``calls``: {tier: (prefills, decode steps)}."""
+    want = collections.Counter()
+    for t, (prefills, steps) in calls.items():
+        for kind, n in collections.Counter(cfgs[t].layer_kinds()).items():
+            on_prefill, on_step = LAYER_KERNELS[kind]
+            want[on_prefill] += n * prefills
+            want[on_step] += n * steps
+    return {k: v for k, v in want.items() if v}
+
+
+def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
+                   phase="dispatch", archs=("qwen1.5-0.5b", "qwen3-8b"),
+                   m=256, trace_reps=5):
+    """The tier pools (``archs``: edge, cloud) on the kernels and on the
+    plain versions: a routed round of the first ``m`` streams through
+    ``ServeSession.dispatch`` and a fixed mixed request set, then the
+    feedback loop and ``trace_pools`` with ``trace_reps`` calls a window."""
     from repro_torch.configs import get_config
     from repro_torch.core.cost_model import SystemConfig
     from repro_torch.core.gating import GateConfig
-    from repro_torch.models.model import prefill
+    from repro_torch.models.model import cache_specs, prefill
+    from repro_torch.models.params import tree_leaves
     from repro_torch.serving.dispatch import DispatchExecutor, Request
     from repro_torch.serving.policy import make_policy
     from repro_torch.serving.pools import ModelPool, make_tier_pools
     from repro_torch.serving.session import ServeSession
 
-    m = 256
+    def slab_gb(cfg):
+        specs = cache_specs(cfg, SLOTS, PROMPTS[-1])["segments"]
+        return sum(math.prod(sp.shape) * torch.empty(
+            (), dtype=getattr(torch, sp.dtype)).element_size()
+            for sp in tree_leaves(specs)) / 1e9
+
     sys_ = SystemConfig()
-    cfgs = {0: get_config("qwen1.5-0.5b"), 1: get_config("qwen3-8b")}
+    cfgs = {t: get_config(a) for t, a in enumerate(archs)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pools = make_tier_pools(cfgs[0], cfgs[1], device=dev)
@@ -947,7 +1147,8 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read):
     init_s = time.perf_counter() - t0
     ref_pools = {t: ModelPool(p.cfg, name=p.name, device=dev, force="ref",
                               params=p.params) for t, p in pools.items()}
-    layers = {t: c.num_layers for t, c in cfgs.items()}
+    layers = {t: dict(collections.Counter(c.layer_kinds()))
+              for t, c in cfgs.items()}
 
     def first(obs_round):
         return dataclasses.replace(obs_round, **{
@@ -961,9 +1162,9 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read):
     ref_sess = ServeSession(pol, n_streams=m, device=dev, pools=ref_pools)
     routed = sess.step(first(stream.round(0)))
 
-    vocab = cfgs[0].vocab_size
+    vocab = {t: c.vocab_size for t, c in cfgs.items()}
     mixed = [Request(stream=i, tier=t, decode_tokens=8,
-                     tokens=((i * 131 + np.arange(n)) % vocab).astype(
+                     tokens=((i * 131 + np.arange(n)) % vocab[t]).astype(
                          np.int32))
              for i, (t, n) in enumerate((t, n) for t in (0, 1)
                                         for n in PROMPTS for _ in range(3))]
@@ -1000,34 +1201,40 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read):
             [dataclasses.replace(r) for r in mixed])
     torch.cuda.synchronize()
 
-    rec = {"phase": "dispatch", "edge": cfgs[0].name, "cloud": cfgs[1].name,
+    rec = {"phase": phase, "edge": cfgs[0].name, "cloud": cfgs[1].name,
            "layers": layers, "depth_cut": None, "dtype": "bfloat16",
-           "weights_init_s": init_s, "slab": [SLOTS, SLAB]}
+           "routed_streams": m,
+           "weights_init_s": init_s,
+           "weights_gb": {p.name: sum(t.numel() * t.element_size()
+                                      for t in tree_leaves(p.params)) / 1e9
+                          for p in pools.values()},
+           "device_memory_gb_before": memory_before / 1e9,
+           "slab": {p.name: {"slots": SLOTS, "max_prompt": PROMPTS[-1],
+                             "gb": slab_gb(p.cfg)} for p in pools.values()}}
     totals = collections.Counter()
     for which in ("routed", "mixed"):
         reqs = ([Request(stream=i, tier=int(t), tokens=(
-            (i * 131 + np.arange(16 * (1 + int(r)))) % vocab).astype(
+            (i * 131 + np.arange(16 * (1 + int(r)))) % vocab[int(t)]).astype(
                 np.int32)) for i, (t, r) in enumerate(
             zip(routed["route"].tolist(), routed["r"].tolist()))]
             if which == "routed" else mixed)
         ids_k, stats_k, launches, calls, wall_k = run(True, which)
-        want = {"flash_attention": sum(layers[t] * c[0]
-                                       for t, c in calls.items()),
-                "decode_attention": sum(layers[t] * c[1]
-                                        for t, c in calls.items())}
+        want = expected_launches(cfgs, calls)
         if launches != want:
-            raise AssertionError(f"dispatch ({which}) launched {launches}, "
+            raise AssertionError(f"{phase} ({which}) launched {launches}, "
                                  f"want {want} (layers × calls {calls})")
         totals.update(launches)
         ids_p, stats_p, plain_launches, _, wall_p = run(False, which)
         if plain_launches:
             raise AssertionError("force='ref' pools launched a kernel")
         if set(ids_k) != {r.stream for r in reqs} or set(ids_p) != set(ids_k):
-            raise AssertionError(f"dispatch ({which}): streams missing")
+            raise AssertionError(f"{phase} ({which}): streams missing")
+        tier_of = {r.stream: r.tier for r in reqs}
         for ids in (ids_k, ids_p):
-            if any(v.shape != (8,) or not ((v >= 0) & (v < vocab)).all()
-                   for v in ids.values()):
-                raise AssertionError(f"dispatch ({which}): bad ids")
+            if any(v.shape != (8,) or not (
+                    (v >= 0) & (v < vocab[tier_of[s_]])).all()
+                   for s_, v in ids.items()):
+                raise AssertionError(f"{phase} ({which}): bad ids")
         rec[which] = {
             "requests": len(reqs), "launches": launches,
             "prefills_and_decode_steps": calls,
@@ -1036,10 +1243,11 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read):
             "ids_vs_plain": _compare_ids(torch, ids_k, ids_p, reqs,
                                          ref_pools)}
 
-    # first-token logits on both paths, one prefill per tier and length
-    dlog = {}
+    # first-token logits on both paths, one prefill per tier and length,
+    # beside the largest |logit| (bf16 rounds it to 2^-8 of its magnitude)
+    dlog, top = {}, {}
     for t in (0, 1):
-        worst = 0.0
+        worst = top[t] = 0.0
         for n in PROMPTS:
             toks = torch.as_tensor(np.stack([r.tokens for r in mixed
                                              if r.tier == t
@@ -1051,8 +1259,10 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read):
             if not bool(torch.isfinite(lk).all()):
                 raise AssertionError("non-finite first-token logits")
             worst = max(worst, float((lk - lp).abs().max()))
+            top[t] = max(top[t], float(lp.abs().max()))
         dlog[t] = worst
     rec["first_token_logits_max_abs_diff"] = dlog
+    rec["first_token_logits_max_abs"] = top
 
     # the router <-> serving loop: the measured feedback into the next round
     fb = sess.feedback()
@@ -1070,7 +1280,8 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read):
         "mean_r_fed_back_round": float(nxt["r"].double().mean())}
     rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rec["trace"] = {pools[t].name: trace_pools(
-        torch, {"kernels": pools[t], "plain": ref_pools[t]}) for t in pools}
+        torch, {"kernels": pools[t], "plain": ref_pools[t]}, trace_reps)
+        for t in pools}
     return totals, rec
 
 
@@ -1138,8 +1349,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     records = []
+    last = [time.perf_counter()]
 
     def record(obj):
+        """Emit a phase's record with the seconds since the previous one."""
+        now = time.perf_counter()
+        obj["seconds"] = now - last[0]
+        last[0] = now
         records.append(obj)
         emit(obj)
 
@@ -1148,9 +1364,8 @@ def main() -> int:
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    t0 = time.perf_counter()
     _build.library()
-    record({"phase": "build", "seconds": time.perf_counter() - t0,
+    record({"phase": "build",
             "library": str(_build.library_path().relative_to(ROOT))})
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -1161,6 +1376,7 @@ def main() -> int:
                                                  feature_seed=1)
     rows = kernel_phase(torch, stream, dev)
     rows.update(attention_rows(torch, dev))
+    rows.update(scan_rows(torch, dev))
     record({"phase": "kernels", "compared": [
         {k: rows[n][k] for k in ("name", "max_abs_err", "tolerance")}
         for n in rows]})
@@ -1177,16 +1393,23 @@ def main() -> int:
     dispatch_launches, dispatch_rec = dispatch_phase(
         torch, dev, stream, reset_launch_counts, launch_counts)
     record(dispatch_rec)
-    # launches of each kernel on its path: the main path's serving round
-    # for the slice-1 kernels, the cold and the warm solve for ccg_encode
-    # and ccg_master, the dispatch phase's two kernel-path request sets for
-    # the attention kernels
+    recurrent_launches, recurrent_rec = dispatch_phase(
+        torch, dev, stream, reset_launch_counts, launch_counts,
+        phase="dispatch_recurrent",
+        archs=("falcon-mamba-7b", "recurrentgemma-9b"), m=64, trace_reps=2)
+    record(recurrent_rec)
+    # launches of each kernel on its paths, each counted from zero just
+    # before its run and read just after: the main path's serving round for
+    # the slice-1 kernels, the cold and the warm solve for ccg_encode and
+    # ccg_master, the kernel-path request sets of the two dispatch phases
+    # for the attention kernels and the scans
+    phases = {"main_path": launches, "solve_ccg": solve_launches,
+              "dispatch": dispatch_launches,
+              "dispatch_recurrent": recurrent_launches}
     for name, row in rows.items():
-        row["launches"] = (launches.get(name, 0) + solve_launches.get(name, 0)
-                           + dispatch_launches.get(name, 0))
-        row["launches_from"] = ("solve_ccg" if name in solve_launches
-                                else "dispatch" if name in dispatch_launches
-                                else "main_path")
+        by_phase = {ph: c[name] for ph, c in phases.items() if c.get(name)}
+        row["launches"] = sum(by_phase.values())
+        row["launches_by_phase"] = by_phase
     kernels = {"kernels": list(rows.values())}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(

@@ -1,9 +1,10 @@
 """Architecture registry: dashed public ids -> config modules.
 
-The ids are the reference's (``repro/configs/registry.py``).  Only the
-dense decoder configs are copied into the port: the others need blocks or
-front ends the port does not have yet, and asking for them raises, naming
-ROADMAP queue A.14.
+The ids are the reference's (``repro/configs/registry.py``).  The dense
+decoders and the two sub-quadratic models (Falcon-Mamba's SSM blocks,
+RecurrentGemma's RG-LRU and local-attention blocks) are copied into the
+port; the others need MoE blocks or front ends the port does not have yet,
+and asking for them raises, naming ROADMAP queue A.14.
 """
 from __future__ import annotations
 
@@ -16,12 +17,12 @@ _MODULES = {
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 # ids of the reference whose layers the port cannot run yet
 _UNPORTED = {
-    "recurrentgemma-9b": "RG-LRU blocks and local attention",
-    "falcon-mamba-7b": "Mamba (SSM) blocks",
     "musicgen-medium": "an embedding-input front end",
     "moonshot-v1-16b-a3b": "MoE blocks",
     "mixtral-8x22b": "MoE blocks and sliding-window attention",

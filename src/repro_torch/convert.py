@@ -4,10 +4,10 @@ The reference's gate parameters are a dict of arrays (its
 ``init_params(gate_specs(cfg), key)``), its router carry a ``RouterState``
 with a ``GateBatchState``, its baselines' and τ-proxy carries the named
 tuples ``RDAPState``, ``SniperState`` and ``HistoryState``, and its model
-parameters and KV caches nested dicts and lists of arrays; ``np.asarray``
-of either side's leaves is all these functions need, so nothing here
-imports JAX.  Indices become int64 in the port; bfloat16 leaves cross as
-float32 (exact both ways).
+parameters and caches (K/V, convolution and recurrent states) nested dicts
+and lists of arrays; ``np.asarray`` of either side's leaves is all these
+functions need, so nothing here imports JAX.  Indices become int64 in the
+port; bfloat16 leaves cross as float32 (exact both ways).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from repro_torch.core.gating import GateBatchState
 from repro_torch.core.router import RouterState
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import model_specs
+from repro_torch.models.model import cache_specs, model_specs
 from repro_torch.models.params import leaf_dtype, tree_map
 from repro_torch.serving.policy import HistoryState, RDAPState, SniperState
 
@@ -104,14 +104,18 @@ def model_params_from_numpy(params, cfg: ModelConfig, device="cuda"):
 
 
 def cache_from_numpy(cache, cfg: ModelConfig, device="cuda") -> dict:
-    """A reference KV cache or slab ({length, segments}) -> the port's:
-    K/V leaves in the compute dtype, ``length`` (scalar or (B,)) int32."""
+    """A reference cache or slab ({length, segments}) -> the port's: each
+    leaf in its cache spec's dtype (K/V and convolution states in the
+    compute dtype, recurrent states ``h`` in float32), ``length`` (scalar
+    or (B,)) int32."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.compute_dtype)
+    specs = cache_specs(cfg, 1, 1)["segments"]     # dtypes, not shapes
     return {
         "length": torch.from_numpy(np.array(cache["length"], np.int32)).to(dev),
-        "segments": tree_map(lambda x: torch.from_numpy(_f32(x)).to(
-            device=dev, dtype=dt), cache["segments"]),
+        "segments": tree_map(lambda spec, x: torch.from_numpy(_f32(x)).to(
+            device=dev, dtype=leaf_dtype(spec, dt)), specs,
+            cache["segments"]),
     }
 
 

@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("temporal_gate.cu", "ccg_solve.cu", "c6_tail.cu", "lpt_queue.cu",
            "ccg_encode.cu", "ccg_master.cu", "decode_attention.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "mamba_scan.cu", "rglru_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -68,6 +68,11 @@ _SIGNATURES = {
     # q, k, v, out, q/k/v strides (b, h, s), B, H, KV, Sq, Sk, D, BQ,
     # window, causal, scale, dtype, stream
     "flash_attention_launch": [_P] * 4 + [_L] * 9 + [_I] * 9 + [_F, _I, _P],
+    # x, dt, B, C, A, D, h0, h_out, y, x/dt/B/C strides (b, s), B, S, Di,
+    # N, dtype, stream
+    "mamba_scan_launch": [_P] * 9 + [_L] * 8 + [_I] * 5 + [_P],
+    # x, r, i, la, h0, h_out, y, B, S, W, dtype, stream
+    "rglru_scan_launch": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 

@@ -13,7 +13,8 @@
 // (B = 16, S = 144, Qwen3-8B's KV = 8, D = 128) a full cache is 9.4 MB per
 // layer per step, ~2.8 µs at 3.35 TB/s.
 //
-// Design: a block of four warps holds its G query rows (G <= 8) in shared
+// Design: a block of four warps holds its G query rows (G <= 16; the
+// kernel is instantiated for up to 8 and up to 16 rows) in shared
 // memory as float and loops over tiles of 64 cache entries up to the row's
 // length, so tiles past it are never read.  Scores: each warp takes every
 // fourth entry, its lanes split D into neighbouring element pairs (a warp
@@ -39,12 +40,12 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;      // cache entries per tile: two per lane
-constexpr int kMaxG = 8;       // query heads per KV head
+constexpr int kMaxGroup = 16;  // query heads per KV head: G <= 8 or 16
 constexpr int kMaxPairs = 4;   // element pairs per lane: D <= 256
 constexpr int kMaxD = 2 * 32 * kMaxPairs;
 constexpr int kBatch = 4;      // cache entries a warp loads before reducing
 
-template <typename T>
+template <typename T, int kMaxG>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
@@ -192,7 +193,12 @@ int launch(const void* q, const void* k, const void* v, const void* length,
            long long k_sh, long long k_ss, long long v_sb, long long v_sh,
            long long v_ss, int B, int H, int KV, int S, int D, float scale,
            cudaStream_t stream) {
-  decode_attention_kernel<T><<<B * KV, kThreads, 0, stream>>>(
+  // groups of up to 8 rows (the dense tiers' G = 1 and 4) take the 8-row
+  // instantiation: the 16-row one took 83 µs instead of 55 at Qwen3-8B's
+  // slab (chip_smoke.py on an H100 80GB HBM3 at 700 W)
+  auto kernel = H / KV <= 8 ? decode_attention_kernel<T, 8>
+                            : decode_attention_kernel<T, kMaxGroup>;
+  kernel<<<B * KV, kThreads, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)length, (T*)out,
       q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, H, KV, S, D, scale);
   return (int)cudaGetLastError();
@@ -207,7 +213,7 @@ extern "C" int decode_attention_launch(
     long long q_sb, long long q_sh, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, int B,
     int H, int KV, int S, int D, float scale, int dtype, void* stream) {
-  if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxG || D < 2 || D % 2 ||
+  if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxGroup || D < 2 || D % 2 ||
       D > kMaxD || S < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

@@ -199,6 +199,9 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
     case 128:
       return launch<T, 128>(q, k, v, out, st, B, H, KV, Sq, Sk, BQ, window,
                             causal, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, st, B, H, KV, Sq, Sk, BQ, window,
+                            causal, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -8,7 +8,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-MAX_GROUP = 8        # query heads per KV head held by one block
+MAX_GROUP = 16       # query heads per KV head held by one block
 MAX_HEAD_DIM = 256   # four element pairs per lane
 
 

@@ -190,9 +190,11 @@ def attn_forward(ctx: Ctx, p, x, *, positions, cache=None,
         q = _head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = _head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
     if cfg.mrope:
-        apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if ctx.mode == "decode":

@@ -72,5 +72,26 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (torch's softplus returns x
+    above its threshold instead)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def causal_conv(x, w, b, state=None):
+    """Depthwise causal convolution of the recurrent mixers (both
+    reference models' ``_causal_conv``).  x: (B, S, C); w: (K, C); b: (C,);
+    state: (B, K-1, C), the previous K-1 inputs, or None (zeros).  Returns
+    (out (B, S, C), the last K-1 inputs (B, K-1, C)), the taps summed in
+    order as the reference's ``sum``."""
+    k, s = w.shape[0], x.shape[1]
+    if state is None:
+        x_pad = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    else:
+        x_pad = torch.cat([state.to(x.dtype), x], dim=1)
+    out = sum(x_pad[:, i:i + s] * w[i] for i in range(k))
+    return out + b, x_pad[:, s:]
+
+
 def apply_mrope(x, positions3, theta: float, sections):
     raise NotImplementedError("M-RoPE (qwen2-vl) is ROADMAP queue A.14")

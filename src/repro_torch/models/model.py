@@ -31,12 +31,11 @@ from repro_torch.models.params import ParamSpec, tree_map
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise, naming ROADMAP queue A.14, for what the port cannot run yet:
-    MoE, SSM and RG-LRU blocks, M-RoPE and embedding-input front ends."""
-    kinds = set(cfg.layer_kinds())
-    if kinds != {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: {sorted(kinds - {'attn'})} blocks are ROADMAP "
-            f"queue A.14")
+    MoE MLPs, M-RoPE and embedding-input front ends.  Attention, RG-LRU and
+    Mamba SSM blocks, in any layer pattern, are ported."""
+    unknown = set(cfg.layer_kinds()) - {"attn", "rglru", "ssm"}
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
     for flag, what in ((cfg.moe is not None, "MoE MLPs"),
                        (cfg.mrope, "M-RoPE"),
                        (not cfg.embed_inputs, "embedding-input front ends")):
@@ -88,11 +87,15 @@ def forward(ctx: Ctx, params: dict, inputs: dict, *,
             cache: Optional[dict] = None, emit_cache: bool = False):
     """inputs: {"tokens": (B, S)}.  Returns (hidden (B, S, d), new_cache).
 
-    Decode (``cache`` given): the cache's K/V leaves are updated in place
-    and returned under the new ``length`` (scalar or per-row (B,))."""
+    Decode (``cache`` given): the cache's leaves (K/V, convolution and
+    recurrent states) are updated in place and returned under the new
+    ``length`` (scalar or per-row (B,))."""
     cfg = ctx.cfg
     tokens = inputs["tokens"]
     x = embed_tokens(ctx, params["embed"], tokens)
+    if cfg.family == "hybrid":      # gemma-style embedding scale
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
     b, s = tokens.shape
     length = cache["length"] if cache is not None else None
     if ctx.mode == "decode":

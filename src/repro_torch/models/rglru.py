@@ -1,0 +1,69 @@
+"""RG-LRU recurrent mixer (RecurrentGemma / Griffin recurrent block): port
+of ``repro/models/rglru.py`` (specs and ``rglru_forward``) on the
+``rglru_scan`` kernel.
+
+  x -> [linear -> temporal conv -> RG-LRU]  (recurrent branch)
+    -> [linear -> GeLU]                      (gate branch)
+  out = W_out (branch_rec * branch_gate)
+
+The scan runs ``kernels/rglru`` (the CUDA kernel for CUDA tensors, its
+plain version — the reference model's jnp scan — for CPU tensors;
+``ctx.force`` pins either).  A decode step writes its new convolution
+state and recurrent state into the cache's layer views in place.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rglru import ops as scan_ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Ctx, causal_conv, softplus
+from repro_torch.models.params import ParamSpec
+
+_C = 8.0  # RG-LRU decay temperature (Griffin)
+
+
+def rglru_specs(cfg: ModelConfig) -> dict:
+    """b_a, b_x and lambda_p are float32 leaves: the reference reads them in
+    float32."""
+    d, w, cw = cfg.d_model, cfg.lru_width, cfg.rglru.conv_width
+    return {
+        "w_rec_in": ParamSpec((d, w), stddev=d ** -0.5),
+        "w_gate_in": ParamSpec((d, w), stddev=d ** -0.5),
+        "conv_w": ParamSpec((cw, w), stddev=cw ** -0.5),
+        "conv_b": ParamSpec((w,), init="zeros"),
+        "w_a": ParamSpec((w, w), stddev=w ** -0.5),
+        "b_a": ParamSpec((w,), dtype="float32", init="zeros"),
+        "w_x": ParamSpec((w, w), stddev=w ** -0.5),
+        "b_x": ParamSpec((w,), dtype="float32", init="zeros"),
+        "lambda_p": ParamSpec((w,), dtype="float32", init="ones"),
+        "w_out": ParamSpec((w, d), stddev=w ** -0.5
+                           / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def rglru_forward(ctx: Ctx, p, x, *, cache=None, emit_cache: bool = False):
+    """x: (B, S, d) -> (out (B, S, d), cache or None).  Decode: ``cache`` =
+    {conv: (B, K-1, W), h: (B, W) float32}, both written in place and
+    returned; prefill with ``emit_cache``: a fresh {conv, h}."""
+    rec = x @ p["w_rec_in"]
+    # jax.nn.gelu's default is the tanh approximation
+    gate = F.gelu(x @ p["w_gate_in"], approximate="tanh")
+    rec, new_conv = causal_conv(rec, p["conv_w"], p["conv_b"],
+                                cache["conv"] if cache is not None else None)
+    rgate = torch.sigmoid((rec @ p["w_a"]).float() + p["b_a"])
+    igate = torch.sigmoid((rec @ p["w_x"]).float() + p["b_x"])
+    log_a_base = -_C * softplus(p["lambda_p"])
+    h0 = cache["h"] if cache is not None else None    # updated in place
+    y, h = scan_ops.rglru_scan(rec, rgate, igate, log_a_base, h0, h_out=h0,
+                               force=ctx.force)
+    y = y.to(rec.dtype) * gate
+    out = y @ p["w_out"]
+
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        return out, {"conv": cache["conv"], "h": h}
+    return out, ({"conv": new_conv, "h": h} if emit_cache else None)

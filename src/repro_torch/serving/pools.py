@@ -13,9 +13,11 @@ serves token batches through two surfaces:
   between steps.  Where the reference donates the slab to a jitted update,
   the port writes the slab's tensors in place and returns the same slab.
 
-On a CUDA device each prefill runs the ``flash_attention`` kernel and each
-decode step the ``decode_attention`` kernel once per layer (``force``
-pins the plain versions instead).
+On a CUDA device each prefill and each decode step runs, once per layer,
+the kernel of that layer's mixer: ``flash_attention`` (prefill) or
+``decode_attention`` (decode step) for an attention layer, ``mamba_scan``
+for an SSM layer, ``rglru_scan`` for an RG-LRU layer (``force`` pins the
+plain versions instead).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ class PoolStats:
     """Counters plus per-request latency samples (seconds; enqueue→finish
     on the executor, batch wall time on the serial path).  ``prefills`` and
     ``decode_steps`` count the model calls, so a run can check the
-    attention kernels' launches against layers × calls."""
+    kernels' launches against layers × calls."""
     requests: int = 0
     tokens: int = 0
     busy_s: float = 0.0
@@ -151,16 +153,23 @@ class ModelPool:
 
     def insert_slab(self, slab, cache, slots):
         """Copy ``cache``'s first ``len(slots)`` rows into the slab's slots,
-        in place; the rest of each slot row is zeroed (entries beyond the
-        slot's length, which decode attention masks).  Rows past
+        in place.  Leaves carry the stacked layer axis in front, so the
+        request axis is axis 1; each axis from 2 on of a cache leaf may be
+        shorter than the slab's and is zero-padded, as in the reference: the
+        K/V leaves' sequence axis (a shorter prompt; entries past the
+        slot's length, which decode attention masks), while the recurrent
+        leaves — ``conv`` (L, B, K-1, C), SSM ``h`` (L, B, Di, N), RG-LRU
+        ``h`` (L, B, W) — match the slab's and are copied whole.  Rows past
         ``len(slots)`` are bucket padding and are dropped."""
         idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         n_real = idx.shape[0]
 
         def put(sl, cl):
-            c = cl.shape[2]
-            sl[:, idx, :c] = cl[:, :n_real]
-            sl[:, idx, c:] = 0
+            cl, pad = cl[:, :n_real], []
+            for have, want in zip(reversed(cl.shape[2:]),
+                                  reversed(sl.shape[2:])):
+                pad += [0, want - have]
+            sl[:, idx] = torch.nn.functional.pad(cl, pad) if any(pad) else cl
         tree_map(put, slab["segments"], cache["segments"])
         slab["length"][idx] = cache["length"].to(torch.int32)
         return slab

@@ -5,8 +5,11 @@ on the same weights and requests.
 
 The serial ``ModelPool.serve_segment`` path is the executor's parity
 oracle: its bucketed prefills and token-level slab decode must reproduce
-the oracle's decoded ids request for request.  Against the JAX executor the
-models run in float32 compute (logits within ~1e-6, see
+the oracle's decoded ids request for request, on the dense tier pools and
+on the recurrent ones (Falcon-Mamba's SSM blocks as the edge tier,
+RecurrentGemma's RG-LRU and local-attention blocks as the cloud tier),
+whose slab holds convolution and recurrent states.  Against the JAX
+executor the models run in float32 compute (logits within ~1e-6, see
 ``test_torch_model.py``), and with the same injected tick clock the two
 executors must agree exactly: decoded ids, admission trace, latency
 statistics and feedback.
@@ -45,6 +48,7 @@ from repro_torch.serving.session import ServeSession
 
 SYS = SystemConfig()
 TIERS = ("qwen1.5-0.5b", "qwen3-8b")
+RECURRENT = ("falcon-mamba-7b", "recurrentgemma-9b")
 
 
 class _TickClock:
@@ -103,6 +107,22 @@ def test_executor_matches_serial_oracle(pools, decode_tokens):
     assert sum(st["requests"] for st in stats.values()) == len(reqs)
     assert sum(st["tokens"] for st in stats.values()) == sum(
         len(r.tokens) + r.decode_tokens for r in reqs)
+
+
+def test_recurrent_executor_matches_serial_oracle():
+    """The slab path of the recurrent pools (states scattered into slots,
+    updated in place by every decode step) reproduces the serial path."""
+    pools = make_tier_pools(*(get_smoke_config(a) for a in RECURRENT),
+                            device="cpu")
+    reqs = _mixed_requests(128, m=12, seed=5, decode_tokens=6)
+    want = serve_serial_oracle(pools, [dataclasses.replace(r) for r in reqs])
+    ex = DispatchExecutor(pools, n_slots=4, max_prefill_batch=2)
+    ex.serve(reqs)
+    got = _ids(ex)
+    assert set(got) == set(want)
+    for s in want:
+        np.testing.assert_array_equal(got[s], want[s],
+                                      err_msg=f"stream {s} ids diverge")
 
 
 def test_join_leave_does_not_perturb_decodes(pools):
@@ -260,15 +280,14 @@ def test_session_dispatch_skips_dead_lanes_and_serial_counts(pools):
 # ---------------------------------------------------------------------------
 # Parity with the live JAX executor and session
 # ---------------------------------------------------------------------------
-@pytest.fixture(scope="module")
-def f32_pools():
+def _f32_pools(tiers):
     """The JAX tier pools and the port's on the same weights, both in
     float32 compute."""
     jcfgs = [dataclasses.replace(j_smoke(a), compute_dtype="float32")
-             for a in TIERS]
+             for a in tiers]
     jpools = j_make_tier_pools(*jcfgs)
     tpools = {}
-    for t, a in enumerate(TIERS):
+    for t, a in enumerate(tiers):
         cfg = dataclasses.replace(get_smoke_config(a),
                                   compute_dtype="float32")
         params = model_params_from_numpy(
@@ -278,8 +297,20 @@ def f32_pools():
     return jpools, tpools
 
 
+@pytest.fixture(scope="module")
+def f32_pools():
+    return _f32_pools(TIERS)
+
+
 def test_executor_matches_jax_executor(f32_pools):
-    jpools, tpools = f32_pools
+    _executor_matches_jax_executor(*f32_pools)
+
+
+def test_recurrent_executor_matches_jax_executor():
+    _executor_matches_jax_executor(*_f32_pools(RECURRENT))
+
+
+def _executor_matches_jax_executor(jpools, tpools):
     kw = dict(n_slots=4, max_prefill_len=64, max_prefill_batch=2)
     jex = JDispatchExecutor(jpools, clock=_TickClock(), **kw)
     tex = DispatchExecutor(tpools, clock=_TickClock(), **kw)

@@ -13,7 +13,11 @@ compares), so they must match exactly.  ``decode_attention`` and
 each probability to the value type before P·V (as the TPU kernels do): they
 are held to |kernel − plain| <= 2e-5 + 2e-5·|plain| in float32 and
 2e-2 + 2e-2·|plain| in bfloat16 (two bf16 ulps near 1), the tolerances of
-the reference's own kernel tests.
+the reference's own kernel tests.  ``mamba_scan`` and ``rglru_scan`` repeat
+the plain versions' float32 state updates in order with ``-fmad=false``;
+the selective scan's y sums the state in another order than torch's
+einsum, so both are held to 1e-5 + 1e-5·|plain| (their outputs are
+float32 whatever the input dtype).
 """
 import numpy as np
 import pytest
@@ -30,6 +34,8 @@ from repro_torch.kernels.ccg_solve.ops import ccg_solve
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
+from repro_torch.kernels.mamba_scan.ops import selective_scan
+from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.temporal_gate.ops import gate_cell
 
 pytestmark = pytest.mark.cuda
@@ -170,6 +176,8 @@ def _normal(rng, shape, dtype, dev):
     (16, 32, 8, 144, 128),     # the cloud tier's slab (Qwen3-8B)
     (3, 8, 1, 200, 32),        # MQA, G = 8, a ragged last tile
     (2, 6, 3, 65, 256),        # G = 2, the widest head
+    (16, 16, 1, 80, 256),      # RecurrentGemma's slab: MQA, G = 16
+    (3, 16, 1, 37, 256),       # G = 16, a ragged last tile
 ])
 def test_decode_attention_kernel(dev, dtype, b, h, kv, s, d):
     """The cache is a (B, S, KV, D) slab read through a permuted view, at
@@ -199,6 +207,8 @@ def test_decode_attention_kernel(dev, dtype, b, h, kv, s, d):
     (2, 8, 2, 100, 100, 64, 16, True),       # sliding window
     (1, 4, 4, 5, 70, 64, None, False),       # non-causal, Sq < Sk
     (2, 12, 4, 70, 45, 32, 30, False),       # non-causal window, Sq > Sk
+    (8, 16, 1, 80, 80, 256, 2048, True),     # RecurrentGemma prefill
+    (2, 16, 1, 37, 37, 256, 16, True),       # D = 256, window, ragged
 ])
 def test_flash_attention_kernel(dev, dtype, b, h, kv, sq, sk, d, window,
                                 causal):
@@ -215,3 +225,77 @@ def test_flash_attention_kernel(dev, dtype, b, h, kv, sq, sk, d, window,
     want = flash_attention(q, k, v, force="ref", **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+
+
+_SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,di,n", [
+    (16, 1, 8192, 16),     # Falcon-Mamba-7B decode step
+    (8, 80, 8192, 16),     # Falcon-Mamba-7B prefill, longest prompt
+    (3, 37, 200, 16),      # ragged S and Di
+    (2, 1, 130, 4),        # the SMOKE state size, ragged Di
+])
+def test_mamba_scan_kernel(dev, dtype, with_h0, b, s, di, n):
+    """x, B and C in the model's dtype, B and C column slices of one
+    projection (read by strides), dt float32; the state written into
+    ``h_out``, also when it is ``h0`` itself (the decode step)."""
+    rng = _gen(b * s + di + n)
+    x = _normal(rng, (b, s, di), dtype, dev)
+    dt = torch.nn.functional.softplus(
+        0.5 * _normal(rng, (b, s, di), torch.float32, dev))
+    proj = _normal(rng, (b, s, 3 + 2 * n), dtype, dev)
+    B, C = proj[..., 3:3 + n], proj[..., 3 + n:]
+    A = -torch.exp(0.2 * _normal(rng, (di, n), torch.float32, dev))
+    D = _normal(rng, (di,), torch.float32, dev)
+    h0 = _normal(rng, (b, di, n), torch.float32, dev) if with_h0 else None
+    want_y, want_h = selective_scan(x, dt, B, C, A, D, h0, force="ref")
+    reset_launch_counts()
+    got_y, got_h = selective_scan(x, dt, B, C, A, D, h0, force="kernel")
+    assert launch_counts() == {"mamba_scan": 1}
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_y, want_y, **_SCAN_TOL)
+    torch.testing.assert_close(got_h, want_h, **_SCAN_TOL)
+    if h0 is not None:
+        state = h0.clone()
+        y, h = selective_scan(x, dt, B, C, A, D, state, h_out=state,
+                              force="kernel")
+        torch.cuda.synchronize()
+        assert h is state
+        torch.testing.assert_close(state, want_h, **_SCAN_TOL)
+        torch.testing.assert_close(y, want_y, **_SCAN_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,w", [
+    (16, 1, 4096),         # RecurrentGemma-9B decode step
+    (8, 80, 4096),         # RecurrentGemma-9B prefill, longest prompt
+    (3, 37, 200),          # ragged S and W
+])
+def test_rglru_scan_kernel(dev, dtype, with_h0, b, s, w):
+    """x in the model's dtype, the gates float32; the state written into
+    ``h_out``, also when it is ``h0`` itself (the decode step)."""
+    rng = _gen(b * s + w)
+    x = _normal(rng, (b, s, w), dtype, dev)
+    r = torch.sigmoid(_normal(rng, (b, s, w), torch.float32, dev))
+    i = torch.sigmoid(_normal(rng, (b, s, w), torch.float32, dev))
+    la = -8.0 * torch.nn.functional.softplus(
+        _normal(rng, (w,), torch.float32, dev))
+    h0 = _normal(rng, (b, w), torch.float32, dev) if with_h0 else None
+    want_y, want_h = rglru_scan(x, r, i, la, h0, force="ref")
+    reset_launch_counts()
+    got_y, got_h = rglru_scan(x, r, i, la, h0, force="kernel")
+    assert launch_counts() == {"rglru_scan": 1}
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_y, want_y, **_SCAN_TOL)
+    torch.testing.assert_close(got_h, want_h, **_SCAN_TOL)
+    if h0 is not None:
+        state = h0.clone()
+        y, h = rglru_scan(x, r, i, la, state, h_out=state, force="kernel")
+        torch.cuda.synchronize()
+        assert h is state
+        torch.testing.assert_close(state, want_h, **_SCAN_TOL)
+        torch.testing.assert_close(y, want_y, **_SCAN_TOL)

@@ -1,7 +1,10 @@
 """The port's tier models against the live JAX models on the same weights
 (the reference's ``init_params``, converted with ``model_params_from_numpy``),
-for both tier SMOKE configs: Qwen1.5-0.5B's (MHA, QKV bias) and Qwen3-8B's
-(GQA, qk-norm).
+for four tier SMOKE configs: Qwen1.5-0.5B's (MHA, QKV bias), Qwen3-8B's
+(GQA, qk-norm), Falcon-Mamba-7B's (Mamba SSM blocks) and RecurrentGemma-9B's
+(RG-LRU blocks and MQA local attention in a 5-layer pattern with a
+remainder segment; its window of 16 is shorter than the 24-token prompts,
+so the rolling window slab wraps as in the reference).
 
 A prefill of two prompt-length buckets, their caches scattered into a
 cache-slot slab with per-row lengths (one slot left empty), then four
@@ -12,6 +15,7 @@ logits to 0.1 (the two frameworks round at other places; measured ~0.03).
 Greedy ids must be equal wherever the reference's top-2 logit margin
 exceeds that tolerance; lanes under it are counted and reported.
 """
+import collections
 import dataclasses
 
 import numpy as np
@@ -41,6 +45,10 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.mamba_scan import ops as mamba_ops
+from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.kernels.rglru.ref import rglru_scan_ref
 from repro_torch.models.layers import Ctx
 from repro_torch.models.model import decode_step, model_specs, prefill
 from repro_torch.models.params import (
@@ -51,7 +59,7 @@ from repro_torch.models.params import (
 )
 from repro_torch.serving.pools import ModelPool
 
-TIERS = ("qwen1.5-0.5b", "qwen3-8b")
+TIERS = ("qwen1.5-0.5b", "qwen3-8b", "falcon-mamba-7b", "recurrentgemma-9b")
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.1}
 CACHE_TOL = {"float32": 1e-5, "bfloat16": 0.05}
 
@@ -63,7 +71,8 @@ def _configs(arch, dtype):
 
 def _weights(jcfg, seed=3):
     """The reference's random init, with the zero-initialised biases and
-    the unit norm scales perturbed so that both paths are exercised."""
+    the unit norm scales and the recurrent mixers' float32 leaves perturbed
+    so that every path is exercised."""
     params = j_init_params(j_model_specs(jcfg), jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
 
@@ -72,7 +81,9 @@ def _weights(jcfg, seed=3):
         x = np.asarray(x)
         if any(k in name for k in ("'bq'", "'bk'", "'bv'")):
             return x + 0.1 * rng.normal(size=x.shape).astype(np.float32)
-        if any(k in name for k in ("scale", "q_norm", "k_norm")):
+        if any(k in name for k in ("scale", "q_norm", "k_norm", "'A_log'",
+                                   "'D'", "'dt_bias'", "'conv_b'", "'b_a'",
+                                   "'b_x'", "'lambda_p'")):
             return x + 0.1 * rng.normal(size=x.shape).astype(np.float32)
         return x
     return jax.tree_util.tree_map_with_path(perturb, params)
@@ -176,12 +187,15 @@ def test_kernel_branch_wiring(monkeypatch, arch):
     """The model's kernel branch on the CPU, the kernels stood in for by
     their plain versions: what reaches them is what the CUDA kernels take
     (q, k, v and the cache as strided views with a contiguous last
-    dimension, not copies; int32 lengths within the cache), and the model
-    still matches the reference."""
-    calls = {"flash_attention": 0, "decode_attention": 0}
+    dimension, not copies; int32 lengths within the cache; the scans' B and
+    C as column slices of the projection, the decode state passed as both
+    h0 and h_out), each kernel runs once per layer of its kind per call, and
+    the model still matches the reference."""
+    cfg = get_smoke_config(arch)
+    calls = collections.Counter()
 
     def flash(q, k, v, *, window=None, causal=True, force="auto"):
-        assert force == "kernel" and causal and window is None
+        assert force == "kernel" and causal and window == cfg.attn_window
         assert all(t.stride(-1) == 1 for t in (q, k, v))
         assert not q.is_contiguous()            # a view of (B, S, H, D)
         calls["flash_attention"] += 1
@@ -189,21 +203,50 @@ def test_kernel_branch_wiring(monkeypatch, arch):
 
     def decode(q, k_cache, v_cache, length, *, force="auto"):
         assert force == "kernel" and length.dtype == torch.int32
-        assert not k_cache.is_contiguous()      # the slab, permuted
+        assert k_cache._base is not None        # the slab, permuted
         assert k_cache.stride(-1) == v_cache.stride(-1) == 1
         assert int(length.min()) >= 1
         assert int(length.max()) <= k_cache.shape[2]
         calls["decode_attention"] += 1
         return decode_attention_ref(q, k_cache, v_cache, length)
 
+    def state(h0, h_out, h):
+        assert (h0 is None) == (h_out is None)
+        if h0 is None:
+            return h
+        assert h0 is h_out and h0.is_contiguous()
+        assert h0.dtype == torch.float32
+        return h_out.copy_(h)
+
+    def mamba(x, dt, B, C, A, D, h0=None, *, h_out=None, force="auto"):
+        assert force == "kernel" and dt.dtype == torch.float32
+        assert all(t.stride(-1) == 1 for t in (x, dt, B, C))
+        assert not B.is_contiguous() and not C.is_contiguous()
+        calls["mamba_scan"] += 1
+        y, h = selective_scan_ref(x, dt, B, C, A, D, h0)
+        return y, state(h0, h_out, h)
+
+    def rglru(x, r, i, la, h0=None, *, h_out=None, force="auto"):
+        assert force == "kernel" and x.is_contiguous()
+        assert r.dtype == i.dtype == la.dtype == torch.float32
+        calls["rglru_scan"] += 1
+        y, h = rglru_scan_ref(x, r, i, la, h0)
+        return y, state(h0, h_out, h)
+
     monkeypatch.setattr(_build, "dispatch", lambda name, force, dev: True)
     monkeypatch.setattr(flash_ops, "flash_attention", flash)
     monkeypatch.setattr(decode_ops, "decode_attention", decode)
+    monkeypatch.setattr(mamba_ops, "selective_scan", mamba)
+    monkeypatch.setattr(rglru_ops, "rglru_scan", rglru)
     runs = _Runs(arch, "float32", ctx_kw={"force": "kernel"})
     _check(runs, "float32")
-    layers = runs.cfg.num_layers
-    assert calls == {"flash_attention": 2 * layers,
-                     "decode_attention": 4 * layers}
+    layers = collections.Counter(cfg.layer_kinds())
+    prefills, steps = 2, 4
+    want = {"flash_attention": prefills * layers["attn"],
+            "decode_attention": steps * layers["attn"],
+            "mamba_scan": (prefills + steps) * layers["ssm"],
+            "rglru_scan": (prefills + steps) * layers["rglru"]}
+    assert calls == collections.Counter({k: v for k, v in want.items() if v})
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +265,10 @@ def test_registry_copies_or_names_the_roadmap_item(arch):
     for full, jc in ((cfg, j_get_config(arch)),
                      (get_smoke_config(arch), j_smoke(arch))):
         for f in dataclasses.fields(full):
-            assert getattr(full, f.name) == getattr(jc, f.name), f.name
+            got, want = getattr(full, f.name), getattr(jc, f.name)
+            if dataclasses.is_dataclass(got):      # SSM / RG-LRU sub-config
+                got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+            assert got == want, f.name
         assert count_params(model_specs(full)) == full.param_count()
 
 
@@ -262,3 +308,46 @@ def test_params_and_cache_convert_both_ways():
     out = tree_to_numpy(t)
     np.testing.assert_array_equal(out["segments"][0]["pos0"]["k"],
                                   cache["segments"][0]["pos0"]["k"])
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_recurrent_slab_converts_and_inserts_like_reference(arch):
+    """A bf16 recurrent slab crosses from the reference with each leaf in
+    its cache spec's dtype (K/V and ``conv`` bf16, ``h`` float32, exact
+    both ways), and ``insert_slab`` scatters a prefill cache into it as the
+    reference does: recurrent leaves whole, a shorter K/V sequence axis
+    zero-padded, untouched slots kept."""
+    jcfg, cfg = j_smoke(arch), get_smoke_config(arch)
+    rng = np.random.default_rng(7)
+
+    def rand(specs, n_len):
+        tree = j_tree_map_specs(lambda s: jnp.asarray(
+            rng.normal(size=s.shape).astype(np.float32), s.dtype), specs)
+        tree["length"] = jnp.asarray(rng.integers(1, 30, n_len)
+                                     if n_len else 8, jnp.int32)
+        return tree
+
+    jslab = rand(j_cache_specs(jcfg, 5, 32), 5)
+    jcache = rand(j_cache_specs(jcfg, 3, 8), 0)
+    slab = cache_from_numpy(jax.tree_util.tree_map(np.asarray, jslab), cfg,
+                            "cpu")
+    for seg in slab["segments"]:
+        for leaves in seg.values():
+            for name, t in leaves.items():
+                assert t.dtype == (torch.float32 if name == "h"
+                                   else torch.bfloat16), name
+
+    def same(got, want):
+        np.testing.assert_array_equal(got["length"],
+                                      np.asarray(want["length"]))
+        tree_map(lambda g, w: np.testing.assert_array_equal(
+            g, np.asarray(w).astype(np.float32)), got["segments"],
+            want["segments"])
+
+    same(tree_to_numpy(slab), jslab)
+    cache = cache_from_numpy(jax.tree_util.tree_map(np.asarray, jcache), cfg,
+                             "cpu")
+    want = j_insert_slab(jslab, jcache, jnp.asarray([4, 0], jnp.int32))
+    pool = ModelPool(cfg, device="cpu")
+    assert pool.insert_slab(slab, cache, [4, 0]) is slab
+    same(tree_to_numpy(slab), want)

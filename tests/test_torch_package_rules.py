@@ -24,8 +24,10 @@ from repro_torch.kernels.ccg_solve.ops import ccg_solve
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
+from repro_torch.kernels.mamba_scan.ops import selective_scan
+from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.temporal_gate.ops import gate_cell
-from repro_torch.models.config import MoEConfig, SSMConfig
+from repro_torch.models.config import MoEConfig, RGLRUConfig, SSMConfig
 from repro_torch.models.model import model_specs
 from repro_torch.models.params import init_params
 from repro_torch.serving.policy import Observation, make_policy
@@ -166,12 +168,20 @@ def _kernel_calls():
         "flash_attention": lambda f: flash_attention(
             torch.zeros(1, 8, 12, 64), torch.zeros(1, 2, 12, 64),
             torch.zeros(1, 2, 12, 64), force=f),
+        "mamba_scan": lambda f: selective_scan(
+            torch.zeros(2, 3, 16), torch.zeros(2, 3, 16),
+            torch.zeros(2, 3, 4), torch.zeros(2, 3, 4), -torch.ones(16, 4),
+            torch.ones(16), torch.zeros(2, 16, 4), force=f),
+        "rglru_scan": lambda f: rglru_scan(
+            torch.zeros(2, 3, 16), torch.full((2, 3, 16), 0.5),
+            torch.full((2, 3, 16), 0.5), -torch.ones(16), force=f),
     }
 
 
 @pytest.mark.parametrize("name", ["gate_cell", "ccg_solve", "c6_tail",
                                   "lpt_queue", "ccg_encode", "ccg_master",
-                                  "decode_attention", "flash_attention"])
+                                  "decode_attention", "flash_attention",
+                                  "mamba_scan", "rglru_scan"])
 def test_force_kernel_on_cpu_tensor_raises(name):
     call = _kernel_calls()[name]
     reset_launch_counts()
@@ -188,10 +198,12 @@ def test_force_kernel_on_cpu_tensor_raises(name):
 def test_unported_branches_raise():
     """Only the branches still to port raise, naming their ROADMAP item:
     tier outages in serving and in the fused solve (A.9), the mesh (A.15),
-    and model pools of configs with MoE, SSM or RG-LRU blocks, M-RoPE or
-    an embedding-input front end (A.14).  Every registered policy builds,
-    including R2E-VID's τ-proxy mode and its ablations, and a session takes
-    live tier pools."""
+    and model pools of configs with MoE blocks, M-RoPE or an
+    embedding-input front end (A.14).  Every registered policy builds,
+    including R2E-VID's τ-proxy mode and its ablations, a session takes
+    live tier pools, and pools with SSM or RG-LRU blocks (a dense config
+    given either mixer, and the Falcon-Mamba and RecurrentGemma configs)
+    build."""
     prob = RobustProblem.build(SystemConfig(), "cpu")
     z = torch.full((3,), 0.5)
     with pytest.raises(NotImplementedError, match="A.9"):
@@ -216,18 +228,27 @@ def test_unported_branches_raise():
     unported = {
         "moe": dataclasses.replace(dense, family="moe", moe=MoEConfig(
             num_experts=4, top_k=2, d_expert=32)),
-        "ssm": dataclasses.replace(dense, family="ssm",
-                                   layer_pattern=("ssm",), ssm=SSMConfig()),
-        "rglru": dataclasses.replace(dense, layer_pattern=("rglru", "attn")),
         "mrope": dataclasses.replace(dense, mrope=True),
         "front_end": dataclasses.replace(dense, embed_inputs=False),
     }
     for cfg in unported.values():
         with pytest.raises(NotImplementedError, match="A.14"):
             ModelPool(cfg, device="cpu")
-    for arch in ("mixtral-8x22b", "falcon-mamba-7b", "qwen2-vl-2b"):
+    for arch in ("mixtral-8x22b", "moonshot-v1-16b-a3b", "qwen2-vl-2b"):
         with pytest.raises(NotImplementedError, match="A.14"):
             get_config(arch)
+    ported = {
+        "ssm": dataclasses.replace(dense, family="ssm",
+                                   layer_pattern=("ssm",), ssm=SSMConfig()),
+        "rglru": dataclasses.replace(dense, layer_pattern=("rglru", "attn"),
+                                     rglru=RGLRUConfig()),
+        "falcon-mamba-7b": get_smoke_config("falcon-mamba-7b"),
+        "recurrentgemma-9b": get_smoke_config("recurrentgemma-9b"),
+    }
+    for cfg in ported.values():
+        pool = ModelPool(cfg, device="cpu")
+        ids = pool.serve_segment(torch.zeros((1, 4), dtype=torch.long), 2)
+        assert ids.shape == (1, 2)
     ServeSession(pol, n_streams=3, device="cpu",
                  pools={0: ModelPool(dense, device="cpu")})
 
