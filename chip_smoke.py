@@ -26,8 +26,11 @@ Phases, one JSON line each; any failure exits non-zero:
                  prefill (8 × 80) and at ragged shapes, x in bf16 and
                  float32, h0 given, None and aliasing h_out, within
                  1e-5 + 1e-5·|plain|; kernel, plain and library times (CUDA
-                 events or the profiler, median after warm-up) and each
-                 kernel's bound.
+                 events or the profiler, median after warm-up; SDPA's
+                 device time beside its event time) and each kernel's
+                 bound: the larger of its bytes and its compute, where
+                 exponentials and square roots may be split between the
+                 special-function units and polynomials on the CUDA cores.
 4. ``main_path`` ``make_policy("r2evid") → ServeSession.run`` on M = 4096
                  streams for R = 16 rounds of a seeded ``sample_stream``, with
                  random seeded gate weights, launch counters zeroed just
@@ -106,9 +109,18 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 M, M_RAGGED, ROUNDS = 4096, 4093, 16
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-FP32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 (tensor cores)
+# H100 SXM peaks (NVIDIA's data sheet) and the clocks they imply
+HBM_BYTES_PER_S = 3.35e12        # device memory
+FP32_FLOP_PER_S = 67e12          # float32 outside the tensor cores: 132 SMs ×
+                                 # 128 lanes × 2 (multiply-add) × 1.98 GHz
+BF16_FLOP_PER_S = 989e12         # dense bf16 on the tensor cores: 132 SMs ×
+                                 # 4096 operations a clock × 1.83 GHz
+SFU_OP_PER_S = 132 * 16 * 1.98e9  # exp, sqrt, reciprocal on the special
+                                  # function units: 16 a clock per SM
+SFU_POLY_FLOPS = 8               # float32 operations of one of them on the
+                                 # CUDA cores instead: exp2 as a polynomial
+                                 # after range reduction (FlashAttention-4),
+                                 # sqrt as a bit-level estimate and Newton steps
 SLOTS, SLAB = 16, 80 + 64        # the dispatch slab: slots × cache entries
 PROMPTS = (16, 32, 48, 64, 80)   # prompt lengths 16·(1 + r)
 LOGIT_MARGIN = 0.125             # bf16 greedy-id comparison margin
@@ -129,46 +141,83 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def event_ms_turns(torch, fns: dict, reps: int, warmup: int = 2) -> dict:
+    """Median CUDA-event time of one call of each of ``fns`` (stream time,
+    wrapper included), the calls taken in turns (a, b, a, b, ...) so that a
+    drift of the host's speed reaches them alike."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def event_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     """Median CUDA-event time of one call (stream time, wrapper included)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return event_ms_turns(torch, {"fn": fn}, reps, warmup)["fn"]
 
 
-def device_ms(torch, fn, symbol: str, reps: int = 20):
-    """Mean device time of the kernel named ``symbol`` per call, from the
-    profiler's CUPTI trace; None when the trace shows no device time."""
+def device_ms(torch, fn, symbol=None, reps: int = 20):
+    """Mean device time of the kernel named ``symbol`` per launch or, with
+    no symbol, of every device activity of ``fn`` per call (a library call
+    that runs several kernels), from the profiler's CUPTI trace; None when
+    the trace shows no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if symbol in evt.key:
-            total += getattr(evt, "self_device_time_total", 0.0)
-            count += evt.count
-    return total / 1e3 / count if count and total > 0 else None
+    for _ in range(3):   # a trace now and then comes back without them
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for evt in prof.key_averages():
+            if symbol is None and evt.device_type == DeviceType.CUDA \
+                    or symbol is not None and symbol in evt.key:
+                total += getattr(evt, "self_device_time_total", 0.0)
+                count += evt.count
+        count = reps if symbol is None else count
+        if count and total > 0:
+            return total / 1e3 / count
+    return None
 
 
-def bound(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+def compute_ms(flops: float, flop_per_s: float = FP32_FLOP_PER_S,
+               sfu_ops: float = 0.0):
+    """The least compute time (ms) of ``flops`` operations at ``flop_per_s``
+    and ``sfu_ops`` exponentials and square roots (given only beside float32
+    operations), and which pipe sets it.  "operations" when the CUDA cores
+    take longer than the SFUs would for all of ``sfu_ops``; else "sfu": the
+    best split of them between the SFUs and polynomials on the CUDA cores,
+    where both pipes finish at once."""
     t_ops = flops / flop_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if sfu_ops / SFU_OP_PER_S * 1e3 <= t_ops:
+        return t_ops, "operations"
+    # x moved to the cores: (sfu_ops - x) / sfu rate = (flops + c·x) / fp32 rate
+    return ((flops + SFU_POLY_FLOPS * sfu_ops)
+            / (FP32_FLOP_PER_S + SFU_POLY_FLOPS * SFU_OP_PER_S) * 1e3, "sfu")
+
+
+def bound(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S,
+          sfu_ops: float = 0.0):
+    """The least time (ms) the card could take: the larger of the bytes over
+    the memory rate and ``compute_ms``; and which term it is ("bytes",
+    "operations" or "sfu")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_cmp, by = compute_ms(flops, flop_per_s, sfu_ops)
+    return (t_bytes, "bytes") if t_bytes >= t_cmp else (t_cmp, by)
 
 
 def max_abs(torch, got, want) -> float:
@@ -471,6 +520,7 @@ def attention_rows(torch, dev):
             cases["flash_attention"] += [
                 (str(dt)[6:], flash_case(cfg, dt, 8, 80)),
                 (str(dt)[6:], flash_case(cfg, dt, 2, 37)),
+                (str(dt)[6:], flash_case(cfg, dt, 2, 65)),
                 (str(dt)[6:], flash_case(cfg, dt, 2, 100, window=16)),
                 (str(dt)[6:], flash_case(cfg, dt, 1, 5, 70, causal=False))]
     fns = {"decode_attention": decode_attention,
@@ -501,16 +551,22 @@ def attention_rows(torch, dev):
             "cases_compared": len(cases[name])}
 
     def timed(name, fn, args, kw, library, nbytes, flops):
+        """Kernel and library each by CUDA events around the call, taken
+        in turns (``ms`` falls back to them), and by the profiler's device
+        time: ``call_ms`` compares with ``library_ms``, ``ms`` with
+        ``library_device_ms`` (every kernel of the library call)."""
         call = lambda: fn(*args, force="kernel", **kw)
-        ms_events = event_ms(torch, call, reps=50)
+        events = event_ms_turns(torch, {"call": call, "library": library},
+                                reps=100)
         ms_dev = device_ms(torch, call, f"{name}_kernel")
         t_bound, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-        return {"ms": ms_dev if ms_dev is not None else ms_events,
+        return {"ms": ms_dev if ms_dev is not None else events["call"],
                 "ms_from": "profiler" if ms_dev is not None else "cuda_events",
-                "call_ms": ms_events,
+                "call_ms": events["call"],
                 "plain_ms": event_ms(torch, lambda: fn(*args, force="ref",
                                                        **kw), reps=20),
-                "library_ms": event_ms(torch, library, reps=50),
+                "library_ms": events["library"],
+                "library_device_ms": device_ms(torch, library),
                 "bytes": nbytes, "flops": flops, "bound_ms": t_bound,
                 "bound_by": by}
 
@@ -638,16 +694,18 @@ def scan_rows(torch, dev):
             call = lambda args=args: fn(*args, force="kernel")
             ms_events = event_ms(torch, call, reps=50)
             ms_dev = device_ms(torch, call, f"{name}_kernel")
-            nbytes, flops = scan_work(name, args)
-            t_bound, by = bound(nbytes, flops)
+            nbytes, flops, sfu = scan_work(name, args)
+            t_bound, by = bound(nbytes, flops, sfu_ops=sfu)
             timing[what] = {
                 "ms": ms_dev if ms_dev is not None else ms_events,
                 "ms_from": "profiler" if ms_dev is not None else "cuda_events",
                 "call_ms": ms_events,
                 "plain_ms": event_ms(torch, lambda args=args: fn(
                     *args, force="ref"), reps=10, warmup=1),
-                "bytes": nbytes, "flops": flops, "bound_ms": t_bound,
-                "bound_by": by,
+                "bytes": nbytes, "flops": flops, "sfu_ops": sfu,
+                "bound_ms": t_bound, "bound_by": by,
+                # the kernel takes every exp on the SFUs: its floor there
+                "sfu_only_ms": sfu / SFU_OP_PER_S * 1e3,
                 "shape": "x (B, S, C) = " + str(tuple(shape[:3])) + " bf16"
                          + (f", N={shape[3]}" if len(shape) > 3 else "")
                          + (", h0 given" if what == "decode" else ", h0 None")}
@@ -671,7 +729,8 @@ def scan_rows(torch, dev):
 
 def scan_work(name, args):
     """Bytes each input read once and each output written once (y and
-    h_final float32), and float32 operations, of one scan call."""
+    h_final float32), float32 operations, and special-function operations
+    (exp, sqrt) of one scan call."""
     if name == "mamba_scan":
         x, dt, bm, cm, a, d, h0 = args
         b, s, di = x.shape
@@ -680,15 +739,16 @@ def scan_work(name, args):
                   + 2 * b * s * n * bm.element_size() + 4 * (a.numel() + di)
                   + 4 * b * di * n * (2 if h0 is not None else 1)
                   + 4 * b * s * di)
-        # per state value: dt·A, exp, dt·B, ·x, dA·h, +, h·C, +; per
-        # channel: D·x, +
-        return float(nbytes), float(b * s * di * (8 * n + 2))
+        # per state value: dt·A, dt·B, ·x, dA·h, +, h·C, + and one exp;
+        # per channel: D·x, +
+        return (float(nbytes), float(b * s * di * (7 * n + 2)),
+                float(b * s * di * n))
     x, rg, ig, la, h0 = args
     b, s, w = x.shape
     nbytes = (x.numel() * x.element_size() + 8 * rg.numel() + 4 * w
               + 4 * b * w * (2 if h0 is not None else 1) + 4 * b * s * w)
-    # la·r, exp, a·a, 1 −, max, sqrt, i·x, a·h, ·, +
-    return float(nbytes), float(10 * b * s * w)
+    # la·r, a·a, 1 −, max, i·x, a·h, ·, + and one exp and one sqrt
+    return float(nbytes), float(8 * b * s * w), float(2 * b * s * w)
 
 
 def main_path_phase(torch, dev, stream, counts_reset, counts_read):

@@ -180,29 +180,35 @@ def check_dtype(name: str, dtype, **tensors) -> None:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def check_strided(name: str, *tensors) -> int:
+def check_strided(name: str, *tensors, align: int = 4) -> int:
     """Operands of a kernel that reads by strides: on one CUDA device, of
     one dtype of ``DTYPE_CODES``, with a contiguous last dimension and, in
-    bfloat16, 4-byte aligned element pairs (the kernels load pairs).
-    Returns the dtype code."""
-    dev, dt = tensors[0].device, tensors[0].dtype
+    bfloat16, every row start (the pointer and each other stride, in bytes)
+    on an ``align``-byte boundary: the kernels load ``align`` bytes at a
+    time (4: element pairs; 16: ``cp.async`` chunks).  Returns the dtype
+    code."""
+    first, dt = tensors[0], tensors[0].dtype
     if dt not in DTYPE_CODES:
         raise TypeError(f"{name}: operands must be float32 or bfloat16, "
                         f"got {dt}")
+    index = first.get_device()          # -1 on the CPU
     for t in tensors:
-        if t.device != dev or dev.type != "cuda":
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{name}: every operand must be on one CUDA "
-                             f"device, got {t.device} and {dev}")
+                             f"device, got {t.device} and {first.device}")
         if t.dtype != dt:
             raise TypeError(f"{name}: operands must share one dtype, got "
                             f"{t.dtype} and {dt}")
-        if t.stride(-1) != 1:
+        stride = t.stride()
+        if stride[-1] != 1:
             raise ValueError(f"{name}: the last dimension must be "
                              f"contiguous")
         if dt == torch.bfloat16 and (
-                t.data_ptr() % 4 or any(st % 2 for st in t.stride()[:-1])):
-            raise ValueError(f"{name}: bfloat16 operands must start on a "
-                             f"4-byte boundary and have even strides")
+                t.data_ptr() % align
+                or any(st * 2 % align for st in stride[:-1])):
+            raise ValueError(f"{name}: bfloat16 operands must start every "
+                             f"row on a {align}-byte boundary (pointer "
+                             f"{t.data_ptr()}, strides {stride})")
     return DTYPE_CODES[dt]
 
 
@@ -240,4 +246,10 @@ def all_ones(f: int, device: torch.device):
 
 
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` (its ``cudaStream_t``) as an
+    int.  ``torch._C._cuda_getCurrentRawStream`` reads it without building
+    a ``torch.cuda.Stream`` object at every launch; PyTorch's own generated
+    code calls it the same way."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

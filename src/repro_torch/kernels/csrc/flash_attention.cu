@@ -6,82 +6,120 @@
 // (Pallas body _flash_kernel), whose grid walks (B·KV, q tiles, k tiles)
 // with the k tiles innermost and in order on one TPU core, keeps the online
 // softmax state (m, l, acc) in VMEM scratch across them, folds the GQA
-// group into the MXU's rows and skips the fully masked k tiles.  It asserts
-// that Sq and Sk are multiples of its tiles; this kernel takes any lengths
-// and masks the ragged edge itself.
+// group into the MXU's rows, multiplies bf16 operands with float32
+// accumulation and skips the fully masked k tiles.  It asserts that Sq and
+// Sk are multiples of its tiles; this kernel takes any lengths and masks
+// the ragged edge itself.
 //
 // What bounds it on the H100: bytes, at the serving shapes.  A prefill of
 // Sq = Sk <= 80 tokens reads q, k and v and writes the output once: a
 // (row, KV head) holds ~Sq·D·(2G + 2) values for ~2·G·Sq²·D causal
 // operations, tens of operations per byte in bf16, under the ~295 at which
-// the tensor cores would bound it.
+// the tensor cores would bound it.  What the kernel has to avoid is
+// latency: few key tiles per block, so loads must be wide and in flight
+// while the previous tile computes.
 //
-// Design: a block of 128 threads owns 64 query rows (G heads × 64/G
-// positions, so a block always fills its rows) held in shared memory as
-// float, and loops over tiles of 32 keys from the first one a row of the
-// tile may see (window) to the last one (causal), so fully masked tiles are
-// never loaded.  Two threads share a row: each computes 16 of the tile's 32
-// scores from shared memory (rows padded by one float, so neighbouring rows
-// fall in different banks), and the pair's max and sum meet by one shuffle.
-// The online softmax keeps (m, l) in float32 per row, sums l from the
-// float32 probabilities and rounds each probability to the value type
-// before P·V, as the TPU kernel does; masked entries get probability 0.
-// P·V: each thread of a pair owns every other element of D for its row (D/2
-// float32 accumulators in registers).  The tile's output goes through
-// shared memory so that its stores are coalesced, divided by max(l, 1e-30).
-// q, k and v are read by strides (only D is contiguous), so the model's
-// (B, S, H, D) projections are passed as permuted views, not copies.
+// Common to both paths: a block of 128 threads owns 64 query rows (G heads
+// × 64/G positions, so a block always fills its rows) and loops over key
+// tiles from the first one a row of the tile may see (window) to the last
+// one (causal), so fully masked tiles are never loaded.  The online
+// softmax keeps (m, l) in float32 per row, sums l from the float32
+// probabilities and rounds each probability to the value type before P·V,
+// as the TPU kernel does; masked entries get probability 0; the output is
+// divided by max(l, 1e-30).  q, k and v are read by strides (only D is
+// contiguous), so the model's (B, S, H, D) projections are passed as
+// permuted views, not copies.
+//
+// bfloat16 (the tier pools' type), flash_attention_kernel_bf16: the
+// products run on the tensor cores, mma.sync m16n8k16 bf16 → float32.
+// Each of the 4 warps owns 16 query rows.  Q (64 rows) and tiles of 32 keys
+// of K and V are staged in shared memory as bf16 with 16-byte cp.async,
+// the K/V tiles double-buffered (the next tile loads while the current one
+// computes); rows are padded by 16 bytes so that the 8 row addresses of an
+// ldmatrix fall in distinct banks.  32-key tiles keep the shared memory at
+// 52 KB (D = 128) and 101 KB (D = 256), so that a prefill's blocks fit the
+// card in one wave: 64-key tiles took 1.1–1.5× as long at the serving
+// shapes (tools/kernel_variants.py).  S = Q·Kᵀ takes Q and K fragments
+// through ldmatrix (Q re-read from shared memory at every k-step, so the
+// registers hold only the 16 × 32 scores and the 16 × D output, D/2 + 16
+// floats a thread, no spill at D = 256); the softmax runs on the
+// accumulator fragments (a row lives on a quad of lanes: max and sum by
+// two shuffles); P, rounded to bf16 in registers, is the A operand of
+// O += P·V with V through ldmatrix.trans.  The output tile goes through
+// the warp's own rows of the Q buffer and leaves in 16-byte stores.  Every
+// row start must lie on a 16-byte boundary (the wrapper checks).  Scores
+// are scaled by D^-0.5·log2(e) and exponentiated by ex2.approx on the SFU;
+// each row's visible keys are one range [lo, hi), and each row's q and
+// output offsets are computed once into shared memory, so that neither
+// the softmax nor the copies spend instructions on masks, exp2f's range
+// handling or divisions by BQ: at these shapes the kernel is bound by its
+// instructions' latency, not by the tensor cores.
+//
+// float32, flash_attention_kernel_f32: float32 multiply-adds on the CUDA
+// cores (the tensor cores have no float32 product of full precision):
+// tiles of 32 keys, two threads per row, each computing 16 of a tile's
+// scores from shared memory, rows padded by one float.
+//
 // Built with the repository's -fmad=false like every source; the kernel is
 // held to a stated tolerance, not to the plain version's bits (its sums run
-// in another order), so the flag costs it only the fused multiply-adds.
-// Tensor-core MMA (wgmma), TMA and split-K are later work.
+// in another order).  wgmma and TMA are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
 
 #include "attention.cuh"
+#include "sfu.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kRows = 64;             // query rows of a block (G × BQ)
-constexpr int kKeys = 32;             // keys of a tile
-constexpr int kPerThread = kKeys / 2; // scores per thread of a row's pair
+
+// ---------------------------------------------------------------- float32
+
+constexpr int kKeysF32 = 32;              // keys of a tile
+constexpr int kPerThread = kKeysF32 / 2;  // scores per thread of a row's pair
 
 template <int D>
-constexpr int smem_floats() {
-  return kRows * (D + 1) + kKeys * (D + 1) + kKeys * D + kRows * (kKeys + 1);
+constexpr int smem_bytes_f32() {
+  return (int)sizeof(float) * (kRows * (D + 1) + kKeysF32 * (D + 1) +
+                               kKeysF32 * D + kRows * (kKeysF32 + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           long long q_sb, long long q_sh, long long q_ss,
-                           long long k_sb, long long k_sh, long long k_ss,
-                           long long v_sb, long long v_sh, long long v_ss,
-                           int H, int KV, int Sq, int Sk, int BQ, int window,
-                           int causal, float scale) {
+    flash_attention_kernel_f32(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ out, long long q_sb,
+                               long long q_sh, long long q_ss, long long k_sb,
+                               long long k_sh, long long k_ss, long long v_sb,
+                               long long v_sh, long long v_ss, int H, int KV,
+                               int Sq, int Sk, int BQ, int window, int causal,
+                               float scale) {
   extern __shared__ float smem[];
   float* q_s = smem;                        // [kRows][D + 1], then the output
-  float* k_s = q_s + kRows * (D + 1);       // [kKeys][D + 1]
-  float* v_s = k_s + kKeys * (D + 1);       // [kKeys][D]
-  float* p_s = v_s + kKeys * D;             // [kRows][kKeys + 1]
+  float* k_s = q_s + kRows * (D + 1);       // [kKeysF32][D + 1]
+  float* v_s = k_s + kKeysF32 * (D + 1);    // [kKeysF32][D]
+  float* p_s = v_s + kKeysF32 * D;          // [kRows][kKeysF32 + 1]
 
   const int G = H / KV;
   const int R = G * BQ;                     // rows in use (<= kRows)
   const int b = blockIdx.y / KV, kh = blockIdx.y % KV;
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x;
-  const T* kb = k + b * k_sb + kh * k_sh;
-  const T* vb = v + b * v_sb + kh * v_sh;
+  const float* kb = k + b * k_sb + kh * k_sh;
+  const float* vb = v + b * v_sb + kh * v_sh;
 
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int g = r / BQ, qpos = q0 + r % BQ;
     q_s[r * (D + 1) + d] =
-        r < R && qpos < Sq
-            ? Elem<T>::load(q + b * q_sb + (kh * G + g) * q_sh + qpos * q_ss + d)
-            : 0.0f;
+        r < R && qpos < Sq ? q[b * q_sb + (kh * G + g) * q_sh + qpos * q_ss + d]
+                           : 0.0f;
   }
 
   // this thread's row and half of the tile's keys
@@ -98,13 +136,13 @@ __global__ void __launch_bounds__(kThreads)
   const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
 
-  for (int t0 = k_lo - k_lo % kKeys; t0 < k_hi; t0 += kKeys) {
+  for (int t0 = k_lo - k_lo % kKeysF32; t0 < k_hi; t0 += kKeysF32) {
     __syncthreads();   // q_s loaded; the previous tile's P·V done
-    for (int i = tid; i < kKeys * D; i += kThreads) {
+    for (int i = tid; i < kKeysF32 * D; i += kThreads) {
       const int j = i / D, d = i % D;
       const bool in = t0 + j < Sk;
-      k_s[j * (D + 1) + d] = in ? Elem<T>::load(kb + (t0 + j) * k_ss + d) : 0.0f;
-      v_s[j * D + d] = in ? Elem<T>::load(vb + (t0 + j) * v_ss + d) : 0.0f;
+      k_s[j * (D + 1) + d] = in ? kb[(t0 + j) * k_ss + d] : 0.0f;
+      v_s[j * D + d] = in ? vb[(t0 + j) * v_ss + d] : 0.0f;
     }
     __syncthreads();
 
@@ -136,7 +174,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kPerThread; ++i) {
       const float p = ok[i] ? expf(s[i] - m_new) : 0.0f;
       sum += p;
-      p_s[r * (kKeys + 1) + half + 2 * i] = Elem<T>::round(p);
+      p_s[r * (kKeysF32 + 1) + half + 2 * i] = p;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     l = l * corr + sum;
@@ -145,8 +183,8 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= corr;
-    for (int j = 0; j < kKeys; ++j) {
-      const float p = p_s[r * (kKeys + 1) + j];
+    for (int j = 0; j < kKeysF32; ++j) {
+      const float p = p_s[r * (kKeysF32 + 1) + j];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] += p * v_s[j * D + half + 2 * i];
     }
@@ -162,25 +200,330 @@ __global__ void __launch_bounds__(kThreads)
     const int rr = i / D, d = i % D;
     const int g = rr / BQ, qp = q0 + rr % BQ;
     if (qp < Sq)
-      Elem<T>::store(out + (((long long)b * H + kh * G + g) * Sq + qp) * D + d,
-                     q_s[rr * (D + 1) + d]);
+      out[(((long long)b * H + kh * G + g) * Sq + qp) * D + d] =
+          q_s[rr * (D + 1) + d];
   }
+}
+
+// --------------------------------------------------------------- bfloat16
+
+constexpr int kKeys = 32;             // keys of a tile
+constexpr int kWarpRows = 16;         // query rows of a warp (one m16 tile)
+
+constexpr int kPad = 8;               // bf16 padding (16 bytes) of a shared row
+
+// Q, then two K and two V tiles
+template <int D>
+constexpr int smem_bytes_bf16() {
+  return (kRows + 4 * kKeys) * (D + kPad) * (int)sizeof(__nv_bfloat16);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared; with in == false the 16 bytes are zero-filled
+// (src-size 0) and src is not read
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c (16 × 8, float32) += a (16 × 16, bf16, row) · b (16 × 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// registers capped for 4 blocks an SM (2 at D = 256), as many as the shared
+// memory admits
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 128 ? 4 : 2)
+    flash_attention_kernel_bf16(
+        const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+        long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+        long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+        long long v_ss, int H, int KV, int Sq, int Sk, int BQ, int window,
+        int causal, float scale_log2) {
+  constexpr int LD = D + kPad;              // elements of a shared row
+  constexpr int kChunks = D / 8;            // 16-byte chunks of a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + kRows * LD;    // [2][kKeys][LD]
+  __nv_bfloat16* v_s = k_s + 2 * kKeys * LD;  // [2][kKeys][LD]
+
+  const int G = H / KV;
+  const int R = G * BQ;                     // rows in use (<= kRows)
+  const int b = blockIdx.y / KV, kh = blockIdx.y % KV;
+  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const __nv_bfloat16* kb = k + b * k_sb + kh * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + kh * v_sh;
+
+  // element offsets of each row's q and output (-1: a row not in use),
+  // one division by BQ per row
+  __shared__ long long q_off[kRows], o_off[kRows];
+  if (tid < kRows) {
+    const int g = tid / BQ, qpos = q0 + tid % BQ;
+    const bool in = tid < R && qpos < Sq;
+    q_off[tid] = in ? b * q_sb + (kh * G + g) * q_sh + qpos * q_ss : -1;
+    o_off[tid] = in ? (((long long)b * H + kh * G + g) * Sq + qpos) * D : -1;
+  }
+  __syncthreads();
+
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const long long off = q_off[r];
+    cp_async16(smem_addr(q_s + r * LD + c * 8), off >= 0 ? q + off + c * 8 : q,
+               off >= 0);
+  }
+
+  // keys any row of the tile may see: [k_lo, k_hi), in tiles from t_first
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_first = k_lo - k_lo % kKeys;
+  const int n_tiles = k_hi > t_first ? (k_hi - t_first + kKeys - 1) / kKeys : 0;
+
+  auto load_kv = [&](int t0, int buf) {
+    __nv_bfloat16* kd = k_s + buf * kKeys * LD;
+    __nv_bfloat16* vd = v_s + buf * kKeys * LD;
+    for (int i = tid; i < kKeys * kChunks; i += kThreads) {
+      const int j = i / kChunks, c = i % kChunks;
+      const bool in = t0 + j < Sk;
+      const long long key = t0 + j;
+      cp_async16(smem_addr(kd + j * LD + c * 8),
+                 in ? kb + key * k_ss + c * 8 : kb, in);
+      cp_async16(smem_addr(vd + j * LD + c * 8),
+                 in ? vb + key * v_ss + c * 8 : vb, in);
+    }
+  };
+
+  if (n_tiles > 0) load_kv(t_first, 0);
+  cp_async_commit();                        // Q and the first tile
+
+  // this lane's two rows of the warp's 16: gq and gq + 8; its columns of
+  // an 8-wide fragment: 2·tq and 2·tq + 1
+  const int gq = lane >> 2, tq = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row address
+  int lo[2], hi[2];                         // keys [lo, hi) a row sees
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * kWarpRows + gq + 8 * h;
+    const int pos = q0 + (r < R ? r % BQ : 0);
+    const bool live = r < R && pos < Sq;
+    hi[h] = !live ? 0 : causal ? min(pos + 1, Sk) : Sk;
+    lo[h] = window > 0 ? pos - window + 1 : 0;
+  }
+  float m[2] = {kAttnNegInf, kAttnNegInf}, l[2] = {0.0f, 0.0f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+
+  const uint32_t q_row =
+      smem_addr(q_s + (warp * kWarpRows + (mi & 1) * 8 + mr) * LD +
+                (mi >> 1) * 8);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = t_first + it * kKeys, buf = it & 1;
+    if (it + 1 < n_tiles) load_kv(t0 + kKeys, buf ^ 1);
+    cp_async_commit();                      // (empty on the last tile)
+    cp_async_wait<1>();                     // this tile (and Q) arrived
+    __syncthreads();
+
+    // S = Q·Kᵀ: 16 rows × kKeys keys a warp, in fragments of 8 keys
+    const __nv_bfloat16* kt = k_s + buf * kKeys * LD;
+    float s[kKeys / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, q_row + kk * 16 * (int)sizeof(__nv_bfloat16));
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; j += 2) {
+        uint32_t bk[4];   // keys of fragments j and j + 1, d lo and hi
+        ldmatrix_x4(bk, smem_addr(kt + ((j + (mi >> 1)) * 8 + mr) * LD +
+                                  kk * 16 + (mi & 1) * 8));
+        mma_bf16(s[j], a, bk[0], bk[1]);
+        mma_bf16(s[j + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // mask, scale to log2 units, and the online softmax per row
+    static_assert(kKeys <= 64, "one mask bit per score of a lane");
+    uint32_t ok = 0;                        // bit 4·j + e: entry s[j][e]
+    float mx[2] = {kAttnNegInf, kAttnNegInf};
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, kpos = t0 + j * 8 + 2 * tq + (e & 1);
+        const bool in = kpos >= lo[h] && kpos < hi[h];
+        ok |= (uint32_t)in << (4 * j + e);
+        s[j][e] = in ? s[j][e] * scale_log2 : kAttnNegInf;
+        mx[h] = fmaxf(mx[h], s[j][e]);
+      }
+    float corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = ex2_approx(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        s[j][e] = (ok >> (4 * j + e)) & 1u ? ex2_approx(s[j][e] - m[h]) : 0.0f;
+        sum[h] += s[j][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = l[h] * corr[h] + sum[h];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += P·V: P (bf16) from the score fragments, 16 keys a step
+    const __nv_bfloat16* vt = v_s + buf * kKeys * LD;
+#pragma unroll
+    for (int kc = 0; kc < kKeys / 16; ++kc) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                             pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                             pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                             pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+      const uint32_t v_row =
+          smem_addr(vt + (kc * 16 + (mi & 1) * 8 + mr) * LD + (mi >> 1) * 8);
+#pragma unroll
+      for (int n = 0; n < D / 8; n += 2) {
+        uint32_t bv[4];   // d fragments n and n + 1, keys lo and hi
+        ldmatrix_x4_trans(bv, v_row + n * 8 * (int)sizeof(__nv_bfloat16));
+        mma_bf16(o[n], a, bv[0], bv[1]);
+        mma_bf16(o[n + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with buf before it is reloaded
+  }
+
+  // epilogue: O / max(l, 1e-30) in bf16 into the warp's own Q rows, then
+  // 16-byte stores of the rows in use
+  cp_async_wait<0>();
+  __syncthreads();
+  const float inv[2] = {1.0f / fmaxf(l[0], 1e-30f), 1.0f / fmaxf(l[1], 1e-30f)};
+  __nv_bfloat16* o_s = q_s + (warp * kWarpRows + gq) * LD + 2 * tq;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(o_s + n * 8) =
+        __floats2bfloat162_rn(o[n][0] * inv[0], o[n][1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(o_s + 8 * LD + n * 8) =
+        __floats2bfloat162_rn(o[n][2] * inv[1], o[n][3] * inv[1]);
+  }
+  __syncwarp();
+  for (int i = lane; i < kWarpRows * kChunks; i += 32) {
+    const int rr = warp * kWarpRows + i / kChunks, c = i % kChunks;
+    const long long off = o_off[rr];
+    if (off < 0) continue;
+    *reinterpret_cast<uint4*>(out + off + c * 8) =
+        *reinterpret_cast<const uint4*>(q_s + rr * LD + c * 8);
+  }
+}
+
+// Lets `fn` take `bytes` of dynamic shared memory on the current device,
+// once per device (`done`: a bit per device ordinal, one set per kernel).
+template <typename F>
+cudaError_t allow_smem(F* fn, int bytes, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (bit && (done.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            const long long* st, int B, int H, int KV, int Sq, int Sk, int BQ,
            int window, int causal, float scale, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
+  static std::atomic<unsigned> done{0};
   const dim3 grid((Sq + BQ - 1) / BQ, B * KV);
-  flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], H, KV, Sq, Sk, BQ, window,
-      causal, scale);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int smem = smem_bytes_f32<D>();
+    cudaError_t e = allow_smem(flash_attention_kernel_f32<D>, smem, done);
+    if (e != cudaSuccess) return (int)e;
+    flash_attention_kernel_f32<D><<<grid, kThreads, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], H, KV,
+        Sq, Sk, BQ, window, causal, scale);
+  } else {
+    constexpr int smem = smem_bytes_bf16<D>();
+    cudaError_t e = allow_smem(flash_attention_kernel_bf16<D>, smem, done);
+    if (e != cudaSuccess) return (int)e;
+    const float log2e = 1.4426950408889634f;
+    flash_attention_kernel_bf16<D><<<grid, kThreads, smem, stream>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, st[0], st[1], st[2],
+        st[3], st[4], st[5], st[6], st[7], st[8], H, KV, Sq, Sk, BQ, window,
+        causal, scale * log2e);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -210,9 +553,10 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  Strides in elements (batch, head, position
-// of q, k and v); out is (B, H, Sq, D) contiguous.  BQ query positions per
-// block with G·BQ <= 64; window 0 means none; scale is D^-0.5 as the caller
-// rounds it to float.
+// of q, k and v); out is (B, H, Sq, D) contiguous.  In bfloat16 every row
+// start (the pointers and the strides in bytes) is a multiple of 16 bytes.
+// BQ query positions per block with G·BQ <= 64; window 0 means none; scale
+// is D^-0.5 as the caller rounds it to float.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
@@ -227,8 +571,14 @@ extern "C" int flash_attention_launch(
   if (dtype == 0)
     return launch_d<float>(q, k, v, out, st, B, H, KV, Sq, Sk, D, BQ, window,
                            causal, scale, s);
-  if (dtype == 1)
+  if (dtype == 1) {
+    const uintptr_t base = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                           (uintptr_t)out;
+    for (int i = 0; i < 9; ++i)
+      if (st[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
+    if (base % 16 != 0) return (int)cudaErrorMisalignedAddress;
     return launch_d<__nv_bfloat16>(q, k, v, out, st, B, H, KV, Sq, Sk, D, BQ,
                                    window, causal, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

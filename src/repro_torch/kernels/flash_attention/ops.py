@@ -21,7 +21,9 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
     Causal GQA attention (query i sees keys j <= i), optionally limited to
     ``i - j < window``; ``causal=False`` drops the causal mask.  The kernel
     reads q, k and v by their strides (views such as a (B, S, H, D) tensor
-    permuted to (B, H, S, D) are not copied); any Sq and Sk.  A query that
+    permuted to (B, H, S, D) are not copied); any Sq and Sk.  In bfloat16
+    every row start (pointer and strides in bytes) must lie on a 16-byte
+    boundary, or the wrapper raises ``ValueError``.  A query that
     sees no key at all (only possible with a window and Sq > Sk) gets zeros
     from the kernel and the uniform average of v from the plain version.
     """
@@ -42,7 +44,9 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
                          f"heads per KV head, got {g}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
-    code = _build.check_strided("flash_attention", q, k, v)
+    # the bf16 kernel stages rows with 16-byte copies: every row start of q,
+    # k and v on a 16-byte boundary (the model's projections are)
+    code = _build.check_strided("flash_attention", q, k, v, align=16)
     if min(b, h, sq, sk) == 0:
         raise ValueError("flash_attention kernel: empty operands")
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)

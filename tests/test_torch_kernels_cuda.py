@@ -15,9 +15,10 @@ are held to |kernel − plain| <= 2e-5 + 2e-5·|plain| in float32 and
 2e-2 + 2e-2·|plain| in bfloat16 (two bf16 ulps near 1), the tolerances of
 the reference's own kernel tests.  ``mamba_scan`` and ``rglru_scan`` repeat
 the plain versions' float32 state updates in order with ``-fmad=false``;
-the selective scan's y sums the state in another order than torch's
-einsum, so both are held to 1e-5 + 1e-5·|plain| (their outputs are
-float32 whatever the input dtype).
+the selective scan takes exp(dt·A) in base 2 on the special function unit
+and sums y in another order than torch's einsum, so both are held to
+1e-5 + 1e-5·|plain| (their outputs are float32 whatever the input dtype).
+The bf16 flash kernel copies 16-byte row chunks: misaligned rows raise.
 """
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ import torch
 from repro_torch.core.cost_model import SystemConfig, fps_norm, res_norm
 from repro_torch.core.gating import GateConfig, init_gate_params
 from repro_torch.core.robust import RobustProblem
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 from repro_torch.kernels.c6_tail.ops import c6_tail
 from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
@@ -209,6 +210,14 @@ def test_decode_attention_kernel(dev, dtype, b, h, kv, s, d):
     (2, 12, 4, 70, 45, 32, 30, False),       # non-causal window, Sq > Sk
     (8, 16, 1, 80, 80, 256, 2048, True),     # RecurrentGemma prefill
     (2, 16, 1, 37, 37, 256, 16, True),       # D = 256, window, ragged
+    # query rows not a multiple of a warp's 16 or a key tile's 64
+    (2, 8, 2, 1, 1, 128, None, True),
+    (2, 8, 2, 17, 17, 64, None, True),
+    (1, 8, 8, 63, 63, 64, None, True),
+    (2, 32, 8, 65, 65, 128, None, True),
+    # G query heads per KV head × head dims, across two key tiles
+    *[(2, 2 * g, 2, 65, 65, d, None, True)
+      for g in (1, 4, 16) for d in (64, 128, 256)],
 ])
 def test_flash_attention_kernel(dev, dtype, b, h, kv, sq, sk, d, window,
                                 causal):
@@ -227,6 +236,39 @@ def test_flash_attention_kernel(dev, dtype, b, h, kv, sq, sk, d, window,
     torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
 
 
+@pytest.mark.parametrize("layout", ["offset_pointer", "odd_row_stride"])
+def test_flash_attention_rejects_misaligned_rows(dev, layout):
+    """The bf16 kernel stages rows with 16-byte copies: a q whose rows do
+    not start on a 16-byte boundary raises, launches nothing and does not
+    fall back to the plain version."""
+    rng = _gen(5)
+    b, s, h, kv, d = 2, 17, 8, 2, 64
+    if layout == "offset_pointer":      # a view one element into its buffer
+        buf = _normal(rng, (b, s, h * d + 1), torch.bfloat16, dev)
+        q = buf[..., 1:].unflatten(-1, (h, d)).transpose(1, 2)
+    else:                               # rows 64 + 4 elements apart
+        q = _normal(rng, (b, s, h, d + 4), torch.bfloat16,
+                    dev)[..., :d].transpose(1, 2)
+    k = _normal(rng, (b, s, kv, d), torch.bfloat16, dev).transpose(1, 2)
+    v = _normal(rng, (b, s, kv, d), torch.bfloat16, dev).transpose(1, 2)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, k, v, force="kernel")
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, k, v)
+    assert launch_counts() == {}
+
+
+def test_stream_ptr_is_the_current_stream(dev):
+    """The wrappers launch on PyTorch's current stream of the device."""
+    assert _build.stream_ptr(dev) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert _build.stream_ptr(dev) == side.cuda_stream
+        assert _build.stream_ptr(torch.device("cuda", side.device.index)) \
+            == side.cuda_stream
+
+
 _SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -237,6 +279,14 @@ _SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
     (8, 80, 8192, 16),     # Falcon-Mamba-7B prefill, longest prompt
     (3, 37, 200, 16),      # ragged S and Di
     (2, 1, 130, 4),        # the SMOKE state size, ragged Di
+    # state sizes below a quad's 16 or not a multiple of a lane's 4
+    (3, 37, 136, 1),
+    (3, 37, 136, 3),
+    (3, 37, 136, 4),
+    (3, 37, 136, 5),
+    # channels not a multiple of a warp's 8 (nor of a block's 64)
+    (2, 5, 203, 16),
+    (16, 1, 61, 16),
 ])
 def test_mamba_scan_kernel(dev, dtype, with_h0, b, s, di, n):
     """x, B and C in the model's dtype, B and C column slices of one
