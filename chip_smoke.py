@@ -11,7 +11,10 @@ Phases, one JSON line each; any failure exits non-zero:
                  ``build/repro_torch_kernels/`` (or loads the built library).
 3. ``kernels``   every kernel against its plain PyTorch version on the card,
                  at the paths' shapes (M = 4096) and at a ragged M = 4093:
-                 gate_cell within 1e-5, ccg_solve, c6_tail, lpt_queue,
+                 gate_cell within 1e-5, ccg_solve, c6_tail, lpt_queue (on
+                 all-edge routes, the main path's, and also on all-cloud
+                 and mixed routes and with a server down; timed on the
+                 main path's routes and on mixed ones),
                  ccg_encode (also with a real availability mask) and
                  ccg_master (also on slabs with ties, empty scenario rows
                  and all-infeasible rows) exact; decode_attention and
@@ -30,7 +33,8 @@ Phases, one JSON line each; any failure exits non-zero:
                  device time beside its event time) and each kernel's
                  bound: the larger of its bytes and its compute, where
                  exponentials and square roots may be split between the
-                 special-function units and polynomials on the CUDA cores.
+                 special-function units and polynomials on the CUDA cores,
+                 and for lpt_queue the serial chain of its walk.
 4. ``main_path`` ``make_policy("r2evid") → ServeSession.run`` on M = 4096
                  streams for R = 16 rounds of a seeded ``sample_stream``, with
                  random seeded gate weights, launch counters zeroed just
@@ -121,6 +125,8 @@ SFU_POLY_FLOPS = 8               # float32 operations of one of them on the
                                  # CUDA cores instead: exp2 as a polynomial
                                  # after range reduction (FlashAttention-4),
                                  # sqrt as a bit-level estimate and Newton steps
+SM_CLOCK_HZ = 1.98e9             # the boost clock the peaks above assume
+CHAIN_CLOCKS = 4                 # latency of one dependent float32 operation
 SLOTS, SLAB = 16, 80 + 64        # the dispatch slab: slots × cache entries
 PROMPTS = (16, 32, 48, 64, 80)   # prompt lengths 16·(1 + r)
 LOGIT_MARGIN = 0.125             # bf16 greedy-id comparison margin
@@ -211,13 +217,31 @@ def compute_ms(flops: float, flop_per_s: float = FP32_FLOP_PER_S,
 
 
 def bound(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S,
-          sfu_ops: float = 0.0):
-    """The least time (ms) the card could take: the larger of the bytes over
-    the memory rate and ``compute_ms``; and which term it is ("bytes",
-    "operations" or "sfu")."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_cmp, by = compute_ms(flops, flop_per_s, sfu_ops)
-    return (t_bytes, "bytes") if t_bytes >= t_cmp else (t_cmp, by)
+          sfu_ops: float = 0.0, chain_ms: float = 0.0):
+    """The least time (ms) the card could take: the largest of the bytes
+    over the memory rate, ``compute_ms`` and ``chain_ms`` (a serial chain of
+    dependent operations, see ``lpt_chain_ms``); and which term it is
+    ("bytes", "operations", "sfu" or "chain")."""
+    terms = [(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+             compute_ms(flops, flop_per_s, sfu_ops), (chain_ms, "chain")]
+    return max(terms, key=lambda term: term[0])
+
+
+def lpt_chain_ms(route, n_edge: int, n_cloud: int) -> float:
+    """The least time (ms) of LPT packing's serial walk over one round.  A
+    task depends on every earlier task of its own tier and on none of the
+    other tier's, so the two tiers' chains can run side by side and the
+    longer one sets the time.  A step is one add on a single server; on
+    more servers, kept sorted by (load, index), the add, the compare of the
+    sum with the second-least load and the select of the next least load:
+    1 or 3 dependent operations of ``CHAIN_CLOCKS`` clocks each at
+    ``SM_CLOCK_HZ``, counted over this round's routes (0 edge, else
+    cloud)."""
+    n_cloud_tasks = float((route != 0).sum())
+    n_edge_tasks = float(route.numel()) - n_cloud_tasks
+    ops = max(n_tasks * (1 if n == 1 else 3) for n_tasks, n in
+              ((n_edge_tasks, n_edge), (n_cloud_tasks, n_cloud)))
+    return ops * CHAIN_CLOCKS / SM_CLOCK_HZ * 1e3
 
 
 def max_abs(torch, got, want) -> float:
@@ -298,9 +322,19 @@ def kernel_phase(torch, stream, dev):
     def extra_checks(m):
         z, aq = stream.z[0, :m].contiguous(), stream.aq[0, :m].contiguous()
         cloud_down = (lat.tier_flat < 0.5).to(torch.float32)
-        return {"ccg_encode": [(ccg_encode, enc_args(z, aq),
-                                dict(enc_kw, y_ok=cloud_down))],
-                "ccg_master": [(ccg_master, master_ties(m), {})]}
+        checks = {"ccg_encode": [(ccg_encode, enc_args(z, aq),
+                                  dict(enc_kw, y_ok=cloud_down))],
+                  "ccg_master": [(ccg_master, master_ties(m), {})]}
+        # LPT: mixed routes, all-cloud ones (the a2_cloud_only policy's),
+        # and mixed ones with an edge server down
+        t_lpt, route = rand((m,), 0.001, 0.5), ints(m, 2)
+        edge_down = torch.ones(5, device=dev)
+        edge_down[1] = 0.0
+        checks["lpt_queue"] = [
+            (lpt_queue, (t_lpt, route, 4, 1), {}),
+            (lpt_queue, (t_lpt, torch.ones_like(route), 4, 1), {}),
+            (lpt_queue, (t_lpt, route, 4, 1), dict(avail=edge_down))]
+        return checks
 
     def cases(m):
         z, aq = stream.z[0, :m].contiguous(), stream.aq[0, :m].contiguous()
@@ -319,8 +353,9 @@ def kernel_phase(torch, stream, dev):
             "c6_tail": (c6_tail, (panel, ints(m, 5), ints(m, 5), ints(m, 5),
                                   route, z, aq + sys_.acc_margin_robust, rn,
                                   pn), dict(n_fps=f_k)),
-            "lpt_queue": (lpt_queue, (rand((m,), 0.001, 0.5), route, 4, 1),
-                          {}),
+            # the main path's routes: every task on the edge (ROADMAP C)
+            "lpt_queue": (lpt_queue, (rand((m,), 0.001, 0.5),
+                                      torch.zeros_like(route), 4, 1), {}),
             "ccg_encode": (ccg_encode, enc_args(z, aq), enc_kw),
             "ccg_master": (ccg_master, master_first_step(z, aq), {}),
         }
@@ -414,11 +449,14 @@ def kernel_phase(torch, stream, dev):
     c6_bytes = M * (6 * 4 + 3 * 4 + 4) + 4 * n_demote + 4 * (n_res + f_k)
     c6_flops = 11 * K * 2 * n_res + M * (4 + 2 * 7 + 4 + 2)
     # lpt_queue: t, route and the sorted order in, start out; per task the
-    # argmin over its tier's servers and one add
+    # argmin over its tier's servers and one add; and the serial chain.  On
+    # the main path's routes, and beside them on mixed ones (both tiers'
+    # walks side by side)
     _, (_, r_lpt, n_edge, n_cloud), _ = main_cases["lpt_queue"]
     on_edge = float((r_lpt == 0).sum())
     lpt_bytes = M * (4 + 4 + 8 + 4)
     lpt_flops = on_edge * n_edge + (M - on_edge) * n_cloud
+    lpt_chain = lpt_chain_ms(r_lpt, n_edge, n_cloud)
     # ccg_encode: writes the (M, P, F) slab, the (M, F) bitmask and the (M,)
     # argmax; reads z, aq, four (F,) vectors and the (K, P, F) costs.  With
     # a_max·sat per (option, version) and the (P, F, 2^K) subset lookup
@@ -446,7 +484,16 @@ def kernel_phase(torch, stream, dev):
             "ccg_master": (master_bytes, master_flops)}
     for name, (nbytes, flops) in work.items():
         rows[name]["bytes"], rows[name]["flops"] = nbytes, flops
-        rows[name]["bound_ms"], rows[name]["bound_by"] = bound(nbytes, flops)
+        rows[name]["bound_ms"], rows[name]["bound_by"] = bound(
+            nbytes, flops, chain_ms=lpt_chain if name == "lpt_queue" else 0.0)
+    rows["lpt_queue"]["bytes_ms"] = lpt_bytes / HBM_BYTES_PER_S * 1e3
+    rows["lpt_queue"]["chain_ms"] = lpt_chain
+    rows["lpt_queue"]["routes"] = "all edge (the main path's)"
+    lpt_fn, mixed_args, mixed_kw = extra[M]["lpt_queue"][0]
+    mixed = lambda: lpt_fn(*mixed_args, force="kernel", **mixed_kw)
+    rows["lpt_queue"]["mixed_ms"] = device_ms(torch, mixed, symbol["lpt_queue"])
+    rows["lpt_queue"]["mixed_chain_ms"] = lpt_chain_ms(mixed_args[1], n_edge,
+                                                       n_cloud)
     rows["ccg_solve"]["ccg_steps_in_run"] = steps
     rows["ccg_solve"]["infeasible_tasks"] = n_infeasible
     rows["c6_tail"]["feasible_demotions"] = n_demote
@@ -472,7 +519,8 @@ def attention_rows(torch, dev):
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ops import decode_attention, \
+        split_rule
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     gen = torch.Generator(dev).manual_seed(11)
@@ -588,6 +636,9 @@ def attention_rows(torch, dev):
                     + 4 * SLOTS, 4 * n_kv * h * d)
         dec["shape"] = (f"B={SLOTS} S={sl} H={h} KV={kv} D={d} bf16, "
                         f"mean length {n_kv / SLOTS:.1f}")
+        dec["splits"] = split_rule(
+            SLOTS * kv, sl, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
         # flash: the longest prefill bucket; bytes: q, k, v, out once;
         # 4·D operations per (head, causal query-key pair; the window of
         # 2048 masks none of them at 80 tokens)

@@ -55,16 +55,17 @@ _SIGNATURES = {
     # panel, r, p, v, route, z, acc_thr, rn, pn, bw, gain, can_p,
     # M, N, Z, stream
     "c6_tail_launch": [_P] * 12 + [_I, _I, _I, _P],
-    # t_comp, route, order, start, R, M, n_edge, n_cloud, stream
-    "lpt_queue_launch": [_P] * 4 + [_I] * 4 + [_P],
+    # t_comp, route, order, init (or null), start, R, M, n_edge, n_cloud,
+    # stream
+    "lpt_queue_launch": [_P] * 5 + [_I] * 4 + [_P],
     # z, aq, rn, pn, tier, y_ok, b2s, code, rec_all, best, M, F, K, P,
     # margin, stream
     "ccg_encode_launch": [_P] * 10 + [_I] * 4 + [_F, _P],
     # rec_all, scen_mask, fs_ok, c1, y_star, o_down, M, P, F, stream
     "ccg_master_launch": [_P] * 6 + [_I] * 3 + [_P],
     # q, k, v, length, out, q strides (b, h), k and v strides (b, h, s),
-    # B, H, KV, S, D, scale, dtype, stream
-    "decode_attention_launch": [_P] * 5 + [_L] * 8 + [_I] * 5 + [_F, _I, _P],
+    # B, H, KV, S, D, splits, scale, dtype, stream
+    "decode_attention_launch": [_P] * 5 + [_L] * 8 + [_I] * 6 + [_F, _I, _P],
     # q, k, v, out, q/k/v strides (b, h, s), B, H, KV, Sq, Sk, D, BQ,
     # window, causal, scale, dtype, stream
     "flash_attention_launch": [_P] * 4 + [_L] * 9 + [_I] * 9 + [_F, _I, _P],

@@ -9,14 +9,19 @@ from __future__ import annotations
 import torch
 
 
-def lpt_queue_ref(t_comp, route, order, n_edge: int, n_cloud: int):
+def lpt_queue_ref(t_comp, route, order, n_edge: int, n_cloud: int,
+                  init=None):
     """Queueing delay of every task under LPT packing, round by round.
 
     t_comp: (R, M) float32 compute times; route: (R, M) tier per task;
-    order: (R, M) the stable longest-first order (``argsort(-t_comp)``).
-    Tasks are placed in that order on the least-loaded server of their tier
-    (edge servers first, the lowest index wins ties); a task's delay is the
-    load of its server when it is placed.  Returns (R, M) float32.
+    order: (R, M) the stable longest-first order (``argsort(-t_comp)``);
+    init: optional (R, n_edge + n_cloud) starting loads (+inf for a dead
+    server), zeros when None.  Tasks are placed in that order on the
+    least-loaded server of their tier (edge servers first, the lowest index
+    wins ties; the argmin runs over every server with the other tier's
+    masked to +inf, so a task whose tier is all at +inf lands on server 0);
+    a task's delay is the load of its server when it is placed.  Returns
+    (R, M) float32.
     """
     n_rounds, m = t_comp.shape
     dev = t_comp.device
@@ -26,7 +31,7 @@ def lpt_queue_ref(t_comp, route, order, n_edge: int, n_cloud: int):
     tc_s = t_comp.gather(1, order)
     rt_s = route.long().gather(1, order)
     loads = torch.zeros((n_rounds, n_edge + n_cloud), dtype=t_comp.dtype,
-                        device=dev)
+                        device=dev) if init is None else init.clone()
     start_s = torch.empty_like(tc_s)
     for i in range(m):
         masked = torch.where(server_tier[None] == rt_s[:, i:i + 1], loads,

@@ -138,3 +138,27 @@ def test_mamba_prefill_bound_is_its_bytes(smoke):
     t, by = smoke.bound(nbytes, flops, sfu_ops=sfu)
     assert by == "bytes"
     assert 0.0165 < t < 0.0175
+
+
+@pytest.mark.parametrize("routes,n_edge,n_cloud,chain_ops", [
+    ("all_edge", 4, 1, 4096 * 3),   # the main path: add, compare, select
+    ("all_cloud", 4, 1, 4096 * 1),  # a2_cloud_only: one server, the add alone
+    ("all_edge", 7, 1, 4096 * 3),   # the sorted insert's chain at any width
+    ("half", 3, 5, 2048 * 3),       # both tiers side by side: the longer one
+    ("half", 4, 1, 2048 * 3),       # the edge's chain, not the two added
+])
+def test_lpt_bound_is_its_serial_chain(smoke, routes, n_edge, n_cloud,
+                                       chain_ops):
+    """M = 4096 tasks; a tier's tasks form one chain of 1 (one server) or 3
+    (add, compare, select on loads kept sorted) dependent operations a task
+    of 4 clocks at 1.98 GHz, the two tiers' chains side by side; the
+    chain, not the 80 KB the walk moves, bounds it."""
+    m = 4096
+    route = {"all_edge": torch.zeros(m), "all_cloud": torch.ones(m),
+             "half": torch.arange(m) % 2}[routes]
+    chain = smoke.lpt_chain_ms(route, n_edge, n_cloud)
+    assert chain == pytest.approx(chain_ops * 4 / 1.98e9 * 1e3)
+    t, by = smoke.bound(m * 20, m * n_edge, chain_ms=chain)
+    assert (t, by) == (chain, "chain")
+    if routes == "all_edge" and n_edge == 4:
+        assert 0.0248 < chain < 0.0249

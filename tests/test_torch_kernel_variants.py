@@ -21,7 +21,8 @@ def tool():
 
 
 @pytest.mark.parametrize("kernel", ["ccg_encode", "mamba_scan",
-                                    "flash_attention"])
+                                    "flash_attention", "decode_attention",
+                                    "lpt_queue"])
 @pytest.mark.parametrize("make", ["variants", "diagnostics"])
 def test_every_variant_edits_the_committed_source(tool, kernel, make):
     src = (CSRC / f"{kernel}.cu").read_text()

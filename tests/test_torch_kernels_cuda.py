@@ -19,6 +19,11 @@ the selective scan takes exp(dt·A) in base 2 on the special function unit
 and sums y in another order than torch's einsum, so both are held to
 1e-5 + 1e-5·|plain| (their outputs are float32 whatever the input dtype).
 The bf16 flash kernel copies 16-byte row chunks: misaligned rows raise.
+The decode kernel splits each cache over a cluster of blocks and combines
+the splits in a fixed order (two calls are bit-equal); bf16 rows on 16-byte
+boundaries at D = 64/128/256 take its tensor-core instantiation, other
+rows its CUDA-core ones.  ``lpt_queue`` walks sorted loads for times >= 0
+and a live cloud tier, else a tree argmin: both are exact.
 """
 import numpy as np
 import pytest
@@ -121,6 +126,82 @@ def test_lpt_queue_kernel(dev, shape):
     assert torch.equal(got, want)
 
 
+def _lpt_case(seed, shape, routes, ties):
+    """Times on a coarse grid (``ties``: loads tie often) or uniform, and
+    mixed, all-edge or all-cloud routes."""
+    rng = _gen(seed)
+    if ties:
+        t = (rng.integers(1, 5, shape) * 0.125).astype(np.float32)
+    else:
+        t = rng.uniform(0.01, 1.0, shape).astype(np.float32)
+    route = {"mixed": rng.integers(0, 2, shape),
+             "all_edge": np.zeros(shape), "all_cloud": np.ones(shape)}[routes]
+    return t, route.astype(np.int32)
+
+
+@pytest.mark.parametrize("routes", ["mixed", "all_edge", "all_cloud"])
+@pytest.mark.parametrize("n_edge,n_cloud", [(1, 1), (2, 2), (4, 1), (7, 1),
+                                            (3, 5)])
+def test_lpt_queue_kernel_server_splits(dev, n_edge, n_cloud, routes):
+    """The specialised 4 + 1 walk and the generic one on every other split,
+    on tie-heavy times: equal to the plain version bit for bit, one launch."""
+    t, route = _lpt_case(n_edge * 8 + n_cloud, (2, 4096), routes, ties=True)
+    reset_launch_counts()
+    got = lpt_queue(_t(t, dev), _t(route, dev), n_edge, n_cloud,
+                    force="kernel")
+    assert launch_counts() == {"lpt_queue": 1}
+    want = lpt_queue(_t(t, dev), _t(route, dev), n_edge, n_cloud,
+                     force="ref")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [4096, 4093, "max"])
+def test_lpt_queue_kernel_task_counts(dev, m):
+    """M a multiple of the walk's 32-task batches, ragged, and the
+    wrapper's largest."""
+    from repro_torch.kernels.lpt_queue.ops import MAX_TASKS
+
+    m = MAX_TASKS if m == "max" else m
+    t, route = _lpt_case(m, (m,), "mixed", ties=False)
+    got = lpt_queue(_t(t, dev), _t(route, dev), 4, 1, force="kernel")
+    want = lpt_queue(_t(t, dev), _t(route, dev), 4, 1, force="ref")
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        lpt_queue(torch.zeros(MAX_TASKS + 1, device=dev),
+                  torch.zeros(MAX_TASKS + 1, dtype=torch.int32, device=dev),
+                  4, 1, force="kernel")
+
+
+@pytest.mark.parametrize("n_edge,n_cloud", [(4, 1), (3, 5)])
+def test_lpt_queue_kernel_tree_walk(dev, n_edge, n_cloud):
+    """Times below zero (and a -0.0) send the kernel down its tree walk,
+    whose picks must equal the plain version's too."""
+    t, route = _lpt_case(n_cloud, (2, 4093), "mixed", ties=True)
+    t[:, ::7] *= -1.0
+    t[1, 5] = -0.0
+    got = lpt_queue(_t(t, dev), _t(route, dev), n_edge, n_cloud,
+                    force="kernel")
+    want = lpt_queue(_t(t, dev), _t(route, dev), n_edge, n_cloud,
+                     force="ref")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_edge,n_cloud,dead", [
+    (4, 1, (1,)),          # one edge server down
+    (4, 1, (4,)),          # the cloud tier down: its tasks land on server 0
+    (2, 2, (0, 1, 3)),     # the edge tier down, one cloud server left
+])
+def test_lpt_queue_kernel_availability(dev, n_edge, n_cloud, dead):
+    """Dead servers start at +inf load, as the reference's ``avail``."""
+    t, route = _lpt_case(sum(dead), (3, 4093), "mixed", ties=True)
+    avail = np.ones((3, n_edge + n_cloud), np.float32)
+    avail[1:, list(dead)] = 0.0
+    args = (_t(t, dev), _t(route, dev), n_edge, n_cloud)
+    got = lpt_queue(*args, avail=_t(avail, dev), force="kernel")
+    want = lpt_queue(*args, avail=_t(avail, dev), force="ref")
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dead", [None, 1])
 @pytest.mark.parametrize("m", [4096, 4093, 37])
 def test_ccg_encode_kernel(dev, m, dead):
@@ -191,6 +272,72 @@ def test_decode_attention_kernel(dev, dtype, b, h, kv, s, d):
     length[0], length[-1] = 1, s
     length = _t(length.astype(np.int32), dev)
     k_c, v_c = k_slab.permute(0, 2, 1, 3), v_slab.permute(0, 2, 1, 3)
+    reset_launch_counts()
+    got = decode_attention(q, k_c, v_c, length, force="kernel")
+    assert launch_counts() == {"decode_attention": 1}
+    want = decode_attention(q, k_c, v_c, length, force="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+
+
+def _decode_case(seed, b, h, kv, s, d, dtype, dev, lengths):
+    rng = _gen(seed)
+    q = _normal(rng, (b, h, d), dtype, dev)
+    k_c = _normal(rng, (b, s, kv, d), dtype, dev).permute(0, 2, 1, 3)
+    v_c = _normal(rng, (b, s, kv, d), dtype, dev).permute(0, 2, 1, 3)
+    return q, k_c, v_c, _t(np.asarray(lengths, np.int32), dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", ["ones", "full"])
+@pytest.mark.parametrize("b,h,kv,s,d", [
+    (16, 32, 8, 144, 128),     # the cloud tier's slab
+    (16, 16, 1, 80, 256),      # RecurrentGemma's slab
+    (2, 16, 1, 2048, 256),     # RecurrentGemma's window: 8 tiles a split
+])
+def test_decode_attention_kernel_lengths(dev, dtype, lengths, b, h, kv, s, d):
+    """Every row at length 1 (one split holds the entry, the rest are
+    empty) or at length S (every split full)."""
+    q, k_c, v_c, length = _decode_case(s + d, b, h, kv, s, d, dtype, dev,
+                                       [1 if lengths == "ones" else s] * b)
+    reset_launch_counts()
+    got = decode_attention(q, k_c, v_c, length, force="kernel")
+    assert launch_counts() == {"decode_attention": 1}
+    want = decode_attention(q, k_c, v_c, length, force="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_long_cache_and_empty_row(dev, dtype):
+    """B 2 over RecurrentGemma's 2048-entry window at ragged lengths, and a
+    row of length 0, which gives zeros (the plain version's softmax over
+    masked entries would average V); two calls are bit-equal, since the
+    splits are combined in a fixed order."""
+    b, h, kv, s, d = 3, 16, 1, 2048, 256
+    q, k_c, v_c, length = _decode_case(7, b, h, kv, s, d, dtype, dev,
+                                       [1537, 0, 2048])
+    got = decode_attention(q, k_c, v_c, length, force="kernel")
+    again = decode_attention(q, k_c, v_c, length, force="kernel")
+    want = decode_attention(q, k_c, v_c, length, force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    torch.testing.assert_close(got[::2].float(), want[::2].float(),
+                               **_ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_generic_pieces(dev, dtype):
+    """Rows that do not start on 16-byte boundaries (a slab two elements
+    into its buffer) take the kernel's 4-byte instantiation, not the plain
+    version."""
+    rng = _gen(3)
+    b, h, kv, s, d = 4, 8, 2, 50, 64
+    buf = _normal(rng, (2, b * s * kv * d + 2), dtype, dev)
+    k_c, v_c = (x[2:].view(b, s, kv, d).permute(0, 2, 1, 3) for x in buf)
+    q = _normal(rng, (b, h, d), dtype, dev)
+    length = _t(np.array([50, 1, 17, 33], np.int32), dev)
     reset_launch_counts()
     got = decode_attention(q, k_c, v_c, length, force="kernel")
     assert launch_counts() == {"decode_attention": 1}

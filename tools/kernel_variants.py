@@ -3,7 +3,8 @@
 NVIDIA GPU.
 
     python3 tools/kernel_variants.py [--kernel ccg_encode|mamba_scan|
-                                      flash_attention] [--rounds 2]
+                                      flash_attention|decode_attention|
+                                      lpt_queue] [--rounds 2]
                                      [--diagnose] [--reps 200]
 
 Builds each kernel as committed (``src/repro_torch/kernels/csrc/``) and
@@ -27,15 +28,27 @@ timed.
                    keys16         tiles of 16 keys
                    no_min_blocks  registers not capped (committed: for 4
                                   blocks an SM, 2 at D = 256)
+  decode_attention committed      the wrapper's split rule (3 / 2 / 5
+                                  splits at the cloud / edge /
+                                  RecurrentGemma slabs)
+                   splits2/4/8    2, 4 or 8 splits at every shape
+  lpt_queue        committed      the sorted walk where the inputs allow it
+                                  (each tier's loads kept sorted by load and
+                                  index), else the tree walk
+                   tree           the tree walk always: a balanced-tree
+                                  argmin over a tier's loads each task
+                   linear         the tree walk with a linear chain of
+                                  compare-selects for the argmin
 
 ``ccg_encode`` runs at M = 4096 on round 0 of the seeded stream that
-``chip_smoke.py`` serves: it must equal the plain version exactly, and is
-timed by CUDA events around ``--reps`` back-to-back launches (median of
-five).  ``mamba_scan`` and ``flash_attention`` go through
-``chip_smoke.py``'s own checks and timings with the variant's library in
-place of ``_build.library()``: every case of the kernel-vs-plain comparison
-within its tolerance, the device time (profiler) and the call time (CUDA
-events) at the serving shapes.
+``chip_smoke.py`` serves, ``lpt_queue`` at M = 4096 on all-edge routes (the
+main path's) and on mixed ones: each must equal the plain version exactly,
+and is timed by CUDA events around ``--reps`` back-to-back launches (median
+of five).  ``mamba_scan``, ``flash_attention`` and ``decode_attention`` go
+through ``chip_smoke.py``'s own checks and timings with the variant's
+library in place of ``_build.library()``: every case of the kernel-vs-plain
+comparison within its tolerance, the device time (profiler) and the call
+time (CUDA events) at the serving shapes.
 
 With ``--diagnose`` it builds instead variants that drop one part of the
 work, compute wrong results on purpose and are only timed, to show where a
@@ -53,6 +66,14 @@ kernel's time goes:
   flash_attention  no_mma         no tensor-core product
                    no_loads       no copy into shared memory
                    no_stores      no output store
+  decode_attention no_combine     each split's own partial out: no cluster
+                                  sync, no distributed shared memory
+                   no_cluster     the same, launched without clusters
+                   no_loads       no copy of K/V into shared memory
+  lpt_queue        no_prefetch    each batch of 32 tasks read from shared
+                                  memory as its walk starts, not a batch
+                                  ahead
+                   no_walk        gather and scatter only
 
 Prints one JSON line per (round, variant) and, last, the card's name and
 power limit.  Exits 1 without CUDA.
@@ -101,6 +122,36 @@ MMA = '''  asm(
 CP_ASYNC = ('asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" '
             '::"r"(dst),')
 STORE_SKIP = "    if (off < 0) continue;\n    *reinterpret_cast<uint4*>(out"
+# decode_attention.cu
+LAUNCH_STREAM = "cudaStream_t st = (cudaStream_t)stream;"
+PEER_M = "      if (r < splits) {\n        m_i[r] = *peer(m_s + g, r);"
+PEER_ACC = ("      if (r < splits) {\n"
+            "        const float w = exp2f(m_i[r] - m);")
+PEER = ("auto peer = [&](float* p, int r) { return cluster.map_shared_rank(p, "
+        "r); };")
+SYNC_READY = "cluster.sync();                            // every split's"
+SYNC_DONE = "cluster.sync();                            // peers done"
+CLUSTER_ATTR = "cfg.numAttrs = 1;"
+CP16 = 'asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(d),'
+# lpt_queue.cu
+TREE = """  for (int w = 1; w < N; w *= 2) {
+#pragma unroll
+    for (int i = 0; i + w < N; i += 2 * w) {
+      const bool right = val[i + w] < val[i];
+      val[i] = right ? val[i + w] : val[i];
+      idx[i] = right ? idx[i + w] : idx[i];
+    }
+  }"""
+LINEAR = """  for (int i = 1; i < N; ++i) {
+    const bool right = val[i] < val[0];
+    val[0] = right ? val[i] : val[0];
+    idx[0] = right ? idx[i] : idx[0];
+  }"""
+AHEAD = ("      t[4 * u] = next[u].x;\n      t[4 * u + 1] = next[u].y;\n"
+         "      t[4 * u + 2] = next[u].z;\n      t[4 * u + 3] = next[u].w;\n")
+SORTED_WALK = "const bool sorted = !odd & cloud_alive;"
+WALKERS = ("(tid == 0) & (n_edge_tasks > 0)", "(tid == 32) & (n_cloud_tasks > 0)",
+           "} else if (!sorted & (tid == 0)) {")
 
 
 def edit(src: str, *pairs) -> str:
@@ -133,6 +184,15 @@ def variants(kernel: str, src: str) -> dict:
             "unroll8": edit(src, (UNROLL, UNROLL.replace("4", "8", 1))),
             "tile64": edit(src, (TILE, TILE.replace("32", "64"))),
         }
+    if kernel == "decode_attention":
+        return {"committed": src, **{
+            f"splits{n}": edit(src, (LAUNCH_STREAM, f"splits = min({n}, S);"
+                                     f"\n  {LAUNCH_STREAM}"))
+            for n in (2, 4, 8)}}
+    if kernel == "lpt_queue":
+        tree = edit(src, (SORTED_WALK, "const bool sorted = false;"))
+        return {"committed": src, "tree": tree,
+                "linear": edit(tree, (TREE, LINEAR))}
     return {
         "committed": src,
         "keys64": edit(src, (KEYS, KEYS.replace("32", "64"))),
@@ -169,6 +229,26 @@ def diagnostics(kernel: str, src: str) -> dict:
                 ("i < nt * kChannels; i += kThreads",
                  "i < 0; i += kThreads")),
         }
+    if kernel == "decode_attention":
+        no_combine = ((PEER_M, PEER_M.replace("r < splits", "r < 1")),
+                      (PEER_ACC, PEER_ACC.replace("r < splits", "r < 1")),
+                      (PEER, "auto peer = [&](float* p, int r) { return p; };"),
+                      (SYNC_READY, "__syncthreads();  // "),
+                      (SYNC_DONE, "// "))
+        return {
+            "committed": src,
+            "no_combine": edit(src, *no_combine),
+            "no_cluster": edit(src, *no_combine,
+                               (CLUSTER_ATTR, "cfg.numAttrs = 0;")),
+            "no_loads": edit(src, (CP16, "if (d == 1u) " + CP16)),
+        }
+    if kernel == "lpt_queue":
+        return {"committed": src,
+                "no_prefetch": edit(src, (AHEAD, "".join(
+                    f"      t[4 * u + {k}] = times[i0 + 4 * u + {k}];\n"
+                    for k in range(4)))),
+                "no_walk": edit(src, *((w, "(tid < 0)") for w in WALKERS[:2]),
+                                (WALKERS[2], "} else if (tid < 0) {"))}
     return {
         "committed": src,
         "no_mma": edit(src, (MMA, "  c[0] += __uint_as_float((a[0] ^ a[1] ^ "
@@ -284,20 +364,73 @@ class CcgEncode:
         return {"ms": statistics.median(times), "exact_vs_plain": exact}
 
 
+class LptQueue:
+    """``lpt_queue`` at M = 4096, launched through its entry point on the
+    sorted order the wrapper computes, with a sentinel output: all-edge
+    routes, as the main path's, and mixed ones."""
+
+    def __init__(self, torch, reps: int):
+        from repro_torch.kernels.lpt_queue.ops import lpt_queue
+
+        self.torch, self.reps = torch, reps
+        dev = self.dev = torch.device("cuda")
+        gen = torch.Generator().manual_seed(5)
+        t = (torch.rand(M, generator=gen) * 0.5 + 0.001).to(dev)
+        self.cases = {}
+        for routes in ("all_edge", "mixed"):
+            route = (torch.zeros(M, dtype=torch.int32) if routes == "all_edge"
+                     else torch.randint(0, 2, (M,), generator=gen,
+                                        dtype=torch.int32)).to(dev)
+            self.cases[routes] = (t, route, torch.argsort(-t, stable=True),
+                                  lpt_queue(t, route, 4, 1, force="ref"))
+
+    def __call__(self, lib, exact_required: bool) -> dict:
+        from repro_torch.kernels import _build
+
+        torch, rec = self.torch, {}
+        for routes, (t, route, order, want) in self.cases.items():
+            start = torch.full_like(t, float("nan"))
+            call = [t.data_ptr(), route.data_ptr(), order.data_ptr(), None,
+                    start.data_ptr(), 1, M, 4, 1, _build.stream_ptr(self.dev)]
+            fn = lib.lpt_queue_launch
+            _build.check(fn(*call), "lpt_queue")
+            torch.cuda.synchronize()
+            exact = torch.equal(start, want)
+            if exact_required and not exact:
+                return {"outside_tolerance": f"{routes}: differs from the "
+                                             f"plain version"}
+            times = []
+            for _ in range(5):
+                begin = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                begin.record()
+                for _ in range(self.reps):
+                    fn(*call)
+                end.record()
+                end.synchronize()
+                times.append(begin.elapsed_time(end) / self.reps)
+            rec[routes] = {"ms": statistics.median(times),
+                           "exact_vs_plain": exact}
+        return rec
+
+
 class SmokeRows:
-    """``mamba_scan`` or ``flash_attention`` through ``chip_smoke.py``'s
-    checks and timings (``scan_rows`` / ``attention_rows``), or, for a
-    diagnostic variant, its device time alone at the serving shapes."""
+    """``mamba_scan``, ``flash_attention`` or ``decode_attention`` through
+    ``chip_smoke.py``'s checks and timings (``scan_rows`` /
+    ``attention_rows``), or, for a diagnostic variant, its device time
+    alone at the serving shapes."""
 
     KEYS = ("ms", "ms_from", "call_ms", "max_abs_err", "max_abs_err_float32")
 
     def __init__(self, torch, chip_smoke, kernel: str):
+        from repro_torch.kernels.decode_attention.ops import decode_attention
         from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.mamba_scan.ops import selective_scan
 
         self.torch, self.chip_smoke, self.kernel = torch, chip_smoke, kernel
-        self.fn = (selective_scan if kernel == "mamba_scan"
-                   else flash_attention)
+        self.fn = {"mamba_scan": selective_scan,
+                   "flash_attention": flash_attention,
+                   "decode_attention": decode_attention}[kernel]
         dev = self.dev = torch.device("cuda")
         gen = torch.Generator(dev).manual_seed(13)
 
@@ -306,7 +439,20 @@ class SmokeRows:
                                         device=dev)).to(dtype)
 
         bf16 = torch.bfloat16
-        if kernel == "flash_attention":
+        if kernel == "decode_attention":
+            # the slabs at ragged lengths 1..S, read through permuted views
+            self.shapes = {}
+            for tier, (h, kv, d, s) in {
+                    "cloud": (32, 8, 128, 144), "edge": (16, 16, 64, 144),
+                    "recurrentgemma": (16, 1, 256, 80)}.items():
+                length = torch.randint(1, s + 1, (16,), generator=gen,
+                                       device=dev, dtype=torch.int32)
+                self.shapes[tier] = ((
+                    normal(16, h, d, dtype=bf16),
+                    normal(16, s, kv, d, dtype=bf16).permute(0, 2, 1, 3),
+                    normal(16, s, kv, d, dtype=bf16).permute(0, 2, 1, 3),
+                    length), {})
+        elif kernel == "flash_attention":
             self.shapes = {
                 tier: ((normal(8, 80, h, d, dtype=bf16).transpose(1, 2),
                         normal(8, 80, kv, d, dtype=bf16).transpose(1, 2),
@@ -350,7 +496,9 @@ class SmokeRows:
         return rec
 
 
-KERNELS = ("ccg_encode", "mamba_scan", "flash_attention")
+KERNELS = ("ccg_encode", "mamba_scan", "flash_attention", "decode_attention",
+           "lpt_queue")
+EVENT_TIMED = {"ccg_encode": CcgEncode, "lpt_queue": LptQueue}
 
 
 def main() -> int:
@@ -360,7 +508,7 @@ def main() -> int:
     ap.add_argument("--diagnose", action="store_true",
                     help="time the variants that drop one part of the work")
     ap.add_argument("--reps", type=int, default=200,
-                    help="ccg_encode launches per timing")
+                    help="ccg_encode / lpt_queue launches per timing")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -374,7 +522,7 @@ def main() -> int:
     kernels = args.kernel or list(KERNELS)
     libs = build(kernels, args.diagnose)
     library = _build.library
-    runs = {k: CcgEncode(torch, args.reps) if k == "ccg_encode"
+    runs = {k: EVENT_TIMED[k](torch, args.reps) if k in EVENT_TIMED
             else SmokeRows(torch, chip_smoke, k) for k in kernels}
     try:
         for rnd in range(args.rounds):
