@@ -34,7 +34,8 @@ Phases, one JSON line each; any failure exits non-zero:
                  bound: the larger of its bytes and its compute, where
                  exponentials and square roots may be split between the
                  special-function units and polynomials on the CUDA cores,
-                 and for lpt_queue the serial chain of its walk.
+                 and for lpt_queue and ccg_solve the serial chain of the
+                 walk or of the CCG steps' dependent reductions.
 4. ``main_path`` ``make_policy("r2evid") → ServeSession.run`` on M = 4096
                  streams for R = 16 rounds of a seeded ``sample_stream``, with
                  random seeded gate weights, launch counters zeroed just
@@ -84,11 +85,12 @@ Phases, one JSON line each; any failure exits non-zero:
                  width and depth in bf16; launches: mamba_scan = layers ×
                  (prefills + decode steps), rglru_scan likewise,
                  flash_attention and decode_attention = attention layers ×
-                 prefills and × decode steps.  Its routed round takes the
-                 first 64 streams, not 256, and its profiled windows 2
-                 calls, not 5: the plain selective scan is a Python loop
-                 over the steps of every layer (~1 s for an 8 × 80
-                 prefill), and every id flip is replayed on it.
+                 prefills and × decode steps (each kernel's row splits its
+                 launches by the call: ``launches_by_call``).  Its routed
+                 round takes the first 64 streams, not 256, and its
+                 profiled windows 2 calls, not 5: the plain selective scan
+                 is a Python loop over the steps of every layer (~1 s for
+                 an 8 × 80 prefill), and every id flip is replayed on it.
 
 The last three lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``--out DIR`` also
@@ -220,8 +222,8 @@ def bound(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S,
           sfu_ops: float = 0.0, chain_ms: float = 0.0):
     """The least time (ms) the card could take: the largest of the bytes
     over the memory rate, ``compute_ms`` and ``chain_ms`` (a serial chain of
-    dependent operations, see ``lpt_chain_ms``); and which term it is
-    ("bytes", "operations", "sfu" or "chain")."""
+    dependent operations, see ``lpt_chain_ms`` and ``ccg_chain_ms``); and
+    which term it is ("bytes", "operations", "sfu" or "chain")."""
     terms = [(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
              compute_ms(flops, flop_per_s, sfu_ops), (chain_ms, "chain")]
     return max(terms, key=lambda term: term[0])
@@ -241,6 +243,24 @@ def lpt_chain_ms(route, n_edge: int, n_cloud: int) -> float:
     n_edge_tasks = float(route.numel()) - n_cloud_tasks
     ops = max(n_tasks * (1 if n == 1 else 3) for n_tasks, n in
               ((n_edge_tasks, n_edge), (n_cloud_tasks, n_cloud)))
+    return ops * CHAIN_CLOCKS / SM_CLOCK_HZ * 1e3
+
+
+def ccg_chain_ms(iters: int, n_opts: int, n_poles: int,
+                 n_versions: int) -> float:
+    """The least time (ms) of the CCG solve's serial chain.  Tasks run side
+    by side, so the run's largest iteration count ``iters`` sets it.  A
+    step is the master's argmin over the options (⌈log₂F⌉ compare-select
+    levels), then the worst pole over the poles (⌈log₂P⌉), then the bound
+    update (1); before the steps the encode's reduction over the options
+    (⌈log₂F⌉), after them the epilogue's worst pole and v* over the
+    versions (⌈log₂P⌉ + ⌈log₂K⌉); ``CHAIN_CLOCKS`` clocks a level at
+    ``SM_CLOCK_HZ``."""
+    def levels(n):
+        return math.ceil(math.log2(n)) if n > 1 else 0
+
+    f, p, k = levels(n_opts), levels(n_poles), levels(n_versions)
+    ops = iters * (f + p + 1) + f + p + k
     return ops * CHAIN_CLOCKS / SM_CLOCK_HZ * 1e3
 
 
@@ -422,7 +442,9 @@ def kernel_phase(torch, stream, dev):
     _, args, kw = main_cases["ccg_solve"]
     solved = ccg_solve(*args, force="kernel", **kw)
     steps = float(solved[4].sum())
+    max_iters = int(solved[4].max())
     n_infeasible = float(solved[5].sum())
+    ccg_chain = ccg_chain_ms(max_iters, F, P, K)
     # ccg_solve.  Tables, once: a_max·sat per (option, version), the pole-
     # scaled costs (P, K, F) and the recourse of every version subset
     # (P, F, 2^K), one min each.  Per task: the threshold and the two z
@@ -482,10 +504,11 @@ def kernel_phase(torch, stream, dev):
             "lpt_queue": (lpt_bytes, lpt_flops),
             "ccg_encode": (enc_bytes, enc_flops),
             "ccg_master": (master_bytes, master_flops)}
+    chains = {"lpt_queue": lpt_chain, "ccg_solve": ccg_chain}
     for name, (nbytes, flops) in work.items():
         rows[name]["bytes"], rows[name]["flops"] = nbytes, flops
         rows[name]["bound_ms"], rows[name]["bound_by"] = bound(
-            nbytes, flops, chain_ms=lpt_chain if name == "lpt_queue" else 0.0)
+            nbytes, flops, chain_ms=chains.get(name, 0.0))
     rows["lpt_queue"]["bytes_ms"] = lpt_bytes / HBM_BYTES_PER_S * 1e3
     rows["lpt_queue"]["chain_ms"] = lpt_chain
     rows["lpt_queue"]["routes"] = "all edge (the main path's)"
@@ -495,6 +518,9 @@ def kernel_phase(torch, stream, dev):
     rows["lpt_queue"]["mixed_chain_ms"] = lpt_chain_ms(mixed_args[1], n_edge,
                                                        n_cloud)
     rows["ccg_solve"]["ccg_steps_in_run"] = steps
+    rows["ccg_solve"]["max_iters_in_run"] = max_iters
+    rows["ccg_solve"]["chain_ms"] = ccg_chain
+    rows["ccg_solve"]["operations_ms"] = compute_ms(ccg_flops)[0]
     rows["ccg_solve"]["infeasible_tasks"] = n_infeasible
     rows["c6_tail"]["feasible_demotions"] = n_demote
     rows["ccg_master"]["inputs"] = (
@@ -506,6 +532,8 @@ def kernel_phase(torch, stream, dev):
     dx = main_cases["gate_cell"][1][0]
     w_x, _ = pack_weights(gp)
     rows["gate_cell"]["library_ms"] = event_ms(torch, lambda: dx @ w_x, 50)
+    rows["gate_cell"]["library_device_ms"] = device_ms(torch,
+                                                       lambda: dx @ w_x)
     rows["gate_cell"]["library_call"] = (
         "torch.matmul(dx, W_x), the packed (35, 96) GEMM only: no single "
         "PyTorch call computes the gate cell")
@@ -665,13 +693,15 @@ def attention_rows(torch, dev):
     return rows
 
 
-def scan_rows(torch, dev):
-    """mamba_scan and rglru_scan against their plain versions at the
-    recurrent tier pools' shapes (a decode step of 16 slots and the longest
-    prefill, 8 × 80) and at ragged ones (S = 1 and 37, channels not a
-    multiple of the 128-channel block), x in bf16 and in float32, h0 given
-    and None, and with h_out aliasing h0 (the decode step's in-place
-    update); then timed at the decode step, the prefill beside it."""
+def scan_rows(torch, dev, names=("mamba_scan", "rglru_scan")):
+    """mamba_scan and rglru_scan (or those of ``names``) against their
+    plain versions at the recurrent tier pools' shapes (a decode step of 16
+    slots and the longest prefill, 8 × 80) and at ragged ones (S = 1 and
+    37, channels not a multiple of a block's; for rglru_scan also S = 4,
+    the direct kernel's longest, and S = 129 at W = 203, the staged
+    kernel's generic staging), x in bf16 and in float32, h0 given and
+    None, and with h_out aliasing h0 (the decode step's in-place update);
+    then timed at the decode step, the prefill beside it."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.mamba_scan.ops import selective_scan
     from repro_torch.kernels.rglru.ops import rglru_scan
@@ -708,11 +738,13 @@ def scan_rows(torch, dev):
                        [(3, 37, 200, n), (2, 1, 130, 4)], 64),
         "rglru_scan": (rglru_scan, rglru_case,
                        {"decode": (SLOTS, 1, w), "prefill": (8, 80, w)},
-                       [(3, 37, 200), (2, 1, 130)], 26),
+                       [(3, 37, 200), (2, 1, 130), (2, 4, 200),
+                        (2, 129, 203)], 26),
     }
     bf16, f32 = torch.bfloat16, torch.float32
     rows = {}
-    for name, (fn, make, path, ragged, layers) in kernels.items():
+    for name in names:
+        fn, make, path, ragged, layers = kernels[name]
         errs, n_cases, bit_equal = {"bfloat16": 0.0, "float32": 0.0}, 0, True
         for shape in (*path.values(), *ragged):
             for dt in (bf16, f32):
@@ -1212,15 +1244,24 @@ LAYER_KERNELS = {"attn": ("flash_attention", "decode_attention"),
 
 
 def expected_launches(cfgs: dict, calls: dict) -> dict:
-    """Launches per kernel = layers of its kind × calls, summed over the
-    tiers; ``calls``: {tier: (prefills, decode steps)}."""
+    """Launches per (kernel, "prefill" or "decode") = layers of its kind ×
+    calls of that kind, summed over the tiers; ``calls``: {tier:
+    (prefills, decode steps)}."""
     want = collections.Counter()
     for t, (prefills, steps) in calls.items():
         for kind, n in collections.Counter(cfgs[t].layer_kinds()).items():
             on_prefill, on_step = LAYER_KERNELS[kind]
-            want[on_prefill] += n * prefills
-            want[on_step] += n * steps
+            want[on_prefill, "prefill"] += n * prefills
+            want[on_step, "decode"] += n * steps
     return {k: v for k, v in want.items() if v}
+
+
+def per_kernel(by_call: dict) -> dict:
+    """{(kernel, kind): n} summed over the kinds: {kernel: n}."""
+    out = collections.Counter()
+    for (name, _), n in by_call.items():
+        out[name] += n
+    return dict(out)
 
 
 def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
@@ -1330,11 +1371,12 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
             zip(routed["route"].tolist(), routed["r"].tolist()))]
             if which == "routed" else mixed)
         ids_k, stats_k, launches, calls, wall_k = run(True, which)
-        want = expected_launches(cfgs, calls)
+        by_call = expected_launches(cfgs, calls)
+        want = per_kernel(by_call)
         if launches != want:
             raise AssertionError(f"{phase} ({which}) launched {launches}, "
                                  f"want {want} (layers × calls {calls})")
-        totals.update(launches)
+        totals.update(by_call)
         ids_p, stats_p, plain_launches, _, wall_p = run(False, which)
         if plain_launches:
             raise AssertionError("force='ref' pools launched a kernel")
@@ -1501,10 +1543,10 @@ def main() -> int:
     record(solve_rec)
     record(policies_phase(torch, dev, stream, reset_launch_counts,
                           launch_counts))
-    dispatch_launches, dispatch_rec = dispatch_phase(
+    dispatch_by_call, dispatch_rec = dispatch_phase(
         torch, dev, stream, reset_launch_counts, launch_counts)
     record(dispatch_rec)
-    recurrent_launches, recurrent_rec = dispatch_phase(
+    recurrent_by_call, recurrent_rec = dispatch_phase(
         torch, dev, stream, reset_launch_counts, launch_counts,
         phase="dispatch_recurrent",
         archs=("falcon-mamba-7b", "recurrentgemma-9b"), m=64, trace_reps=2)
@@ -1514,13 +1556,20 @@ def main() -> int:
     # the slice-1 kernels, the cold and the warm solve for ccg_encode and
     # ccg_master, the kernel-path request sets of the two dispatch phases
     # for the attention kernels and the scans
+    # (the dispatch phases' counts, checked against layers × calls, split
+    # by the call that launched them: prefill or decode step)
     phases = {"main_path": launches, "solve_ccg": solve_launches,
-              "dispatch": dispatch_launches,
-              "dispatch_recurrent": recurrent_launches}
+              "dispatch": per_kernel(dispatch_by_call),
+              "dispatch_recurrent": per_kernel(recurrent_by_call)}
     for name, row in rows.items():
         by_phase = {ph: c[name] for ph, c in phases.items() if c.get(name)}
         row["launches"] = sum(by_phase.values())
         row["launches_by_phase"] = by_phase
+        by_call = {kind: sum(c.get((name, kind), 0) for c in
+                             (dispatch_by_call, recurrent_by_call))
+                   for kind in ("prefill", "decode")}
+        if any(by_call.values()):
+            row["launches_by_call"] = by_call
     kernels = {"kernels": list(rows.values())}
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(

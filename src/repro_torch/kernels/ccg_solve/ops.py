@@ -8,8 +8,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ccg_solve.ref import ccg_solve_ref
 
-BLOCK_M = 8       # tasks per CUDA block (one warp each)
-
 
 def ccg_solve(z, aq, rn_flat, pn_flat, tier_flat, b2_flat, u_all, c1_flat,
               warm_y, *, margin: float, num_versions: int, max_iters: int = 8,
@@ -19,8 +17,8 @@ def ccg_solve(z, aq, rn_flat, pn_flat, tier_flat, b2_flat, u_all, c1_flat,
     z/aq: (M,) float32; rn/pn/tier_flat, c1_flat: (F,); b2_flat: (F, K);
     u_all: (P, K) pole deviations; warm_y: (M,) int32 flat warm starts
     (-1 = cold).  Every option is available.  The kernel takes
-    F <= 64, K <= 8 and P <= 32.  M is padded up to the block with cold,
-    zero-difficulty lanes, sliced off on return.
+    F <= 64, K <= 8 and P <= 32, and any M (one warp a task); K <= 5 takes
+    its table instantiation, a larger K its generic one.
     """
     if not _build.dispatch("ccg_solve", force, z.device):
         return ccg_solve_ref(z, aq, rn_flat, pn_flat, tier_flat, b2_flat,
@@ -33,28 +31,25 @@ def ccg_solve(z, aq, rn_flat, pn_flat, tier_flat, b2_flat, u_all, c1_flat,
             or warm_y.shape != (m,) or not (f <= 64 and k <= 8 and p <= 32):
         raise ValueError("ccg_solve kernel: inconsistent shapes or F > 64, "
                          "K > 8, P > 32")
-    pad = (-m) % BLOCK_M
-    lanes = [_build.pad_rows(z, pad), _build.pad_rows(aq, pad)]
-    wy = _build.pad_rows(warm_y, pad, value=-1)
     tables = [rn_flat, pn_flat, tier_flat, _build.all_ones(f, z.device),
               b2_flat.t().contiguous(), u_all.contiguous(), c1_flat]
-    _build.check_cuda("ccg_solve", *lanes, wy, *tables)
+    _build.check_cuda("ccg_solve", z, aq, warm_y, *tables)
     _build.check_dtype("ccg_solve", torch.float32,
-                       **{f"operand{i}": t for i, t in enumerate(lanes + tables)})
-    _build.check_dtype("ccg_solve", torch.int32, warm_y=wy)
-    mp = m + pad
+                       **{f"operand{i}": t for i, t in enumerate([z, aq]
+                                                                 + tables)})
+    _build.check_dtype("ccg_solve", torch.int32, warm_y=warm_y)
     dev = z.device
-    outs = [torch.empty((mp,), dtype=dt, device=dev) for dt in
+    outs = [torch.empty((m,), dtype=dt, device=dev) for dt in
             (torch.int32, torch.int32, torch.float32, torch.float32,
              torch.int32, torch.int32)]
     n_steps = min(max_iters, p + 1)
     lib = _build.library()
     code = lib.ccg_solve_launch(
-        lanes[0].data_ptr(), lanes[1].data_ptr(), wy.data_ptr(),
+        z.data_ptr(), aq.data_ptr(), warm_y.data_ptr(),
         *[t.data_ptr() for t in tables], *[o.data_ptr() for o in outs],
-        mp, f, k, p, n_steps, float(margin), float(theta),
+        m, f, k, p, n_steps, float(margin), float(theta),
         _build.stream_ptr(dev))
     _build.check(code, "ccg_solve")
     _build.LAUNCHES["ccg_solve"] += 1
-    y_f, v_star, o_up, o_down, iters, infeas = (o[:m] for o in outs)
+    y_f, v_star, o_up, o_down, iters, infeas = outs
     return y_f, v_star, o_up, o_down, iters, infeas > 0

@@ -162,3 +162,29 @@ def test_lpt_bound_is_its_serial_chain(smoke, routes, n_edge, n_cloud,
     assert (t, by) == (chain, "chain")
     if routes == "all_edge" and n_edge == 4:
         assert 0.0248 < chain < 0.0249
+
+
+@pytest.mark.parametrize("iters,n_opts,n_poles,n_versions,levels", [
+    (8, 50, 16, 5, 8 * (6 + 4 + 1) + 6 + 4 + 3),   # the paper's lattice
+    (3, 50, 16, 5, 3 * 11 + 13),                    # an early-exit run
+    (1, 64, 32, 8, 1 * (6 + 5 + 1) + 6 + 5 + 3),
+    (2, 2, 1, 1, 2 * (1 + 0 + 1) + 1 + 0 + 0),      # one pole, one version
+])
+def test_ccg_chain_counts_the_dependent_reductions(smoke, iters, n_opts,
+                                                   n_poles, n_versions,
+                                                   levels):
+    """Per CCG step the argmin over F (⌈log₂F⌉ levels), the worst pole over
+    P (⌈log₂P⌉) and the bound update; the encode's reduction over F and
+    the epilogue's worst pole and v* over K; at 4 clocks a level."""
+    chain = smoke.ccg_chain_ms(iters, n_opts, n_poles, n_versions)
+    assert chain == pytest.approx(levels * 4 / 1.98e9 * 1e3)
+
+
+def test_ccg_solve_bound_is_its_chain_at_the_main_path(smoke):
+    """M = 4096 tasks of the paper's lattice at 8 iterations: 101
+    dependent levels (0.204 µs) outlast the 8.15 M operations that a
+    table-driven solve needs (0.122 µs) and its 147 KB (0.044 µs)."""
+    chain = smoke.ccg_chain_ms(8, 50, 16, 5)
+    assert 0.000203 < chain < 0.000205
+    t, by = smoke.bound(147e3, 8.15e6, chain_ms=chain)
+    assert (t, by) == (chain, "chain")

@@ -22,7 +22,7 @@ def tool():
 
 @pytest.mark.parametrize("kernel", ["ccg_encode", "mamba_scan",
                                     "flash_attention", "decode_attention",
-                                    "lpt_queue"])
+                                    "lpt_queue", "rglru_scan", "ccg_solve"])
 @pytest.mark.parametrize("make", ["variants", "diagnostics"])
 def test_every_variant_edits_the_committed_source(tool, kernel, make):
     src = (CSRC / f"{kernel}.cu").read_text()

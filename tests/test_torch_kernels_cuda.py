@@ -98,6 +98,48 @@ def test_ccg_solve_kernel(dev, m):
         assert torch.equal(g, w)
 
 
+def _ccg_synthetic(dev, m, k, p, f):
+    """A solve at K versions, P poles and F options off the paper's
+    lattice: option coordinates on the lattice's grid, positive costs and
+    pole deviations from a seeded numpy generator."""
+    rng = _gen(m + 10 * k + p + f)
+    rn = np.tile(np.linspace(0.2, 1.0, 5), -(-f // 5))[:f]
+    pn = np.repeat(np.linspace(0.2, 1.0, 5), -(-f // 5))[:f]
+    tier = (np.arange(f) >= f // 2).astype(np.float32)
+    b2 = rng.uniform(0.05, 2.0, (f, k)).astype(np.float32)
+    u = (rng.uniform(0.0, 0.5, (p, k))
+         * (rng.uniform(size=(p, k)) < 0.4)).astype(np.float32)
+    c1 = rng.uniform(0.0, 1.0, f).astype(np.float32)
+    z = rng.uniform(0, 1, m).astype(np.float32)
+    aq = rng.uniform(0.4, 0.8, m).astype(np.float32)
+    aq[:3] = [0.99, 0.97, 1.2]
+    wy = rng.integers(-1, f, m).astype(np.int32)
+    return (_t(z, dev), _t(aq, dev),
+            *(_t(a.astype(np.float32), dev) for a in (rn, pn, tier)),
+            _t(b2, dev), _t(u, dev), _t(c1, dev), _t(wy, dev))
+
+
+@pytest.mark.parametrize("m", [4096, 4093, 37])
+@pytest.mark.parametrize("k,p,f", [
+    (3, 16, 50),     # the table instantiation at another K
+    (8, 16, 50),     # K > 5: the generic instantiation
+    (5, 32, 64),     # tables of 262 KB do not fit: the generic one
+])
+def test_ccg_solve_kernel_instantiations(dev, m, k, p, f):
+    """Both instantiations, chosen by shape, equal the plain version
+    exactly; one launch a call."""
+    args = _ccg_synthetic(dev, m, k, p, f)
+    kw = dict(margin=0.02, num_versions=k)
+    want = ccg_solve(*args, force="ref", **kw)
+    reset_launch_counts()
+    got = ccg_solve(*args, force="kernel", **kw)
+    assert launch_counts() == {"ccg_solve": 1}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the fallback lanes and some solved ones
+    assert got[5][:3].all() and not got[5].all()
+
+
 @pytest.mark.parametrize("m", [4096, 4093, 300])
 def test_c6_tail_kernel(dev, m):
     sys_ = SystemConfig()
@@ -496,3 +538,65 @@ def test_rglru_scan_kernel(dev, dtype, with_h0, b, s, w):
         assert h is state
         torch.testing.assert_close(state, want_h, **_SCAN_TOL)
         torch.testing.assert_close(y, want_y, **_SCAN_TOL)
+
+
+def _rglru_args(rng, b, s, w, dtype, with_h0, dev):
+    x = _normal(rng, (b, s, w), dtype, dev)
+    r = torch.sigmoid(_normal(rng, (b, s, w), torch.float32, dev))
+    i = torch.sigmoid(_normal(rng, (b, s, w), torch.float32, dev))
+    la = -8.0 * torch.nn.functional.softplus(
+        _normal(rng, (w,), torch.float32, dev))
+    h0 = _normal(rng, (b, w), torch.float32, dev) if with_h0 else None
+    return x, r, i, la, h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,w", [
+    (16, 1, 4096),         # the decode step: the direct kernel
+    (2, 4, 200),           # the direct kernel's longest call
+    (2, 5, 4096),          # the staged kernel's shortest: one partial tile
+    (3, 37, 200),          # two tiles, a partial channel block
+    (8, 80, 4096),         # the 8 × 80 prefill: three tiles
+    (2, 129, 4096),        # five tiles, the last of one step
+    (3, 37, 203),          # W not a multiple of 8: the generic staging
+    (2, 129, 61),
+])
+def test_rglru_scan_kernel_bit_equal(dev, dtype, with_h0, b, s, w):
+    """Both kernels (direct for S <= 4, staged above) equal the plain
+    version bit for bit, y and h, also with ``h_out`` aliasing ``h0``."""
+    x, r, i, la, h0 = _rglru_args(_gen(7 * b + s + w), b, s, w, dtype,
+                                  with_h0, dev)
+    want_y, want_h = rglru_scan(x, r, i, la, h0, force="ref")
+    reset_launch_counts()
+    got_y, got_h = rglru_scan(x, r, i, la, h0, force="kernel")
+    assert launch_counts() == {"rglru_scan": 1}
+    torch.cuda.synchronize()
+    assert torch.equal(got_y, want_y) and torch.equal(got_h, want_h)
+    if h0 is not None:
+        state = h0.clone()
+        y, h = rglru_scan(x, r, i, la, state, h_out=state, force="kernel")
+        torch.cuda.synchronize()
+        assert h is state
+        assert torch.equal(y, want_y) and torch.equal(state, want_h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_kernel_unaligned_operands(dev, dtype):
+    """Contiguous operands that do not start on a 16-byte boundary (views
+    one element into their storage) take the generic staging, bit-equal."""
+    b, s, w = 2, 40, 256
+    x, r, i, la, h0 = _rglru_args(_gen(5), b, s, w, dtype, True, dev)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    xs, rs, is_ = shifted(x), shifted(r), shifted(i)
+    assert xs.data_ptr() % 16 and rs.data_ptr() % 16
+    want_y, want_h = rglru_scan(x, r, i, la, h0, force="ref")
+    got_y, got_h = rglru_scan(xs, rs, is_, la, h0, force="kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(got_y, want_y) and torch.equal(got_h, want_h)

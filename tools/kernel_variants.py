@@ -4,8 +4,8 @@ NVIDIA GPU.
 
     python3 tools/kernel_variants.py [--kernel ccg_encode|mamba_scan|
                                       flash_attention|decode_attention|
-                                      lpt_queue] [--rounds 2]
-                                     [--diagnose] [--reps 200]
+                                      lpt_queue|rglru_scan|ccg_solve]
+                                     [--rounds 2] [--diagnose] [--reps 200]
 
 Builds each kernel as committed (``src/repro_torch/kernels/csrc/``) and
 variants made by editing its source, each into its own library under
@@ -39,16 +39,38 @@ timed.
                                   argmin over a tier's loads each task
                    linear         the tree walk with a linear chain of
                                   compare-selects for the argmin
+  rglru_scan       committed      S <= 4 direct (a thread a channel, a
+                                  step at a time), else staged: 32-step
+                                  tiles of 32 channels by cp.async, gates
+                                  off the chain
+                   tile16         staged tiles of 16 steps
+                   channels64     staged blocks of 64 channels, tiles of
+                                  16 steps (the same shared memory)
+                   ahead4         the direct kernel loading 4 steps ahead
+                   prefetch8/16   the direct kernel at every S, 8 or 16
+                                  steps loaded ahead in registers
+  ccg_solve        committed      K <= 5: tables once per block, persistent
+                                  grid of 32-warp blocks; else generic
+                   warps16        table blocks of 16 warps
+                   generic        the generic kernel (the kernel's first
+                                  design: per-task recomputation) at
+                                  every K
+                   shuffles       butterfly shuffles of (value, index) for
+                                  every argmin/argmax, not a vote
 
 ``ccg_encode`` runs at M = 4096 on round 0 of the seeded stream that
-``chip_smoke.py`` serves, ``lpt_queue`` at M = 4096 on all-edge routes (the
-main path's) and on mixed ones: each must equal the plain version exactly,
-and is timed by CUDA events around ``--reps`` back-to-back launches (median
-of five).  ``mamba_scan``, ``flash_attention`` and ``decode_attention`` go
-through ``chip_smoke.py``'s own checks and timings with the variant's
-library in place of ``_build.library()``: every case of the kernel-vs-plain
-comparison within its tolerance, the device time (profiler) and the call
-time (CUDA events) at the serving shapes.
+``chip_smoke.py`` serves, ``ccg_solve`` on the same round warm-started from
+Stage 1 (the main path's inputs), ``lpt_queue`` at M = 4096 on all-edge
+routes (the main path's) and on mixed ones: each must equal the plain
+version exactly, and is timed by CUDA events around ``--reps``
+back-to-back launches (median of five); ``ccg_solve``, whose launch is
+shorter than its host call, by the profiler's device time over ``--reps``
+launches, the events beside it.  ``mamba_scan``, ``rglru_scan``,
+``flash_attention`` and ``decode_attention`` go through ``chip_smoke.py``'s
+own checks and timings with the variant's library in place of
+``_build.library()``: every case of the kernel-vs-plain comparison within
+its tolerance, the device time (profiler) and the call time (CUDA events)
+at the serving shapes.
 
 With ``--diagnose`` it builds instead variants that drop one part of the
 work, compute wrong results on purpose and are only timed, to show where a
@@ -74,6 +96,18 @@ kernel's time goes:
                                   memory as its walk starts, not a batch
                                   ahead
                    no_walk        gather and scatter only
+  rglru_scan       no_gates       a_t = la·r, b_t = i·x: no exp, no sqrt
+                   no_chain       h_t = b_t: no dependent step
+                   no_loads       nothing staged in shared memory
+                   no_stores      no store of y
+  ccg_solve        no_encode      a_max·sat a constant (no exponential,
+                                  no table read) in the encode
+                   one_step       one CCG step at most
+                   no_table_fill  the subset-recourse table not built
+                                  (its contents garbage: steps may differ)
+                   tables_only    the tables built, no task solved
+                   generic_no_encode, generic_one_step
+                                  the same two cuts of the generic kernel
 
 Prints one JSON line per (round, variant) and, last, the card's name and
 power limit.  Exits 1 without CUDA.
@@ -133,6 +167,80 @@ SYNC_READY = "cluster.sync();                            // every split's"
 SYNC_DONE = "cluster.sync();                            // peers done"
 CLUSTER_ATTR = "cfg.numAttrs = 1;"
 CP16 = 'asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(d),'
+# rglru_scan.cu
+RG_TILE = "constexpr int kT = 32;"
+RG_CHANNELS = "constexpr int kC = 32;"
+RG_DIRECT = "constexpr int kDirectMaxS = 4;"
+RG_STEPS = """  long long o = (long long)row * S * W + w;
+  for (int t = 0; t < S; ++t, o += W) {
+    const float a = expf(l * r[o]);
+    h = a * h + gate_b(a, ig[o], to_f(x[o]));
+    y[o] = h;
+  }"""
+
+
+def rg_prefetch(n: int) -> str:
+    """The direct kernel's loop loading ``n`` steps' gates into registers
+    before it computes them."""
+    return f"""  const long long o0 = (long long)row * S * W + w;
+  for (int t0 = 0; t0 < S; t0 += {n}) {{
+    float rv[{n}], iv[{n}], xv[{n}];
+#pragma unroll
+    for (int u = 0; u < {n}; ++u) {{
+      if (t0 + u < S) {{
+        const long long o = o0 + (long long)(t0 + u) * W;
+        rv[u] = r[o];
+        iv[u] = ig[o];
+        xv[u] = to_f(x[o]);
+      }}
+    }}
+#pragma unroll
+    for (int u = 0; u < {n}; ++u) {{
+      if (t0 + u < S) {{
+        const float a = expf(l * rv[u]);
+        h = a * h + gate_b(a, iv[u], xv[u]);
+        y[o0 + (long long)(t0 + u) * W] = h;
+      }}
+    }}
+  }}"""
+RG_GATES = ("const float a = expf(la_s[c] * tile.r[t][c]);\n"
+            "        tile.i[t][c] = gate_b(a, tile.i[t][c], "
+            "to_f(tile.x[t][c]));\n")
+RG_CHAIN = "h = tile.r[t][tid] * h + tile.i[t][tid];"
+RG_LOADS = ("for (int q = threadIdx.x; q < nt * kF; q += kThreads)",
+            "for (int q = threadIdx.x; q < nt * kX; q += kThreads)")
+RG_STORES = "for (int q = tid; q < nt * kF; q += kThreads)"
+# ccg_solve.cu
+CCG_WARPS = "constexpr int kTableWarps = 32;"
+CCG_TABLE_K = "constexpr int kTableMaxK = 5;"
+CCG_VOTE_LANES = """  const unsigned key = order_key(v);
+  const unsigned top = __reduce_max_sync(kFullMask, key);
+  const int i = __ffs(__ballot_sync(kFullMask, key == top)) - 1;
+  v = __shfl_sync(kFullMask, v, i);
+  return i;"""
+CCG_VOTE_PAIR = """  const unsigned k0 = order_key(v0), k1 = order_key(v1);
+  const unsigned m = kMax ? __reduce_max_sync(kFullMask, k0 > k1 ? k0 : k1)
+                          : __reduce_min_sync(kFullMask, k0 < k1 ? k0 : k1);
+  const unsigned b0 = __ballot_sync(kFullMask, k0 == m);
+  const int i =
+      b0 ? __ffs(b0) - 1 : 31 + __ffs(__ballot_sync(kFullMask, k1 == m));
+  best = __shfl_sync(kFullMask, i < 32 ? v0 : v1, i & 31);
+  return i;"""
+# five butterfly rounds on (value, index) (warp_reduce.cuh), lower index
+# winning ties
+SHUFFLE_LANES = """  int i = threadIdx.x & 31;
+  warp_argmax(v, i);
+  return i;"""
+SHUFFLE_PAIR = """  int i = threadIdx.x & 31;
+  best = v0;
+  if (kMax ? v1 > best : v1 < best) { best = v1; i += 32; }
+  if (kMax) warp_argmax(best, i); else warp_argmin(best, i);
+  return i;"""
+CCG_BASE = ("float f = accuracy_clamp(tab.base(f0, k), zp, zr);",
+            "float f = accuracy_clamp(tab.base(f1, k), zp, zr);")
+CCG_STEPS = "for (int step = 0; step < pr.n_steps; ++step)"
+CCG_FILL = "for (int i = threadIdx.x; i < P * fs; i += blockDim.x)"
+CCG_TASKS = "for (; task < pr.M; task += stride)"
 # lpt_queue.cu
 TREE = """  for (int w = 1; w < N; w *= 2) {
 #pragma unroll
@@ -193,6 +301,27 @@ def variants(kernel: str, src: str) -> dict:
         tree = edit(src, (SORTED_WALK, "const bool sorted = false;"))
         return {"committed": src, "tree": tree,
                 "linear": edit(tree, (TREE, LINEAR))}
+    if kernel == "rglru_scan":
+        return {
+            "committed": src,
+            "tile16": edit(src, (RG_TILE, RG_TILE.replace("32", "16"))),
+            # 64 channels with 16-step tiles: the same shared memory
+            "channels64": edit(src, (RG_CHANNELS,
+                                     RG_CHANNELS.replace("32", "64")),
+                               (RG_TILE, RG_TILE.replace("32", "16"))),
+            "ahead4": edit(src, (RG_STEPS, rg_prefetch(4))),
+            **{f"prefetch{n}": edit(
+                src, (RG_DIRECT, RG_DIRECT.replace("4", "1 << 30")),
+                (RG_STEPS, rg_prefetch(n))) for n in (8, 16)},
+        }
+    if kernel == "ccg_solve":
+        return {"committed": src,
+                "warps16": edit(src, (CCG_WARPS, CCG_WARPS.replace("32",
+                                                                   "16"))),
+                "generic": edit(src, (CCG_TABLE_K,
+                                      CCG_TABLE_K.replace("5", "0"))),
+                "shuffles": edit(src, (CCG_VOTE_LANES, SHUFFLE_LANES),
+                                 (CCG_VOTE_PAIR, SHUFFLE_PAIR))}
     return {
         "committed": src,
         "keys64": edit(src, (KEYS, KEYS.replace("32", "64"))),
@@ -242,6 +371,34 @@ def diagnostics(kernel: str, src: str) -> dict:
                                (CLUSTER_ATTR, "cfg.numAttrs = 0;")),
             "no_loads": edit(src, (CP16, "if (d == 1u) " + CP16)),
         }
+    if kernel == "rglru_scan":
+        return {
+            "committed": src,
+            "no_gates": edit(src, (RG_GATES, (
+                "const float a = la_s[c] * tile.r[t][c];\n"
+                "        tile.i[t][c] = tile.i[t][c] * to_f(tile.x[t][c]);"
+                "\n"))),
+            "no_chain": edit(src, (RG_CHAIN, "h = tile.i[t][tid];")),
+            "no_loads": edit(src, *((loop, loop.replace("q < nt", "q < 0 * nt"))
+                                    for loop in RG_LOADS)),
+            "no_stores": edit(src, (RG_STORES,
+                                    RG_STORES.replace("q < nt", "q < 0 * nt"))),
+        }
+    if kernel == "ccg_solve":
+        no_encode = tuple((b, b.replace(b[b.index("tab."):b.index(", zp")],
+                                        "0.7f + 0.03f * k"))
+                          for b in CCG_BASE)
+        one_step = ((CCG_STEPS, CCG_STEPS.replace("pr.n_steps", "1")),)
+        generic = (CCG_TABLE_K, CCG_TABLE_K.replace("5", "0"))
+        return {"committed": src,
+                "no_encode": edit(src, *no_encode),
+                "one_step": edit(src, *one_step),
+                "no_table_fill": edit(src, (CCG_FILL, CCG_FILL.replace(
+                    "i < P * fs", "i < 0 * fs"))),
+                "tables_only": edit(src, (CCG_TASKS, CCG_TASKS.replace(
+                    "task < pr.M", "task < 0 * pr.M"))),
+                "generic_no_encode": edit(src, generic, *no_encode),
+                "generic_one_step": edit(src, generic, *one_step)}
     if kernel == "lpt_queue":
         return {"committed": src,
                 "no_prefetch": edit(src, (AHEAD, "".join(
@@ -305,6 +462,22 @@ def build(kernels, diagnose: bool) -> dict:
     return libs
 
 
+def _event_ms(torch, launch, reps: int) -> float:
+    """Median over five CUDA-event timings of ``reps`` back-to-back
+    launches, per launch."""
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 class CcgEncode:
     """``ccg_encode`` at M = 4096, launched through its entry point with
     sentinel outputs, so that a variant that skips a store cannot pass on
@@ -351,17 +524,69 @@ class CcgEncode:
         exact = all(torch.equal(g, w) for g, w in zip(outs, self.want))
         if exact_required and not exact:
             return {"outside_tolerance": "differs from the plain version"}
-        times = []
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(self.reps):
-                fn(*call)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / self.reps)
-        return {"ms": statistics.median(times), "exact_vs_plain": exact}
+        return {"ms": _event_ms(torch, lambda: fn(*call), self.reps),
+                "exact_vs_plain": exact}
+
+
+class CcgSolve:
+    """``ccg_solve`` at M = 4096 on round 0 of the seeded stream, warm-
+    started from Stage 1 as on the main path, launched through its entry
+    point with sentinel outputs; timed by the profiler's device time (a
+    launch takes less time on the card than on the host, so back-to-back
+    events would time the host), events beside it."""
+
+    def __init__(self, torch, reps: int, device_ms):
+        from repro_torch.core.cost_model import SystemConfig
+        from repro_torch.core.robust import RobustProblem
+        from repro_torch.core.router import stage1_configure
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.ccg_solve.ops import ccg_solve
+        from repro_torch.serving.simulator import SimConfig, Simulator
+
+        self.torch, self.reps, self.device_ms = torch, reps, device_ms
+        dev = self.dev = torch.device("cuda")
+        sys_ = SystemConfig()
+        prob = RobustProblem.build(sys_, dev)
+        lat = prob.lat
+        stream = Simulator(sys_, SimConfig(n_tasks=M, seed=0),
+                           device=dev).sample_stream(n_rounds=1)
+        z, aq = stream.z[0].contiguous(), stream.aq[0].contiguous()
+        none = torch.full((M,), -1, dtype=torch.int64, device=dev)
+        route, r = stage1_configure(lat, z, z, aq, none, torch.zeros_like(z))
+        wy = lat.flatten_index(route, r, sys_.n_fps - 1).to(torch.int32)
+        k, p = sys_.num_versions, prob.u_all.shape[0]
+        margin = sys_.acc_margin_robust
+        self.want = ccg_solve(z, aq, lat.rn_flat, lat.pn_flat, lat.tier_flat,
+                              lat.b2_flat, prob.u_all, lat.c1_flat, wy,
+                              margin=margin, num_versions=k, force="ref")
+        self.ins = [z, aq, wy, lat.rn_flat, lat.pn_flat, lat.tier_flat,
+                    _build.all_ones(lat.n_flat, dev),
+                    lat.b2_flat.t().contiguous(), prob.u_all.contiguous(),
+                    lat.c1_flat]
+        self.sizes = [M, lat.n_flat, k, p, min(8, p + 1), margin, 1e-4]
+
+    def __call__(self, lib, exact_required: bool) -> dict:
+        from repro_torch.kernels import _build
+
+        torch, dev = self.torch, self.dev
+        outs = [torch.full((M,), -7, dtype=dt, device=dev) for dt in
+                (torch.int32, torch.int32, torch.float32, torch.float32,
+                 torch.int32, torch.int32)]
+        call = [t.data_ptr() for t in self.ins + outs] + self.sizes + [
+            _build.stream_ptr(dev)]
+        fn = lib.ccg_solve_launch
+        _build.check(fn(*call), "ccg_solve")
+        torch.cuda.synchronize()
+        got = (*outs[:5], outs[5] > 0)
+        exact = all(torch.equal(g, w) for g, w in zip(got, self.want))
+        if exact_required and not exact:
+            return {"outside_tolerance": "differs from the plain version"}
+        # a launch is shorter than its host call: device time, not events
+        return {"ms": self.device_ms(torch, lambda: fn(*call),
+                                     "ccg_solve_kernel", self.reps),
+                "events_ms": _event_ms(torch, lambda: fn(*call), self.reps),
+                "exact_vs_plain": exact,
+                "max_iters_in_run": int(self.want[4].max())}
 
 
 class LptQueue:
@@ -399,26 +624,17 @@ class LptQueue:
             if exact_required and not exact:
                 return {"outside_tolerance": f"{routes}: differs from the "
                                              f"plain version"}
-            times = []
-            for _ in range(5):
-                begin = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                begin.record()
-                for _ in range(self.reps):
-                    fn(*call)
-                end.record()
-                end.synchronize()
-                times.append(begin.elapsed_time(end) / self.reps)
-            rec[routes] = {"ms": statistics.median(times),
+            rec[routes] = {"ms": _event_ms(torch, lambda: fn(*call),
+                                           self.reps),
                            "exact_vs_plain": exact}
         return rec
 
 
 class SmokeRows:
-    """``mamba_scan``, ``flash_attention`` or ``decode_attention`` through
-    ``chip_smoke.py``'s checks and timings (``scan_rows`` /
-    ``attention_rows``), or, for a diagnostic variant, its device time
-    alone at the serving shapes."""
+    """``mamba_scan``, ``rglru_scan``, ``flash_attention`` or
+    ``decode_attention`` through ``chip_smoke.py``'s checks and timings
+    (``scan_rows`` / ``attention_rows``), or, for a diagnostic variant, its
+    device time alone at the serving shapes."""
 
     KEYS = ("ms", "ms_from", "call_ms", "max_abs_err", "max_abs_err_float32")
 
@@ -426,9 +642,10 @@ class SmokeRows:
         from repro_torch.kernels.decode_attention.ops import decode_attention
         from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.mamba_scan.ops import selective_scan
+        from repro_torch.kernels.rglru.ops import rglru_scan
 
         self.torch, self.chip_smoke, self.kernel = torch, chip_smoke, kernel
-        self.fn = {"mamba_scan": selective_scan,
+        self.fn = {"mamba_scan": selective_scan, "rglru_scan": rglru_scan,
                    "flash_attention": flash_attention,
                    "decode_attention": decode_attention}[kernel]
         dev = self.dev = torch.device("cuda")
@@ -460,6 +677,15 @@ class SmokeRows:
                 for tier, (h, kv, d, kw) in {
                     "cloud": (32, 8, 128, {}), "edge": (16, 16, 64, {}),
                     "recurrentgemma": (16, 1, 256, {"window": 2048})}.items()}
+        elif kernel == "rglru_scan":
+            self.shapes = {
+                what: ((normal(b, s, 4096, dtype=bf16),
+                        torch.sigmoid(normal(b, s, 4096)),
+                        torch.sigmoid(normal(b, s, 4096)),
+                        -8.0 * torch.nn.functional.softplus(normal(4096)),
+                        normal(b, 4096) if s == 1 else None), {})
+                for what, (b, s) in {"decode": (16, 1),
+                                     "prefill": (8, 80)}.items()}
         else:
             self.shapes = {
                 what: ((normal(b, s, 8192, dtype=bf16),
@@ -483,7 +709,8 @@ class SmokeRows:
                 f"{kernel}_kernel")
                 for what, (args, kw) in self.shapes.items()}
         try:
-            rows = (smoke.scan_rows(torch, self.dev) if kernel == "mamba_scan"
+            rows = (smoke.scan_rows(torch, self.dev, names=(kernel,))
+                    if kernel.endswith("_scan")
                     else smoke.attention_rows(torch, self.dev))
         except AssertionError as err:
             return {"outside_tolerance": str(err)}
@@ -497,7 +724,7 @@ class SmokeRows:
 
 
 KERNELS = ("ccg_encode", "mamba_scan", "flash_attention", "decode_attention",
-           "lpt_queue")
+           "lpt_queue", "rglru_scan", "ccg_solve")
 EVENT_TIMED = {"ccg_encode": CcgEncode, "lpt_queue": LptQueue}
 
 
@@ -508,7 +735,8 @@ def main() -> int:
     ap.add_argument("--diagnose", action="store_true",
                     help="time the variants that drop one part of the work")
     ap.add_argument("--reps", type=int, default=200,
-                    help="ccg_encode / lpt_queue launches per timing")
+                    help="ccg_encode / ccg_solve / lpt_queue launches per "
+                         "timing")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -522,8 +750,10 @@ def main() -> int:
     kernels = args.kernel or list(KERNELS)
     libs = build(kernels, args.diagnose)
     library = _build.library
-    runs = {k: EVENT_TIMED[k](torch, args.reps) if k in EVENT_TIMED
-            else SmokeRows(torch, chip_smoke, k) for k in kernels}
+    runs = {k: CcgSolve(torch, args.reps, chip_smoke.device_ms)
+            if k == "ccg_solve" else EVENT_TIMED[k](torch, args.reps)
+            if k in EVENT_TIMED else SmokeRows(torch, chip_smoke, k)
+            for k in kernels}
     try:
         for rnd in range(args.rounds):
             for kernel, by_name in libs.items():
