@@ -34,12 +34,21 @@ Phases, one JSON line each; any failure exits non-zero:
                  bound: the larger of its bytes and its compute, where
                  exponentials and square roots may be split between the
                  special-function units and polynomials on the CUDA cores,
-                 and for lpt_queue and ccg_solve the serial chain of the
-                 walk or of the CCG steps' dependent reductions.
+                 and for lpt_queue, ccg_solve and c6_repair the serial
+                 chain of the walk, of the CCG steps' dependent reductions
+                 or of the repair's rounds; c6_repair (the whole C6 repair
+                 in one launch) at the main path's round-0 inputs and in a
+                 case that demotes in >= 2 rounds, held to its plain
+                 version (r, p equal outside the boundary exemption, the
+                 draw history within 1e-6), and above its one-block cap
+                 (M = 16385), where it takes the per-round path: one
+                 c6_tail launch a round, counted.
 4. ``main_path`` ``make_policy("r2evid") → ServeSession.run`` on M = 4096
                  streams for R = 16 rounds of a seeded ``sample_stream``, with
                  random seeded gate weights, launch counters zeroed just
-                 before and read just after; then the same run on the plain
+                 before and read just after (gate_cell, ccg_solve,
+                 c6_repair and lpt_queue once a round, no c6_tail); then
+                 the same run on the plain
                  versions (``force="ref"``) on the card, whose decisions must
                  agree on >= 99.9% of lane-rounds; then rounds/s and
                  segments/s (median of three runs after one warm-up).
@@ -262,6 +271,60 @@ def ccg_chain_ms(iters: int, n_opts: int, n_poles: int,
     f, p, k = levels(n_opts), levels(n_poles), levels(n_versions)
     ops = iters * (f + p + 1) + f + p + k
     return ops * CHAIN_CLOCKS / SM_CLOCK_HZ * 1e3
+
+
+REPAIR_THREADS = 1024             # c6_repair's one block
+
+
+def c6_repair_chain_ms(m: int, rounds_run: int, sorted_counts) -> float:
+    """The least time (ms) of the one-block C6 repair's serial chain.  The
+    rounds depend on each other.  A round run is one pass of ⌈M/1024⌉
+    dependent adds per thread, then the block sum's two 5-level
+    butterflies; a round that demotes (``sorted_counts``: the keys it
+    sorts, n each) adds the bitonic network over the next power of two
+    (s(s + 1)/2 compare-exchange levels for 2^s keys), the chunk sums of
+    ⌈n/1024⌉ adds, the scan's two 5-level Kogge–Stone passes and the
+    running sum down the chunk again; ``CHAIN_CLOCKS`` clocks a level at
+    ``SM_CLOCK_HZ``."""
+    ops = rounds_run * (math.ceil(m / REPAIR_THREADS) + 10)
+    for n in sorted_counts:
+        s = math.ceil(math.log2(n)) if n > 1 else 0
+        per = math.ceil(n / REPAIR_THREADS)
+        ops += s * (s + 1) // 2 + 2 * per + 10
+    return ops * CHAIN_CLOCKS / SM_CLOCK_HZ * 1e3
+
+
+def c6_repair_work(torch, args, budget, rounds: int, n_fps: int):
+    """What one repair on ``args`` needs, from the plain version's rounds:
+    (bytes, operations, rounds run, the keys each demoting round sorts).
+    Bytes: the lane inputs (r, p, v, route as int64, z and the threshold)
+    read once, r and p written as int64, the history, the coordinate
+    vectors, each task's current panel entry and each demoted entry.
+    Operations: per round run and task the tail (24, as c6_tail's), the
+    draw's add and the key (2); per demoting round the sort's
+    compare-exchanges (2 each) and per key the scan's add, the compare and
+    the demotion."""
+    from repro_torch.kernels.c6_tail.ref import c6_repair_ref, c6_tail_ref
+
+    panel, r0, p0, v, route, z, thr, rn, pn = args
+    m = r0.shape[0]
+    sorted_counts, rounds_run = [], 0
+    for k in range(rounds):
+        r, p, _ = c6_repair_ref(*args, budget, n_fps=n_fps, rounds=k)
+        bw, gain, _ = c6_tail_ref(panel, r, p, v, route, z, thr, rn, pn,
+                                  n_fps)
+        rounds_run += 1
+        n_pos = int((gain > 0).sum())
+        if not float(bw.sum()) > float(budget) or n_pos == 0:
+            break
+        sorted_counts.append(n_pos)
+    nbytes = (m * (4 * 8 + 2 * 4) + m * 2 * 8 + 4 * rounds
+              + 4 * (rn.numel() + pn.numel()) + 4 * (m + sum(sorted_counts)))
+    flops = rounds_run * m * (24 + 3)
+    for n in sorted_counts:
+        s = math.ceil(math.log2(n)) if n > 1 else 0
+        flops += 2 * (2 ** s // 2) * (s * (s + 1) // 2) + 3 * n
+    return float(nbytes), float(flops), rounds_run, sorted_counts
 
 
 def max_abs(torch, got, want) -> float:
@@ -538,6 +601,158 @@ def kernel_phase(torch, stream, dev):
         "torch.matmul(dx, W_x), the packed (35, 96) GEMM only: no single "
         "PyTorch call computes the gate cell")
     return rows
+
+
+def c6_repair_cases(torch, stream, dev):
+    """c6_repair's operands (bw_panel, r, p, v, route, z, acc_thr, rn, pn)
+    and budget at M and M_RAGGED: {(m, "main_path"): the gate-mode
+    policy's round-0 decisions before the repair and the round's budget,
+    (m, "demoting"): those routes and versions at the highest resolution
+    and frame rate (feasible wherever the decisions were) and half their
+    draw as a 0-d budget tensor on the card}."""
+    from repro_torch.core.cost_model import SystemConfig, fps_norm, res_norm
+    from repro_torch.core.gating import GateConfig
+    from repro_torch.serving.policy import capacity_budget, make_policy
+
+    sys_ = SystemConfig()
+    pol = make_policy("r2evid", sys_, device=dev,
+                      gate_cfg=GateConfig(d_feature=35),
+                      generator=torch.Generator().manual_seed(0))
+    obs = stream.round(0)
+    _, sol = pol.decide_stream(pol.init(M), obs)
+    budget = capacity_budget(sys_, bw_scale=obs.bw_scale)
+    budget = sys_.total_bw_mbps if budget is None else budget
+
+    def operands(m, r, p):
+        panel = torch.movedim(pol.lat.bw, -1, 0)[sol["route"][:m]].reshape(
+            m, -1)
+        return (panel, r[:m], p[:m], sol["v"][:m], sol["route"][:m],
+                obs.z[:m].contiguous(),
+                obs.aq[:m] + sys_.acc_margin_robust, res_norm(sys_, dev),
+                fps_norm(sys_, dev))
+
+    cases = {}
+    for m in (M, M_RAGGED):
+        cases[m, "main_path"] = (operands(m, sol["r"], sol["p"]), budget)
+        top = operands(m, torch.full_like(sol["r"], sys_.n_res - 1),
+                       torch.full_like(sol["p"], sys_.n_fps - 1))
+        cases[m, "demoting"] = (top, torch.tensor(float(np.float32(
+            0.5 * float(top[0][:, -1].sum()))), device=dev))
+    return cases
+
+
+def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
+    """c6_repair against its plain version on the card on
+    ``c6_repair_cases``, timed at the main path's inputs and at the
+    demoting case, beside the per-round path (the c6_tail kernel a round
+    and the selection in torch) on the same inputs.  Above the one-block
+    cap the wrapper takes that per-round path: its launches are counted
+    from zero (a c6_tail a round, no c6_repair) and its result must equal
+    the plain version's.  Returns (row, those launches)."""
+    from repro_torch.core.cost_model import SystemConfig
+    from repro_torch.core.router import RouterConfig
+    from repro_torch.kernels.c6_tail.ops import REPAIR_CAP, c6_repair, c6_tail
+    from repro_torch.kernels.c6_tail.ref import (
+        c6_tail_ref,
+        compare_repairs,
+        repair_rounds,
+    )
+
+    nz, rounds = SystemConfig().n_fps, RouterConfig().repair_rounds
+    cases = c6_repair_cases(torch, stream, dev)
+
+    def kernel(args, budget, k=rounds):
+        return c6_repair(*args, budget, n_fps=nz, rounds=k, force="kernel")
+
+    def plain(args, budget, k=rounds):
+        return c6_repair(*args, budget, n_fps=nz, rounds=k, force="ref")
+
+    def per_round(args, budget):
+        tail = lambda *a, n_fps: c6_tail(*a, n_fps=n_fps, force="kernel")
+        return repair_rounds(tail, *args, budget, nz, rounds)
+
+    err, hist_rel = 0.0, 0.0
+    for (m, what), (args, budget) in cases.items():
+        out = compare_repairs(lambda k: kernel(args, budget, k),
+                              lambda k: plain(args, budget, k), rounds, args,
+                              budget, nz)
+        if not out["within"]:
+            raise AssertionError(f"c6_repair ({what}, M={m}) vs plain: {out}")
+        got, want = kernel(args, budget), plain(args, budget)
+        err = max(err, max_abs(torch, got[:2], want[:2]))
+        hist_rel = max(hist_rel, out["hist_max_rel"])
+
+    timing = {}
+    for what in ("main_path", "demoting"):
+        args, budget = cases[M, what]
+        nbytes, flops, rounds_run, sorted_counts = c6_repair_work(
+            torch, args, budget, rounds, nz)
+        chain = c6_repair_chain_ms(M, rounds_run, sorted_counts)
+        t_bound, by = bound(nbytes, flops, chain_ms=chain)
+        _, gain, _ = c6_tail_ref(*args, nz)
+        timing[what] = {
+            "ms": device_ms(torch, lambda: kernel(args, budget),
+                            "c6_repair_kernel"),
+            "ms_from": "profiler",
+            # the per-round path: every device activity of one repair
+            "earlier_ms": device_ms(torch, lambda: per_round(args, budget)),
+            "call_ms": event_ms(torch, lambda: kernel(args, budget), 50),
+            "plain_ms": event_ms(torch, lambda: plain(args, budget), 10,
+                                 warmup=1),
+            "bytes": nbytes, "flops": flops, "chain_ms": chain,
+            "bound_ms": t_bound, "bound_by": by, "rounds_run": rounds_run,
+            "rounds_demoting": len(sorted_counts),
+            "sorted_keys_per_round": sorted_counts,
+            "feasible_demotions": int((gain > 0).sum()),
+            "budget": float(budget)}
+    if timing["demoting"]["rounds_demoting"] < 2:
+        raise AssertionError(f"c6_repair demoting case: "
+                             f"{timing['demoting']['rounds_demoting']} "
+                             f"demoting rounds, want >= 2")
+
+    # above the cap: the demoting case tiled to REPAIR_CAP + 1 tasks
+    big = REPAIR_CAP + 1
+    args, _ = cases[M, "demoting"]
+    reps = -(-big // M)
+    big_args = (args[0].repeat(reps, 1)[:big].contiguous(),
+                *(t.repeat(reps)[:big].contiguous() for t in args[1:7]),
+                *args[7:])
+    big_budget = float(np.float32(0.5 * float(big_args[0][:, -1].sum())))
+    counts_reset()
+    got = kernel(big_args, big_budget)
+    torch.cuda.synchronize()
+    above = counts_read()
+    if above != {"c6_tail": rounds}:
+        raise AssertionError(f"c6_repair above the cap launched {above}")
+    want = plain(big_args, big_budget)
+    if not all(torch.equal(g, w) for g, w in zip(got[:2], want[:2])):
+        raise AssertionError("c6_repair above the cap differs from plain")
+
+    row = {
+        "name": "c6_repair", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/c6_tail.cu",
+        "replaces": "src/repro/kernels/c6_tail/kernel.py:69 with the "
+                    "selection around it, src/repro/core/router.py:119-205",
+        "max_abs_err": err, "hist_max_rel_err": hist_rel,
+        "tolerance": "r, p equal outside the boundary exemption "
+                     "(c6_tail/ref.py repair_boundary); bw_history within "
+                     "1e-6 relative",
+        "cases_compared": len(cases) + 1,
+        **{k: v for k, v in timing["main_path"].items()
+           if k not in ("rounds_demoting", "feasible_demotions")},
+        "inputs": "the main path's round 0: the gate-mode policy's decisions "
+                  "before the repair, the round's budget",
+        "main_path_inputs": {k: timing["main_path"][k] for k in
+                             ("rounds_demoting", "feasible_demotions")},
+        "demoting_case": timing["demoting"],
+        "feasible_demotions": timing["demoting"]["feasible_demotions"],
+        "rounds_demoting": timing["demoting"]["rounds_demoting"],
+        "library_ms": None,
+        "library_call": "none: no PyTorch call computes the repair",
+        "tasks_cap_one_block": REPAIR_CAP,
+        "above_cap": {"tasks": big, "launches": above, "equal_to_plain": True},
+    }
+    return row, above
 
 
 def attention_rows(torch, dev):
@@ -856,13 +1071,15 @@ def main_path_phase(torch, dev, stream, counts_reset, counts_read):
     mets = sess.run(stream)
     torch.cuda.synchronize()
     launches = counts_read()
-    expect = {"gate_cell": ROUNDS, "ccg_solve": ROUNDS, "lpt_queue": ROUNDS}
+    expect = {"gate_cell": ROUNDS, "ccg_solve": ROUNDS, "lpt_queue": ROUNDS,
+              "c6_repair": ROUNDS}
     for name, n in expect.items():
         if launches.get(name) != n:
             raise AssertionError(f"main path launched {name} "
                                  f"{launches.get(name)} times, want {n}")
-    if not 1 <= launches.get("c6_tail", 0) <= ROUNDS * 8:
-        raise AssertionError(f"c6_tail launches {launches.get('c6_tail')}")
+    if launches.get("c6_tail"):
+        raise AssertionError(f"main path launched c6_tail "
+                             f"{launches['c6_tail']} times, want 0")
 
     # outputs: shapes, finiteness, ranges
     for k in ("delay", "energy", "cost", "accuracy", "tau"):
@@ -1069,10 +1286,7 @@ def policies_phase(torch, dev, stream, counts_reset, counts_read):
         want = {"lpt_queue": ROUNDS}
         if label == "r2evid_tau_proxy":
             want["ccg_solve"] = ROUNDS
-            n_c6 = launches.get("c6_tail", 0)
-            if not 1 <= n_c6 <= ROUNDS * 8:
-                raise AssertionError(f"{label}: c6_tail launches {n_c6}")
-            want["c6_tail"] = n_c6
+            want["c6_repair"] = ROUNDS
         if launches != want:
             raise AssertionError(f"{label} launched {launches}, want {want}")
         for k in ("delay", "energy", "cost", "accuracy"):
@@ -1459,7 +1673,7 @@ def trace_round(torch, sess, stream, untraced_s: float) -> dict:
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in acts) / 1e3
     ours = ("gate_cell_kernel", "ccg_solve_kernel", "c6_tail_kernel",
-            "lpt_queue_kernel")
+            "c6_repair_kernel", "lpt_queue_kernel")
     ours_ms = sum(e.self_device_time_total for e in acts
                   if any(k in e.key for k in ours)) / 1e3
     top = sorted(acts, key=lambda e: -e.self_device_time_total)[:8]
@@ -1528,6 +1742,8 @@ def main() -> int:
                        device=dev).sample_stream(n_rounds=ROUNDS,
                                                  feature_seed=1)
     rows = kernel_phase(torch, stream, dev)
+    rows["c6_repair"], above_cap_launches = c6_repair_row(
+        torch, stream, dev, reset_launch_counts, launch_counts)
     rows.update(attention_rows(torch, dev))
     rows.update(scan_rows(torch, dev))
     record({"phase": "kernels", "compared": [
@@ -1553,12 +1769,14 @@ def main() -> int:
     record(recurrent_rec)
     # launches of each kernel on its paths, each counted from zero just
     # before its run and read just after: the main path's serving round for
-    # the slice-1 kernels, the cold and the warm solve for ccg_encode and
-    # ccg_master, the kernel-path request sets of the two dispatch phases
-    # for the attention kernels and the scans
+    # the slice-1 kernels (c6_repair among them), the per-round repair above
+    # the one-block cap for c6_tail, the cold and the warm solve for
+    # ccg_encode and ccg_master, the kernel-path request sets of the two
+    # dispatch phases for the attention kernels and the scans
     # (the dispatch phases' counts, checked against layers × calls, split
     # by the call that launched them: prefill or decode step)
     phases = {"main_path": launches, "solve_ccg": solve_launches,
+              "c6_repair_above_cap": above_cap_launches,
               "dispatch": per_kernel(dispatch_by_call),
               "dispatch_recurrent": per_kernel(recurrent_by_call)}
     for name, row in rows.items():

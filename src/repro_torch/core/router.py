@@ -5,13 +5,10 @@ Stage 1 (Alg. 1) picks the smallest edge resolution whose smallest model
 meets the accuracy requirement, escalates to cloud on the gate score τ or
 when no edge config is feasible, and keeps the temporal-consistency
 constraint; Stage 2 (Alg. 2) is the warm-started fused CCG solve; the C6
-bandwidth budget is enforced by a fixed-round top-k demotion repair whose
-per-task tail is the ``c6_tail`` kernel.
+bandwidth budget is enforced by a fixed-round top-k demotion repair, the
+``c6_repair`` kernel.
 
-Every step runs on the device without reading back to the host: the
-reference's ``lax.cond`` skip of dead repair rounds becomes a
-``torch.where`` select of the unchanged (r, p), which is exact because the
-skipped round is a no-op.
+Every step runs on the device without reading back to the host.
 """
 from __future__ import annotations
 
@@ -29,7 +26,7 @@ from repro_torch.core.gating import (
 from repro_torch.core.lattice import DecisionLattice
 from repro_torch.core.robust import RobustProblem, solve_ccg_fused
 from repro_torch.device import resolve_device
-from repro_torch.kernels.c6_tail.ops import c6_tail
+from repro_torch.kernels.c6_tail.ops import c6_repair
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,13 +91,12 @@ def enforce_bandwidth(lat: DecisionLattice, sol, difficulty, acc_req,
     """Demote (r, p) of over-budget tasks with the largest reclaimable draw
     that stay feasible; ``rounds`` fixed top-k demotion rounds.
 
-    Each round demotes, in descending-gain order (stable argsort), the
-    prefix of tasks whose cumulative gain is still short of the excess.  A
-    round runs unconditionally and its (r, p) are kept only while the
-    repair is active and over budget, so no round reads a flag back to the
-    host.  The budget sum is ``torch.sum`` over the (M,) draws: float32 in
-    PyTorch's reduction order, not XLA's, so an excess within an ulp of 0
-    can decide differently from the reference.  Returns
+    Each round demotes, in descending-gain order, the prefix of tasks whose
+    cumulative gain is still short of the excess; a round after the repair
+    stopped demoting, or after the budget held, changes nothing and records
+    the same draw.  The rounds are ``c6_repair``: one kernel launch for all
+    of them on the card, nothing read back to the host.  ``total_budget``
+    is a float or a 0-d tensor on the device.  Returns
     ``(sol with repaired r/p, bw_history (rounds,))``.
     """
     if task_mask is not None:
@@ -108,38 +104,16 @@ def enforce_bandwidth(lat: DecisionLattice, sol, difficulty, acc_req,
     sys = lat.sys
     budget = sys.total_bw_mbps if total_budget is None else total_budget
     dev = difficulty.device
-    nz = sys.n_fps
     m = sol["r"].shape[0]
     # C6 never flips a route: the (M, N·Z) panel of each task's route is
     # round-invariant, built once
     bw_panel = torch.movedim(lat.bw, -1, 0)[sol["route"]].reshape(m, -1)
-    acc_thr = acc_req + sys.acc_margin_robust
-    rn = res_norm(sys, dev)
-    pn = fps_norm(sys, dev)
-    v32 = sol["v"].to(torch.int32)
-    route32 = sol["route"].to(torch.int32)
-    r, p = sol["r"], sol["p"]
-    active = torch.ones((), dtype=torch.bool, device=dev)
-    zero = torch.zeros((1,), dtype=torch.float32, device=dev)
-    hist = []
-    for _ in range(rounds):
-        bw = bw_panel.gather(1, (r * nz + p)[:, None])[:, 0]
-        excess = bw.sum() - budget
-        hist.append(excess + budget)
-        run = active & (excess > 0)
-        _, gain, can_p = c6_tail(bw_panel, r.to(torch.int32),
-                                 p.to(torch.int32), v32, route32, difficulty,
-                                 acc_thr, rn, pn, n_fps=nz, force=force)
-        order = torch.argsort(-gain, stable=True)
-        gain_sorted = gain[order]
-        cum_before = torch.cat([zero, torch.cumsum(gain_sorted, 0)[:-1]])
-        demote_sorted = (cum_before < excess) & (gain_sorted > 0)
-        demote = torch.zeros((m,), dtype=torch.bool, device=dev)
-        demote[order] = demote_sorted
-        r = torch.where(run & demote & ~can_p, torch.clamp_min(r - 1, 0), r)
-        p = torch.where(run & demote & can_p, torch.clamp_min(p - 1, 0), p)
-        active = run & demote.any()
-    return dict(sol, r=r, p=p), torch.stack(hist)
+    r, p, hist = c6_repair(bw_panel, sol["r"], sol["p"], sol["v"],
+                           sol["route"], difficulty,
+                           acc_req + sys.acc_margin_robust, res_norm(sys, dev),
+                           fps_norm(sys, dev), budget, n_fps=sys.n_fps,
+                           rounds=rounds, force=force)
+    return dict(sol, r=r, p=p), hist
 
 
 # ---------------------------------------------------------------------------

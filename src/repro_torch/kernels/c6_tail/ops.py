@@ -1,14 +1,19 @@
-"""Dispatching wrapper of the C6 repair tail: the CUDA kernel
-(``csrc/c6_tail.cu``) for CUDA tensors, the plain version for CPU tensors
-(``force=`` pins either)."""
+"""Dispatching wrappers of the C6 repair tail and of the whole C6 repair:
+the CUDA kernels (``csrc/c6_tail.cu``) for CUDA tensors, the plain versions
+for CPU tensors (``force=`` pins either)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.c6_tail.ref import c6_tail_ref
+from repro_torch.kernels.c6_tail.ref import (
+    c6_repair_ref,
+    c6_tail_ref,
+    repair_rounds,
+)
 
 BLOCK_M = 256     # tasks per CUDA block (one thread each)
+REPAIR_CAP = 16384  # tasks the one-block repair holds in shared memory
 
 
 def c6_tail(bw_panel, r, p, v, route, z, acc_thr, rn, pn, *, n_fps: int,
@@ -51,3 +56,59 @@ def c6_tail(bw_panel, r, p, v, route, z, acc_thr, rn, pn, *, n_fps: int,
     _build.check(code, "c6_tail")
     _build.LAUNCHES["c6_tail"] += 1
     return bw[:m], gain[:m], can_p[:m] > 0
+
+
+def _tail_kernel(*args, n_fps: int):
+    return c6_tail(*args, n_fps=n_fps, force="kernel")
+
+
+def c6_repair(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget, *,
+              n_fps: int, rounds: int, force: str = "auto"):
+    """The whole C6 repair -> (r, p, bw_history (rounds,)).
+
+    bw_panel: (M, N·Z) float32 route-indexed bandwidth panel; r/p/v/route:
+    (M,) integer decisions; z/acc_thr: (M,) float32; rn/pn: (N,)/(Z,);
+    budget: a float or a 0-d float32 tensor on the panel's device (read
+    there, never copied to the host).  (r, p) come back in the given r's and
+    p's dtype.  On CUDA, M <= ``REPAIR_CAP`` takes one launch of the
+    one-block kernel for every round; a larger M takes the per-round path,
+    the ``c6_tail`` kernel for each round's tail and the selection in torch.
+    The kernel sums the draw and the prefix gains in its own order, not
+    torch's: a task whose cumulative gain lies within that rounding of the
+    excess may be demoted on one side only.
+    """
+    if not _build.dispatch("c6_repair", force, bw_panel.device):
+        return c6_repair_ref(bw_panel, r, p, v, route, z, acc_thr, rn, pn,
+                             budget, n_fps, rounds)
+    m, nz_flat = bw_panel.shape
+    n = rn.shape[0]
+    if nz_flat != n * n_fps or pn.shape[0] != n_fps or rounds < 0 \
+            or any(t.shape != (m,) for t in (r, p, v, route, z, acc_thr)):
+        raise ValueError("c6_repair kernel: inconsistent shapes")
+    if m > REPAIR_CAP:
+        return repair_rounds(_tail_kernel, bw_panel, r, p, v, route, z,
+                             acc_thr, rn, pn, budget, n_fps, rounds)
+    ints = [t.long() for t in (r, p, v, route)]
+    budget_t = budget if isinstance(budget, torch.Tensor) else None
+    floats = dict(bw_panel=bw_panel, z=z, acc_thr=acc_thr, rn=rn, pn=pn)
+    if budget_t is not None:
+        if budget_t.numel() != 1:
+            raise ValueError("c6_repair kernel: budget must be one value")
+        floats["budget"] = budget_t
+    _build.check_cuda("c6_repair", *floats.values(), *ints)
+    _build.check_dtype("c6_repair", torch.float32, **floats)
+    dev = bw_panel.device
+    r_out = torch.empty((m,), dtype=torch.int64, device=dev)
+    p_out = torch.empty((m,), dtype=torch.int64, device=dev)
+    hist = torch.empty((rounds,), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    code = lib.c6_repair_launch(
+        bw_panel.data_ptr(), *[t.data_ptr() for t in ints], z.data_ptr(),
+        acc_thr.data_ptr(), rn.data_ptr(), pn.data_ptr(),
+        None if budget_t is None else budget_t.data_ptr(), r_out.data_ptr(),
+        p_out.data_ptr(), hist.data_ptr(), m, n, n_fps, rounds,
+        0.0 if budget_t is not None else float(budget),
+        _build.stream_ptr(dev))
+    _build.check(code, "c6_repair")
+    _build.LAUNCHES["c6_repair"] += 1
+    return r_out.to(r.dtype), p_out.to(p.dtype), hist

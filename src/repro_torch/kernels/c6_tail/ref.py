@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the fused C6 repair tail (one demotion round's
-per-task gains), port of ``repro/kernels/c6_tail/ref.py``."""
+"""Plain PyTorch versions of the fused C6 repair tail (one demotion round's
+per-task gains), port of ``repro/kernels/c6_tail/ref.py``, and of the whole
+repair around it (``repro/core/router.py:enforce_bandwidth``'s rounds)."""
 from __future__ import annotations
 
 import torch
@@ -39,3 +40,120 @@ def c6_tail_ref(bw_panel, r, p, v, route, z, acc_thr, rn, pn, n_fps: int):
     gain_r = bw - take_bw(r_dn, p)
     gain = torch.where(can_p, gain_p, torch.where(can_r, gain_r, -BIG))
     return bw, gain, can_p
+
+
+def repair_rounds(tail, bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
+                  n_fps: int, rounds: int):
+    """``rounds`` C6 demotion rounds with ``tail`` (``c6_tail_ref`` or the
+    ``c6_tail`` kernel) for each round's gains -> (r, p, bw_history).
+
+    Each round demotes, in descending-gain order (stable argsort), the
+    prefix of tasks whose cumulative gain is still short of the excess
+    over ``budget`` (a float or a 0-d tensor).  A round runs
+    unconditionally and its (r, p) are kept only while the repair is
+    active and over budget, so no round reads a flag back to the host: the
+    reference's ``lax.cond`` skip, exact because a skipped round is a
+    no-op.  The budget sum is ``torch.sum`` over the (M,) draws and the
+    prefix ``torch.cumsum``: float32 in PyTorch's order, not XLA's.
+    """
+    dev = bw_panel.device
+    m = r.shape[0]
+    dtype = r.dtype
+    r, p = r.long(), p.long()
+    v32 = v.to(torch.int32)
+    route32 = route.to(torch.int32)
+    active = torch.ones((), dtype=torch.bool, device=dev)
+    zero = torch.zeros((1,), dtype=torch.float32, device=dev)
+    hist = []
+    for _ in range(rounds):
+        bw = bw_panel.gather(1, (r * n_fps + p)[:, None])[:, 0]
+        excess = bw.sum() - budget
+        hist.append(excess + budget)
+        run = active & (excess > 0)
+        _, gain, can_p = tail(bw_panel, r.to(torch.int32), p.to(torch.int32),
+                              v32, route32, z, acc_thr, rn, pn, n_fps=n_fps)
+        order = torch.argsort(-gain, stable=True)
+        gain_sorted = gain[order]
+        cum_before = torch.cat([zero, torch.cumsum(gain_sorted, 0)[:-1]])
+        demote_sorted = (cum_before < excess) & (gain_sorted > 0)
+        demote = torch.zeros((m,), dtype=torch.bool, device=dev)
+        demote[order] = demote_sorted
+        r = torch.where(run & demote & ~can_p, torch.clamp_min(r - 1, 0), r)
+        p = torch.where(run & demote & can_p, torch.clamp_min(p - 1, 0), p)
+        active = run & demote.any()
+    hist = torch.stack(hist) if hist else torch.zeros((0,), device=dev)
+    return r.to(dtype), p.to(dtype), hist
+
+
+def c6_repair_ref(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
+                  n_fps: int, rounds: int):
+    """Plain version of the whole C6 repair: :func:`repair_rounds` with the
+    plain tail.  Returns (r, p) in the dtype of the given r and p, and the
+    draw of each round before its demotion (rounds,)."""
+    return repair_rounds(c6_tail_ref, bw_panel, r, p, v, route, z, acc_thr,
+                         rn, pn, budget, n_fps, rounds)
+
+
+EPS = 2.0 ** -24    # float32 unit roundoff
+
+
+def repair_boundary(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
+                    n_fps: int):
+    """The tasks whose demotion in the round from (r, p) two orders of the
+    float32 sums may decide differently: a positive gain whose exclusive
+    prefix (float64, stable descending order) lies within
+    2·M·ε·Σ bw + 2·n·ε·Σ g of the excess, for M draws and n positive gains
+    g (twice the first-order bound of a float32 sum in any order, once for
+    each of the two orders compared).  A set of indices."""
+    bw, gain, _ = c6_tail_ref(bw_panel, r, p, v, route, z, acc_thr, rn, pn,
+                              n_fps)
+    g = gain.double()
+    order = torch.argsort(-gain, stable=True)
+    pos = order[g[order] > 0]
+    gp = g[pos]
+    cum = torch.cumsum(gp, 0) - gp
+    total = float(bw.double().sum())
+    bound = 2 * EPS * (len(bw) * total + len(gp) * float(gp.sum()))
+    return set(pos[(cum - (total - float(budget))).abs() <= bound].tolist())
+
+
+def compare_repairs(run_a, run_b, rounds: int, args, budget, n_fps: int,
+                    exempt=()):
+    """Two repairs ``run_x(k) -> (r, p, bw_history)`` of k rounds on the
+    operands ``args`` (bw_panel, r, p, v, route, z, acc_thr, rn, pn) held
+    to c6_repair's tolerance: whole runs equal on r and p; else the first
+    round that differs differs only on ``exempt`` or boundary tasks of that
+    round (:func:`repair_boundary`; later rounds start from different
+    states and are not compared).  The histories are compared up to that
+    round.  Returns a dict: ``within`` (the verdict), ``hist_max_rel``,
+    ``first_differing_round`` (None when equal), ``outside`` (differing
+    tasks outside the exemption) and ``rounds_demoting`` (of run_a, when
+    the runs are equal)."""
+    def rel(ha, hb):
+        if ha.numel() == 0:
+            return 0.0
+        return float(((ha.double() - hb.double()).abs()
+                      / hb.double().abs().clamp_min(1e-30)).max())
+
+    ra, pa, ha = run_a(rounds)
+    rb, pb, hb = run_b(rounds)
+    out = {"first_differing_round": None, "outside": []}
+    if torch.equal(ra, rb) and torch.equal(pa, pb):
+        out["hist_max_rel"] = rel(ha, hb)
+        out["rounds_demoting"] = int((ha[1:] < ha[:-1]).sum())
+        out["within"] = out["hist_max_rel"] <= 1e-6
+        return out
+    prev = (args[1], args[2])
+    for k in range(1, rounds + 1):
+        ra, pa, ha = run_a(k)
+        rb, pb, hb = run_b(k)
+        bad = set(torch.nonzero((ra != rb) | (pa != pb)).flatten().tolist())
+        if bad:
+            allowed = set(exempt) | repair_boundary(*args[:1], *prev,
+                                                    *args[3:], budget, n_fps)
+            out.update(first_differing_round=k, hist_max_rel=rel(ha, hb),
+                       outside=sorted(bad - allowed))
+            out["within"] = not out["outside"] and out["hist_max_rel"] <= 1e-6
+            return out
+        prev = (ra, pa)
+    raise AssertionError("whole repairs differ but no round does")

@@ -8,14 +8,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.temporal_gate.ref import gate_cell_ref, pack_weights
 
-BLOCK_B = 8       # streams per CUDA block (one warp each)
-
 
 def gate_cell(dx, h, vol, p, *, force: str = "auto"):
     """Fused gating cell for a (B, d) stream batch -> (h_new, tau, g_mean).
 
-    The kernel takes m = 32 hidden units and d <= 64 features in float32.
-    B is padded up to the block with zero streams, sliced off on return.
+    The kernel takes m = 32 hidden units and d <= 64 features in float32,
+    any B (the last tile of streams is masked in the kernel).
     """
     if not _build.dispatch("gate_cell", force, dx.device):
         return gate_cell_ref(dx, h, vol, p)
@@ -31,22 +29,17 @@ def gate_cell(dx, h, vol, p, *, force: str = "auto"):
     if w_x.shape != (d, 3 * m) or p["u_h"].shape != (m, m) \
             or p["w_o"].shape != (m, 1):
         raise ValueError("gate_cell kernel: weight shapes do not match dx/h")
-    pad = (-b) % BLOCK_B
-    dx_p = _build.pad_rows(dx, pad)
-    h_p = _build.pad_rows(h, pad)
-    vol_p = _build.pad_rows(vol, pad)
-    ins = [dx_p, h_p, vol_p] + [w.contiguous() for w in weights]
+    ins = [dx, h, vol] + [w.contiguous() for w in weights]
     _build.check_cuda("gate_cell", *ins)
     _build.check_dtype("gate_cell", torch.float32,
                        **{f"operand{i}": t for i, t in enumerate(ins)})
-    bp = b + pad
-    h_new = torch.empty((bp, m), dtype=torch.float32, device=dx.device)
-    tau = torch.empty((bp,), dtype=torch.float32, device=dx.device)
-    g_mean = torch.empty((bp,), dtype=torch.float32, device=dx.device)
+    h_new = torch.empty((b, m), dtype=torch.float32, device=dx.device)
+    tau = torch.empty((b,), dtype=torch.float32, device=dx.device)
+    g_mean = torch.empty((b,), dtype=torch.float32, device=dx.device)
     lib = _build.library()
     code = lib.gate_cell_launch(
         *[t.data_ptr() for t in ins], h_new.data_ptr(), tau.data_ptr(),
-        g_mean.data_ptr(), bp, d, m, _build.stream_ptr(dx.device))
+        g_mean.data_ptr(), b, d, m, _build.stream_ptr(dx.device))
     _build.check(code, "gate_cell")
     _build.LAUNCHES["gate_cell"] += 1
-    return h_new[:b], tau[:b], g_mean[:b]
+    return h_new, tau, g_mean

@@ -188,3 +188,59 @@ def test_ccg_solve_bound_is_its_chain_at_the_main_path(smoke):
     assert 0.000203 < chain < 0.000205
     t, by = smoke.bound(147e3, 8.15e6, chain_ms=chain)
     assert (t, by) == (chain, "chain")
+
+
+@pytest.mark.parametrize("m,rounds_run,sorted_counts,levels", [
+    (4096, 1, [], 4 + 10),                          # the main path's rounds
+    (4096, 4, [4096, 4095, 3989], 4 * 14 + 3 * (78 + 8 + 10)),
+    (60, 2, [1], 2 * 11 + (0 + 2 + 10)),            # one key: no network
+    (16384, 1, [5], 16 + 10 + (6 + 2 + 10)),
+])
+def test_c6_repair_chain_counts_its_levels(smoke, m, rounds_run,
+                                           sorted_counts, levels):
+    """Per round run ⌈M/1024⌉ dependent adds and two 5-level butterflies;
+    per demoting round the bitonic network over 2^s keys (s(s+1)/2
+    levels), the chunk sums and the running sum (⌈n/1024⌉ each) and two
+    5-level Kogge–Stone passes; at 4 clocks a level."""
+    chain = smoke.c6_repair_chain_ms(m, rounds_run, sorted_counts)
+    assert chain == pytest.approx(levels * 4 / 1.98e9 * 1e3)
+
+
+def _repair_args(m, lo, seed):
+    from repro_torch.core.cost_model import SystemConfig, fps_norm, res_norm
+    from repro_torch.core.lattice import DecisionLattice
+
+    sys_ = SystemConfig()
+    lat = DecisionLattice.build(sys_, "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    d = {k: torch.randint(lo if k != "route" else 0, n, (m,), generator=gen)
+         for k, n in (("route", 2), ("r", 5), ("p", 5), ("v", 5))}
+    panel = torch.movedim(lat.bw, -1, 0)[d["route"]].reshape(m, -1)
+    z = torch.rand(m, generator=gen) * 0.6 + 0.05
+    thr = torch.rand(m, generator=gen) * 0.25 + 0.52
+    args = (panel, d["r"], d["p"], d["v"], d["route"], z, thr,
+            res_norm(sys_, "cpu"), fps_norm(sys_, "cpu"))
+    return args, float(lat.solution_bandwidth(d).sum())
+
+
+def test_c6_repair_work_counts_what_the_run_needs(smoke):
+    """Nothing to demote (r = p = 0): one round run, no sort, the bytes of
+    the lanes, the outputs and one panel entry a task.  Half the draw as
+    budget: the rounds that demote each sort their positive gains, and the
+    bound is the chain."""
+    m, rounds = 600, 8
+    args, draw = _repair_args(m, 0, seed=1)
+    zero = torch.zeros(m, dtype=torch.int64)
+    still = (args[0], zero, zero, *args[3:])
+    nbytes, flops, run, counts = smoke.c6_repair_work(torch, still,
+                                                      0.5 * draw, rounds, 5)
+    assert (run, counts) == (1, [])
+    assert nbytes == m * (40 + 16 + 4) + 4 * rounds + 4 * 10
+    assert flops == m * 27
+    args, draw = _repair_args(m, 2, seed=2)
+    nbytes, flops, run, counts = smoke.c6_repair_work(torch, args,
+                                                      0.5 * draw, rounds, 5)
+    assert len(counts) >= 2 and run >= len(counts)
+    assert all(0 < n <= m for n in counts)
+    chain = smoke.c6_repair_chain_ms(m, run, counts)
+    assert smoke.bound(nbytes, flops, chain_ms=chain) == (chain, "chain")

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_kernel_orders import gate_cell_pr11, gate_cell_tiled
 
 from repro.core import gating as jgate
 from repro.kernels.temporal_gate.ops import gate_cell as j_gate_cell
@@ -50,6 +51,36 @@ def test_gate_cell_matches_reference(jforce, b):
                     torch.from_numpy(vol), tp)
     for name, g, w in zip(("h_new", "tau", "g_mean"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("b,d", [(8, 35), (37, 35), (70, 1), (33, 64),
+                                 (40, 6)])
+def test_gate_kernel_tiling_keeps_the_first_designs_order(b, d):
+    """The persistent kernel's order (tiles of 32 streams, 2 a warp, the
+    dx row in groups of four and the rest) gives the bits of the first
+    design's order (one warp a stream, k ascending), and both are within
+    1e-5 of the plain version and of the live JAX cell (Pallas in
+    interpret mode); ragged B and d from 1 to 64."""
+    cfg = jgate.GateConfig(d_feature=d)
+    jp, tp = _params(3, cfg)
+    rng = np.random.default_rng(b + d)
+    dx = rng.normal(size=(b, d)).astype(np.float32)
+    h = rng.uniform(-1, 1, (b, 32)).astype(np.float32)
+    vol = rng.uniform(0, 2, b).astype(np.float32)
+    args = (torch.from_numpy(dx), torch.from_numpy(h), torch.from_numpy(vol),
+            tp)
+    tiled = gate_cell_tiled(*args)
+    first = gate_cell_pr11(*args)
+    plain = gate_cell(*args, force="ref")
+    want = j_gate_cell(jnp.asarray(dx), jnp.asarray(h), jnp.asarray(vol), jp,
+                       block_b=16, force="pallas")
+    for name, t, f, pl, w in zip(("h_new", "tau", "g_mean"), tiled, first,
+                                 plain, want):
+        assert t.shape == pl.shape, name
+        assert torch.equal(t, f), name
+        torch.testing.assert_close(t, pl, rtol=0, atol=ATOL)
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), rtol=0,
                                    atol=ATOL, err_msg=name)
 
 

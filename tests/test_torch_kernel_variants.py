@@ -22,10 +22,11 @@ def tool():
 
 @pytest.mark.parametrize("kernel", ["ccg_encode", "mamba_scan",
                                     "flash_attention", "decode_attention",
-                                    "lpt_queue", "rglru_scan", "ccg_solve"])
+                                    "lpt_queue", "rglru_scan", "ccg_solve",
+                                    "gate_cell", "c6_repair"])
 @pytest.mark.parametrize("make", ["variants", "diagnostics"])
 def test_every_variant_edits_the_committed_source(tool, kernel, make):
-    src = (CSRC / f"{kernel}.cu").read_text()
+    src = (CSRC / tool.source_file(kernel)).read_text()
     out = getattr(tool, make)(kernel, src)
     assert out["committed"] == src
     assert len(out) >= 3 if make == "diagnostics" else len(out) >= 2

@@ -5,7 +5,12 @@ machine with the card and without JAX (whose import ``tests/conftest.py``
 needs), run ``PYTHONPATH=src python -m pytest -q --noconftest
 tests/test_torch_kernels_cuda.py``.
 ``gate_cell`` is held to 1e-5 absolute (its dot products sum in another
-order than torch's GEMM); ``ccg_solve``, ``c6_tail``, ``lpt_queue``,
+order than torch's GEMM) and must give the bits of its order of work
+emulated on the card (``torch_kernel_orders``); ``c6_repair`` must give
+the bits of its emulated order and equal the plain version's r and p
+outside the boundary exemption of ``test_torch_c6_repair.py`` (the draw and
+the prefix gains sum in another order than torch's); ``ccg_solve``,
+``c6_tail``, ``lpt_queue``,
 ``ccg_encode`` and ``ccg_master`` run the plain versions' float32 operations
 in the same order with ``-fmad=false`` (or only exact ones: min, max,
 compares), so they must match exactly.  ``decode_attention`` and
@@ -28,12 +33,18 @@ and a live cloud tier, else a tree argmin: both are exact.
 import numpy as np
 import pytest
 import torch
+from torch_kernel_orders import (
+    c6_repair_emulated,
+    compare_runs,
+    gate_cell_tiled,
+)
 
 from repro_torch.core.cost_model import SystemConfig, fps_norm, res_norm
 from repro_torch.core.gating import GateConfig, init_gate_params
 from repro_torch.core.robust import RobustProblem
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts
-from repro_torch.kernels.c6_tail.ops import c6_tail
+from repro_torch.kernels.c6_tail.ops import REPAIR_CAP, c6_repair, c6_tail
+from repro_torch.kernels.c6_tail.ref import c6_repair_ref
 from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
@@ -78,6 +89,50 @@ def test_gate_cell_kernel(dev, m):
     assert launch_counts() == {"gate_cell": 1}
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+
+
+def _gate_case(dev, b, d, seed):
+    rng = _gen(seed)
+    p = init_gate_params(GateConfig(d_feature=d),
+                         torch.Generator().manual_seed(seed), dev)
+    p = {k: v + 0.1 * torch.randn(v.shape, device=dev)
+         if k.startswith("b_") else v for k, v in p.items()}
+    return (_t(rng.normal(size=(b, d)).astype(np.float32), dev),
+            _t(rng.uniform(-1, 1, (b, 32)).astype(np.float32), dev),
+            _t(rng.uniform(0, 2, b).astype(np.float32), dev), p)
+
+
+@pytest.mark.parametrize("d", [1, 35, 64])
+@pytest.mark.parametrize("b", [8, 37, 4096, 4099, 9001])
+def test_gate_cell_kernel_persistent(dev, b, d):
+    """The persistent kernel at ragged B (9001: several tiles a block, the
+    next one staged while the current one computes) and d from 1 to 64:
+    bit-equal to its order of work emulated on the card, within 1e-5 of
+    the plain version, one launch a call."""
+    args = _gate_case(dev, b, d, seed=b + d)
+    reset_launch_counts()
+    got = gate_cell(*args, force="kernel")
+    assert launch_counts() == {"gate_cell": 1}
+    want = gate_cell(*args, force="ref")
+    emulated = gate_cell_tiled(*args)
+    for g, w, e in zip(got, want, emulated):
+        assert torch.equal(g, e)
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+
+
+def test_gate_cell_kernel_unaligned_operands(dev):
+    """h and U_h that start 4 bytes off a 16-byte boundary take the
+    element-wise copies: the same bits as aligned copies."""
+    dx, h, vol, p = _gate_case(dev, 300, 35, seed=1)
+    h_off = torch.empty(300 * 32 + 1, device=dev)[1:].view(300, 32)
+    h_off.copy_(h)
+    uh_off = torch.empty(32 * 32 + 1, device=dev)[1:].view(32, 32)
+    uh_off.copy_(p["u_h"])
+    assert h_off.data_ptr() % 16 and uh_off.data_ptr() % 16
+    got = gate_cell(dx, h_off, vol, dict(p, u_h=uh_off), force="kernel")
+    want = gate_cell(dx, h, vol, p, force="kernel")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("m", [4096, 4093, 37])
@@ -153,6 +208,66 @@ def test_c6_tail_kernel(dev, m):
     args = (panel, *ints, z, thr, res_norm(sys_, dev), fps_norm(sys_, dev))
     got = c6_tail(*args, n_fps=5, force="kernel")
     want = c6_tail(*args, n_fps=5, force="ref")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _repair_case(dev, m, demoting, seed):
+    """Feasible-looking decisions on the real bandwidth panel: over budget
+    with demotions left (half the draw), or within it (twice the draw)."""
+    lat = RobustProblem.build(SystemConfig(), dev).lat
+    rng = _gen(seed)
+    d = {k: _t(rng.integers(lo, n, m), dev) for k, lo, n in
+         (("route", 0, 2), ("r", 2, 5), ("p", 2, 5), ("v", 2, 5))}
+    panel = torch.movedim(lat.bw, -1, 0)[d["route"]].reshape(m, -1)
+    draw = float(lat.solution_bandwidth(d).sum())
+    z = _t(rng.uniform(0.05, 0.7, m).astype(np.float32), dev)
+    thr = _t(rng.uniform(0.5, 0.75, m).astype(np.float32) + 0.02, dev)
+    args = (panel, d["r"], d["p"], d["v"], d["route"], z, thr,
+            res_norm(SystemConfig(), dev), fps_norm(SystemConfig(), dev))
+    return args, float(np.float32((0.5 if demoting else 2.0) * draw))
+
+
+@pytest.mark.parametrize("rounds", [1, 8])
+@pytest.mark.parametrize("budget_kind", ["float", "tensor"])
+@pytest.mark.parametrize("demoting", [True, False])
+@pytest.mark.parametrize("m", [60, 256, 4095, 4096, REPAIR_CAP + 1])
+def test_c6_repair_kernel(dev, m, demoting, budget_kind, rounds):
+    """One launch of the one-block kernel up to the cap, its bits those of
+    its order of work emulated on the card; above the cap the per-round
+    path (a c6_tail launch a round); both against the plain version:
+    r and p equal outside the boundary exemption, the history within
+    1e-6."""
+    args, budget = _repair_case(dev, m, demoting, seed=m + rounds)
+    b = budget if budget_kind == "float" else torch.tensor(budget,
+                                                           device=dev)
+    reset_launch_counts()
+    got = c6_repair(*args, b, n_fps=5, rounds=rounds, force="kernel")
+    want_launches = ({"c6_repair": 1} if m <= REPAIR_CAP
+                     else {"c6_tail": rounds})
+    assert launch_counts() == want_launches
+    assert got[2].shape == (rounds,) and got[0].dtype == torch.int64
+    if m <= REPAIR_CAP:
+        emulated = c6_repair_emulated(*args, b, n_fps=5, rounds=rounds)
+        for g, e in zip(got, emulated):
+            assert torch.equal(g, e)
+    run_k = lambda k: c6_repair(*args, b, n_fps=5, rounds=k, force="kernel")
+    run_r = lambda k: c6_repair_ref(*args, b, n_fps=5, rounds=k)
+    demoted = compare_runs(run_k, run_r, rounds, args, budget)
+    changed = bool((got[0] != args[1]).any() or (got[1] != args[2]).any())
+    assert changed == demoting
+    if demoting and rounds == 8:
+        assert demoted >= 2
+
+
+def test_c6_repair_kernel_reads_the_budget_on_the_card(dev):
+    """A budget tensor written by an earlier kernel on the stream is read
+    where it lies: the same result as the value passed as a float."""
+    args, budget = _repair_case(dev, 4096, True, seed=3)
+    b = torch.zeros((), device=dev)
+    b.add_(budget)
+    got = c6_repair(*args, b, n_fps=5, rounds=8, force="kernel")
+    want = c6_repair(*args, budget, n_fps=5, rounds=8, force="kernel")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

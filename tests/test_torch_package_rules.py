@@ -17,7 +17,7 @@ from repro_torch.core.lattice import DecisionLattice
 from repro_torch.core.robust import RobustProblem, solve_ccg_fused
 from repro_torch.core.router import init_router_state
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts
-from repro_torch.kernels.c6_tail.ops import c6_tail
+from repro_torch.kernels.c6_tail.ops import c6_repair, c6_tail
 from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
@@ -154,6 +154,10 @@ def _kernel_calls():
                                      res_norm(SystemConfig(), "cpu"),
                                      fps_norm(SystemConfig(), "cpu"),
                                      n_fps=5, force=f),
+        "c6_repair": lambda f: c6_repair(panel, i32, i32, i32, i32, f32, f32,
+                                         res_norm(SystemConfig(), "cpu"),
+                                         fps_norm(SystemConfig(), "cpu"),
+                                         600.0, n_fps=5, rounds=2, force=f),
         "lpt_queue": lambda f: lpt_queue(f32, i32, 4, 1, force=f),
         "ccg_encode": lambda f: ccg_encode(
             f32, f32, lat.rn_flat, lat.pn_flat, lat.tier_flat,
@@ -179,8 +183,9 @@ def _kernel_calls():
 
 
 @pytest.mark.parametrize("name", ["gate_cell", "ccg_solve", "c6_tail",
-                                  "lpt_queue", "ccg_encode", "ccg_master",
-                                  "decode_attention", "flash_attention",
+                                  "c6_repair", "lpt_queue", "ccg_encode",
+                                  "ccg_master", "decode_attention",
+                                  "flash_attention",
                                   "mamba_scan", "rglru_scan"])
 def test_force_kernel_on_cpu_tensor_raises(name):
     call = _kernel_calls()[name]

@@ -4,7 +4,8 @@ NVIDIA GPU.
 
     python3 tools/kernel_variants.py [--kernel ccg_encode|mamba_scan|
                                       flash_attention|decode_attention|
-                                      lpt_queue|rglru_scan|ccg_solve]
+                                      lpt_queue|rglru_scan|ccg_solve|
+                                      gate_cell|c6_repair]
                                      [--rounds 2] [--diagnose] [--reps 200]
 
 Builds each kernel as committed (``src/repro_torch/kernels/csrc/``) and
@@ -57,8 +58,34 @@ timed.
                                   every K
                    shuffles       butterfly shuffles of (value, index) for
                                   every argmin/argmax, not a vote
+  gate_cell        committed      persistent grid, weights copied once a
+                                  block, 16 warps × 2 streams a 32-stream
+                                  tile, the dx k-loop two groups of four a
+                                  step, a multiply then an add
+                   fma            fmaf for every product and sum (one
+                                  rounding: not bit-equal to committed)
+                   no_unroll      the dx k-loop one group a step
+                   warps8_streams4  8 warps × 4 streams, not unrolled (this
+                                  kernel's first shape)
+                   warps4_streams8  4 warps × 8 streams a tile
+                   tile64         16 warps × 4 streams: 64-stream tiles
+  c6_repair        committed      one block of 1024 threads (source
+                                  c6_tail.cu)
+                   threads512     one block of 512 threads (another order
+                                  of the sums: held to the tolerance)
+                   shared_network every sort stage through shared memory
+                                  (this kernel's first sort), not the
+                                  stages within 64 keys in registers
 
-``ccg_encode`` runs at M = 4096 on round 0 of the seeded stream that
+``gate_cell`` runs at M = 4096, d = 35 on the stream's round-0 features
+and ``c6_repair`` on ``chip_smoke.py``'s ``c6_repair_cases`` at M = 4096
+(the main path's inputs and the demoting case), both through their
+wrappers with the variant's library in place of ``_build.library()`` and
+timed by the profiler's device time (their launches are shorter than the
+host's call), events beside it: ``gate_cell`` within 1e-5 of the plain
+version (and whether bit-equal to the committed kernel), ``c6_repair``
+within its tolerance (``compare_repairs``).  ``ccg_encode`` runs at
+M = 4096 on round 0 of the seeded stream that
 ``chip_smoke.py`` serves, ``ccg_solve`` on the same round warm-started from
 Stage 1 (the main path's inputs), ``lpt_queue`` at M = 4096 on all-edge
 routes (the main path's) and on mixed ones: each must equal the plain
@@ -108,6 +135,16 @@ kernel's time goes:
                    tables_only    the tables built, no task solved
                    generic_no_encode, generic_one_step
                                   the same two cuts of the generic kernel
+  gate_cell        no_weight_copy the weights not copied into shared
+                                  memory (products of stale values)
+                   no_recurrence  no h·U_gr and no (r·h)·U_h product
+                   copies_only    no product at all: the launch, the copies,
+                                  the gates and the stores
+                   fma            (as above, timed beside the cuts)
+  c6_repair        no_sort        the keys not sorted (demotes in
+                                  compaction order)
+                   no_early_stop  every round runs its pass, sort and scan
+                                  after the repair stopped demoting
 
 Prints one JSON line per (round, variant) and, last, the card's name and
 power limit.  Exits 1 without CUDA.
@@ -241,6 +278,37 @@ CCG_BASE = ("float f = accuracy_clamp(tab.base(f0, k), zp, zr);",
 CCG_STEPS = "for (int step = 0; step < pr.n_steps; ++step)"
 CCG_FILL = "for (int i = threadIdx.x; i < P * fs; i += blockDim.x)"
 CCG_TASKS = "for (; task < pr.M; task += stride)"
+# temporal_gate.cu
+GATE_MADD = "  return acc + x * w;"
+GATE_SHAPE = ("constexpr int kWarps = 16;", "constexpr int kS = 2;")
+GATE_WEIGHTS = """  copy_floats(smem + L.wx, a.w_x, d * 3 * kM);
+  copy_floats(smem + L.ugr, a.u_gr, kM * 2 * kM);
+  copy_floats(smem + L.uh, a.u_h, kM * kM);
+"""
+GATE_UNROLL = "#pragma unroll 2\n"
+GATE_X = ("    for (int k = 0; k < d4; k += 4) {\n",
+          "    for (int k = d4; k < d; ++k) {\n")
+GATE_RECURRENCE = (
+    "for (int k = 0; k < kM; k += 4) {\n      float wg[4], wr[4];",
+    "for (int k = 0; k < kM; k += 4) {\n      float w[4];")
+# c6_tail.cu (c6_repair)
+REPAIR_THREADS = "constexpr int kRepairThreads = 1024;"
+# the first design's network: every stage through shared memory, a warp
+# barrier between stages whose pairs stay within one warp's 64 keys
+REPAIR_NETWORK = (
+    ("  sort_windows(keys, n, 2, 64);\n"
+     "  for (int size = 128; size <= n; size <<= 1) {\n"
+     "    for (int stride = size >> 1; stride >= 64; stride >>= 1) {",
+     "  for (int size = 2; size <= n; size <<= 1) {\n"
+     "    for (int stride = size >> 1; stride > 0; stride >>= 1) {"),
+    ("      __syncthreads();\n    }\n    sort_windows(keys, n, size, size);"
+     "\n  }\n}",
+     "      const int next = stride > 1 ? stride >> 1 : size;\n"
+     "      if (stride <= 32 && next <= 32) {\n        __syncwarp();\n"
+     "      } else {\n        __syncthreads();\n      }\n    }\n  }\n"
+     "  __syncthreads();\n}"))
+REPAIR_SORT = "    bitonic_sort(keys, n);\n"
+REPAIR_STOP = "if (!(excess > 0.0f) || count == 0) {"
 # lpt_queue.cu
 TREE = """  for (int w = 1; w < N; w *= 2) {
 #pragma unroll
@@ -260,6 +328,19 @@ AHEAD = ("      t[4 * u] = next[u].x;\n      t[4 * u + 1] = next[u].y;\n"
 SORTED_WALK = "const bool sorted = !odd & cloud_alive;"
 WALKERS = ("(tid == 0) & (n_edge_tasks > 0)", "(tid == 32) & (n_cloud_tasks > 0)",
            "} else if (!sorted & (tid == 0)) {")
+
+
+# the source file of a kernel whose file is named otherwise
+SOURCE_OF = {"gate_cell": "temporal_gate", "c6_repair": "c6_tail"}
+
+
+def source_file(kernel: str) -> str:
+    return f"{SOURCE_OF.get(kernel, kernel)}.cu"
+
+
+def gate_shape(warps: int, streams: int):
+    return tuple((old, old.replace(old.split("= ")[1][:-1], str(n)))
+                 for old, n in zip(GATE_SHAPE, (warps, streams)))
 
 
 def edit(src: str, *pairs) -> str:
@@ -314,6 +395,20 @@ def variants(kernel: str, src: str) -> dict:
                 src, (RG_DIRECT, RG_DIRECT.replace("4", "1 << 30")),
                 (RG_STEPS, rg_prefetch(n))) for n in (8, 16)},
         }
+    if kernel == "gate_cell":
+        no_unroll = (GATE_UNROLL + GATE_X[0], GATE_X[0])
+        return {"committed": src,
+                "fma": edit(src, (GATE_MADD, "  return fmaf(x, w, acc);")),
+                "no_unroll": edit(src, no_unroll),
+                "warps8_streams4": edit(src, *gate_shape(8, 4), no_unroll),
+                "warps4_streams8": edit(src, *gate_shape(4, 8)),
+                "tile64": edit(src, *gate_shape(16, 4))}
+    if kernel == "c6_repair":
+        return {"committed": src,
+                "threads512": edit(src, (REPAIR_THREADS,
+                                         REPAIR_THREADS.replace("1024",
+                                                                "512"))),
+                "shared_network": edit(src, *REPAIR_NETWORK)}
     if kernel == "ccg_solve":
         return {"committed": src,
                 "warps16": edit(src, (CCG_WARPS, CCG_WARPS.replace("32",
@@ -399,6 +494,21 @@ def diagnostics(kernel: str, src: str) -> dict:
                     "task < pr.M", "task < 0 * pr.M"))),
                 "generic_no_encode": edit(src, generic, *no_encode),
                 "generic_one_step": edit(src, generic, *one_step)}
+    if kernel == "gate_cell":
+        return {"committed": src,
+                "no_weight_copy": edit(src, (GATE_WEIGHTS, "")),
+                "no_recurrence": edit(src, *((loop, loop.replace(
+                    "k < kM", "k < 0")) for loop in GATE_RECURRENCE)),
+                "copies_only": edit(
+                    src, *((loop, loop.replace("k < kM", "k < 0"))
+                           for loop in GATE_RECURRENCE),
+                    *((loop, loop.replace("k < d", "k < 0 * d"))
+                      for loop in GATE_X)),
+                "fma": edit(src, (GATE_MADD, "  return fmaf(x, w, acc);"))}
+    if kernel == "c6_repair":
+        return {"committed": src,
+                "no_sort": edit(src, (REPAIR_SORT, "")),
+                "no_early_stop": edit(src, (REPAIR_STOP, "if (round < 0) {"))}
     if kernel == "lpt_queue":
         return {"committed": src,
                 "no_prefetch": edit(src, (AHEAD, "".join(
@@ -441,7 +551,7 @@ def build(kernels, diagnose: bool) -> dict:
     make = diagnostics if diagnose else variants
     procs = {}
     for kernel in kernels:
-        for name, src in make(kernel, (csrc / f"{kernel}.cu")
+        for name, src in make(kernel, (csrc / source_file(kernel))
                               .read_text()).items():
             cu = out / f"{kernel}_{name}.cu"
             cu.write_text(src)
@@ -630,6 +740,94 @@ class LptQueue:
         return rec
 
 
+class GateCell:
+    """``gate_cell`` at M = 4096, d = 35 on the stream's round-0 features,
+    through its wrapper with the variant's library; timed by the
+    profiler's device time, events beside it."""
+
+    def __init__(self, torch, reps: int, device_ms):
+        from repro_torch.core.cost_model import SystemConfig
+        from repro_torch.core.gating import GateConfig, init_gate_params
+        from repro_torch.kernels.temporal_gate.ops import gate_cell
+        from repro_torch.serving.simulator import SimConfig, Simulator
+
+        self.torch, self.reps, self.device_ms = torch, reps, device_ms
+        self.fn = gate_cell
+        dev = torch.device("cuda")
+        gen = torch.Generator().manual_seed(7)
+        p = init_gate_params(GateConfig(d_feature=35), gen, dev)
+        p = {k: v + 0.1 * torch.randn(v.shape, generator=gen).to(dev)
+             if k.startswith("b_") else v for k, v in p.items()}
+        stream = Simulator(SystemConfig(), SimConfig(n_tasks=M, seed=0),
+                           device=dev).sample_stream(n_rounds=1,
+                                                     feature_seed=1)
+        self.args = (stream.dx[0].contiguous(),
+                     (torch.rand((M, 32), generator=gen) * 2 - 1).to(dev),
+                     (torch.rand((M,), generator=gen) * 2).to(dev), p)
+        self.want = gate_cell(*self.args, force="ref")
+        self.committed = gate_cell(*self.args, force="kernel")
+
+    def __call__(self, lib, exact_required: bool) -> dict:
+        from repro_torch.kernels import _build
+
+        torch = self.torch
+        _build.library = lambda: lib
+        call = lambda: self.fn(*self.args, force="kernel")
+        got = call()
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, self.want))
+        if exact_required and not err <= 1e-5:
+            return {"outside_tolerance": f"max |diff| {err} > 1e-5"}
+        return {"ms": self.device_ms(torch, call, "gate_cell_kernel",
+                                     self.reps),
+                "events_ms": _event_ms(torch, call, self.reps),
+                "max_abs_err_vs_plain": err,
+                "bit_equal_to_committed": all(
+                    torch.equal(g, c) for g, c in zip(got, self.committed))}
+
+
+class C6Repair:
+    """``c6_repair`` at M = 4096 on ``chip_smoke.c6_repair_cases`` (the
+    main path's inputs and the demoting case), through its wrapper with the
+    variant's library; timed by the profiler's device time."""
+
+    def __init__(self, torch, reps: int, chip_smoke):
+        from repro_torch.core.cost_model import SystemConfig
+        from repro_torch.kernels.c6_tail.ops import c6_repair
+        from repro_torch.serving.simulator import SimConfig, Simulator
+
+        self.torch, self.reps, self.smoke = torch, reps, chip_smoke
+        self.fn = c6_repair
+        dev = torch.device("cuda")
+        stream = Simulator(SystemConfig(), SimConfig(n_tasks=M, seed=0),
+                           device=dev).sample_stream(n_rounds=1,
+                                                     feature_seed=1)
+        self.cases = {what: case for (m, what), case in
+                      chip_smoke.c6_repair_cases(torch, stream, dev).items()
+                      if m == M}
+
+    def __call__(self, lib, exact_required: bool) -> dict:
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.c6_tail.ref import compare_repairs
+
+        torch, rec = self.torch, {}
+        _build.library = lambda: lib
+        for what, (args, budget) in self.cases.items():
+            run = lambda k, force: self.fn(*args, budget, n_fps=5, rounds=k,
+                                           force=force)
+            if exact_required:
+                out = compare_repairs(lambda k: run(k, "kernel"),
+                                      lambda k: run(k, "ref"), 8, args,
+                                      budget, 5)
+                if not out["within"]:
+                    return {"outside_tolerance": f"{what}: {out}"}
+            call = lambda: run(8, "kernel")
+            rec[what] = {"ms": self.smoke.device_ms(
+                torch, call, "c6_repair_kernel", self.reps),
+                "events_ms": _event_ms(torch, call, self.reps)}
+        return rec
+
+
 class SmokeRows:
     """``mamba_scan``, ``rglru_scan``, ``flash_attention`` or
     ``decode_attention`` through ``chip_smoke.py``'s checks and timings
@@ -724,7 +922,7 @@ class SmokeRows:
 
 
 KERNELS = ("ccg_encode", "mamba_scan", "flash_attention", "decode_attention",
-           "lpt_queue", "rglru_scan", "ccg_solve")
+           "lpt_queue", "rglru_scan", "ccg_solve", "gate_cell", "c6_repair")
 EVENT_TIMED = {"ccg_encode": CcgEncode, "lpt_queue": LptQueue}
 
 
@@ -735,8 +933,8 @@ def main() -> int:
     ap.add_argument("--diagnose", action="store_true",
                     help="time the variants that drop one part of the work")
     ap.add_argument("--reps", type=int, default=200,
-                    help="ccg_encode / ccg_solve / lpt_queue launches per "
-                         "timing")
+                    help="ccg_encode / ccg_solve / lpt_queue / gate_cell / "
+                         "c6_repair launches per timing")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -750,8 +948,13 @@ def main() -> int:
     kernels = args.kernel or list(KERNELS)
     libs = build(kernels, args.diagnose)
     library = _build.library
-    runs = {k: CcgSolve(torch, args.reps, chip_smoke.device_ms)
-            if k == "ccg_solve" else EVENT_TIMED[k](torch, args.reps)
+    profiled = {"ccg_solve": lambda: CcgSolve(torch, args.reps,
+                                              chip_smoke.device_ms),
+                "gate_cell": lambda: GateCell(torch, args.reps,
+                                              chip_smoke.device_ms),
+                "c6_repair": lambda: C6Repair(torch, args.reps, chip_smoke)}
+    runs = {k: profiled[k]() if k in profiled
+            else EVENT_TIMED[k](torch, args.reps)
             if k in EVENT_TIMED else SmokeRows(torch, chip_smoke, k)
             for k in kernels}
     try:
