@@ -17,7 +17,10 @@ Phases, one JSON line each; any failure exits non-zero:
                  main path's routes and on mixed ones),
                  ccg_encode (also with a real availability mask) and
                  ccg_master (also on slabs with ties, empty scenario rows
-                 and all-infeasible rows) exact; decode_attention and
+                 and all-infeasible rows) exact, ccg_master timed at the
+                 first step of a warm solve and summed over the steps of
+                 one (``ms_per_warm_solve``, its bound from all their
+                 masks); decode_attention and
                  flash_attention at the dispatch path's shapes for both tier
                  models (slab of 16 × 144 entries at ragged lengths 1..144;
                  prefills of B ∈ {1, 2, 4, 8} × 16..80 tokens) and at ragged,
@@ -61,7 +64,9 @@ Phases, one JSON line each; any failure exits non-zero:
                  ccg_encode 1, ccg_master 8 per solve), on the plain
                  versions with the running-η master, and as the fused
                  ``solve_ccg_fused`` on the ccg_solve kernel; the three must
-                 agree on route/r/p/v/iters/infeasible on every lane.
+                 agree on route/r/p/v/iters/infeasible on every lane.  The
+                 warm solve is also profiled: device busy time, device
+                 activities and each kernel's device time a solve.
 7. ``policies``  the paper's method comparison: a2_cloud_only, jcab, rdap,
                  sniper, r2evid in τ-proxy mode and its no-Stage-1 and
                  no-Stage-2 ablations through ``ServeSession.run`` on the
@@ -327,6 +332,45 @@ def c6_repair_work(torch, args, budget, rounds: int, n_fps: int):
     return float(nbytes), float(flops), rounds_run, sorted_counts
 
 
+def master_work(scen_masks, fs_ok):
+    """(bytes, operations) of ccg_master launches on the (M, P) scenario
+    masks ``scen_masks`` (one a launch) and the (M, F) feasibility
+    ``fs_ok``: per launch the recourse of each task's generated poles at
+    its feasible options only, the whole mask and feasibility, c1, and y*
+    and o_down written; per feasible option the η max over the poles,
+    c1 + η and the argmin compare, per option the select."""
+    m, f = fs_ok.shape
+    n_feas = fs_ok.sum(1).double()
+    nbytes = flops = 0.0
+    for scen in scen_masks:
+        n_poles = scen.sum(1).double()
+        nbytes += float(4 * (n_poles * n_feas).sum() + 4 * scen.numel()
+                        + m * f + 4 * f + 8 * m)
+        flops += float((n_feas * (n_poles + 2)).sum() + m * f)
+    return nbytes, flops
+
+
+def warm_solve_master_inputs(prob, z, aq, warm_y):
+    """The (rec_all, scen_mask, fs_ok, c1) of every ccg_master call of one
+    solve_ccg (slab master), recorded on the plain versions: the master
+    sees the same bits on the kernels."""
+    from repro_torch.core import robust
+
+    calls, master = [], robust.ccg_master
+
+    def record(rec_all, scen_mask, fs_ok, c1, force="auto"):
+        calls.append((rec_all, scen_mask.clone(), fs_ok, c1))
+        return master(rec_all, scen_mask, fs_ok, c1, force=force)
+
+    robust.ccg_master = record
+    try:
+        robust.solve_ccg(prob, z, aq, warm_y=warm_y, force="ref",
+                         slab_master=True)
+    finally:
+        robust.ccg_master = master
+    return calls
+
+
 def max_abs(torch, got, want) -> float:
     return max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
                for g, w in zip(got, want))
@@ -550,17 +594,10 @@ def kernel_phase(torch, stream, dev):
     # argmax compare (6FK); the recourse is a lookup.
     enc_bytes = 4 * (M * P * F + M * F + M + 2 * M + 4 * F + K * P * F)
     enc_flops = (11 * F * K + P * F * 2 ** K + M * (3 * F + 6 * F * K))
-    # ccg_master on the first warm step's inputs: it needs the recourse of
-    # each task's generated poles at its feasible options only, the whole
-    # (M, P) mask and (M, F) feasibility, c1, and writes y* and o_down; per
-    # feasible option the η max over the poles, c1 + η and the argmin
-    # compare, per option the select
-    rec_m, scen_m, ok_m, _ = main_cases["ccg_master"][1]
+    # ccg_master on the first warm step's inputs (master_work)
+    _, scen_m, ok_m, _ = main_cases["ccg_master"][1]
     n_poles = scen_m.sum(1).double()
-    n_feas = ok_m.sum(1).double()
-    master_bytes = float(4 * (n_poles * n_feas).sum() + 4 * M * P + M * F
-                         + 4 * F + 8 * M)
-    master_flops = float((n_feas * (n_poles + 2)).sum() + M * F)
+    master_bytes, master_flops = master_work([scen_m], ok_m)
     work = {"gate_cell": (gate_bytes, gate_flops),
             "ccg_solve": (ccg_bytes, ccg_flops),
             "c6_tail": (c6_bytes, c6_flops),
@@ -590,6 +627,30 @@ def kernel_phase(torch, stream, dev):
         "first master step of the Stage-1 warm-started solve of round 0")
     rows["ccg_master"]["mean_poles_per_task"] = float(n_poles.mean())
     rows["ccg_master"]["dense_slab_bytes"] = 4 * M * P * F
+    # and over the launches of one warm solve of the same round, each on
+    # its own step's masks (later steps carry more poles)
+    z0, aq0 = stream.z[0].contiguous(), stream.aq[0].contiguous()
+    none = torch.full((M,), -1, dtype=torch.int64, device=dev)
+    route, r = stage1_configure(lat, z0, z0, aq0, none,
+                                torch.zeros_like(z0))
+    master_steps = warm_solve_master_inputs(
+        prob, z0, aq0, lat.flatten_index(route, r, sys_.n_fps - 1))
+    per_step = [device_ms(torch, lambda a=a: ccg_master(*a, force="kernel"),
+                          symbol["ccg_master"]) for a in master_steps]
+    solve_bytes, solve_flops = master_work([a[1] for a in master_steps],
+                                           master_steps[0][2])
+    rows["ccg_master"].update({
+        "warm_solve_launches": len(master_steps),
+        "ms_per_warm_solve": (sum(per_step) if None not in per_step
+                              else None),
+        "ms_by_step": per_step,
+        "mean_poles_per_task_by_step": [float(a[1].sum(1).mean())
+                                        for a in master_steps],
+        "bytes_per_warm_solve": solve_bytes,
+        "flops_per_warm_solve": solve_flops})
+    (rows["ccg_master"]["bound_ms_per_warm_solve"],
+     rows["ccg_master"]["bound_by_per_warm_solve"]) = bound(solve_bytes,
+                                                            solve_flops)
 
     # the nearest library yardstick of gate_cell: its packed dx·W_x GEMM
     dx = main_cases["gate_cell"][1][0]
@@ -1247,7 +1308,36 @@ def solve_phase(torch, dev, stream, counts_reset, counts_read):
     rec["device_ms_per_launch_in_warm_solve"] = {
         name: device_ms(torch, warm, f"{name}_kernel", reps=10)
         for name in per_solve}
+    # the warm solve's device busy time beside its wall time (ms_kernels)
+    rec["warm"].update(trace_calls(torch, warm, per_solve, reps=10))
     return totals, rec
+
+
+def trace_calls(torch, fn, kernels, reps: int) -> dict:
+    """One profiled window of ``reps`` calls of ``fn``: per call the device
+    busy time (the sum of the device activities), their count, and the
+    device time of each of ``kernels`` (summed over its launches in a
+    call, with its launches a call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    acts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    out = {"device_busy_ms": sum(e.self_device_time_total for e in acts)
+           / 1e3 / reps,
+           "device_activities": sum(e.count for e in acts) / reps}
+    for name in kernels:
+        mine = [e for e in acts if f"{name}_kernel" in e.key]
+        out[f"{name}_ms"] = sum(e.self_device_time_total for e in mine) \
+            / 1e3 / reps
+        out[f"{name}_launches"] = sum(e.count for e in mine) / reps
+    return out
 
 
 POLICY_VARIANTS = {

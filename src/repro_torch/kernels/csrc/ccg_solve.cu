@@ -29,14 +29,11 @@
 // The table path (K <= 5, the paper's K = 5; ccg_solve_kernel_tables) does
 // the work the bound counts.  A persistent grid, one block of kTableWarps
 // warps an SM, builds the task-independent tables once per block in
-// dynamic shared memory: a_max·sat per (version, option) and the recourse of
-// every version subset at every pole, rec[p][code][f] = the masked min over
-// code's versions of b2k·(1 + u), each entry one fminf of the entry with its
-// lowest bit cleared and that bit's cost (P = 16, 2^K = 32: 131 KB).  Rows
-// of options are padded to a multiple of 32 and each pole's slab by one
-// float, so that neither pattern is bank-conflicted: a lane reading its own
-// option and subset at one pole, and a lane per pole reading one option and
-// subset.  Then each warp walks its share of the tasks: the encode is the
+// dynamic shared memory (ccg_tables.cuh, shared with ccg_encode.cu): a_max·sat
+// per (version, option) and the recourse of every version subset at every
+// pole, rec[p][code][f] = the masked min over code's versions of
+// b2k·(1 + u) (P = 16, 2^K = 32: 131 KB).  Then each warp walks its share
+// of the tasks: the encode is the
 // per-option difficulty terms and K subtract/clamp/test steps, and every
 // recourse value one shared load.  A larger K (the wrapper admits K <= 8),
 // or tables that do not fit, take the generic kernel (ccg_solve_kernel),
@@ -49,20 +46,25 @@
 #include <math_constants.h>
 
 #include "accuracy.cuh"
+#include "ccg_tables.cuh"
 #include "warp_reduce.cuh"
 
 namespace {
 
+using ccg::kBig;
+using ccg::kMaxF;
+using ccg::table_bytes;
+using ccg::table_fs;
+using ccg::table_ps;
+
 constexpr int kWarps = 8;          // tasks per block, generic kernel
 constexpr int kTableWarps = 32;    // warps per block, table kernel
 constexpr int kTableMaxK = 5;      // largest K of the table kernel
-constexpr int kMaxF = 64;
 constexpr int kMaxK = 8;
 constexpr int kMaxP = 32;
-constexpr float kBig = 1e9f;
 
-struct Tables {
-  float c1[kMaxF], rn[kMaxF], pn[kMaxF], tier[kMaxF], ok[kMaxF];
+struct Tables : ccg::OptionTable {
+  float c1[kMaxF];
   float b2k[kMaxK * kMaxF];   // (K, F)
   float opu[kMaxP * kMaxK];   // (P, K): 1 + u
   float u[kMaxP * kMaxK];     // (P, K)
@@ -99,25 +101,13 @@ struct Inputs {
 
 __device__ void fill_tables(Tables& s, const Inputs& in, int F, int K,
                             int P) {
-  for (int i = threadIdx.x; i < F; i += blockDim.x) {
-    s.c1[i] = in.c1[i];
-    s.rn[i] = in.rn[i];
-    s.pn[i] = in.pn[i];
-    s.tier[i] = in.tier[i];
-    s.ok[i] = in.y_ok[i];
-  }
+  ccg::fill_options(s, in.rn, in.pn, in.tier, in.y_ok, F);
+  for (int i = threadIdx.x; i < F; i += blockDim.x) s.c1[i] = in.c1[i];
   for (int i = threadIdx.x; i < K * F; i += blockDim.x) s.b2k[i] = in.b2k[i];
   for (int i = threadIdx.x; i < P * K; i += blockDim.x) {
     s.u[i] = in.u_all[i];
     s.opu[i] = 1.0f + in.u_all[i];
   }
-}
-
-// An unsigned key in the order of the float's value (-0 taken as +0, so
-// that equal values have equal keys; NaN is not ordered).
-__device__ __forceinline__ unsigned order_key(float v) {
-  const unsigned b = __float_as_uint(v + 0.0f);
-  return b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
 }
 
 // The first lane holding the warp's max of v, and that max in v: one
@@ -305,23 +295,6 @@ __global__ void ccg_solve_kernel(Problem pr, Inputs in) {
              threadIdx.x & 31);
 }
 
-// the index of c's lowest set bit (c > 0), folded where c is a constant
-__host__ __device__ constexpr int low_bit(int c) {
-  int b = 0;
-  while (!((c >> b) & 1)) ++b;
-  return b;
-}
-
-// Row strides of the table kernel's shared tables: options padded to a
-// multiple of 32, each pole's (2^K, fs) slab by one float.
-__host__ __device__ inline int table_fs(int F) { return (F + 31) / 32 * 32; }
-__host__ __device__ inline int table_ps(int F, int K) {
-  return (1 << K) * table_fs(F) + 1;
-}
-inline size_t table_bytes(int F, int K, int P) {
-  return sizeof(float) * ((size_t)K * table_fs(F) + (size_t)P * table_ps(F, K));
-}
-
 // The table kernel: builds the tables once, then walks tasks
 // blockIdx.x·kTableWarps + warp, stepping by the grid's warps; each task's
 // inputs are loaded one task ahead (the first while the tables are built).
@@ -339,28 +312,11 @@ __global__ void __launch_bounds__(32 * kTableWarps, 1)
   Task next = task < pr.M ? pr.load(task) : Task{};
   fill_tables(s, in, F, kK, P);
   __syncthreads();
-  for (int i = threadIdx.x; i < kK * fs; i += blockDim.x) {
-    const int k = i / fs, f = i % fs;
-    if (f < F) ams[i] = accuracy_base(s.rn[f], (float)k, s.tier[f]);
-  }
-  // one (pole, option) column a thread: the K costs in registers, then
-  // every subset from the one with its lowest bit cleared
-  for (int i = threadIdx.x; i < P * fs; i += blockDim.x) {
-    const int p = i / fs, f = i % fs;
-    if (f >= F) continue;
-    float cost[kK];
-#pragma unroll
-    for (int k = 0; k < kK; ++k) cost[k] = s.b2k[k * F + f] * s.opu[p * kK + k];
-    float v[1 << kK];
-    float* col = rec_tab + p * ps + f;
-    v[0] = kBig;
-    col[0] = kBig;
-#pragma unroll
-    for (int c = 1; c < (1 << kK); ++c) {
-      v[c] = fminf(v[c & (c - 1)], cost[low_bit(c)]);
-      col[c * fs] = v[c];
-    }
-  }
+  ccg::fill_ams<kK>(ams, s.rn, s.tier, F);
+  auto pole_cost = [&](int k, int p, int f) {
+    return s.b2k[k * F + f] * s.opu[p * kK + k];
+  };
+  ccg::fill_subsets<kK>(rec_tab, F, P, pole_cost);
   __syncthreads();
   const Lookup<kK> tab{ams, rec_tab, fs, ps};
   const int lane = threadIdx.x & 31;
@@ -371,23 +327,18 @@ __global__ void __launch_bounds__(32 * kTableWarps, 1)
   }
 }
 
-// The card's SMs and the dynamic shared memory a table block may take,
-// read once per device (a launch then costs no attribute calls).
-struct Card {
-  int dev = -1, sms = 0, smem = 0;
-};
+// the dynamic shared memory a table block may take
+int table_smem(const ccg::Card& card) {
+  return card.optin - (int)sizeof(Tables);
+}
 
 template <int kK>
-int launch_table(const Problem& pr, const Inputs& in, const Card& card,
+int launch_table(const Problem& pr, const Inputs& in, const ccg::Card& card,
                  cudaStream_t stream) {
   static int opted_in = -1;   // the device whose limit this kernel took
-  if (opted_in != card.dev) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ccg_solve_kernel_tables<kK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, card.smem);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = card.dev;
-  }
+  const cudaError_t e = ccg::opt_in(ccg_solve_kernel_tables<kK>, card,
+                                    table_smem(card), opted_in);
+  if (e != cudaSuccess) return (int)e;
   const size_t smem = table_bytes(pr.F, kK, pr.P);
   const int sms = card.sms;
   const int blocks = (pr.M + kTableWarps - 1) / kTableWarps;
@@ -419,18 +370,8 @@ extern "C" int ccg_solve_launch(
                   (const float*)b2k,  (const float*)u_all,
                   (const float*)c1};
   cudaStream_t st = (cudaStream_t)stream;
-  static Card card;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev != card.dev) {
-    int optin = 0;
-    cudaDeviceGetAttribute(&card.sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    card.smem = optin - (int)sizeof(Tables);
-    card.dev = dev;
-  }
-  if (K <= kTableMaxK && table_bytes(F, K, P) <= (size_t)card.smem) {
+  const ccg::Card& card = ccg::current_card();
+  if (K <= kTableMaxK && table_bytes(F, K, P) <= (size_t)table_smem(card)) {
     switch (K) {
       case 1: return launch_table<1>(pr, in, card, st);
       case 2: return launch_table<2>(pr, in, card, st);

@@ -101,6 +101,41 @@ def test_ccg_encode_matches_reference(m, dead, jforce):
         assert (got[2].numpy() // 5 >= 25).all()
 
 
+@pytest.mark.parametrize("jforce", ["ref", "pallas"])
+@pytest.mark.parametrize("k,gamma", [(3, 1), (6, 2), (5, 0)],
+                         ids=["table_k3", "generic_k6", "table_p1"])
+def test_ccg_encode_matches_reference_where_the_kernel_branches(k, gamma,
+                                                                jforce):
+    """The shapes at which the CUDA kernel takes another path or another
+    store: K = 3 with Γ = 1 (P = 4, the table path at a smaller K), K = 6
+    (P = 22, the generic path) and Γ = 0 (P = 1: a task's P·F = 50 values
+    are no whole 16-byte vectors); the dead-tier mask at each."""
+    jsys = jcm.SystemConfig(num_versions=k, gamma=gamma)
+    jprob = JProb.build(jsys)
+    tprob = RobustProblem.build(tcm.SystemConfig(num_versions=k,
+                                                 gamma=gamma), "cpu")
+    jl, tl = jprob.lat, tprob.lat
+    z, aq = _inputs(53, seed=10 * k + gamma)
+    for dead in (None, 1):
+        y_ok = _y_ok(jl, dead)
+        want = j_ccg_encode(jnp.asarray(z), jnp.asarray(aq), jl.rn_flat,
+                            jl.pn_flat, jl.tier_flat, jprob.b2_scaled,
+                            jprob.rec_table, margin=jsys.acc_margin_robust,
+                            num_versions=k, block_m=32, force=jforce,
+                            y_ok=None if y_ok is None else jnp.asarray(y_ok))
+        got = ccg_encode(torch.from_numpy(z), torch.from_numpy(aq),
+                         tl.rn_flat, tl.pn_flat, tl.tier_flat,
+                         tprob.b2_scaled, tprob.rec_table,
+                         margin=jsys.acc_margin_robust, num_versions=k,
+                         y_ok=None if y_ok is None
+                         else torch.from_numpy(y_ok))
+        assert got[1].shape == (53, tprob.poles.shape[0], 50)
+        _assert_equal_outside_margin(
+            [t.numpy() for t in got], want, feasibility_margin(jsys, z, aq),
+            f"ccg_encode K={k} Γ={gamma} dead={dead} vs {jforce}")
+        assert (got[0].numpy()[:3] == 0).all()
+
+
 @pytest.mark.parametrize("gamma", [2, 0])
 def test_recourse_tables_match_reference(gamma):
     """``b2_scaled`` and ``rec_table`` of the port equal the reference's."""

@@ -57,6 +57,25 @@ def test_ccg_master_matches_reference(shape, jforce):
     assert (od.numpy()[none] == np.float32(BIG)).all()
 
 
+@pytest.mark.parametrize("jforce", ["ref", "pallas"])
+@pytest.mark.parametrize("shape", [(37, 4, 50), (21, 33, 130), (9, 64, 70),
+                                   (13, 16, 1)])
+def test_ccg_master_matches_reference_where_the_kernel_branches(shape,
+                                                                jforce):
+    """The shapes at which the CUDA kernel takes another branch: P = 4 (the
+    K = 3, Γ = 1 pole set), P > 32 (a second mask entry a lane), F > 64
+    (more than one 64-option chunk) and F = 1 (one live lane)."""
+    m, p, f = shape
+    rec, scen, fs_ok, c1 = _slab(m, p, f, seed=3 * m + p + f)
+    y_w, od_w = j_ccg_master(jnp.asarray(rec), jnp.asarray(scen),
+                             jnp.asarray(fs_ok), jnp.asarray(c1),
+                             block_m=32, force=jforce)
+    y, od = ccg_master(torch.from_numpy(rec), torch.from_numpy(scen),
+                       torch.from_numpy(fs_ok), torch.from_numpy(c1))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(y_w))
+    np.testing.assert_array_equal(od.numpy(), np.asarray(od_w))
+
+
 def test_ccg_master_empty_scenarios_is_first_stage_argmin():
     """With no scenario generated η = 0: the master is argmin c1 over the
     feasible options, first index on ties."""

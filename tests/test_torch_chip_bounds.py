@@ -244,3 +244,28 @@ def test_c6_repair_work_counts_what_the_run_needs(smoke):
     assert all(0 < n <= m for n in counts)
     chain = smoke.c6_repair_chain_ms(m, run, counts)
     assert smoke.bound(nbytes, flops, chain_ms=chain) == (chain, "chain")
+
+
+def test_master_work_counts_each_steps_generated_poles(smoke):
+    """ccg_master's work over the launches of a solve: per launch the
+    recourse of each task's generated poles at its feasible options, the
+    whole mask, the feasibility bytes, c1 and the two outputs; per
+    feasible option the η max over the poles, the add and the compare, per
+    option the select."""
+    m, p, f = 4, 3, 5
+    fs_ok = torch.tensor([[1, 1, 0, 0, 0], [0] * 5, [1] * 5,
+                          [1, 0, 1, 0, 1]], dtype=torch.bool)
+    first = torch.zeros((m, p))
+    first[0, 0] = 1.0
+    first[2] = 1.0
+    later = first.clone()
+    later[3, 1] = 1.0                   # poles a task: (1, 0, 3, 1)
+    nbytes, flops = smoke.master_work([first, later], fs_ok)
+    fixed = 4 * m * p + m * f + 4 * f + 8 * m
+    # Σ poles · feasible options: 1·2 + 3·5 = 17, then 17 + 1·3 = 20
+    assert nbytes == 4 * (17 + 20) + 2 * fixed
+    # Σ feasible · (poles + 2) + M·F: (6 + 25 + 6) + 20, (6 + 25 + 9) + 20
+    assert flops == 57 + 60
+    assert smoke.master_work([], fs_ok) == (0.0, 0.0)
+    # a first step's handful of poles is far below the float32 peak: bytes
+    assert smoke.bound(nbytes, flops)[1] == "bytes"

@@ -20,7 +20,7 @@ def tool():
     return mod
 
 
-@pytest.mark.parametrize("kernel", ["ccg_encode", "mamba_scan",
+@pytest.mark.parametrize("kernel", ["ccg_encode", "ccg_master", "mamba_scan",
                                     "flash_attention", "decode_attention",
                                     "lpt_queue", "rglru_scan", "ccg_solve",
                                     "gate_cell", "c6_repair"])
@@ -41,3 +41,55 @@ def test_edit_needs_its_text_exactly_once(tool):
         tool.edit("a b b", ("b", "x"))
     with pytest.raises(AssertionError):
         tool.edit("a b c", ("d", "x"))
+
+
+def test_replace_span_needs_both_markers_once(tool):
+    assert tool.replace_span("a [b] c", "[", "]", "x") == "a x] c"
+    with pytest.raises(AssertionError):
+        tool.replace_span("a [b] [c]", "[", "]", "x")
+    with pytest.raises(AssertionError):
+        tool.replace_span("a ]b[ c", "[", "]", "x")
+
+
+def test_with_constant_sets_the_declared_value(tool):
+    src = "constexpr int kStore = 0;   // note\nint x = 0;"
+    assert tool.with_constant(src, "constexpr int kStore = 0;", 2) == \
+        "constexpr int kStore = 2;   // note\nint x = 0;"
+
+
+@pytest.mark.parametrize("kernel,variant,text", [
+    ("ccg_encode", "fold", "constexpr int kTableMaxK = 0;"),
+    ("ccg_encode", "stores_vector", "dst[v] = src[v];"),
+    ("ccg_encode", "stores_bulk", "cp.async.bulk.global.shared::cta"),
+    ("ccg_master", "warp_per_task", "warp_argmin(best, arg);"),
+    ("ccg_master", "two_per_warp", "constexpr int kLanes = 16;"),
+])
+def test_named_variants_make_their_change(tool, kernel, variant, text):
+    src = (CSRC / tool.source_file(kernel)).read_text()
+    assert text not in src
+    assert text in tool.variants(kernel, src)[variant]
+
+
+def test_warp_per_task_keeps_the_launcher(tool):
+    """The first design replaces the kernel only: its launcher's grid (one
+    warp a task at kLanes = 32) and the entry point stay."""
+    src = (CSRC / "ccg_master.cu").read_text()
+    out = tool.variants("ccg_master", src)["warp_per_task"]
+    assert "vote_first" not in out and "extern \"C\" int ccg_master_launch" in out
+    assert "constexpr int kLanes = 32;" in out
+
+
+def test_shared_layout_puts_each_subset_at_its_row(tool):
+    """rec[p][code][f] sits at p·ps + code·fs + f of the flat layout, the
+    padding is zero."""
+    import torch
+
+    p, f, k = 3, 50, 2
+    rec = torch.arange(p * f * 2 ** k, dtype=torch.float32).view(p, f, 2 ** k)
+    table = tool.shared_layout(torch, rec)
+    fs, ps = 64, 4 * 64 + 1
+    assert table.shape == (p, ps)
+    flat = table.reshape(-1)
+    for pole, opt, code in [(0, 0, 0), (1, 49, 3), (2, 17, 1)]:
+        assert flat[pole * ps + code * fs + opt] == rec[pole, opt, code]
+    assert float(table.sum()) == float(rec.sum())

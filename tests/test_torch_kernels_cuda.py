@@ -13,7 +13,9 @@ the prefix gains sum in another order than torch's); ``ccg_solve``,
 ``c6_tail``, ``lpt_queue``,
 ``ccg_encode`` and ``ccg_master`` run the plain versions' float32 operations
 in the same order with ``-fmad=false`` (or only exact ones: min, max,
-compares), so they must match exactly.  ``decode_attention`` and
+compares), so they must match exactly; ``ccg_solve`` and ``ccg_encode``
+on both of their paths (tables built once a block for K <= 5 where they
+fit, else per-task recomputation).  ``decode_attention`` and
 ``flash_attention`` sum in another order than the plain versions and round
 each probability to the value type before P·V (as the TPU kernels do): they
 are held to |kernel − plain| <= 2e-5 + 2e-5·|plain| in float32 and
@@ -41,6 +43,7 @@ from torch_kernel_orders import (
 
 from repro_torch.core.cost_model import SystemConfig, fps_norm, res_norm
 from repro_torch.core.gating import GateConfig, init_gate_params
+from repro_torch.core.lattice import BIG
 from repro_torch.core.robust import RobustProblem
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 from repro_torch.kernels.c6_tail.ops import REPAIR_CAP, c6_repair, c6_tail
@@ -399,6 +402,107 @@ def test_ccg_master_kernel(dev, shape):
     want = ccg_master(*args, force="ref")
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _encode_synthetic(dev, m, k, p, f, dead):
+    """An encode at K versions, P poles and F options off the paper's
+    lattice: option coordinates on the lattice's grid, pole-scaled costs on
+    a coarse grid (equal costs across versions, so the subset minima tie),
+    the (P, F, 2^K) subset table built from them as RobustProblem builds
+    it; rows that nothing fits, z = 0 rows (accuracy ties across options
+    of one resolution) and, with ``dead``, the cloud tier's options
+    unavailable."""
+    rng = _gen(m + 10 * k + p + f)
+    rn = np.tile(np.linspace(0.2, 1.0, 5), -(-f // 5))[:f]
+    pn = np.repeat(np.linspace(0.2, 1.0, 5), -(-f // 5))[:f]
+    tier = (np.arange(f) >= f // 2).astype(np.float32)
+    b2s = _t((rng.integers(1, 12, (p, f, k)) * 0.125).astype(np.float32),
+             dev)
+    masks = ((torch.arange(2 ** k, device=dev)[:, None]
+              >> torch.arange(k, device=dev)[None]) & 1).bool()
+    rec_table = torch.where(masks[None, None], b2s[:, :, None, :],
+                            BIG).amin(dim=-1)
+    z = rng.uniform(0, 1, m).astype(np.float32)
+    aq = rng.uniform(0.4, 0.8, m).astype(np.float32)
+    aq[:3] = [0.99, 0.97, 1.2][:m]
+    z[3:6] = 0.0
+    y_ok = _t((tier < 0.5).astype(np.float32), dev) if dead else None
+    return ((_t(z, dev), _t(aq, dev),
+             *(_t(a.astype(np.float32), dev) for a in (rn, pn, tier)),
+             b2s, rec_table), y_ok)
+
+
+@pytest.mark.parametrize("m", [1, 37, 4093, 4096, 9001])
+@pytest.mark.parametrize("k,p,f", [
+    (1, 2, 50), (2, 4, 50), (3, 4, 50), (4, 11, 50), (5, 16, 50),
+    (5, 16, 33),     # the table path: K = 1..5
+    (5, 1, 50),      # Γ = 0: a task's P·F block is no whole 16-byte vectors
+    (6, 16, 50),     # K > 5: the generic path
+    (5, 16, 70),     # F > 64: the generic path
+    (5, 32, 64),     # tables of 262 KB do not fit: the generic path
+])
+def test_ccg_encode_kernel_paths(dev, m, k, p, f):
+    """Both paths, chosen by shape, equal the plain version exactly, with
+    and without a dead tier; one launch a call."""
+    for dead in (False, True):
+        args, y_ok = _encode_synthetic(dev, m, k, p, f, dead)
+        kw = dict(margin=0.02, num_versions=k, y_ok=y_ok)
+        want = ccg_encode(*args, force="ref", **kw)
+        reset_launch_counts()
+        got = ccg_encode(*args, force="kernel", **kw)
+        assert launch_counts() == {"ccg_encode": 1}
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        # rows that nothing fits, and solvable ones
+        assert (got[0][:min(m, 3)] == 0).all()
+        if m > 6:
+            assert (got[0] > 0).any()
+
+
+@pytest.mark.parametrize("poles", [0, 1, 8, "all"])
+@pytest.mark.parametrize("f", [1, 50, 70, 130])
+@pytest.mark.parametrize("p", [1, 16, 33, 64])
+def test_ccg_master_kernel_pole_sets(dev, p, f, poles):
+    """0, 1, 8 or every pole generated per task (at most P), every fifth
+    task with none; ties on a coarse grid, BIG recourse entries and
+    all-infeasible rows: exactly the plain version, one launch a call."""
+    m = 257
+    rng = _gen(p * 1000 + f * 10 + (p if poles == "all" else poles))
+    rec = (rng.integers(0, 6, (m, p, f)) * 0.125).astype(np.float32)
+    rec[rng.uniform(size=(m, p, f)) < 0.05] = BIG
+    n_set = p if poles == "all" else min(poles, p)
+    scen = np.zeros((m, p), np.float32)
+    for i in range(m):
+        scen[i, rng.permutation(p)[:n_set]] = 1.0
+    scen[::5] = 0.0
+    fs_ok = rng.uniform(size=(m, f)) < 0.7
+    fs_ok[2::6] = False
+    fs_ok[3::6] = True
+    c1 = (rng.integers(0, 4, f) * 0.25).astype(np.float32)
+    args = (_t(rec, dev), _t(scen, dev), _t(fs_ok, dev), _t(c1, dev))
+    want = ccg_master(*args, force="ref")
+    reset_launch_counts()
+    got = ccg_master(*args, force="kernel")
+    assert launch_counts() == {"ccg_master": 1}
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert (got[0][2::6] == 0).all() and (got[1][2::6] == BIG).all()
+
+
+@pytest.mark.parametrize("m", [1, 2, 33])
+def test_ccg_master_kernel_few_tasks(dev, m):
+    """Fewer tasks than a block holds (a warp's or a group's lanes past
+    M): exactly the plain version."""
+    rng = _gen(m)
+    rec = (rng.integers(0, 6, (m, 16, 50)) * 0.125).astype(np.float32)
+    scen = (rng.uniform(size=(m, 16)) < 0.3).astype(np.float32)
+    fs_ok = rng.uniform(size=(m, 50)) < 0.7
+    c1 = (rng.integers(0, 4, 50) * 0.25).astype(np.float32)
+    args = (_t(rec, dev), _t(scen, dev), _t(fs_ok, dev), _t(c1, dev))
+    got = ccg_master(*args, force="kernel")
+    want = ccg_master(*args, force="ref")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 _ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),

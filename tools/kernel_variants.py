@@ -2,10 +2,11 @@
 """Variants of the port's CUDA kernels, checked and timed in turns on one
 NVIDIA GPU.
 
-    python3 tools/kernel_variants.py [--kernel ccg_encode|mamba_scan|
-                                      flash_attention|decode_attention|
-                                      lpt_queue|rglru_scan|ccg_solve|
-                                      gate_cell|c6_repair]
+    python3 tools/kernel_variants.py [--kernel ccg_encode|ccg_master|
+                                      mamba_scan|flash_attention|
+                                      decode_attention|lpt_queue|
+                                      rglru_scan|ccg_solve|gate_cell|
+                                      c6_repair]
                                      [--rounds 2] [--diagnose] [--reps 200]
 
 Builds each kernel as committed (``src/repro_torch/kernels/csrc/``) and
@@ -16,8 +17,34 @@ over and in the reverse order every other round, so that a drift of the
 card reaches them alike.  A variant outside its tolerance is reported, not
 timed.
 
-  ccg_encode       committed      one task per warp (8 per block)
-                   four_per_warp  each warp loops over four tasks
+  ccg_encode       committed      K <= 5: tables once per block, persistent
+                                  grid of 16-warp blocks, a pole's row
+                                  stored across the lanes; else generic
+                   fold           the generic kernel (the kernel's first
+                                  design: one warp per task, the K-fold
+                                  masked min per recourse value) at every K
+                   copy_table     the subset table copied from device
+                                  memory (given in the shared layout,
+                                  ``shared_layout``), not built
+                   stores_vector  a task's block staged in shared memory,
+                                  stored in 16-byte vectors
+                   stores_bulk    staged, stored by one cp.async.bulk
+                   warps32/8      table blocks of 32 or 8 warps
+                   subsets_first  the subset table's loads issued before
+                                  the options' barrier
+  ccg_master       committed      one warp per task, 16 a block: one batch
+                                  of mask/feasibility/c1 loads, the pole
+                                  set by ballot, recourse loads two poles
+                                  at a time, a redux.sync vote
+                   warp_per_task  the kernel's first design (8 warps a
+                                  block, per option its feasibility then
+                                  each pole's recourse in turn, butterfly
+                                  shuffles)
+                   warps8/32      blocks of 8 or 32 warps
+                   two_per_warp   two tasks a warp (16 lanes, 4 options
+                                  each)
+                   poles1/4       recourse loads one or four poles at a
+                                  time
   mamba_scan       committed      2^(dt·(A·log2 e)) by ex2.approx.ftz, A
                                   scaled once; steps unrolled by 4
                    exp2f          exp2f (subnormal results kept) instead
@@ -87,12 +114,16 @@ version (and whether bit-equal to the committed kernel), ``c6_repair``
 within its tolerance (``compare_repairs``).  ``ccg_encode`` runs at
 M = 4096 on round 0 of the seeded stream that
 ``chip_smoke.py`` serves, ``ccg_solve`` on the same round warm-started from
-Stage 1 (the main path's inputs), ``lpt_queue`` at M = 4096 on all-edge
+Stage 1 (the main path's inputs), ``ccg_master`` on the inputs of each of
+the 8 master steps of that warm solve (``chip_smoke.py``'s
+``warm_solve_master_inputs``; ``ms`` the first step's, ``ms_per_warm_solve``
+the sum over the steps), ``lpt_queue`` at M = 4096 on all-edge
 routes (the main path's) and on mixed ones: each must equal the plain
-version exactly, and is timed by CUDA events around ``--reps``
-back-to-back launches (median of five); ``ccg_solve``, whose launch is
-shorter than its host call, by the profiler's device time over ``--reps``
-launches, the events beside it.  ``mamba_scan``, ``rglru_scan``,
+version exactly.  ``lpt_queue`` is timed by CUDA events around ``--reps``
+back-to-back launches (median of five); ``ccg_encode``, ``ccg_master``
+and ``ccg_solve``, whose launches are shorter than their host calls, by
+the profiler's device time over ``--reps`` launches, the events beside
+it.  ``mamba_scan``, ``rglru_scan``,
 ``flash_attention`` and ``decode_attention`` go through ``chip_smoke.py``'s
 own checks and timings with the variant's library in place of
 ``_build.library()``: every case of the kernel-vs-plain comparison within
@@ -103,10 +134,20 @@ With ``--diagnose`` it builds instead variants that drop one part of the
 work, compute wrong results on purpose and are only timed, to show where a
 kernel's time goes:
 
-  ccg_encode       no_fold        stores a value that needs no shared-memory
-                                  reads
-                   no_stores      folds, but stores no recourse value
-                   no_recourse    accuracy, bitmask and argmax only
+  ccg_encode       tables_only    the tables built, no task encoded
+                   launch_only    neither tables nor tasks: the grid's
+                                  launch, options copy and barrier
+                   no_stores      tables and encode, no recourse stored
+                   fold           (the first design, as above) and its
+                   fold_no_fold   cuts: a value that needs no shared-memory
+                                  reads stored,
+                   fold_no_stores the fold without its stores,
+                   fold_no_recourse accuracy, bitmask and argmax only
+  ccg_master       no_reads       the same grid storing constants: the
+                                  floor that launch and tail set
+                   no_recourse    every load but the recourse's, the pole
+                                  set and the vote
+                   warp_per_task  (the first design, timed beside)
   mamba_scan       no_exp         dt·A in place of its exponential
                    no_shuffle     no quad sum of y
                    no_bc_loads    B_t, C_t not read from shared memory
@@ -162,12 +203,192 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 M = 4096                          # ccg_encode's tasks, as chip_smoke.py
 
-# ccg_encode.cu
+# ccg_encode.cu: the generic path (the first design) ...
 FOLD = "if ((code >> k) & 1) v = fminf(v, s_b2s[(k * P + pole) * F + f]);"
 STORE = "rec[(size_t)pole * F] = v;"
-TASK = ("const int task = blockIdx.x * kWarps + (threadIdx.x >> 5);\n"
-        "  if (task >= M) return;   // warp-uniform\n")
 POLES = "for (int pole = 0; pole < P; ++pole)"
+ENC_TABLE_K = "constexpr int kTableMaxK = 5;"
+# ... and the table path
+ENC_WARPS = "constexpr int kTableWarps = 16;"
+ENC_SUBSETS = "ccg::fill_subsets<kK>(rec_tab, F, P, pole_cost);"
+# the subset table copied from device memory, where the caller put it in
+# the shared layout (CcgEncode passes it in place of the costs)
+ENC_COPY = """{
+    const int n = P * ps, n4 = n / 4;
+    const float4* src = reinterpret_cast<const float4*>(b2s);
+    float4* dst = reinterpret_cast<float4*>(rec_tab);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = src[i];
+    for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x) {
+      rec_tab[i] = b2s[i];
+    }
+  }"""
+ENC_TASKS = "for (; task < e.M; task += stride)"
+ENC_AMS = "ccg::fill_ams<kK>(ams, s.rn, s.tier, F);"
+# the build: the options behind a barrier, then a_max·sat and the subsets
+ENC_BUILD = """  ccg::fill_options(s, e.rn, e.pn, e.tier, e.y_ok, F);
+  __syncthreads();
+  ccg::fill_ams<kK>(ams, s.rn, s.tier, F);
+  const float* b2s = e.b2s;
+  auto pole_cost = [&](int k, int p, int f) {
+    return b2s[(k * P + p) * F + f];
+  };
+  ccg::fill_subsets<kK>(rec_tab, F, P, pole_cost);
+  __syncthreads();
+"""
+# the subsets' loads issued before the options' barrier
+ENC_SUBSETS_FIRST = """  const float* b2s = e.b2s;
+  auto pole_cost = [&](int k, int p, int f) {
+    return b2s[(k * P + p) * F + f];
+  };
+  ccg::fill_subsets<kK>(rec_tab, F, P, pole_cost);
+  ccg::fill_options(s, e.rn, e.pn, e.tier, e.y_ok, F);
+  __syncthreads();
+  ccg::fill_ams<kK>(ams, s.rn, s.tier, F);
+  __syncthreads();
+"""
+ENC_ROWS = ("for (int p = 0; p < P; ++p) {\n"
+            "      if (o0.has) out[p * F + f0] = t0[p * ps];")
+# the committed store (a pole's row across the lanes, straight from the
+# table) ...
+ENC_ROW_STORE = """#pragma unroll 4
+    for (int p = 0; p < P; ++p) {
+      if (o0.has) out[p * F + f0] = t0[p * ps];
+      if (o1.has) out[p * F + f1] = t1[p * ps];
+    }
+  }
+}
+"""
+# ... and the staged stores that rival it: the task's P·F block staged in
+# a warp's area of shared memory at the offset of its start from a 16-byte
+# boundary, then copied by the lanes in 16-byte vectors or by one bulk
+# copy (cp.async.bulk shared -> global), a scalar head and tail beside
+ENC_STAGE_HELPERS = """// A warp's staging area of a task's recourse, in floats: P·F values that
+// may start at any of four offsets from a 16-byte boundary.
+__host__ __device__ inline int stage_floats(int P, int F) {
+  return (P * F + 3 + 3) / 4 * 4;
+}
+// where the staging areas start in the dynamic shared memory (16-byte
+// aligned)
+__host__ __device__ inline size_t stage_start(int F, int K, int P) {
+  return (ccg::table_floats(F, K, P) + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(src);
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\\n"
+      "cp.async.bulk.commit_group;\\n" ::"l"(dst), "r"(s), "r"(bytes)
+      : "memory");
+}
+
+"""
+ENC_KERNEL_START = "// the dynamic shared memory of the table kernel: its tables"
+ENC_SMEM = "  return ccg::table_bytes(F, K, P);\n"
+ENC_STAGE_SMEM = ("  return sizeof(float) * (stage_start(F, K, P) +\n"
+                  "                          (size_t)kTableWarps * "
+                  "stage_floats(P, F));\n")
+ENC_WARP = "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
+ENC_STAGE_AREA = ("  float* stage = dyn + stage_start(F, kK, P) + "
+                  "warp * stage_floats(P, F);\n")
+
+
+def staged_store(bulk: bool) -> str:
+    """The staged store in place of ENC_ROW_STORE: by 16-byte vectors, or
+    (bulk) by one bulk copy a task."""
+    wait = ("""    if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    __syncwarp();   // the last bulk copy has read the stage
+""" if bulk else "")
+    fence = ("""    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+""" if bulk else "")
+    copy = ("""    if (lane == 0 && n4 > 0) bulk_store(out + head, st + head, 16 * n4);
+  }
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+""" if bulk else """    const float4* src = reinterpret_cast<const float4*>(st + head);
+    float4* dst = reinterpret_cast<float4*>(out + head);
+    for (int v = lane; v < n4; v += 32) dst[v] = src[v];
+    __syncwarp();   // before the next task overwrites the stage
+  }
+}
+""")
+    return f"""    const int n = P * F;
+    const int off = (int)(((size_t)out >> 2) & 3);
+    const int head = min(n, (4 - off) & 3);
+    const int n4 = (n - head) >> 2;
+    const int tail = head + 4 * n4;
+    float* st = stage + off;
+{wait}#pragma unroll 4
+    for (int p = 0; p < P; ++p) {{
+      if (o0.has) st[p * F + f0] = t0[p * ps];
+      if (o1.has) st[p * F + f1] = t1[p * ps];
+    }}
+{fence}    __syncwarp();
+    if (lane < head) out[lane] = st[lane];
+    if (lane < n - tail) out[tail + lane] = st[tail + lane];
+{copy}"""
+
+
+def staged(src: str, bulk: bool) -> str:
+    """ccg_encode.cu with the staged store of ``staged_store``."""
+    return edit(src, (ENC_KERNEL_START, ENC_STAGE_HELPERS + ENC_KERNEL_START),
+                (ENC_SMEM, ENC_STAGE_SMEM),
+                (ENC_WARP, ENC_WARP + ENC_STAGE_AREA),
+                (ENC_ROW_STORE, staged_store(bulk)))
+# ccg_master.cu
+MASTER_WARPS = "constexpr int kWarps = 16;        // warps per block"
+MASTER_LANES = "constexpr int kLanes = 32;"
+MASTER_BATCH = "constexpr int kPoleBatch = 2;"
+MASTER_LIVE = "  const bool live = task < M;\n"
+MASTER_POLES = "for (Set b = poles; b;)"
+MASTER_KERNEL = ("template <bool kWide>\n__global__ void __launch_bounds__("
+                 "32 * kWarps) ccg_master_kernel(", "}  // namespace")
+# the kernel's first design: one warp per task, the mask, then per option
+# its feasibility, then c1 and the generated poles' recourse one pole at a
+# time, then five butterfly rounds on (value, index)
+MASTER_FIRST = """template <bool kWide>
+__global__ void ccg_master_kernel(
+    const float* __restrict__ rec, const float* __restrict__ scen_mask,
+    const unsigned char* __restrict__ fs_ok, const float* __restrict__ c1,
+    int* __restrict__ y_out, float* __restrict__ od_out, int M, int P,
+    int F) {
+  const int lane = threadIdx.x & 31;
+  const int task = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (task >= M) return;   // warp-uniform
+
+  const float* mask = scen_mask + (size_t)task * P;
+  const unsigned lo = __ballot_sync(kFullMask, lane < P && mask[lane] > 0.0f);
+  const unsigned hi =
+      __ballot_sync(kFullMask, lane + 32 < P && mask[lane + 32] > 0.0f);
+  const unsigned long long poles = ((unsigned long long)hi << 32) | lo;
+
+  const float* rec_t = rec + (size_t)task * P * F;
+  const unsigned char* ok_t = fs_ok + (size_t)task * F;
+  float best = CUDART_INF_F;
+  int arg = INT_MAX;
+  for (int f = lane; f < F; f += 32) {
+    float obj = kBig;
+    if (ok_t[f]) {
+      float eta = 0.0f;
+      if (poles) {
+        eta = -kBig;
+        for (unsigned long long b = poles; b; b &= b - 1) {
+          const int pole = __ffsll((long long)b) - 1;
+          eta = fmaxf(eta, rec_t[(size_t)pole * F + f]);
+        }
+      }
+      obj = c1[f] + eta;
+    }
+    if (obj < best) { best = obj; arg = f; }
+  }
+  warp_argmin(best, arg);
+  if (lane == 0) {
+    y_out[task] = arg;
+    od_out[task] = best;
+  }
+}
+
+"""
 # mamba_scan.cu
 EX2 = "const float da = ex2_approx(dv * a[i]);"
 SCALE = ("#pragma unroll\n  for (int i = 0; i < kPerLane; ++i) "
@@ -276,7 +497,7 @@ SHUFFLE_PAIR = """  int i = threadIdx.x & 31;
 CCG_BASE = ("float f = accuracy_clamp(tab.base(f0, k), zp, zr);",
             "float f = accuracy_clamp(tab.base(f1, k), zp, zr);")
 CCG_STEPS = "for (int step = 0; step < pr.n_steps; ++step)"
-CCG_FILL = "for (int i = threadIdx.x; i < P * fs; i += blockDim.x)"
+CCG_FILL = "ccg::fill_subsets<kK>(rec_tab, F, P, pole_cost);"
 CCG_TASKS = "for (; task < pr.M; task += stride)"
 # temporal_gate.cu
 GATE_MADD = "  return acc + x * w;"
@@ -352,18 +573,43 @@ def edit(src: str, *pairs) -> str:
     return src
 
 
+def replace_span(src: str, start: str, end: str, new: str) -> str:
+    """``src`` with the text from ``start`` up to (not including) ``end``
+    replaced by ``new``; each marker must occur exactly once."""
+    assert src.count(start) == 1 and src.count(end) == 1, (start, end)
+    i, j = src.index(start), src.index(end)
+    assert i < j, (start, end)
+    return src[:i] + new + src[j:]
+
+
+def with_constant(src: str, line: str, value: int) -> str:
+    """``src`` with the constant declared on ``line`` (``... = n;``) set to
+    ``value``."""
+    name_eq, _ = line.rsplit("= ", 1)
+    return edit(src, (line, f"{name_eq}= {value};"))
+
+
 def variants(kernel: str, src: str) -> dict:
     """The committed source and the variants that keep its results."""
     if kernel == "ccg_encode":
-        return {"committed": src, "four_per_warp": edit(
-            src,
-            (TASK, "const int warp = threadIdx.x >> 5;\n  for (int task = "
-             "blockIdx.x * kWarps * 4 + warp; task < (blockIdx.x + 1) * "
-             "kWarps * 4 && task < M; task += kWarps) {\n"),
-            ("  if (lane == 0) best_out[task] = bi;\n}",
-             "  if (lane == 0) best_out[task] = bi;\n  }\n}"),
-            ("const int grid = (M + kWarps - 1) / kWarps;",
-             "const int grid = (M + 4 * kWarps - 1) / (4 * kWarps);"))}
+        return {"committed": src,
+                "fold": with_constant(src, ENC_TABLE_K, 0),
+                "copy_table": edit(src, (ENC_SUBSETS, ENC_COPY)),
+                "stores_vector": staged(src, bulk=False),
+                "stores_bulk": staged(src, bulk=True),
+                "warps32": with_constant(src, ENC_WARPS, 32),
+                "warps8": with_constant(src, ENC_WARPS, 8),
+                "subsets_first": edit(src, (ENC_BUILD, ENC_SUBSETS_FIRST))}
+    if kernel == "ccg_master":
+        return {"committed": src,
+                "warp_per_task": with_constant(
+                    replace_span(src, *MASTER_KERNEL, MASTER_FIRST),
+                    MASTER_WARPS, 8),
+                "warps8": with_constant(src, MASTER_WARPS, 8),
+                "warps32": with_constant(src, MASTER_WARPS, 32),
+                "two_per_warp": with_constant(src, MASTER_LANES, 16),
+                "poles1": with_constant(src, MASTER_BATCH, 1),
+                "poles4": with_constant(src, MASTER_BATCH, 4)}
     if kernel == "mamba_scan":
         return {
             "committed": src,
@@ -430,12 +676,35 @@ def diagnostics(kernel: str, src: str) -> dict:
     """The committed source and variants that drop one part of the work
     (wrong results: timed only)."""
     if kernel == "ccg_encode":
+        fold = with_constant(src, ENC_TABLE_K, 0)
         return {
             "committed": src,
-            "no_fold": edit(src, (FOLD, "v = fminf(v, (float)(code >> k));")),
-            "no_stores": edit(src, (STORE, "if (v == 12345.0f) "
-                                    "rec[(size_t)pole * F] = v;")),
-            "no_recourse": edit(src, (POLES, POLES.replace("< P", "< 0"))),
+            "tables_only": edit(src, (ENC_TASKS, ENC_TASKS.replace(
+                "task < e.M", "task < 0 * e.M"))),
+            "launch_only": edit(src, (ENC_TASKS, ENC_TASKS.replace(
+                "task < e.M", "task < 0 * e.M")), (ENC_SUBSETS, ""),
+                                (ENC_AMS, "")),
+            "no_stores": edit(src, (ENC_ROWS, ENC_ROWS.replace(
+                "p < P", "p < 0 * P"))),
+            "fold": fold,
+            "fold_no_fold": edit(fold, (FOLD, "v = fminf(v, (float)(code "
+                                        ">> k));")),
+            "fold_no_stores": edit(fold, (STORE, "if (v == 12345.0f) "
+                                          "rec[(size_t)pole * F] = v;")),
+            "fold_no_recourse": edit(fold, (POLES, POLES.replace("< P",
+                                                                 "< 0"))),
+        }
+    if kernel == "ccg_master":
+        return {
+            "committed": src,
+            "no_reads": edit(src, (MASTER_LIVE, MASTER_LIVE + (
+                "  if (live && gl == 0) {\n    y_out[task] = 0;\n"
+                "    od_out[task] = 0.0f;\n  }\n  return;\n"))),
+            "no_recourse": edit(src, (MASTER_POLES, MASTER_POLES.replace(
+                "b = poles", "b = 0"))),
+            "warp_per_task": with_constant(
+                replace_span(src, *MASTER_KERNEL, MASTER_FIRST),
+                MASTER_WARPS, 8),
         }
     if kernel == "mamba_scan":
         return {
@@ -488,8 +757,7 @@ def diagnostics(kernel: str, src: str) -> dict:
         return {"committed": src,
                 "no_encode": edit(src, *no_encode),
                 "one_step": edit(src, *one_step),
-                "no_table_fill": edit(src, (CCG_FILL, CCG_FILL.replace(
-                    "i < P * fs", "i < 0 * fs"))),
+                "no_table_fill": edit(src, (CCG_FILL, "(void)pole_cost;")),
                 "tables_only": edit(src, (CCG_TASKS, CCG_TASKS.replace(
                     "task < pr.M", "task < 0 * pr.M"))),
                 "generic_no_encode": edit(src, generic, *no_encode),
@@ -529,10 +797,12 @@ def diagnostics(kernel: str, src: str) -> dict:
 
 
 class Library:
-    """The kernel library with one entry point taken from a variant."""
+    """The kernel library with one entry point taken from a variant (named
+    ``variant``)."""
 
-    def __init__(self, base, name: str, fn):
+    def __init__(self, base, name: str, fn, variant: str):
         self._base, self._name, self._fn = base, name, fn
+        self.variant = variant
 
     def __getattr__(self, attr):
         return self._fn if attr == self._name else getattr(self._base, attr)
@@ -568,7 +838,7 @@ def build(kernels, diagnose: bool) -> dict:
         fn = getattr(ctypes.CDLL(str(so)), entry)
         fn.argtypes = _build._SIGNATURES[entry]
         fn.restype = ctypes.c_int
-        libs.setdefault(kernel, {})[name] = Library(base, entry, fn)
+        libs.setdefault(kernel, {})[name] = Library(base, entry, fn, name)
     return libs
 
 
@@ -588,19 +858,36 @@ def _event_ms(torch, launch, reps: int) -> float:
     return statistics.median(times)
 
 
+def shared_layout(torch, rec_table):
+    """The (P, F, 2^K) subset table as the table kernels hold it in shared
+    memory (ccg_tables.cuh): rec[p][code][f] at row strides fs (options
+    padded to a multiple of 32) and ps = 2^K·fs + 1 (each pole's slab
+    padded by one float), zeros in the padding; (P, ps)."""
+    n_p, n_f, n_c = rec_table.shape
+    fs = (n_f + 31) // 32 * 32
+    table = torch.zeros((n_p, n_c * fs + 1), dtype=rec_table.dtype,
+                        device=rec_table.device)
+    table[:, :n_c * fs].view(n_p, n_c, fs)[:, :, :n_f] = \
+        rec_table.permute(0, 2, 1)
+    return table
+
+
 class CcgEncode:
     """``ccg_encode`` at M = 4096, launched through its entry point with
     sentinel outputs, so that a variant that skips a store cannot pass on
-    memory an earlier variant left behind."""
+    memory an earlier variant left behind; timed by the profiler's device
+    time (a launch is shorter than its host call), events beside it.  The
+    ``copy_table`` variant is given the subset table in the table kernel's
+    shared layout in place of the costs."""
 
-    def __init__(self, torch, reps: int):
+    def __init__(self, torch, reps: int, device_ms):
         from repro_torch.core.cost_model import SystemConfig
         from repro_torch.core.robust import RobustProblem
         from repro_torch.kernels import _build
         from repro_torch.kernels.ccg_encode.ops import ccg_encode
         from repro_torch.serving.simulator import SimConfig, Simulator
 
-        self.torch, self.reps = torch, reps
+        self.torch, self.reps, self.device_ms = torch, reps, device_ms
         dev = self.dev = torch.device("cuda")
         sys_ = SystemConfig()
         prob = RobustProblem.build(sys_, dev)
@@ -608,6 +895,7 @@ class CcgEncode:
         stream = Simulator(sys_, SimConfig(n_tasks=M, seed=0),
                            device=dev).sample_stream(n_rounds=1)
         z, aq = stream.z[0].contiguous(), stream.aq[0].contiguous()
+        self.table = shared_layout(torch, prob.rec_table)
         self.want = ccg_encode(z, aq, lat.rn_flat, lat.pn_flat,
                                lat.tier_flat, prob.b2_scaled, prob.rec_table,
                                margin=sys_.acc_margin_robust,
@@ -626,7 +914,9 @@ class CcgEncode:
         outs = [torch.full((M, f), -7, dtype=torch.int32, device=dev),
                 torch.full((M, p, f), float("nan"), device=dev),
                 torch.full((M,), -7, dtype=torch.int32, device=dev)]
-        call = [t.data_ptr() for t in self.ins + outs] + self.sizes + [
+        ins = self.ins[:-1] + [self.table if lib.variant == "copy_table"
+                               else self.ins[-1]]
+        call = [t.data_ptr() for t in ins + outs] + self.sizes + [
             _build.stream_ptr(dev)]
         fn = lib.ccg_encode_launch
         _build.check(fn(*call), "ccg_encode")
@@ -634,7 +924,69 @@ class CcgEncode:
         exact = all(torch.equal(g, w) for g, w in zip(outs, self.want))
         if exact_required and not exact:
             return {"outside_tolerance": "differs from the plain version"}
-        return {"ms": _event_ms(torch, lambda: fn(*call), self.reps),
+        return {"ms": self.device_ms(torch, lambda: fn(*call),
+                                     "ccg_encode_kernel", self.reps),
+                "events_ms": _event_ms(torch, lambda: fn(*call), self.reps),
+                "exact_vs_plain": exact}
+
+
+class CcgMaster:
+    """``ccg_master`` on the inputs of every master step of one warm solve
+    (M = 4096, round 0 of the seeded stream warm-started from Stage 1, as
+    ``chip_smoke.py``'s kernel phase), launched through its entry point
+    with sentinel outputs; each step checked exactly and timed by the
+    profiler's device time: the first step and the sum over the steps,
+    events beside the first."""
+
+    def __init__(self, torch, reps: int, chip_smoke):
+        from repro_torch.core.cost_model import SystemConfig
+        from repro_torch.core.robust import RobustProblem
+        from repro_torch.core.router import stage1_configure
+        from repro_torch.kernels.ccg_master.ops import ccg_master
+        from repro_torch.serving.simulator import SimConfig, Simulator
+
+        self.torch, self.reps = torch, reps
+        self.device_ms = chip_smoke.device_ms
+        dev = self.dev = torch.device("cuda")
+        sys_ = SystemConfig()
+        prob = RobustProblem.build(sys_, dev)
+        lat = prob.lat
+        stream = Simulator(sys_, SimConfig(n_tasks=M, seed=0),
+                           device=dev).sample_stream(n_rounds=1)
+        z, aq = stream.z[0].contiguous(), stream.aq[0].contiguous()
+        none = torch.full((M,), -1, dtype=torch.int64, device=dev)
+        route, r = stage1_configure(lat, z, z, aq, none, torch.zeros_like(z))
+        wy = lat.flatten_index(route, r, sys_.n_fps - 1)
+        self.steps = chip_smoke.warm_solve_master_inputs(prob, z, aq, wy)
+        self.want = [ccg_master(*a, force="ref") for a in self.steps]
+
+    def __call__(self, lib, exact_required: bool) -> dict:
+        from repro_torch.kernels import _build
+
+        torch, dev = self.torch, self.dev
+        fn = lib.ccg_master_launch
+        calls, exact = [], True
+        for (rec_all, scen, fs_ok, c1), want in zip(self.steps, self.want):
+            m, p, f = rec_all.shape
+            outs = [torch.full((m,), -7, dtype=torch.int32, device=dev),
+                    torch.full((m,), float("nan"), device=dev)]
+            call = [t.data_ptr() for t in (rec_all, scen, fs_ok, c1, *outs)]
+            call += [m, p, f, _build.stream_ptr(dev)]
+            _build.check(fn(*call), "ccg_master")
+            torch.cuda.synchronize()
+            exact &= all(torch.equal(g, w) for g, w in zip(outs, want))
+            calls.append(call)
+        if exact_required and not exact:
+            return {"outside_tolerance": "differs from the plain version"}
+        by_step = [self.device_ms(torch, lambda c=c: fn(*c),
+                                  "ccg_master_kernel", self.reps)
+                   for c in calls]
+        return {"ms": by_step[0],
+                "ms_per_warm_solve": (sum(by_step) if None not in by_step
+                                      else None),
+                "ms_by_step": by_step,
+                "events_ms": _event_ms(torch, lambda: fn(*calls[0]),
+                                       self.reps),
                 "exact_vs_plain": exact}
 
 
@@ -921,9 +1273,10 @@ class SmokeRows:
         return rec
 
 
-KERNELS = ("ccg_encode", "mamba_scan", "flash_attention", "decode_attention",
-           "lpt_queue", "rglru_scan", "ccg_solve", "gate_cell", "c6_repair")
-EVENT_TIMED = {"ccg_encode": CcgEncode, "lpt_queue": LptQueue}
+KERNELS = ("ccg_encode", "ccg_master", "mamba_scan", "flash_attention",
+           "decode_attention", "lpt_queue", "rglru_scan", "ccg_solve",
+           "gate_cell", "c6_repair")
+EVENT_TIMED = {"lpt_queue": LptQueue}
 
 
 def main() -> int:
@@ -933,8 +1286,8 @@ def main() -> int:
     ap.add_argument("--diagnose", action="store_true",
                     help="time the variants that drop one part of the work")
     ap.add_argument("--reps", type=int, default=200,
-                    help="ccg_encode / ccg_solve / lpt_queue / gate_cell / "
-                         "c6_repair launches per timing")
+                    help="ccg_encode / ccg_master / ccg_solve / lpt_queue / "
+                         "gate_cell / c6_repair launches per timing")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -948,7 +1301,10 @@ def main() -> int:
     kernels = args.kernel or list(KERNELS)
     libs = build(kernels, args.diagnose)
     library = _build.library
-    profiled = {"ccg_solve": lambda: CcgSolve(torch, args.reps,
+    profiled = {"ccg_encode": lambda: CcgEncode(torch, args.reps,
+                                                chip_smoke.device_ms),
+                "ccg_master": lambda: CcgMaster(torch, args.reps, chip_smoke),
+                "ccg_solve": lambda: CcgSolve(torch, args.reps,
                                               chip_smoke.device_ms),
                 "gate_cell": lambda: GateCell(torch, args.reps,
                                               chip_smoke.device_ms),

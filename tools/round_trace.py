@@ -10,10 +10,15 @@ of ``chip_smoke.py`` (gate-mode R2E-VID, M = 4096 streams, R = 16 rounds of
 the seeded stream): one warm-up run, ``--runs`` untraced runs timed by the
 host's clock to a synchronize (median), then that tree's own
 ``chip_smoke.trace_round``: device busy ms and device activities a round,
-the idle share, the costliest device activities.  Run it on two trees in
-one call, in turns (parent, change, change, parent), to compare them on
-one card.  Prints one JSON line, then the card's name and power limit.
-Exits 1 without CUDA.
+the idle share, the costliest device activities.  Then the unrolled
+solver ``solve_ccg`` on round 0, warm-started from Stage 1 (the solve of
+``chip_smoke.py``'s ``solve_ccg`` phase): wall ms a solve (host clock to a
+synchronize, median of ``--runs`` × 10 solves) and one profiled window of
+10 solves: device busy ms, device activities and the ``ccg_encode`` and
+``ccg_master`` device time a solve.  Run it on two trees in one call, in
+turns (parent, change, change, parent), to compare them on one card.
+Prints one JSON line, then the card's name and power limit.  Exits 1
+without CUDA.
 """
 from __future__ import annotations
 
@@ -24,6 +29,48 @@ import statistics
 import sys
 import time
 from pathlib import Path
+
+
+def trace_solve(torch, sys_, stream, runs: int, reps: int = 10) -> dict:
+    """Wall and device time of the warm unrolled solve of round 0."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.robust import RobustProblem, solve_ccg
+    from repro_torch.core.router import stage1_configure
+
+    dev = stream.z.device
+    prob = RobustProblem.build(sys_, dev)
+    lat = prob.lat
+    z, aq = stream.z[0].contiguous(), stream.aq[0].contiguous()
+    none = torch.full(z.shape, -1, dtype=torch.int64, device=dev)
+    route, r = stage1_configure(lat, z, z, aq, none, torch.zeros_like(z))
+    warm_y = lat.flatten_index(route, r, sys_.n_fps - 1)
+
+    def solves():
+        for _ in range(reps):
+            solve_ccg(prob, z, aq, warm_y=warm_y)
+        torch.cuda.synchronize()
+
+    solves()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        solves()
+        walls.append((time.perf_counter() - t0) * 1e3 / reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solves()
+    acts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+    def ms(events):
+        return sum(e.self_device_time_total for e in events) / 1e3 / reps
+
+    return {"wall_ms": statistics.median(walls), "wall_ms_runs": walls,
+            "device_busy_ms": ms(acts),
+            "device_activities": sum(e.count for e in acts) / reps,
+            **{f"{k}_ms": ms([e for e in acts if f"{k}_kernel" in e.key])
+               for k in ("ccg_encode", "ccg_master")}}
 
 
 def main() -> int:
@@ -77,7 +124,8 @@ def main() -> int:
     runs = [timed() for _ in range(args.runs)]
     rec = smoke.trace_round(torch, session(), stream, statistics.median(runs))
     rec.update({"tree": str(tree), "run_s": runs,
-                "rounds_per_s": rounds / statistics.median(runs)})
+                "rounds_per_s": rounds / statistics.median(runs),
+                "solve_ccg_warm": trace_solve(torch, sys_, stream, args.runs)})
     print(json.dumps(rec), flush=True)
     print(smoke.nvidia_smi(), flush=True)
     return 0
