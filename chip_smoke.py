@@ -75,7 +75,28 @@ Phases, one JSON line each; any failure exits non-zero:
                  warm-up) and ``Simulator.aggregate``'s paper scalars; the
                  τ-proxy run also on the plain versions, with bit-equal
                  decisions.
-8. ``dispatch``  the tier pools at full width and depth (Qwen1.5-0.5B edge,
+8. ``scenarios`` the robustness path (``serving/scenarios.py``): the golden
+                 point (``run_suite``'s 5 policies × ``none`` and the 9
+                 scenarios of ``SUITE``, 64 streams, 30 rounds, seed 11) on
+                 the kernels and on the plain versions, every scalar of
+                 ``SCENARIO_GOLDENS.json`` within 2e-3 + 2e-3·|golden| on
+                 both, the churn cells' occupancy, queue and drops equal,
+                 decisions agreeing on >= 99.9% of lane-rounds; then
+                 gate-mode and τ-proxy R2E-VID at M = 4096, R = 30 through
+                 each of the 10 scenarios on the kernels (launch counters
+                 zeroed just before each run and read just after:
+                 gate_cell (gate mode), ccg_solve, c6_repair and lpt_queue
+                 once a round, no c6_tail), rounds/s (median of three runs
+                 after a warm-up) and one profiled run (device busy time,
+                 idle share, activities and copies a round), the rounds
+                 whose C6 repair demoted, churn occupancy, queue and drops,
+                 cloud share and SLA violations; edge_outage, straggler_tail and flash_churn at
+                 R = 12 also on the plain versions (decisions >= 99.9%,
+                 churn bookkeeping equal); last, ``ccg_solve`` with the edge
+                 tier out and ``c6_repair`` with the churned pool's alive
+                 mask, on inputs those runs gave them, held to their plain
+                 versions and timed (a second time in their kernel rows).
+9. ``dispatch``  the tier pools at full width and depth (Qwen1.5-0.5B edge,
                  Qwen3-8B cloud, bf16, random weights from seeded
                  generators): (a) ``ServeSession.dispatch`` of a gate-mode
                  round over the first 256 streams of the main path's stream,
@@ -92,7 +113,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  fed-back observation; last, a decode step and a prefill
                  per tier, timed on both paths in turns and profiled
                  (device busy time, idle share, top device and host costs).
-9. ``dispatch_recurrent``  the same phase on the sub-quadratic tier pools,
+10. ``dispatch_recurrent``  the same phase on the sub-quadratic tier pools,
                  after the dense pools are freed: Falcon-Mamba-7B (64 Mamba
                  layers) as the edge tier and RecurrentGemma-9B (26 RG-LRU
                  and 12 local-attention layers) as the cloud tier, full
@@ -1427,6 +1448,319 @@ def policies_phase(torch, dev, stream, counts_reset, counts_read):
             "variants": rows}
 
 
+SCEN_ROUNDS, SCEN_PLAIN_ROUNDS = 30, 12
+# the plain path's scenarios: the outage mask (y_ok, avail), the hedge and
+# the alive mask (task_mask), in turn
+SCEN_PLAIN = ("edge_outage", "straggler_tail", "flash_churn")
+GOLDEN_TOL = 2e-3                  # rtol = atol, the reference's golden test
+DECISIONS = ("route", "r", "p", "v")
+
+
+class Recorder:
+    """Wraps ``module.name`` while active: every call's (args, kwargs,
+    result) is kept (the tensors stay on the card; nothing is read)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def record(*args, **kw):
+            out = self.real(*args, **kw)
+            self.calls.append((args, kw, out))
+            return out
+        setattr(self.module, self.name, record)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def golden_point(torch, dev):
+    """``run_scenario`` over every golden cell (the 5 policies × ``none`` and
+    the 9 of ``SUITE``) on the kernels and on the plain versions: every
+    scalar the golden row holds within 2e-3 + 2e-3·|golden| on both paths,
+    the churn cells' extra scalars equal between the paths, and the
+    decisions' agreement over lane-rounds."""
+    from repro_torch.serving import scenarios as sc
+    from repro_torch.serving.policy import POLICIES
+
+    gold = json.loads((ROOT / "SCENARIO_GOLDENS.json").read_text())
+    cfg = gold["config"]
+    kw = dict(streams=cfg["streams"], rounds=cfg["rounds"], seed=cfg["seed"],
+              scenario_seed=cfg["scenario_seed"], device=dev,
+              return_mets=True)
+    worst, n_scalars, same, total = 0.0, 0, 0, 0
+    churn_extra = {}
+    for name in ("none",) + sc.SUITE:
+        for pol in sorted(POLICIES):
+            key = f"{pol}@{name}"
+            got, g_mets = sc.run_scenario(pol, name, **kw)
+            ref, r_mets = sc.run_scenario(pol, name, force="ref", **kw)
+            for metric, val in gold["rows"][key].items():
+                for side in (got, ref):
+                    ratio = abs(side[metric] - val) / (
+                        GOLDEN_TOL + GOLDEN_TOL * abs(val))
+                    if not ratio <= 1.0:
+                        raise AssertionError(
+                            f"{key} {metric}: {side[metric]} vs golden "
+                            f"{val}")
+                    worst = max(worst, ratio)
+                    n_scalars += 1
+            if "mean_alive" in got:
+                extra = {k: (got[k], ref[k]) for k in
+                         ("mean_alive", "max_queue_depth", "dropped")}
+                if any(a != b for a, b in extra.values()):
+                    raise AssertionError(f"{key}: churn scalars differ "
+                                         f"between the paths: {extra}")
+                churn_extra[key] = {k: a for k, (a, _) in extra.items()}
+            eq = torch.ones_like(g_mets["route"], dtype=torch.bool)
+            for k in DECISIONS:
+                eq &= g_mets[k] == r_mets[k]
+            same += int(eq.sum())
+            total += eq.numel()
+    agree = same / total
+    if agree < 0.999:
+        raise AssertionError(f"golden point: kernels vs plain decisions "
+                             f"agree on {agree}")
+    return {"cells": len(gold["rows"]), "scalars_compared": n_scalars,
+            "worst_err_over_tolerance": worst,
+            "tolerance": "2e-3 + 2e-3·|golden|, kernels and plain",
+            "decision_agreement_vs_plain": agree,
+            "lane_rounds_compared": total, "churn_scalars": churn_extra}
+
+
+def scenarios_phase(torch, dev, counts_reset, counts_read, rows):
+    """The robustness path on the card: the golden point (``golden_point``),
+    then gate-mode and τ-proxy R2E-VID at M = 4096 through every scenario
+    on the kernels (launches counted from zero per run, rounds/s, C6
+    demotions, churn occupancy) and three scenarios at R = 12 also on the
+    plain versions.  Adds to ``rows`` the time of ``ccg_solve`` with the
+    edge tier out and of ``c6_repair`` with the churned pool's alive mask,
+    each checked against its plain version on those inputs.  Returns (the
+    kernel launches of the counted runs, the phase's record)."""
+    from repro_torch.core import robust, router
+    from repro_torch.core.cost_model import SystemConfig
+    from repro_torch.serving import simulator
+    from repro_torch.core.gating import GateConfig
+    from repro_torch.kernels.c6_tail.ops import c6_repair
+    from repro_torch.kernels.c6_tail.ref import compare_repairs
+    from repro_torch.serving import scenarios as sc
+    from repro_torch.serving.policy import make_policy
+    from repro_torch.serving.session import ServeSession
+    from repro_torch.serving.simulator import SimConfig, Simulator
+
+    rec = {"phase": "scenarios", "golden_point": golden_point(torch, dev)}
+    sys_ = SystemConfig()
+    simc = SimConfig(n_tasks=M, seed=0)
+    stream = Simulator(sys_, simc, device=dev).sample_stream(
+        n_rounds=SCEN_ROUNDS, feature_seed=1)
+
+    def session(mode, force, trace):
+        kw = ({} if mode == "tau_proxy" else
+              dict(gate_cfg=GateConfig(d_feature=35),
+                   generator=torch.Generator().manual_seed(0)))
+        pol = make_policy("r2evid", sys_, device=dev, force=force, **kw)
+        return ServeSession(pol, M, sim=simc, device=dev, hedge=trace.hedge,
+                            admission=trace.admission)
+
+    def degraded(mode, trace, rounds):
+        obs = stream if rounds == SCEN_ROUNDS else dataclasses.replace(
+            stream, **{f.name: getattr(stream, f.name)[:rounds]
+                       for f in dataclasses.fields(stream)
+                       if getattr(stream, f.name) is not None})
+        if mode == "tau_proxy":
+            obs = dataclasses.replace(obs, dx=None)
+        return sc.apply_scenario(obs, trace)
+
+    totals = collections.Counter()
+    runs, captured = {}, {}
+    for mode in ("gate", "tau_proxy"):
+        for name in ("none",) + sc.SUITE:
+            trace = sc.compile_scenario(name, sys_, simc, SCEN_ROUNDS, seed=0)
+            obs = degraded(mode, trace, SCEN_ROUNDS)
+            sess = session(mode, "auto", trace)
+            with Recorder(router, "c6_repair") as repairs, \
+                    Recorder(robust, "ccg_solve") as solves, \
+                    Recorder(simulator, "lpt_queue") as packs:
+                counts_reset()
+                mets = sess.run(obs)
+                torch.cuda.synchronize()
+                launches = counts_read()
+            want = {"ccg_solve": SCEN_ROUNDS, "c6_repair": SCEN_ROUNDS,
+                    "lpt_queue": SCEN_ROUNDS}
+            if mode == "gate":
+                want["gate_cell"] = SCEN_ROUNDS
+            if launches != want:
+                raise AssertionError(f"scenarios {mode}/{name} launched "
+                                     f"{launches}, want {want}")
+            totals.update(launches)
+            for k in ("delay", "energy", "cost", "accuracy"):
+                if tuple(mets[k].shape) != (SCEN_ROUNDS, M) or \
+                        not bool(torch.isfinite(mets[k]).all()):
+                    raise AssertionError(f"scenarios {mode}/{name}: metric "
+                                         f"{k} bad shape or non-finite")
+            if trace.tier_ok is not None:
+                down = torch.as_tensor(trace.tier_ok[:, 0] == 0, device=dev)
+                if bool((mets["route"][down] == 0).any()):
+                    raise AssertionError(f"{mode}/{name}: a segment on the "
+                                         f"downed edge tier")
+            hists = torch.stack([out[2] for _, _, out in repairs])
+            demoting = (hists[:, 1:] < hists[:, :-1]).any(dim=1)
+            if mode == "gate" and name == "edge_outage":
+                captured["ccg_solve"] = next(
+                    (a, k) for a, k, _ in solves
+                    if k["y_ok"] is not None and bool((k["y_ok"] <= 0).any()))
+                # LPT in the round with the fewest edge servers up, > 0
+                up = [float(k["avail"][:4].sum()) for _, k, _ in packs]
+                i = min((u, j) for j, u in enumerate(up) if u > 0)[1]
+                captured["lpt_avail"] = packs[i][:2]
+            if mode == "gate" and name == "flash_churn":
+                first = int(torch.argmax(demoting.int())) \
+                    if bool(demoting.any()) else 0
+                captured["c6_repair"] = repairs[first][:2] + (
+                    bool(demoting[first]),)
+                captured["lpt_dead_lanes"] = packs[0][:2]
+            scalars = sc.scenario_metrics(mets, obs, trace)
+
+            def timed():
+                s = session(mode, "auto", trace)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.run(obs)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            timed()
+            secs = statistics.median(timed() for _ in range(3))
+            prof = trace_round(torch, session(mode, "auto", trace), obs,
+                               secs, rounds=SCEN_ROUNDS)
+            del prof["phase"], prof["rounds"]
+            prof["top_device_time"] = prof["top_device_time"][:4]
+            row = {"launches_per_round": {k: v / SCEN_ROUNDS
+                                          for k, v in launches.items()},
+                   "rounds_per_s": SCEN_ROUNDS / secs, "run_s": secs,
+                   "trace": prof,
+                   "c6_demoting_rounds": int(demoting.sum()),
+                   "cloud_frac": scalars["cloud_frac"],
+                   "sla_violation_rate": scalars["sla_violation_rate"],
+                   "cost": scalars["cost"], "accuracy": scalars["accuracy"]}
+            for k in ("mean_alive", "max_queue_depth", "dropped"):
+                if k in scalars:
+                    row[k] = scalars[k]
+            runs[f"{mode}/{name}"] = row
+    rec["full_width"] = {"streams": M, "rounds": SCEN_ROUNDS, "runs": runs}
+
+    # the plain versions on the three scenarios of the masks, R = 12
+    plain = {}
+    for name in SCEN_PLAIN:
+        trace = sc.compile_scenario(name, sys_, simc, SCEN_PLAIN_ROUNDS,
+                                    seed=0)
+        obs = degraded("gate", trace, SCEN_PLAIN_ROUNDS)
+        got = session("gate", "auto", trace).run(obs)
+        counts_reset()
+        want = session("gate", "ref", trace).run(obs)
+        torch.cuda.synchronize()
+        if counts_read():
+            raise AssertionError("force='ref' run launched a kernel")
+        eq = torch.ones_like(got["route"], dtype=torch.bool)
+        for k in DECISIONS:
+            eq &= got[k] == want[k]
+        agree = float(eq.double().mean())
+        if agree < 0.999:
+            raise AssertionError(f"scenarios {name}: kernels vs plain "
+                                 f"decisions agree on {agree}")
+        plain[name] = {"decision_agreement_vs_plain": agree,
+                       "metric_max_abs_vs_plain": {
+                           k: float((got[k] - want[k]).abs().max())
+                           for k in ("delay", "energy", "cost", "accuracy")}}
+        for k in ("alive", "queue_depth", "admitted", "dropped"):
+            if k in got and not torch.equal(got[k], want[k]):
+                raise AssertionError(f"scenarios {name}: {k} differs "
+                                     f"between the paths")
+    rec["plain_path"] = {"streams": M, "rounds": SCEN_PLAIN_ROUNDS,
+                         "runs": plain}
+
+    # the two masked kernels, on inputs the runs gave them
+    args, kw = captured["ccg_solve"]
+    got = robust.ccg_solve(*args, **dict(kw, force="kernel"))
+    want = robust.ccg_solve(*args, **dict(kw, force="ref"))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("ccg_solve with the edge tier out differs "
+                             "from plain")
+    rows["ccg_solve"]["edge_out"] = {
+        "ms": device_ms(torch, lambda: robust.ccg_solve(
+            *args, **dict(kw, force="kernel")), "ccg_solve_kernel"),
+        "plain_ms": event_ms(torch, lambda: robust.ccg_solve(
+            *args, **dict(kw, force="ref")), 10, warmup=1),
+        "inputs": "edge_outage, gate mode: the first round with the edge "
+                  "tier out", "max_abs_err": 0.0}
+    lpt_rows = {}
+    for what, label in (("lpt_avail", "edge_outage, gate mode: the round "
+                         "with the fewest edge servers up (not 0)"),
+                        ("lpt_dead_lanes", "flash_churn, gate mode: round "
+                         "0, the dead slots at t_comp 0")):
+        args, kw = captured[what]
+        got = simulator.lpt_queue(*args, **dict(kw, force="kernel"))
+        want = simulator.lpt_queue(*args, **dict(kw, force="ref"))
+        if not torch.equal(got, want):
+            raise AssertionError(f"lpt_queue ({what}) differs from plain")
+        lpt_rows[what] = {
+            "ms": device_ms(torch, lambda: simulator.lpt_queue(
+                *args, **dict(kw, force="kernel")), "lpt_queue_kernel"),
+            "inputs": label, "max_abs_err": 0.0,
+            "tasks_on_zero_time": int((args[0] == 0).sum()),
+            "servers_up": None if kw.get("avail") is None
+            else float(kw["avail"].sum())}
+    rows["lpt_queue"].update(lpt_rows)
+    args, kw, demotes = captured["c6_repair"]
+    mask = kw["task_mask"]
+    budget, rest = args[9], {k: v for k, v in kw.items()
+                             if k not in ("force", "rounds")}
+    out = compare_repairs(
+        lambda k: c6_repair(*args, **dict(rest, rounds=k, force="kernel")),
+        lambda k: c6_repair(*args, **dict(rest, rounds=k, force="ref")),
+        kw["rounds"], args[:9], budget, kw["n_fps"], task_mask=mask)
+    if not out["within"]:
+        raise AssertionError(f"c6_repair with the alive mask vs plain: "
+                             f"{out}")
+    call = lambda: c6_repair(*args, **dict(kw, force="kernel"))
+    rows["c6_repair"]["alive_mask"] = {
+        "ms": device_ms(torch, call, "c6_repair_kernel"),
+        "plain_ms": event_ms(torch, lambda: c6_repair(
+            *args, **dict(kw, force="ref")), 10, warmup=1),
+        "inputs": "flash_churn, gate mode: the first round whose repair "
+                  "demotes" if demotes else
+                  "flash_churn, gate mode: round 0 (no round demoted)",
+        "alive": int(mask.sum()), "demotes": demotes,
+        "rounds_demoting": out.get("rounds_demoting"),
+        "hist_max_rel_err": out["hist_max_rel"]}
+    if not demotes:
+        # that round's pool and mask at the highest fidelity against half
+        # the alive lanes' draw: a repair that demotes under the mask
+        top = (args[0], torch.full_like(args[1], sys_.n_res - 1),
+               torch.full_like(args[2], sys_.n_fps - 1), *args[3:9])
+        half = torch.where(mask, top[0][:, -1], 0.0).sum() * 0.5
+        out = compare_repairs(
+            lambda k: c6_repair(*top, half, **dict(rest, rounds=k,
+                                                  force="kernel")),
+            lambda k: c6_repair(*top, half, **dict(rest, rounds=k,
+                                                  force="ref")),
+            kw["rounds"], top, half, kw["n_fps"], task_mask=mask)
+        if not out["within"] or not out.get("rounds_demoting", 1):
+            raise AssertionError(f"c6_repair, masked demoting case: {out}")
+        rows["c6_repair"]["alive_mask_demoting"] = {
+            "ms": device_ms(torch, lambda: c6_repair(
+                *top, half, **dict(kw, force="kernel")), "c6_repair_kernel"),
+            "inputs": "that round's pool and alive mask at the highest "
+                      "fidelity, half the alive lanes' draw as budget",
+            "rounds_demoting": out.get("rounds_demoting"),
+            "first_differing_round": out["first_differing_round"],
+            "hist_max_rel_err": out["hist_max_rel"]}
+    return totals, rec
+
+
 def _plain_margin(torch, pool, tokens, ids, t):
     """The plain pool's top-2 logit margin at decoded position ``t`` of one
     request (its prompt, then its first ``t`` ids, decoded alone)."""
@@ -1742,8 +2076,10 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
     return totals, rec
 
 
-def trace_round(torch, sess, stream, untraced_s: float) -> dict:
-    """Where the time goes: one profiled run of the main path.
+def trace_round(torch, sess, stream, untraced_s: float,
+                rounds: int = ROUNDS) -> dict:
+    """Where the time goes: one profiled run of ``rounds`` rounds of the
+    main path (or of a scenario's run).
 
     Device busy time is the sum of the trace's device activities (kernels,
     copies, fills); the idle share compares it with the untraced run's wall
@@ -1768,21 +2104,21 @@ def trace_round(torch, sess, stream, untraced_s: float) -> dict:
                   if any(k in e.key for k in ours)) / 1e3
     top = sorted(acts, key=lambda e: -e.self_device_time_total)[:8]
     return {
-        "phase": "trace", "rounds": ROUNDS,
-        "device_busy_ms_per_round": busy_ms / ROUNDS,
-        "untraced_ms_per_round": untraced_s * 1e3 / ROUNDS,
-        "traced_ms_per_round": traced_s * 1e3 / ROUNDS,
+        "phase": "trace", "rounds": rounds,
+        "device_busy_ms_per_round": busy_ms / rounds,
+        "untraced_ms_per_round": untraced_s * 1e3 / rounds,
+        "traced_ms_per_round": traced_s * 1e3 / rounds,
         "device_idle_share": 1.0 - busy_ms / (untraced_s * 1e3),
-        "device_activities_per_round": sum(e.count for e in acts) / ROUNDS,
+        "device_activities_per_round": sum(e.count for e in acts) / rounds,
         "dtoh_copies_per_round": sum(e.count for e in acts
-                                     if "DtoH" in e.key) / ROUNDS,
+                                     if "DtoH" in e.key) / rounds,
         "htod_copies_per_round": sum(e.count for e in acts
-                                     if "HtoD" in e.key) / ROUNDS,
+                                     if "HtoD" in e.key) / rounds,
         "ported_kernels_share_of_busy": ours_ms / busy_ms if busy_ms else None,
         "top_device_time": [
             {"name": e.key[:90], "ms_per_round":
-             e.self_device_time_total / 1e3 / ROUNDS,
-             "per_round": e.count / ROUNDS} for e in top],
+             e.self_device_time_total / 1e3 / rounds,
+             "per_round": e.count / rounds} for e in top],
     }
 
 
@@ -1849,6 +2185,9 @@ def main() -> int:
     record(solve_rec)
     record(policies_phase(torch, dev, stream, reset_launch_counts,
                           launch_counts))
+    scen_launches, scen_rec = scenarios_phase(
+        torch, dev, reset_launch_counts, launch_counts, rows)
+    record(scen_rec)
     dispatch_by_call, dispatch_rec = dispatch_phase(
         torch, dev, stream, reset_launch_counts, launch_counts)
     record(dispatch_rec)
@@ -1867,6 +2206,7 @@ def main() -> int:
     # by the call that launched them: prefill or decode step)
     phases = {"main_path": launches, "solve_ccg": solve_launches,
               "c6_repair_above_cap": above_cap_launches,
+              "scenarios": scen_launches,
               "dispatch": per_kernel(dispatch_by_call),
               "dispatch_recurrent": per_kernel(recurrent_by_call)}
     for name, row in rows.items():

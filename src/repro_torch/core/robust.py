@@ -76,12 +76,11 @@ def solve_ccg_fused(prob: RobustProblem, difficulty, acc_req,
     over min(max_iters, P+1) steps, in the ``ccg_solve`` kernel.
 
     difficulty/acc_req: (M,) float32; warm_y: optional (M,) flat warm
-    starts (-1 = cold).  Returns a dict of (M,) tensors: route/r/p/v
-    (int64), o_up/o_down, iters, infeasible.
+    starts (-1 = cold); tier_ok: optional (2,) per-tier availability,
+    lowered to the kernel's (F,) ``y_ok``: an outaged tier's options are
+    infeasible and out of the all-infeasible fallback.  Returns a dict of
+    (M,) tensors: route/r/p/v (int64), o_up/o_down, iters, infeasible.
     """
-    if tier_ok is not None:
-        raise NotImplementedError(
-            "tier_ok (scenario outages) is ROADMAP queue A.9")
     lat = prob.lat
     m = difficulty.shape[0]
     if warm_y is None:
@@ -90,7 +89,8 @@ def solve_ccg_fused(prob: RobustProblem, difficulty, acc_req,
         difficulty, acc_req, lat.rn_flat, lat.pn_flat, lat.tier_flat,
         lat.b2_flat, prob.u_all, lat.c1_flat, warm_y.to(torch.int32),
         margin=lat.sys.acc_margin_robust, num_versions=lat.sys.num_versions,
-        max_iters=max_iters, theta=theta, force=force)
+        max_iters=max_iters, theta=theta, force=force,
+        y_ok=None if tier_ok is None else lat.tier_y_ok(tier_ok))
     route, r_idx, p_idx = lat.unflatten_index(y_f.long())
     return {
         "route": route, "r": r_idx, "p": p_idx, "v": v_star.long(),

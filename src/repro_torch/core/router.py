@@ -37,12 +37,6 @@ class RouterConfig:
     repair_rounds: int = 8        # C6 demotion passes
 
 
-def _no_tier_ok(tier_ok):
-    if tier_ok is not None:
-        raise NotImplementedError(
-            "tier_ok (scenario outages) is ROADMAP queue A.9")
-
-
 def temporal_flip_allowed(taus, prev_tau, rcfg: RouterConfig):
     """A route flip is allowed only when δ(|τ_t − τ_{t−1}|) ≥ 1."""
     return (torch.abs(taus - prev_tau) * rcfg.delta1 + rcfg.delta0) >= 1.0
@@ -57,7 +51,9 @@ def apply_temporal_consistency(route, prev_route, taus, prev_tau,
 
 
 def clamp_route_available(route, tier_ok):
-    """Force routes off outaged tiers (``tier_ok`` (..., 2), <= 0 = down)."""
+    """Force routes off outaged tiers (``tier_ok`` (..., 2), <= 0 = down).
+    Availability beats every other constraint, temporal consistency
+    included, so this runs last; edge-down wins when both are down."""
     route = torch.where(tier_ok[..., 1] > 0, route, torch.zeros_like(route))
     return torch.where(tier_ok[..., 0] > 0, route, torch.ones_like(route))
 
@@ -68,8 +64,9 @@ def clamp_route_available(route, tier_ok):
 def stage1_configure(lat: DecisionLattice, taus, difficulty, acc_req,
                      prev_route, prev_tau, rcfg: RouterConfig = RouterConfig(),
                      tier_ok=None):
-    """Vectorized Alg. 1.  All inputs (M,).  Returns (route, r_idx) int64."""
-    _no_tier_ok(tier_ok)
+    """Vectorized Alg. 1.  All inputs (M,).  Returns (route, r_idx) int64.
+    ``tier_ok``: optional (2,) tier availability; an outaged tier is never
+    selected (clamped after temporal consistency)."""
     sys = lat.sys
     f_edge_v1 = accuracy_stage1(sys, difficulty)                  # (M, N)
     feasible_edge = f_edge_v1 >= acc_req[:, None]
@@ -79,6 +76,8 @@ def stage1_configure(lat: DecisionLattice, taus, difficulty, acc_req,
     r_idx = torch.where(any_ok, first_ok, sys.n_res - 1)
     route = torch.where(any_ok, (taus > rcfg.tau_cloud).long(), 1)
     route = apply_temporal_consistency(route, prev_route, taus, prev_tau, rcfg)
+    if tier_ok is not None:
+        route = clamp_route_available(route, tier_ok)
     return route, r_idx
 
 
@@ -96,11 +95,11 @@ def enforce_bandwidth(lat: DecisionLattice, sol, difficulty, acc_req,
     stopped demoting, or after the budget held, changes nothing and records
     the same draw.  The rounds are ``c6_repair``: one kernel launch for all
     of them on the card, nothing read back to the host.  ``total_budget``
-    is a float or a 0-d tensor on the device.  Returns
-    ``(sol with repaired r/p, bw_history (rounds,))``.
+    is a float or a 0-d tensor on the device.  ``task_mask``: optional (M,)
+    bool alive mask (slot-pool churn): dead lanes add 0 to the draw and are
+    never demoted, so the repair is the repair on the compacted alive
+    batch.  Returns ``(sol with repaired r/p, bw_history (rounds,))``.
     """
-    if task_mask is not None:
-        raise NotImplementedError("task_mask (churn) is ROADMAP queue A.10")
     sys = lat.sys
     budget = sys.total_bw_mbps if total_budget is None else total_budget
     dev = difficulty.device
@@ -112,7 +111,7 @@ def enforce_bandwidth(lat: DecisionLattice, sol, difficulty, acc_req,
                            sol["route"], difficulty,
                            acc_req + sys.acc_margin_robust, res_norm(sys, dev),
                            fps_norm(sys, dev), budget, n_fps=sys.n_fps,
-                           rounds=rounds, force=force)
+                           rounds=rounds, force=force, task_mask=task_mask)
     return dict(sol, r=r, p=p), hist
 
 
@@ -141,17 +140,21 @@ def _two_stage_select(prob: RobustProblem, taus, difficulty, acc_req,
                       prev_route, prev_tau, rcfg: RouterConfig,
                       force: str = "auto", tier_ok=None):
     """Stage-1 → warm-started CCG → temporal consistency.  Returns the
-    pre-C6 solution with tau / warm diagnostics."""
-    _no_tier_ok(tier_ok)
+    pre-C6 solution with tau / warm diagnostics.  ``tier_ok``: optional
+    (2,) tier availability: outaged tiers are infeasible in the CCG solve
+    and clamped away after temporal consistency."""
     lat = prob.lat
     warm_route, warm_r = stage1_configure(
-        lat, taus, difficulty, acc_req, prev_route, prev_tau, rcfg)
+        lat, taus, difficulty, acc_req, prev_route, prev_tau, rcfg,
+        tier_ok=tier_ok)
     # Stage-1 picks (route, r) at max fps: seed CCG with that configuration
     warm_y = lat.flatten_index(warm_route, warm_r, lat.sys.n_fps - 1)
     sol = solve_ccg_fused(prob, difficulty, acc_req, warm_y=warm_y,
-                          force=force)
+                          force=force, tier_ok=tier_ok)
     route = apply_temporal_consistency(sol["route"], prev_route, taus,
                                        prev_tau, rcfg)
+    if tier_ok is not None:
+        route = clamp_route_available(route, tier_ok)
     sol = dict(sol, route=route)
     sol["tau"] = taus
     sol["warm_route"] = warm_route
@@ -165,9 +168,7 @@ def route_segment(prob: RobustProblem, gate_cfg: GateConfig, gate_params,
                   tier_ok=None):
     """Per-stream portion of the step: gate → Stage-1 → CCG → temporal
     consistency.  Returns ``(new_gate, taus, sol)`` with the pre-repair
-    solution.  ``state.gate``'s ring buffer is updated in place, so an
-    unported option is refused before it."""
-    _no_tier_ok(tier_ok)
+    solution.  ``state.gate``'s ring buffer is updated in place."""
     new_gate, (taus, _g_mean) = gate_step_batch(
         gate_cfg, gate_params, state.gate, dx, force=force)
     sol = _two_stage_select(prob, taus, difficulty, acc_req,

@@ -55,9 +55,10 @@ _SIGNATURES = {
     # panel, r, p, v, route, z, acc_thr, rn, pn, bw, gain, can_p,
     # M, N, Z, stream
     "c6_tail_launch": [_P] * 12 + [_I, _I, _I, _P],
-    # panel, r, p, v, route, z, acc_thr, rn, pn, budget (or null), r_out,
-    # p_out, hist, M, N, Z, rounds, budget value, stream
-    "c6_repair_launch": [_P] * 13 + [_I] * 4 + [_F, _P],
+    # panel, r, p, v, route, z, acc_thr, rn, pn, budget (or null), alive
+    # (bool, or null), r_out, p_out, hist, M, N, Z, rounds, budget value,
+    # stream
+    "c6_repair_launch": [_P] * 14 + [_I] * 4 + [_F, _P],
     # t_comp, route, order, init (or null), start, R, M, n_edge, n_cloud,
     # stream
     "lpt_queue_launch": [_P] * 5 + [_I] * 4 + [_P],

@@ -63,7 +63,7 @@ def _tail_kernel(*args, n_fps: int):
 
 
 def c6_repair(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget, *,
-              n_fps: int, rounds: int, force: str = "auto"):
+              n_fps: int, rounds: int, force: str = "auto", task_mask=None):
     """The whole C6 repair -> (r, p, bw_history (rounds,)).
 
     bw_panel: (M, N·Z) float32 route-indexed bandwidth panel; r/p/v/route:
@@ -75,19 +75,25 @@ def c6_repair(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget, *,
     the ``c6_tail`` kernel for each round's tail and the selection in torch.
     The kernel sums the draw and the prefix gains in its own order, not
     torch's: a task whose cumulative gain lies within that rounding of the
-    excess may be demoted on one side only.
+    excess may be demoted on one side only.  ``task_mask``: optional (M,)
+    bool alive mask (slot-pool churn): a dead lane adds 0 to the draw and
+    is never demoted, on both paths; None is every lane alive.
     """
     if not _build.dispatch("c6_repair", force, bw_panel.device):
         return c6_repair_ref(bw_panel, r, p, v, route, z, acc_thr, rn, pn,
-                             budget, n_fps, rounds)
+                             budget, n_fps, rounds, task_mask)
     m, nz_flat = bw_panel.shape
     n = rn.shape[0]
     if nz_flat != n * n_fps or pn.shape[0] != n_fps or rounds < 0 \
-            or any(t.shape != (m,) for t in (r, p, v, route, z, acc_thr)):
+            or any(t.shape != (m,) for t in (r, p, v, route, z, acc_thr)) \
+            or task_mask is not None and task_mask.shape != (m,):
         raise ValueError("c6_repair kernel: inconsistent shapes")
+    if task_mask is not None:
+        _build.check_dtype("c6_repair", torch.bool, task_mask=task_mask)
     if m > REPAIR_CAP:
         return repair_rounds(_tail_kernel, bw_panel, r, p, v, route, z,
-                             acc_thr, rn, pn, budget, n_fps, rounds)
+                             acc_thr, rn, pn, budget, n_fps, rounds,
+                             task_mask)
     ints = [t.long() for t in (r, p, v, route)]
     budget_t = budget if isinstance(budget, torch.Tensor) else None
     floats = dict(bw_panel=bw_panel, z=z, acc_thr=acc_thr, rn=rn, pn=pn)
@@ -95,7 +101,8 @@ def c6_repair(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget, *,
         if budget_t.numel() != 1:
             raise ValueError("c6_repair kernel: budget must be one value")
         floats["budget"] = budget_t
-    _build.check_cuda("c6_repair", *floats.values(), *ints)
+    masks = () if task_mask is None else (task_mask,)
+    _build.check_cuda("c6_repair", *floats.values(), *ints, *masks)
     _build.check_dtype("c6_repair", torch.float32, **floats)
     dev = bw_panel.device
     r_out = torch.empty((m,), dtype=torch.int64, device=dev)
@@ -105,7 +112,8 @@ def c6_repair(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget, *,
     code = lib.c6_repair_launch(
         bw_panel.data_ptr(), *[t.data_ptr() for t in ints], z.data_ptr(),
         acc_thr.data_ptr(), rn.data_ptr(), pn.data_ptr(),
-        None if budget_t is None else budget_t.data_ptr(), r_out.data_ptr(),
+        None if budget_t is None else budget_t.data_ptr(),
+        None if task_mask is None else task_mask.data_ptr(), r_out.data_ptr(),
         p_out.data_ptr(), hist.data_ptr(), m, n, n_fps, rounds,
         0.0 if budget_t is not None else float(budget),
         _build.stream_ptr(dev))

@@ -43,7 +43,7 @@ def c6_tail_ref(bw_panel, r, p, v, route, z, acc_thr, rn, pn, n_fps: int):
 
 
 def repair_rounds(tail, bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
-                  n_fps: int, rounds: int):
+                  n_fps: int, rounds: int, task_mask=None):
     """``rounds`` C6 demotion rounds with ``tail`` (``c6_tail_ref`` or the
     ``c6_tail`` kernel) for each round's gains -> (r, p, bw_history).
 
@@ -55,6 +55,8 @@ def repair_rounds(tail, bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
     reference's ``lax.cond`` skip, exact because a skipped round is a
     no-op.  The budget sum is ``torch.sum`` over the (M,) draws and the
     prefix ``torch.cumsum``: float32 in PyTorch's order, not XLA's.
+    ``task_mask``: optional (M,) bool alive mask; a dead lane draws 0 and
+    its gain is 0, so it is never demoted (the reference's masked repair).
     """
     dev = bw_panel.device
     m = r.shape[0]
@@ -67,11 +69,15 @@ def repair_rounds(tail, bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
     hist = []
     for _ in range(rounds):
         bw = bw_panel.gather(1, (r * n_fps + p)[:, None])[:, 0]
+        if task_mask is not None:
+            bw = torch.where(task_mask, bw, 0.0)
         excess = bw.sum() - budget
         hist.append(excess + budget)
         run = active & (excess > 0)
         _, gain, can_p = tail(bw_panel, r.to(torch.int32), p.to(torch.int32),
                               v32, route32, z, acc_thr, rn, pn, n_fps=n_fps)
+        if task_mask is not None:
+            gain = torch.where(task_mask, gain, 0.0)
         order = torch.argsort(-gain, stable=True)
         gain_sorted = gain[order]
         cum_before = torch.cat([zero, torch.cumsum(gain_sorted, 0)[:-1]])
@@ -86,27 +92,31 @@ def repair_rounds(tail, bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
 
 
 def c6_repair_ref(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
-                  n_fps: int, rounds: int):
+                  n_fps: int, rounds: int, task_mask=None):
     """Plain version of the whole C6 repair: :func:`repair_rounds` with the
     plain tail.  Returns (r, p) in the dtype of the given r and p, and the
     draw of each round before its demotion (rounds,)."""
     return repair_rounds(c6_tail_ref, bw_panel, r, p, v, route, z, acc_thr,
-                         rn, pn, budget, n_fps, rounds)
+                         rn, pn, budget, n_fps, rounds, task_mask)
 
 
 EPS = 2.0 ** -24    # float32 unit roundoff
 
 
 def repair_boundary(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
-                    n_fps: int):
+                    n_fps: int, task_mask=None):
     """The tasks whose demotion in the round from (r, p) two orders of the
     float32 sums may decide differently: a positive gain whose exclusive
     prefix (float64, stable descending order) lies within
     2·M·ε·Σ bw + 2·n·ε·Σ g of the excess, for M draws and n positive gains
     g (twice the first-order bound of a float32 sum in any order, once for
-    each of the two orders compared).  A set of indices."""
+    each of the two orders compared); dead lanes of ``task_mask`` draw 0
+    and gain 0.  A set of indices."""
     bw, gain, _ = c6_tail_ref(bw_panel, r, p, v, route, z, acc_thr, rn, pn,
                               n_fps)
+    if task_mask is not None:
+        bw = torch.where(task_mask, bw, 0.0)
+        gain = torch.where(task_mask, gain, 0.0)
     g = gain.double()
     order = torch.argsort(-gain, stable=True)
     pos = order[g[order] > 0]
@@ -118,7 +128,7 @@ def repair_boundary(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
 
 
 def compare_repairs(run_a, run_b, rounds: int, args, budget, n_fps: int,
-                    exempt=()):
+                    exempt=(), task_mask=None):
     """Two repairs ``run_x(k) -> (r, p, bw_history)`` of k rounds on the
     operands ``args`` (bw_panel, r, p, v, route, z, acc_thr, rn, pn) held
     to c6_repair's tolerance: whole runs equal on r and p; else the first
@@ -128,7 +138,7 @@ def compare_repairs(run_a, run_b, rounds: int, args, budget, n_fps: int,
     round.  Returns a dict: ``within`` (the verdict), ``hist_max_rel``,
     ``first_differing_round`` (None when equal), ``outside`` (differing
     tasks outside the exemption) and ``rounds_demoting`` (of run_a, when
-    the runs are equal)."""
+    the runs are equal).  ``task_mask``: the alive mask both runs took."""
     def rel(ha, hb):
         if ha.numel() == 0:
             return 0.0
@@ -150,7 +160,8 @@ def compare_repairs(run_a, run_b, rounds: int, args, budget, n_fps: int,
         bad = set(torch.nonzero((ra != rb) | (pa != pb)).flatten().tolist())
         if bad:
             allowed = set(exempt) | repair_boundary(*args[:1], *prev,
-                                                    *args[3:], budget, n_fps)
+                                                    *args[3:], budget, n_fps,
+                                                    task_mask)
             out.update(first_differing_round=k, hist_max_rel=rel(ha, hb),
                        outside=sorted(bad - allowed))
             out["within"] = not out["outside"] and out["hist_max_rel"] <= 1e-6

@@ -46,7 +46,11 @@
 // registers by shuffles, the others through shared memory.  A round that
 // finds the repair inactive, within budget or with nothing to demote stops
 // the loop and writes its draw for every later round: the reference's
-// lax.cond skip, whose rounds leave (r, p) and so the draw unchanged.
+// lax.cond skip, whose rounds leave (r, p) and so the draw unchanged.  An
+// alive mask (slot-pool churn; null when every slot is live) makes a dead
+// slot's draw and gain 0 in the pass: it adds 0 to its thread's partial sum
+// (the order of the sums is unchanged) and never enters the compaction, the
+// reference's repair on the compacted alive batch.
 // Larger M takes the per-round path (the c6_tail kernel and the selection
 // in torch), chosen by the wrapper from M.
 #include <cuda_runtime.h>
@@ -120,6 +124,7 @@ struct Repair {
   const float* panel;
   const long long *r, *p, *v, *route;
   const float *z, *thr, *rn, *pn, *budget_ptr;
+  const unsigned char* alive;   // one bool a task, or null: all alive
   long long *r_out, *p_out;
   float* hist;
   int M, N, Z, rounds;
@@ -274,6 +279,11 @@ __global__ void __launch_bounds__(kRepairThreads)
         tail_task(a.panel + (size_t)i * NZ, rs[i], ps[i], (float)a.v[i],
                   (float)a.route[i], a.z[i], a.thr[i], a.rn, a.pn, Z, bw,
                   gain, can_p);
+        if (a.alive != nullptr && !a.alive[i]) {
+          // a dead slot draws nothing and is never demoted
+          bw = 0.0f;
+          gain = 0.0f;
+        }
         part = part + bw;
         flag = gain > 0.0f;
         key = ((unsigned long long)(~__float_as_uint(gain)) << 32) |
@@ -355,15 +365,16 @@ extern "C" int c6_tail_launch(const void* panel, const void* r, const void* p,
   return (int)cudaGetLastError();
 }
 
-// budget: a device pointer to one float, or null to take budget_value
+// budget: a device pointer to one float, or null to take budget_value;
+// alive: a device pointer to M bools (a slot pool's alive mask), or null
 extern "C" int c6_repair_launch(const void* panel, const void* r,
                                 const void* p, const void* v,
                                 const void* route, const void* z,
                                 const void* acc_thr, const void* rn,
                                 const void* pn, const void* budget,
-                                void* r_out, void* p_out, void* hist, int M,
-                                int N, int Z, int rounds, float budget_value,
-                                void* stream) {
+                                const void* alive, void* r_out, void* p_out,
+                                void* hist, int M, int N, int Z, int rounds,
+                                float budget_value, void* stream) {
   if (M < 0 || M > kRepairCap || N < 1 || N > 256 || Z < 1 || Z > 256 ||
       rounds < 0) {
     return (int)cudaErrorInvalidValue;
@@ -382,8 +393,9 @@ extern "C" int c6_repair_launch(const void* panel, const void* r,
                  (const long long*)p, (const long long*)v,
                  (const long long*)route, (const float*)z,
                  (const float*)acc_thr, (const float*)rn, (const float*)pn,
-                 (const float*)budget, (long long*)r_out, (long long*)p_out,
-                 (float*)hist, M, N, Z, rounds, budget_value};
+                 (const float*)budget, (const unsigned char*)alive,
+                 (long long*)r_out, (long long*)p_out, (float*)hist, M, N, Z,
+                 rounds, budget_value};
   c6_repair_kernel<<<1, kRepairThreads, repair_smem(M),
                      (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

@@ -20,8 +20,9 @@ kernels it runs.
                  cold CCG, difficulty as τ, consistency, C6; §4.4 ablations
                  ``use_stage1=False`` / ``use_stage2=False``.
 
-``reset_streams``, ``pad_state`` and ``preseed_sharded`` (churn and
-sharding) are ROADMAP queue A.10 and A.15.
+``reset_streams`` (slot reuse under churn) re-initializes a re-admitted
+slot's carry rows; ``pad_state`` and ``preseed_sharded`` (sharding) are
+ROADMAP queue A.15.
 """
 from __future__ import annotations
 
@@ -49,10 +50,10 @@ from repro_torch.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class Observation:
     """What one serving round exposes: (M,) / (M, d) / (2,) / (K,) fields,
-    or the same with a leading round axis R for a whole run.  ``bw_mult``
-    and ``u`` are realization inputs that no policy reads.  The scenario
-    and churn fields of the reference must stay None here (ROADMAP queue
-    A.9 and A.10)."""
+    or the same with a leading round axis R for a whole run.  ``bw_mult``,
+    ``u``, ``avail`` and ``lat_mult`` are realization inputs that no policy
+    reads; ``tier_ok`` and ``bw_scale`` are the router's view of a
+    scenario; ``arrive_n`` / ``depart`` drive a slot pool's churn."""
     z: torch.Tensor                 # (..., M) content difficulty
     aq: torch.Tensor                # (..., M) accuracy requirements A^q
     dx: Any = None                  # (..., M, d) motion features (gate input)
@@ -144,6 +145,13 @@ class Policy:
         """Cross-task tail on the whole batch; identity by default."""
         return sol
 
+    def reset_streams(self, state, fresh):
+        """Re-initialize the carry rows where ``fresh`` (M,) bool is True
+        (slot reuse under churn: a re-admitted slot is a new stream): every
+        state leaf whose leading axis is M is taken row-wise from a fresh
+        ``init``; other leaves are left as they are."""
+        return _reset_rows(self.init(fresh.shape[0]), state, fresh)
+
     def decide(self, state, obs: Observation):
         """One full round: per-stream decision + cross-task repair."""
         state, sol = self.decide_stream(state, obs)
@@ -157,6 +165,28 @@ class Policy:
     @property
     def device(self) -> torch.device:
         return self.lat.device
+
+
+def _reset_rows(init, state, fresh):
+    """``state`` with the rows of ``fresh`` taken from ``init`` in every
+    tensor leaf of leading axis M (the leaves of NamedTuples, dataclasses
+    and tuples, walked alike)."""
+    if isinstance(state, torch.Tensor):
+        m = fresh.shape[0]
+        if state.dim() >= 1 and state.shape[0] == m:
+            sel = fresh.reshape((m,) + (1,) * (state.dim() - 1))
+            return torch.where(sel, init, state)
+        return state
+    if dataclasses.is_dataclass(state):
+        return dataclasses.replace(state, **{
+            f.name: _reset_rows(getattr(init, f.name),
+                                getattr(state, f.name), fresh)
+            for f in dataclasses.fields(state)})
+    if isinstance(state, tuple):
+        vals = [_reset_rows(i, s, fresh) for i, s in zip(init, state)]
+        return type(state)(*vals) if hasattr(state, "_fields") \
+            else tuple(vals)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +299,12 @@ class SniperPolicy(Policy):
     @property
     def lat(self):
         return self._lat
+
+    def reset_streams(self, state, fresh):
+        # the profile table is memory shared by every stream, not a slot's:
+        # a re-admitted stream matches against it as any other, so slot
+        # reuse resets nothing
+        return state
 
     def init(self, n_streams):
         n, dev = self.n_profiles, self.device

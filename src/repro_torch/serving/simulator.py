@@ -1,16 +1,18 @@
 """Round-based edge-cloud serving simulator (paper §4 evaluation substrate)
-— port of the nominal path of ``repro/serving/simulator.py``.
+— port of ``repro/serving/simulator.py`` (``clamp_route_by_avail`` :112,
+``realize_rounds`` :122-265 and the host-numpy stream generator).
 
 ``realize_rounds`` realizes a round's decisions: fair-share transmission on
 the tier uplink, LPT queueing on 4 edge / 1 cloud servers (the ``lpt_queue``
 CUDA helper on the card), compute time under the realized deviation u,
-energy, cost and the pointwise accuracy.  :class:`Simulator` keeps the
-reference's host-numpy stream generator and observation-noise model, copied,
-so a stream can be made and a run scored without JAX; for one seed its
-numbers are the reference's.  ``Simulator.run`` serves a policy through
-``ServeSession.run`` and returns the paper's scalars (delay, energy, cost,
-accuracy, success, cloud_frac), as ``benchmarks/paper_tables.run_method``
-reads them from the reference.
+energy, cost and the pointwise accuracy; under a scenario also dead
+servers, hedged stragglers and a slot pool's dead lanes.
+:class:`Simulator` keeps the reference's host-numpy stream generator and
+observation-noise model, copied, so a stream can be made and a run scored
+without JAX; for one seed its numbers are the reference's.
+``Simulator.run`` serves a policy through ``ServeSession.run`` and returns
+the paper's scalars (delay, energy, cost, accuracy, success, cloud_frac),
+as ``benchmarks/paper_tables.run_method`` reads them from the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.core.gating import feature_dim
 from repro_torch.core.lattice import DecisionLattice, gflops_table
 from repro_torch.device import resolve_device
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
+from repro_torch.runtime.straggler import hedged_dispatch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,47 +64,103 @@ def _tables(sys: SystemConfig, device):
             f32([sys.edge_power_w, sys.cloud_power_w]))
 
 
+def clamp_route_by_avail(route, avail, n_edge: int, n_cloud: int):
+    """Route clamp against a server pool's availability (``avail`` (..., S),
+    edge servers first): never realize on a tier with no live server;
+    edge-down wins when both tiers are dead, as the router's
+    ``clamp_route_available``."""
+    alive_e = avail[..., :n_edge].sum(-1, keepdim=True)
+    alive_c = avail[..., n_edge:].sum(-1, keepdim=True)
+    route = torch.where(alive_c > 0, route, torch.zeros_like(route))
+    return torch.where(alive_e > 0, route, torch.ones_like(route))
+
+
 def realize_rounds(lat: DecisionLattice, z, bw_mult, u, route, r, p, v, *,
                    n_edge: int, n_cloud: int, force: str = "auto",
                    avail=None, lat_mult=None, hedge=None, task_mask=None):
-    """Deterministic realization (no observation noise), nominal path.
+    """Deterministic realization (no observation noise).
 
     z/route/r/p/v: (..., M) with at most one leading round axis; bw_mult:
     (..., 2); u: (..., K).  Returns per-task delay / energy / cost /
-    accuracy / route.  ``force`` pins the LPT helper.
+    accuracy / route.  ``force`` pins the LPT helper.  The scenario inputs,
+    as the reference's (None leaves the nominal path):
+
+    ``avail``      (..., S) per-server availability: routes on a tier with
+                   no live server are clamped to the other, the tier
+                   uplink shrinks by its alive fraction and LPT starts a
+                   dead server at +inf load.
+    ``lat_mult``   (..., M, 2) latency multipliers: column 0 scales the
+                   primary dispatch, column 1 the hedged backup.
+    ``hedge``      (quantile, cost): a backup fires at the ``quantile``
+                   deadline of the round's primary times and finishes at
+                   deadline + backup + cost; the earlier of the two wins
+                   (``runtime.straggler.hedged_dispatch``).  Needs
+                   ``lat_mult``.
+    ``task_mask``  (..., M) bool alive mask (slot-pool churn): dead lanes
+                   are out of the tier counts, take zero compute time into
+                   LPT (they sort after every alive lane and add no load)
+                   and come out with zeroed metrics and route -1.  Not
+                   with ``hedge``.
     """
-    if avail is not None or lat_mult is not None or hedge is not None:
-        raise NotImplementedError(
-            "avail / lat_mult / hedge (scenario realization) are ROADMAP "
-            "queue A.9")
-    if task_mask is not None:
-        raise NotImplementedError("task_mask (churn) is ROADMAP queue A.10")
+    if task_mask is not None and hedge is not None:
+        raise ValueError("hedged dispatch is not supported with task_mask "
+                         "(the deadline quantile would mix dead lanes)")
+    if hedge is not None and lat_mult is None:
+        raise ValueError("hedge requires lat_mult (per-task latency draws)")
     sys = lat.sys
     dev = z.device
     gtab, tier_bw, thr, power = _tables(sys, dev)
     m = route.shape[-1]
 
+    alive_frac = None
+    if avail is not None:
+        alive_frac = torch.stack([avail[..., :n_edge].sum(-1) / n_edge,
+                                  avail[..., n_edge:].sum(-1) / n_cloud],
+                                 dim=-1)
+        route = clamp_route_by_avail(route, avail, n_edge, n_cloud)
+
     # transmission: fair-share the tier uplink among its tasks
     bw = tier_bw * bw_mult                                     # (..., 2)
+    if alive_frac is not None:
+        bw = bw * alive_frac
     data_mbit = lat.bw[r, p, route]                            # (..., M)
-    n_cloud_tasks = route.sum(dim=-1, keepdim=True)
-    n_tier = torch.clamp_min(torch.cat([m - n_cloud_tasks, n_cloud_tasks],
-                                       dim=-1), 1)
+    if task_mask is not None:
+        n_cloud_tasks = (route * task_mask).sum(dim=-1, keepdim=True)
+        n_live = task_mask.sum(dim=-1, keepdim=True)
+        n_tier = torch.cat([n_live - n_cloud_tasks, n_cloud_tasks], dim=-1)
+    else:
+        n_cloud_tasks = route.sum(dim=-1, keepdim=True)
+        n_tier = torch.cat([m - n_cloud_tasks, n_cloud_tasks], dim=-1)
+    n_tier = torch.clamp_min(n_tier, 1)
     share = bw.gather(-1, route) / n_tier.gather(-1, route)
     t_trans = data_mbit / torch.clamp_min(share, 1e-6)
 
     # compute: GFLOPs table + realized deviation u_v
     gf = gtab[r, p, v, route]
     t_comp = gf / thr[route] * (1.0 + u.gather(-1, v))
+    if task_mask is not None:
+        t_comp = torch.where(task_mask, t_comp, 0.0)
+    if lat_mult is not None:
+        draws = t_comp[..., None] * lat_mult       # (..., M, 2) replicas
+        if hedge is not None:
+            t_comp = hedged_dispatch(draws, hedge_quantile=hedge[0],
+                                     hedge_cost=hedge[1])
+        else:
+            t_comp = draws[..., 0]
 
     # queueing: LPT packing (stable longest-first order, serial walk)
     t_queue = lpt_queue(t_comp, route.to(torch.int32), n_edge, n_cloud,
-                        force=force)
+                        avail=avail, force=force)
 
     delay = t_trans + t_queue + t_comp
     energy = power[route] * t_comp + sys.transmit_power_w * t_trans
     cost = delay + sys.beta * energy
     acc = accuracy_at(sys, z, r, p, v, route)
+    if task_mask is not None:
+        zero = lambda x: torch.where(task_mask, x, 0.0)
+        return {"delay": zero(delay), "energy": zero(energy),
+                "cost": zero(cost), "accuracy": zero(acc),
+                "route": torch.where(task_mask, route, -1)}
     return {"delay": delay, "energy": energy, "cost": cost,
             "accuracy": acc, "route": route}
 

@@ -92,8 +92,8 @@ def test_ccg_solve_matches_reference(m, gamma, jforce):
 @pytest.mark.parametrize("dead_tier", [0, 1])
 def test_ccg_solve_availability_mask_matches_reference(dead_tier):
     """``y_ok`` masks a dead tier's options out of feasibility and out of
-    the all-infeasible fallback, as in the reference.  Only the plain
-    version takes the mask until tier outages are ported (ROADMAP A.9)."""
+    the all-infeasible fallback, as in the reference (the kernel's masks
+    are held to this plain version in ``test_torch_kernels_cuda.py``)."""
     jsys = jcm.SystemConfig()
     jprob = JProb.build(jsys)
     tprob = RobustProblem.build(tcm.SystemConfig(), "cpu")

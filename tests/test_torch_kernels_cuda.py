@@ -170,7 +170,7 @@ def _ccg_synthetic(dev, m, k, p, f):
     c1 = rng.uniform(0.0, 1.0, f).astype(np.float32)
     z = rng.uniform(0, 1, m).astype(np.float32)
     aq = rng.uniform(0.4, 0.8, m).astype(np.float32)
-    aq[:3] = [0.99, 0.97, 1.2]
+    aq[:3] = [0.99, 0.97, 1.2][:m]
     wy = rng.integers(-1, f, m).astype(np.int32)
     return (_t(z, dev), _t(aq, dev),
             *(_t(a.astype(np.float32), dev) for a in (rn, pn, tier)),
@@ -819,3 +819,130 @@ def test_rglru_scan_kernel_unaligned_operands(dev, dtype):
     got_y, got_h = rglru_scan(xs, rs, is_, la, h0, force="kernel")
     torch.cuda.synchronize()
     assert torch.equal(got_y, want_y) and torch.equal(got_h, want_h)
+
+
+# ------------------------------------------------- the scenario path's masks
+
+def _tier_mask(tier_flat, tier_ok):
+    """(F,) y_ok from a (2,) tier availability, as ``tier_y_ok``."""
+    ok = torch.tensor(tier_ok, dtype=torch.float32, device=tier_flat.device)
+    return torch.where(tier_flat > 0.5, ok[1], ok[0]).contiguous()
+
+
+@pytest.mark.parametrize("tier_ok", [(0, 1), (1, 0), (0, 0)],
+                         ids=["edge_out", "cloud_out", "both_out"])
+@pytest.mark.parametrize("k", [5, 6])
+@pytest.mark.parametrize("m", [1, 37, 4096, 9001])
+def test_ccg_solve_kernel_tier_out(dev, m, k, tier_ok):
+    """``y_ok`` with a tier out (or both) on both instantiations (K = 5:
+    tables; K = 6: generic) equals the plain version exactly: no lane on a
+    dead tier while the other lives, every lane infeasible on its fallback
+    index when both are out."""
+    args = _ccg_synthetic(dev, m, k, 16, 50)
+    y_ok = _tier_mask(args[4], tier_ok)
+    kw = dict(margin=0.02, num_versions=k, y_ok=y_ok)
+    want = ccg_solve(*args, force="ref", **kw)
+    reset_launch_counts()
+    got = ccg_solve(*args, force="kernel", **kw)
+    assert launch_counts() == {"ccg_solve": 1}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    on_dead = y_ok[got[0].long()] <= 0
+    if any(tier_ok):
+        assert not bool(on_dead.any())
+    else:
+        assert bool(got[5].all())
+
+
+@pytest.mark.parametrize("m", [37, 4096])
+def test_ccg_solve_kernel_all_up_mask_is_no_mask(dev, m):
+    """A ``y_ok`` of ones gives the bits of no mask (the same launch)."""
+    prob = RobustProblem.build(SystemConfig(), dev)
+    lat = prob.lat
+    rng = _gen(m + 1)
+    args = (_t(rng.uniform(0, 1, m).astype(np.float32), dev),
+            _t(rng.uniform(0.5, 0.8, m).astype(np.float32), dev),
+            lat.rn_flat, lat.pn_flat, lat.tier_flat, lat.b2_flat, prob.u_all,
+            lat.c1_flat, _t(rng.integers(-1, 50, m).astype(np.int32), dev))
+    kw = dict(margin=0.02, num_versions=5, force="kernel")
+    got = ccg_solve(*args, y_ok=_tier_mask(lat.tier_flat, (1, 1)), **kw)
+    want = ccg_solve(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _alive(kind, m, seed):
+    mask = {"all": np.ones(m, bool), "none": np.zeros(m, bool),
+            "half": _gen(seed).random(m) < 0.5}[kind]
+    return mask
+
+
+@pytest.mark.parametrize("alive", ["all", "none", "half"])
+@pytest.mark.parametrize("demoting", [True, False])
+@pytest.mark.parametrize("m", [60, 256, 4096, REPAIR_CAP + 1])
+def test_c6_repair_kernel_alive_mask(dev, m, demoting, alive):
+    """The alive mask on the one-block kernel (its bits those of its order
+    emulated with the mask) and above the cap on the per-round path, held to
+    the plain version with the same mask: r and p equal outside the
+    boundary exemption, the history within 1e-6; dead lanes never move."""
+    args, budget = _repair_case(dev, m, demoting, seed=m + 7)
+    mask = torch.from_numpy(_alive(alive, m, m)).to(dev)
+    if alive == "half":         # the budget against the alive lanes' draw
+        budget = float(np.float32(0.5 * budget))
+    reset_launch_counts()
+    got = c6_repair(*args, budget, n_fps=5, rounds=8, force="kernel",
+                    task_mask=mask)
+    assert launch_counts() == ({"c6_repair": 1} if m <= REPAIR_CAP
+                               else {"c6_tail": 8})
+    if m <= REPAIR_CAP:
+        emulated = c6_repair_emulated(*args, budget, n_fps=5, rounds=8,
+                                      task_mask=mask)
+        for g, e in zip(got, emulated):
+            assert torch.equal(g, e)
+    run_k = lambda k: c6_repair(*args, budget, n_fps=5, rounds=k,
+                                force="kernel", task_mask=mask)
+    run_r = lambda k: c6_repair_ref(*args, budget, n_fps=5, rounds=k,
+                                    task_mask=mask)
+    demoted = compare_runs(run_k, run_r, 8, args, budget, (), mask)
+    assert torch.equal(got[0][~mask], args[1][~mask])
+    assert torch.equal(got[1][~mask], args[2][~mask])
+    if alive == "none":
+        assert demoted == 0 and float(got[2].abs().max()) == 0.0
+    elif demoting:
+        assert demoted >= 1
+
+
+@pytest.mark.parametrize("demoting", [True, False])
+@pytest.mark.parametrize("m", [60, 4096, REPAIR_CAP + 1])
+def test_c6_repair_kernel_all_alive_is_no_mask(dev, m, demoting):
+    """An all-true mask gives the bits of no mask, on both paths."""
+    args, budget = _repair_case(dev, m, demoting, seed=m + 9)
+    mask = torch.ones((m,), dtype=torch.bool, device=dev)
+    got = c6_repair(*args, budget, n_fps=5, rounds=8, force="kernel",
+                    task_mask=mask)
+    want = c6_repair(*args, budget, n_fps=5, rounds=8, force="kernel")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_c6_repair_kernel_refuses_a_mask_of_another_dtype(dev):
+    args, budget = _repair_case(dev, 60, True, seed=1)
+    with pytest.raises(TypeError, match="task_mask"):
+        c6_repair(*args, budget, n_fps=5, rounds=8, force="kernel",
+                  task_mask=torch.ones(60, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dead", [(), (1,), (0, 1, 2)])
+def test_lpt_queue_kernel_dead_lanes_and_servers(dev, dead):
+    """A churned round at M = 4096: dead lanes at t_comp = 0 (they sort
+    after every alive lane), dead edge servers at +inf, mixed routes:
+    exact."""
+    t, route = _lpt_case(len(dead), (2, 4096), "mixed", ties=True)
+    lanes = _gen(5).random((2, 4096)) < 0.5
+    t[~lanes] = 0.0
+    avail = np.ones((2, 5), np.float32)
+    avail[:, list(dead)] = 0.0
+    args = (_t(t, dev), _t(route, dev), 4, 1)
+    got = lpt_queue(*args, avail=_t(avail, dev), force="kernel")
+    want = lpt_queue(*args, avail=_t(avail, dev), force="ref")
+    assert torch.equal(got, want)

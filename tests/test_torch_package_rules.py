@@ -202,17 +202,18 @@ def test_force_kernel_on_cpu_tensor_raises(name):
 
 def test_unported_branches_raise():
     """Only the branches still to port raise, naming their ROADMAP item:
-    tier outages in serving and in the fused solve (A.9), the mesh (A.15),
-    and model pools of configs with MoE blocks, M-RoPE or an
-    embedding-input front end (A.14).  Every registered policy builds,
-    including R2E-VID's τ-proxy mode and its ablations, a session takes
-    live tier pools, and pools with SSM or RG-LRU blocks (a dense config
-    given either mixer, and the Falcon-Mamba and RecurrentGemma configs)
-    build."""
+    the mesh (A.15), online finetuning (A.11), and model pools of configs
+    with MoE blocks, M-RoPE or an embedding-input front end (A.14).  Tier
+    outages, ported with the scenarios (A.9), run: the fused solve and a
+    session's step with ``tier_ok`` return solutions off the dead tier.
+    Every registered policy builds, including R2E-VID's τ-proxy mode and
+    its ablations, a session takes live tier pools, and pools with SSM or
+    RG-LRU blocks (a dense config given either mixer, and the Falcon-Mamba
+    and RecurrentGemma configs) build."""
     prob = RobustProblem.build(SystemConfig(), "cpu")
     z = torch.full((3,), 0.5)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        solve_ccg_fused(prob, z, z, tier_ok=torch.ones(2))
+    sol = solve_ccg_fused(prob, z, z, tier_ok=torch.tensor([0.0, 1.0]))
+    assert sol["route"].tolist() == [1, 1, 1]
     for name in ("jcab", "A2", "sniper", "rdap", "r2evid"):
         make_policy(name, SystemConfig(), device="cpu")
     for kw in ({"use_stage1": False}, {"use_stage2": False}):
@@ -223,12 +224,14 @@ def test_unported_branches_raise():
                       generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="A.15"):
         ServeSession(pol, n_streams=3, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="A.11"):
+        ServeSession(pol, n_streams=3, device="cpu", finetune=object())
     obs = Observation(z=z, aq=z, dx=torch.zeros(3, 35), bw_mult=torch.ones(2),
-                      u=torch.zeros(5), tier_ok=torch.ones(2))
+                      u=torch.zeros(5), tier_ok=torch.tensor([0.0, 1.0]))
     for p in (pol, make_policy("sniper", SystemConfig(), device="cpu")):
-        sess = ServeSession(p, n_streams=3, device="cpu")
-        with pytest.raises(NotImplementedError, match="A.9"):
-            sess.step(obs)
+        out = ServeSession(p, n_streams=3, device="cpu").step(obs)
+        assert out["route"].tolist() == [1, 1, 1]
+        assert bool(torch.isfinite(out["cost"]).all())
     dense = get_smoke_config("qwen1.5-0.5b")
     unported = {
         "moe": dataclasses.replace(dense, family="moe", moe=MoEConfig(

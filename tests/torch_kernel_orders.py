@@ -112,11 +112,12 @@ def gate_cell_tiled(dx, h, vol, p, tile=32, per_warp=2):
 THREADS = 1024
 
 
-def compare_runs(run_a, run_b, rounds, args, budget, exempt=()):
+def compare_runs(run_a, run_b, rounds, args, budget, exempt=(),
+                 task_mask=None):
     """``compare_repairs`` asserted: returns the rounds that demote (or the
     first round that differs, all its differing tasks exempt)."""
     out = compare_repairs(run_a, run_b, rounds, args, budget,
-                          args[8].shape[0], exempt)
+                          args[8].shape[0], exempt, task_mask)
     assert out["within"], out
     if out["first_differing_round"] is not None:
         print(f"round {out['first_differing_round']} differs on exempt "
@@ -181,10 +182,11 @@ def exclusive_prefix(g, threads=THREADS):
 
 
 def c6_repair_emulated(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
-                       n_fps: int, rounds: int, trace=None):
+                       n_fps: int, rounds: int, trace=None, task_mask=None):
     """The one-block repair kernel's order of work -> (r, p, bw_history).
     ``trace``, a list, receives per round run (excess, gains of the sorted
-    tasks in key order, their indices, their exclusive prefix sums)."""
+    tasks in key order, their indices, their exclusive prefix sums).
+    ``task_mask``: the alive mask; a dead lane draws 0 and gains 0."""
     dev = bw_panel.device
     budget = torch.as_tensor(budget, dtype=torch.float32, device=dev)
     r, p = r.long().clone(), p.long().clone()
@@ -193,6 +195,9 @@ def c6_repair_emulated(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
     for _ in range(rounds):
         bw, gain, can_p = c6_tail_ref(bw_panel, r, p, v32, route32, z,
                                       acc_thr, rn, pn, n_fps)
+        if task_mask is not None:
+            bw = torch.where(task_mask, bw, 0.0)
+            gain = torch.where(task_mask, gain, 0.0)
         excess = block_sum(bw) - budget
         drawn = excess + budget
         hist.append(drawn)
