@@ -50,14 +50,22 @@ Phases, one JSON line each; any failure exits non-zero:
                  streams for R = 16 rounds of a seeded ``sample_stream``, with
                  random seeded gate weights, launch counters zeroed just
                  before and read just after (gate_cell, ccg_solve,
-                 c6_repair and lpt_queue once a round, no c6_tail); then
-                 the same run on the plain
+                 c6_repair and lpt_queue once a round, no c6_tail): the
+                 session captures its round as a CUDA graph (the first
+                 round is the warm-up) and replays it; the eager loop
+                 (``capture=False``) must give the same bits, and one of
+                 its rounds runs under ``set_sync_debug_mode("error")``;
+                 then the same run on the plain
                  versions (``force="ref"``) on the card, whose decisions must
                  agree on >= 99.9% of lane-rounds; then rounds/s and
-                 segments/s (median of three runs after one warm-up).
-5. ``trace``     one profiled run of the main path: device busy time and
-                 idle share per round, device activities and host<->device
-                 copies per round, the costliest device activities.
+                 segments/s, captured and eager in turns on reused
+                 sessions (median of three), each with a profiled run
+                 (device busy time, activities, the profiler's count of
+                 each ported kernel a round, which must be one each).
+5. ``trace``     one profiled run of the captured main path: device busy
+                 time and idle share per round, device activities and
+                 host<->device copies per round, the costliest device
+                 activities.
 6. ``solve_ccg`` the unrolled CCG solver at M = 4096 on round 0 of the
                  stream, cold and warm-started from Stage 1: on the kernels
                  (launch counters zeroed just before and read just after:
@@ -71,11 +79,23 @@ Phases, one JSON line each; any failure exits non-zero:
                  sniper, r2evid in τ-proxy mode and its no-Stage-1 and
                  no-Stage-2 ablations through ``ServeSession.run`` on the
                  main path's stream (M = 4096, R = 16, no motion features):
-                 launch counts, rounds/s (median of three runs after a
-                 warm-up) and ``Simulator.aggregate``'s paper scalars; the
-                 τ-proxy run also on the plain versions, with bit-equal
-                 decisions.
-8. ``scenarios`` the robustness path (``serving/scenarios.py``): the golden
+                 launch counts, the captured run bit-equal to the eager
+                 loop, an eager round free of host syncs, rounds/s and a
+                 profiled run, captured and eager in turns as in
+                 ``main_path``, and ``Simulator.aggregate``'s paper
+                 scalars; the τ-proxy run also on the plain versions, with
+                 bit-equal decisions.
+8. ``decide``    the decide-only paths at M = 4096 on the main path's
+                 stream and gate weights: ``route_step`` over 8 segments,
+                 ``route_scan`` (its step captured a call), the windowed
+                 ``route`` (T = 8),
+                 ``ServeSession.route_many`` / ``route`` / ``step``
+                 without ``u`` (captured) and ``Simulator.realize`` /
+                 ``realize_batch``: launches counted, decisions against
+                 the plain versions (the simulator against a CPU simulator
+                 of the same seed), captured against eager bit for bit,
+                 segments or calls a second in turns.
+9. ``scenarios`` the robustness path (``serving/scenarios.py``): the golden
                  point (``run_suite``'s 5 policies × ``none`` and the 9
                  scenarios of ``SUITE``, 64 streams, 30 rounds, seed 11) on
                  the kernels and on the plain versions, every scalar of
@@ -83,12 +103,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  both, the churn cells' occupancy, queue and drops equal,
                  decisions agreeing on >= 99.9% of lane-rounds; then
                  gate-mode and τ-proxy R2E-VID at M = 4096, R = 30 through
-                 each of the 10 scenarios on the kernels (launch counters
+                 each of the 10 scenarios on the kernels, eagerly (each
+                 kernel call recorded) and captured (launch counters
                  zeroed just before each run and read just after:
                  gate_cell (gate mode), ccg_solve, c6_repair and lpt_queue
-                 once a round, no c6_tail), rounds/s (median of three runs
-                 after a warm-up) and one profiled run (device busy time,
-                 idle share, activities and copies a round), the rounds
+                 once a round, no c6_tail; the two runs equal bit for bit;
+                 an eager round free of host syncs), rounds/s and a
+                 profiled run, captured and eager in turns (device busy
+                 time, idle share, activities and copies a round), the rounds
                  whose C6 repair demoted, churn occupancy, queue and drops,
                  cloud share and SLA violations; edge_outage, straggler_tail and flash_churn at
                  R = 12 also on the plain versions (decisions >= 99.9%,
@@ -96,7 +118,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  tier out and ``c6_repair`` with the churned pool's alive
                  mask, on inputs those runs gave them, held to their plain
                  versions and timed (a second time in their kernel rows).
-9. ``dispatch``  the tier pools at full width and depth (Qwen1.5-0.5B edge,
+10. ``dispatch`` the tier pools at full width and depth (Qwen1.5-0.5B edge,
                  Qwen3-8B cloud, bf16, random weights from seeded
                  generators): (a) ``ServeSession.dispatch`` of a gate-mode
                  round over the first 256 streams of the main path's stream,
@@ -113,7 +135,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  fed-back observation; last, a decode step and a prefill
                  per tier, timed on both paths in turns and profiled
                  (device busy time, idle share, top device and host costs).
-10. ``dispatch_recurrent``  the same phase on the sub-quadratic tier pools,
+11. ``dispatch_recurrent``  the same phase on the sub-quadratic tier pools,
                  after the dense pools are freed: Falcon-Mamba-7B (64 Mamba
                  layers) as the edge tier and RecurrentGemma-9B (26 RG-LRU
                  and 12 local-attention layers) as the cloud tier, full
@@ -1142,16 +1164,20 @@ def main_path_phase(torch, dev, stream, counts_reset, counts_read):
     sys_ = SystemConfig()
     gcfg = GateConfig(d_feature=35)
 
-    def session(force):
+    def session(force, capture=None):
         pol = make_policy("r2evid", sys_, device=dev, gate_cfg=gcfg,
                           generator=torch.Generator().manual_seed(0),
                           force=force)
-        return ServeSession(pol, n_streams=M, device=dev)
+        return ServeSession(pol, n_streams=M, device=dev, capture=capture)
 
+    # the default session: the first round warms up, the round is captured
+    # as a CUDA graph and replayed for the other rounds
     sess = session("auto")
     counts_reset()
+    t0 = time.perf_counter()
     mets = sess.run(stream)
     torch.cuda.synchronize()
+    first_run_s = time.perf_counter() - t0
     launches = counts_read()
     expect = {"gate_cell": ROUNDS, "ccg_solve": ROUNDS, "lpt_queue": ROUNDS,
               "c6_repair": ROUNDS}
@@ -1196,8 +1222,14 @@ def main_path_phase(torch, dev, stream, counts_reset, counts_read):
                                  f"with feasible demotions left")
         stuck += 1
 
+    # the eager loop: the same kernels in the same order, the same bits
+    eager = session("auto", capture=False)
+    lane_rounds = assert_bit_equal(torch, mets, eager.run(stream),
+                                   "main path")
+    host_syncs = no_sync_round(torch, eager, stream)
+
     # the same run on the plain versions, on the card
-    ref = session("ref")
+    ref = session("ref", capture=False)
     counts_reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1220,27 +1252,24 @@ def main_path_phase(torch, dev, stream, counts_reset, counts_read):
             if a.numel() else None
     tau_err = float((mets["tau"] - ref_mets["tau"]).abs().max())
 
-    # throughput: median of three timed runs after one warm-up
-    def timed():
-        s = session("auto")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s.run(stream)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    timed()
-    secs = statistics.median(timed() for _ in range(3))
-    trace = trace_round(torch, session("auto"), stream, secs)
+    # throughput: captured and eager runs in turns, median of three, each
+    # session reused (reset between runs); then one profiled run of each
+    turns = captured_vs_eager(torch, sess, eager, stream, ROUNDS, launches)
+    secs = turns["captured"]["run_s"]
+    trace = trace_round(torch, sess, stream, secs)
     return launches, trace, {
         "phase": "main_path", "streams": M, "rounds": ROUNDS,
         "launches": launches, "c6_budget_held_rounds": held,
         "c6_no_feasible_demotion_rounds": stuck,
+        "captured_vs_eager_lane_rounds_bitequal": lane_rounds,
+        "eager_round_host_syncs": host_syncs,
+        "first_run_s": first_run_s, "captured_vs_eager": turns,
         "decision_agreement_vs_plain": agree,
         "rounds_bitequal_vs_plain": int(rounds_equal.sum()),
         "metric_max_rel_vs_plain": max_rel, "tau_max_abs_vs_plain": tau_err,
         "run_s": secs, "plain_run_s_one_sample": plain_run_s,
         "rounds_per_s": ROUNDS / secs,
+        "eager_rounds_per_s": turns["eager"]["rounds_per_s"],
         "segments_per_s": ROUNDS * M / secs,
         "mean_accuracy": float(mets["accuracy"].mean()),
         "mean_delay_s": float(mets["delay"].mean()),
@@ -1361,6 +1390,92 @@ def trace_calls(torch, fn, kernels, reps: int) -> dict:
     return out
 
 
+def run_turns(torch, sessions: dict, stream, reps: int = 3) -> dict:
+    """Median seconds of one ``run`` of each session, the sessions taken in
+    turns (a, b, b, a, a, b, ...) so that a drift of the host's speed
+    reaches them alike; each is reset before its run (a captured session
+    keeps its graph) and has run once before."""
+    times = {label: [] for label in sessions}
+    order = list(sessions)
+    for i in range(reps):
+        for label in order if i % 2 == 0 else order[::-1]:
+            sess = sessions[label]
+            sess.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.run(stream)
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    return {label: statistics.median(t) for label, t in times.items()}
+
+
+def no_sync_round(torch, sess, stream) -> int:
+    """One eager round under ``torch.cuda.set_sync_debug_mode("error")``: a
+    synchronising call (a read back to the host, a copy from pageable host
+    memory) raises.  Returns the host syncs seen: 0."""
+    sess.reset()
+    sess.run(stream, n_rounds=1)          # tables cached before the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess.run(stream, n_rounds=1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return 0
+
+
+def assert_bit_equal(torch, got: dict, want: dict, what: str) -> int:
+    """A captured run against the eager run: every output equal bit for
+    bit; returns the lane-rounds compared."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} vs "
+                             f"{sorted(want)}")
+    for k in want:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"{what}: captured and eager runs differ "
+                                 f"in {k}")
+    return got["route"].numel()
+
+
+def capture_seconds(sess) -> float:
+    """Host seconds the session spent capturing its round graphs."""
+    return sum(g.capture_s or 0.0 for g in sess.graphs.values())
+
+
+def captured_vs_eager(torch, graphed, eager, stream, rounds: int,
+                      launches: dict) -> dict:
+    """Rounds/s of a captured and an eager session in turns, and each one's
+    profiled run (device busy time, activities and kernels a round).  The
+    profiler's count of the ported kernels must equal the wrappers' count
+    of a run (``launches``): a trace that dropped kernel records (CUPTI
+    now and then returns one) is taken again, at most three times."""
+    secs = run_turns(torch, {"captured": graphed, "eager": eager}, stream)
+    out = {"capture_s": capture_seconds(graphed)}
+    want = {k: n / rounds for k, n in launches.items()}
+    for label, sess in (("captured", graphed), ("eager", eager)):
+        for traces in range(1, 4):
+            prof = trace_round(torch, sess, stream, secs[label],
+                               rounds=rounds, host=False)
+            if prof["kernel_launches_per_round"] == want:
+                break
+        else:
+            raise AssertionError(
+                f"{label} run: the profiler counts "
+                f"{prof['kernel_launches_per_round']} kernels a round in "
+                f"three traces, the wrappers {want}")
+        out[label] = {"run_s": secs[label], "traces_taken": traces,
+                      "rounds_per_s": rounds / secs[label],
+                      **{k: prof[k] for k in (
+                          "device_busy_ms_per_round",
+                          "device_activities_per_round",
+                          "device_idle_share", "untraced_ms_per_round",
+                          "dtoh_copies_per_round", "htod_copies_per_round",
+                          "kernel_launches_per_round")}}
+    out["speedup"] = secs["eager"] / secs["captured"]
+    return out
+
+
 POLICY_VARIANTS = {
     "a2_cloud_only": ("a2_cloud_only", {}),
     "jcab": ("jcab", {}),
@@ -1386,12 +1501,14 @@ def policies_phase(torch, dev, stream, counts_reset, counts_read):
               "v": sys_.num_versions}
     rows = {}
     for label, (name, kw) in POLICY_VARIANTS.items():
-        def session(force):
+        def session(force, capture=None):
             pol = make_policy(name, sys_, device=dev, force=force, **kw)
-            return ServeSession(pol, n_streams=M, device=dev)
+            return ServeSession(pol, n_streams=M, device=dev,
+                                capture=capture)
 
+        graphed = session("auto")
         counts_reset()
-        mets = session("auto").run(obs)
+        mets = graphed.run(obs)
         torch.cuda.synchronize()
         launches = counts_read()
         want = {"lpt_queue": ROUNDS}
@@ -1412,9 +1529,13 @@ def policies_phase(torch, dev, stream, counts_reset, counts_read):
         scalars = Simulator(sys_, SimConfig(n_tasks=M, seed=0),
                             device=dev).aggregate(mets, stream.aq)
         row = {"policy": name, "kw": kw, "launches": launches, **scalars}
+        eager = session("auto", capture=False)
+        row["captured_vs_eager_lane_rounds_bitequal"] = assert_bit_equal(
+            torch, mets, eager.run(obs), label)
+        row["eager_round_host_syncs"] = no_sync_round(torch, eager, obs)
         if label == "r2evid_tau_proxy":
             counts_reset()
-            ref = session("ref").run(obs)
+            ref = session("ref", capture=False).run(obs)
             torch.cuda.synchronize()
             if counts_read():
                 raise AssertionError("force='ref' run launched a kernel")
@@ -1432,20 +1553,201 @@ def policies_phase(torch, dev, stream, counts_reset, counts_read):
                           / ref[k].abs().clamp_min(1e-12)).max())
                 for k in ("delay", "energy", "cost", "accuracy")}
 
-        def timed():
-            sess = session("auto")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sess.run(obs)
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0
-
-        secs = statistics.median(timed() for _ in range(3))
+        turns = captured_vs_eager(torch, graphed, eager, obs, ROUNDS,
+                                  launches)
+        secs = turns["captured"]["run_s"]
         row.update({"run_s": secs, "rounds_per_s": ROUNDS / secs,
-                    "segments_per_s": ROUNDS * M / secs})
+                    "eager_rounds_per_s": turns["eager"]["rounds_per_s"],
+                    "segments_per_s": ROUNDS * M / secs,
+                    "captured_vs_eager": turns})
         rows[label] = row
     return {"phase": "policies", "streams": M, "rounds": ROUNDS,
             "variants": rows}
+
+
+DECIDE_S, DECIDE_T = 8, 8          # segments of the scans, window length
+
+
+def decide_phase(torch, dev, stream, counts_reset, counts_read):
+    """The decide-only paths at M = 4096 on the main path's stream and
+    gate weights: ``route_step`` over S segments, ``route_scan`` (a graph
+    replayed a segment) and the windowed ``route`` (T = 8), the session's
+    ``route_many``, ``route`` and ``step`` without ``u`` (graphs), and
+    ``Simulator.realize`` / ``realize_batch``.  Each on the kernels
+    (launches counted from zero) and on the plain versions (decisions
+    agreeing on >= 99.9% of lanes; the simulator against a CPU simulator
+    of the same seed), and timed: captured and eager in turns where the
+    path captures.  Returns (the launches of the counted runs, the
+    record)."""
+    from repro_torch.core import router
+    from repro_torch.core.cost_model import SystemConfig
+    from repro_torch.core.gating import GateConfig
+    from repro_torch.serving.policy import Observation, make_policy
+    from repro_torch.serving.session import ServeSession
+    from repro_torch.serving.simulator import SimConfig, Simulator
+
+    sys_, gcfg, S = SystemConfig(), GateConfig(d_feature=35), DECIDE_S
+    pols = {f: make_policy("r2evid", sys_, device=dev, gate_cfg=gcfg,
+                           generator=torch.Generator().manual_seed(0),
+                           force=f) for f in ("auto", "ref")}
+    prob, params = pols["auto"].prob, pols["auto"].gate_params
+    dx, z, aq = stream.dx[:S], stream.z[:S], stream.aq[:S]
+    window = stream.dx[:DECIDE_T].movedim(0, 1).contiguous()   # (M, T, d)
+    gate_path = ("gate_cell", "ccg_solve", "c6_repair")
+    totals = collections.Counter()
+    paths = {}
+
+    def agreement(got, want):
+        same = torch.ones_like(got["route"], dtype=torch.bool)
+        for k in DECISIONS:
+            same &= got[k] == want[k]
+        return float(same.double().mean())
+
+    def counted(fn, want):
+        counts_reset()
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts_read()
+        if got != want:
+            raise AssertionError(f"decide path launched {got}, want {want}")
+        totals.update(got)
+        return out
+
+    def timed(fns: dict, units: int, reps: int = 3):
+        """Median seconds of each of ``fns`` in turns -> units/s."""
+        for fn in fns.values():
+            fn()
+        times = {k: [] for k in fns}
+        for i in range(reps):
+            for k in list(fns) if i % 2 == 0 else list(fns)[::-1]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[k]()
+                torch.cuda.synchronize()
+                times[k].append(time.perf_counter() - t0)
+        return {f"{k}_per_s": units / statistics.median(t)
+                for k, t in times.items()}
+
+    def keep(name, got, plain, launches, rate, **extra):
+        agree = agreement(got, plain)
+        if agree < 0.999:
+            raise AssertionError(f"decide {name}: kernels vs plain "
+                                 f"decisions agree on {agree}")
+        paths[name] = {"launches": launches,
+                       "decision_agreement_vs_plain": agree,
+                       "tau_max_abs_vs_plain": float(
+                           (got["tau"] - plain["tau"]).abs().max()), **rate,
+                       **extra}
+
+    def fresh_state():
+        return router.init_router_state(gcfg, M, dev)
+
+    # route_step, S segments threading the state (eager: a function call)
+    def steps(force):
+        st, sols = fresh_state(), []
+        for i in range(S):
+            st, sol = router.route_step(prob, gcfg, params, st, dx[i], z[i],
+                                        aq[i], force=force)
+            sols.append(sol)
+        return {k: torch.stack([x[k] for x in sols]) for k in sols[0]}
+
+    want = {k: S for k in gate_path}
+    got = counted(lambda: steps("auto"), want)
+    keep("route_step", got, steps("ref"), want,
+         timed({"segments": lambda: steps("auto")}, S))
+
+    # route_scan: the step captured a call, replayed a segment
+    def scan(force, capture):
+        return router.route_scan(prob, gcfg, params, fresh_state(), dx, z,
+                                 aq, force=force, capture=capture)[1]
+
+    got = counted(lambda: scan("auto", None), want)
+    lane = assert_bit_equal(torch, got, scan("auto", False), "route_scan")
+    keep("route_scan", got, scan("ref", False), want,
+         timed({"captured_segments": lambda: scan("auto", None),
+                "eager_segments": lambda: scan("auto", False)}, S),
+         captured_vs_eager_lanes_bitequal=lane)
+
+    # the windowed route over T segments of features
+    def windowed(force):
+        return router.route(prob, gcfg, params, window, z[-1], aq[-1],
+                            force=force)
+
+    want_w = {"gate_cell": DECIDE_T, "ccg_solve": 1, "c6_repair": 1}
+    got = counted(lambda: windowed("auto"), want_w)
+    keep("route", got, windowed("ref"), want_w,
+         timed({"calls": lambda: windowed("auto")}, 1))
+
+    # the session's decide-only surface: captured and eager sessions
+    sess = {c: ServeSession(pols["auto"], M, device=dev, capture=c)
+            for c in (None, False)}
+    plain = ServeSession(pols["ref"], M, device=dev, capture=False)
+    got = counted(lambda: sess[None].route_many(dx, z, aq), want)
+    lane = assert_bit_equal(torch, got, sess[False].route_many(dx, z, aq),
+                            "route_many")
+    ref = plain.route_many(dx, z, aq)
+
+    def many(c):
+        sess[c].reset()
+        sess[c].route_many(dx, z, aq)
+
+    keep("session.route_many", got, ref, want,
+         timed({"captured_segments": lambda: many(None),
+                "eager_segments": lambda: many(False)}, S),
+         captured_vs_eager_lanes_bitequal=lane,
+         capture_s=capture_seconds(sess[None]))
+    nxt = Observation(z=stream.z[S], aq=stream.aq[S], dx=stream.dx[S])
+    one = {k: 1 for k in gate_path}
+    for name, call in (("session.route", "route"),
+                       ("session.step_without_u", "step")):
+        for c in (None, False):
+            sess[c].reset()
+            sess[c].route_many(dx, z, aq)
+        plain.reset()
+        plain.route_many(dx, z, aq)
+        got = counted(lambda: getattr(sess[None], call)(nxt), one)
+        eager = getattr(sess[False], call)(nxt)
+        lane = assert_bit_equal(torch, {k: v[None] for k, v in got.items()},
+                                {k: v[None] for k, v in eager.items()},
+                                name)
+        keep(name, {k: v[None] for k, v in got.items()},
+             {k: v[None] for k, v in
+              getattr(plain, call)(nxt).items()}, one,
+             timed({"captured_calls":
+                    lambda: getattr(sess[None], call)(nxt),
+                    "eager_calls": lambda: getattr(sess[False], call)(nxt)},
+                   1), captured_vs_eager_lanes_bitequal=lane)
+
+    # the host simulator: realize and realize_batch on the card against a
+    # CPU simulator of the same seed (the plain LPT walk, the same noise)
+    cfgs = [{k: ref[k][i].cpu().numpy() for k in DECISIONS}
+            for i in range(S)]
+    for name, fn, want_l in (
+            ("Simulator.realize",
+             lambda sim, rnds: sim.realize(rnds[0], cfgs[0]),
+             {"lpt_queue": 1}),
+            ("Simulator.realize_batch",
+             lambda sim, rnds: sim.realize_batch(rnds, cfgs),
+             {"lpt_queue": 1})):
+        # two simulators of one seed draw the same rounds and noise
+        sims = [Simulator(sys_, SimConfig(n_tasks=M, seed=5), device=where)
+                for where in (dev, "cpu")]
+        rnds = [[sim.sample_round() for _ in range(S)] for sim in sims]
+        got = counted(lambda: fn(sims[0], rnds[0]), want_l)
+        want_np = fn(sims[1], rnds[1])
+        agree = float(np.mean((got["route"] == want_np["route"])
+                              & (got["success"] == want_np["success"])))
+        if agree < 0.999:
+            raise AssertionError(f"{name}: card vs CPU agree on {agree}")
+        paths[name] = {
+            "launches": want_l, "route_success_agreement_vs_cpu": agree,
+            "metric_max_rel_vs_cpu": {
+                k: float(np.max(np.abs(got[k] - want_np[k])
+                                / np.maximum(np.abs(want_np[k]), 1e-12)))
+                for k in ("delay", "energy", "cost", "accuracy")},
+            **timed({"calls": lambda: fn(sims[0], rnds[0])}, 1)}
+    return totals, {"phase": "decide", "streams": M, "segments": S,
+                    "window": DECIDE_T, "paths": paths}
 
 
 SCEN_ROUNDS, SCEN_PLAIN_ROUNDS = 30, 12
@@ -1551,19 +1853,21 @@ def scenarios_phase(torch, dev, counts_reset, counts_read, rows):
     from repro_torch.serving.session import ServeSession
     from repro_torch.serving.simulator import SimConfig, Simulator
 
+    t0 = time.perf_counter()
     rec = {"phase": "scenarios", "golden_point": golden_point(torch, dev)}
+    rec["golden_point"]["seconds"] = time.perf_counter() - t0
     sys_ = SystemConfig()
     simc = SimConfig(n_tasks=M, seed=0)
     stream = Simulator(sys_, simc, device=dev).sample_stream(
         n_rounds=SCEN_ROUNDS, feature_seed=1)
 
-    def session(mode, force, trace):
+    def session(mode, force, trace, capture=None):
         kw = ({} if mode == "tau_proxy" else
               dict(gate_cfg=GateConfig(d_feature=35),
                    generator=torch.Generator().manual_seed(0)))
         pol = make_policy("r2evid", sys_, device=dev, force=force, **kw)
         return ServeSession(pol, M, sim=simc, device=dev, hedge=trace.hedge,
-                            admission=trace.admission)
+                            admission=trace.admission, capture=capture)
 
     def degraded(mode, trace, rounds):
         obs = stream if rounds == SCEN_ROUNDS else dataclasses.replace(
@@ -1580,21 +1884,31 @@ def scenarios_phase(torch, dev, counts_reset, counts_read, rows):
         for name in ("none",) + sc.SUITE:
             trace = sc.compile_scenario(name, sys_, simc, SCEN_ROUNDS, seed=0)
             obs = degraded(mode, trace, SCEN_ROUNDS)
-            sess = session(mode, "auto", trace)
+            # the eager loop, each wrapper call recorded (a replay makes
+            # none), then the captured run: equal bits, counted launches
+            eager = session(mode, "auto", trace, capture=False)
             with Recorder(router, "c6_repair") as repairs, \
                     Recorder(robust, "ccg_solve") as solves, \
                     Recorder(simulator, "lpt_queue") as packs:
                 counts_reset()
-                mets = sess.run(obs)
+                mets = eager.run(obs)
                 torch.cuda.synchronize()
-                launches = counts_read()
+                eager_launches = counts_read()
+            sess = session(mode, "auto", trace)
+            counts_reset()
+            graphed_mets = sess.run(obs)
+            torch.cuda.synchronize()
+            launches = counts_read()
             want = {"ccg_solve": SCEN_ROUNDS, "c6_repair": SCEN_ROUNDS,
                     "lpt_queue": SCEN_ROUNDS}
             if mode == "gate":
                 want["gate_cell"] = SCEN_ROUNDS
-            if launches != want:
+            if launches != want or eager_launches != want:
                 raise AssertionError(f"scenarios {mode}/{name} launched "
-                                     f"{launches}, want {want}")
+                                     f"{launches} captured and "
+                                     f"{eager_launches} eager, want {want}")
+            bitequal = assert_bit_equal(torch, graphed_mets, mets,
+                                        f"scenarios {mode}/{name}")
             totals.update(launches)
             for k in ("delay", "energy", "cost", "accuracy"):
                 if tuple(mets[k].shape) != (SCEN_ROUNDS, M) or \
@@ -1623,25 +1937,17 @@ def scenarios_phase(torch, dev, counts_reset, counts_read, rows):
                     bool(demoting[first]),)
                 captured["lpt_dead_lanes"] = packs[0][:2]
             scalars = sc.scenario_metrics(mets, obs, trace)
-
-            def timed():
-                s = session(mode, "auto", trace)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                s.run(obs)
-                torch.cuda.synchronize()
-                return time.perf_counter() - t0
-
-            timed()
-            secs = statistics.median(timed() for _ in range(3))
-            prof = trace_round(torch, session(mode, "auto", trace), obs,
-                               secs, rounds=SCEN_ROUNDS)
-            del prof["phase"], prof["rounds"]
-            prof["top_device_time"] = prof["top_device_time"][:4]
+            syncs = no_sync_round(torch, eager, obs)
+            turns = captured_vs_eager(torch, sess, eager, obs, SCEN_ROUNDS,
+                                      launches)
+            secs = turns["captured"]["run_s"]
             row = {"launches_per_round": {k: v / SCEN_ROUNDS
                                           for k, v in launches.items()},
                    "rounds_per_s": SCEN_ROUNDS / secs, "run_s": secs,
-                   "trace": prof,
+                   "eager_rounds_per_s": turns["eager"]["rounds_per_s"],
+                   "captured_vs_eager": turns,
+                   "captured_vs_eager_lane_rounds_bitequal": bitequal,
+                   "eager_round_host_syncs": syncs,
                    "c6_demoting_rounds": int(demoting.sum()),
                    "cloud_frac": scalars["cloud_frac"],
                    "sla_violation_rate": scalars["sla_violation_rate"],
@@ -1660,7 +1966,7 @@ def scenarios_phase(torch, dev, counts_reset, counts_read, rows):
         obs = degraded("gate", trace, SCEN_PLAIN_ROUNDS)
         got = session("gate", "auto", trace).run(obs)
         counts_reset()
-        want = session("gate", "ref", trace).run(obs)
+        want = session("gate", "ref", trace, capture=False).run(obs)
         torch.cuda.synchronize()
         if counts_read():
             raise AssertionError("force='ref' run launched a kernel")
@@ -2077,21 +2383,23 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
 
 
 def trace_round(torch, sess, stream, untraced_s: float,
-                rounds: int = ROUNDS) -> dict:
+                rounds: int = ROUNDS, host: bool = True) -> dict:
     """Where the time goes: one profiled run of ``rounds`` rounds of the
-    main path (or of a scenario's run).
+    main path (or of a scenario's run), the session reset first.
 
     Device busy time is the sum of the trace's device activities (kernels,
     copies, fills); the idle share compares it with the untraced run's wall
     time, since the profiler slows the host.  Copies from the device to the
-    host would be syncs of the round loop: their count is reported."""
+    host would be syncs of the round loop: their count is reported.
+    ``host=False`` traces the device alone (a cheaper trace)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    sess.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         sess.run(stream)
         torch.cuda.synchronize()
     traced_s = time.perf_counter() - t0
@@ -2115,6 +2423,12 @@ def trace_round(torch, sess, stream, untraced_s: float,
         "htod_copies_per_round": sum(e.count for e in acts
                                      if "HtoD" in e.key) / rounds,
         "ported_kernels_share_of_busy": ours_ms / busy_ms if busy_ms else None,
+        # the profiler's own count of the ported kernels: the witness of
+        # the wrappers' counters (a replay makes no wrapper call)
+        "kernel_launches_per_round": {
+            k[:-len("_kernel")]: sum(e.count for e in acts if k in e.key)
+            / rounds for k in ours
+            if any(k in e.key for e in acts)},
         "top_device_time": [
             {"name": e.key[:90], "ms_per_round":
              e.self_device_time_total / 1e3 / rounds,
@@ -2185,6 +2499,9 @@ def main() -> int:
     record(solve_rec)
     record(policies_phase(torch, dev, stream, reset_launch_counts,
                           launch_counts))
+    decide_launches, decide_rec = decide_phase(
+        torch, dev, stream, reset_launch_counts, launch_counts)
+    record(decide_rec)
     scen_launches, scen_rec = scenarios_phase(
         torch, dev, reset_launch_counts, launch_counts, rows)
     record(scen_rec)
@@ -2204,7 +2521,8 @@ def main() -> int:
     # dispatch phases for the attention kernels and the scans
     # (the dispatch phases' counts, checked against layers × calls, split
     # by the call that launched them: prefill or decode step)
-    phases = {"main_path": launches, "solve_ccg": solve_launches,
+    phases = {"main_path": launches, "decide": decide_launches,
+              "solve_ccg": solve_launches,
               "c6_repair_above_cap": above_cap_launches,
               "scenarios": scen_launches,
               "dispatch": per_kernel(dispatch_by_call),

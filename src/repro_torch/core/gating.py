@@ -1,5 +1,6 @@
 """Temporal gating unit (paper §3.2, Eq. 5-6) — port of the batched
-streaming gate in ``repro/core/gating.py:27-155``.
+streaming gate in ``repro/core/gating.py:27-155`` and its window scan
+``gate_window_scan`` (:176-194).
 
     g_t = σ( W_g Δx_t + U_g h_{t-1} + b_g + α · Var(Δx_{t-T:t}) )      (5)
     r_t = σ( W_r Δx_t + U_r h_{t-1} + b_r )
@@ -133,3 +134,26 @@ def gate_step_batch(cfg: GateConfig, p, state: GateBatchState, dx, *,
     new_state = GateBatchState(h=h, var_buf=buf, var_idx=state.var_idx + 1,
                                var_sum=var_sum, var_sumsq=var_sumsq)
     return new_state, (tau, g_mean)
+
+
+def gate_window_scan(cfg: GateConfig, p, dxs,
+                     state: GateBatchState | None = None, *,
+                     force: str = "auto"):
+    """dxs: (M, T, d) -> (taus (M, T), g_means (M, T), final_state).
+
+    :func:`gate_step_batch` over the T axis: the whole stream batch advances
+    one segment a step, from a fresh :func:`init_batch_state` or from a copy
+    of ``state`` (the step writes its ring buffer in place, so the caller's
+    state is never written)."""
+    if state is None:
+        state = init_batch_state(cfg, dxs.shape[0], dxs.device)
+    else:
+        state = GateBatchState(**{f.name: getattr(state, f.name).clone()
+                                  for f in dataclasses.fields(state)})
+    taus, gs = [], []
+    for dx in dxs.movedim(1, 0).contiguous():             # (M, d) a step
+        state, (tau, g_mean) = gate_step_batch(cfg, p, state, dx,
+                                               force=force)
+        taus.append(tau)
+        gs.append(g_mean)
+    return torch.stack(taus, dim=1), torch.stack(gs, dim=1), state

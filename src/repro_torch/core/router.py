@@ -1,5 +1,7 @@
-"""R2E-VID two-stage router (paper Alg. 1 + Alg. 2 glue) — port of the
-streaming path of ``repro/core/router.py:48-351``.
+"""R2E-VID two-stage router (paper Alg. 1 + Alg. 2 glue) — port of
+``repro/core/router.py``: the streaming path (:48-351), the stateful step
+``route_step`` and its scan ``route_scan`` (:351-420) and the windowed,
+stateless ``route`` (:478-516).
 
 Stage 1 (Alg. 1) picks the smallest edge resolution whose smallest model
 meets the accuracy requirement, escalates to cloud on the gate score τ or
@@ -21,6 +23,7 @@ from repro_torch.core.gating import (
     GateBatchState,
     GateConfig,
     gate_step_batch,
+    gate_window_scan,
     init_batch_state,
 )
 from repro_torch.core.lattice import DecisionLattice
@@ -175,3 +178,86 @@ def route_segment(prob: RobustProblem, gate_cfg: GateConfig, gate_params,
                             state.prev_route, state.prev_tau, rcfg,
                             force=force, tier_ok=tier_ok)
     return new_gate, taus, sol
+
+
+def route_step(prob: RobustProblem, gate_cfg: GateConfig, gate_params,
+               state: RouterState, dx, difficulty, acc_req,
+               rcfg: RouterConfig = RouterConfig(), force: str = "auto",
+               tier_ok=None):
+    """One streaming step: (state, segment batch) -> (state, sol).
+
+    :func:`route_segment` (gate, Stage 1, warm CCG, temporal consistency),
+    then the C6 repair against the nominal budget.  dx: (M, d) features of
+    this segment; difficulty / acc_req: (M,).  ``state``'s ring buffer is
+    written in place (the reference donates the state): thread the
+    returned state, never the old one.  ``sol`` carries the repair's
+    ``bw_history``."""
+    new_gate, taus, sol = route_segment(prob, gate_cfg, gate_params, state,
+                                        dx, difficulty, acc_req, rcfg,
+                                        force=force, tier_ok=tier_ok)
+    sol, bw_hist = enforce_bandwidth(prob.lat, sol, difficulty, acc_req,
+                                     rounds=rcfg.repair_rounds, force=force)
+    sol["bw_history"] = bw_hist
+    return RouterState(prev_route=sol["route"], prev_tau=taus,
+                       gate=new_gate), sol
+
+
+def route_scan(prob: RobustProblem, gate_cfg: GateConfig, gate_params,
+               state: RouterState, dx_seq, difficulty, acc_req,
+               rcfg: RouterConfig = RouterConfig(), force: str = "auto",
+               capture: bool | None = None):
+    """:func:`route_step` over S segments -> (state, sols stacked to (S,
+    ...)).  dx_seq: (S, M, d); difficulty / acc_req: (M,) or (S, M).
+
+    On the card (``capture=None``) the step is captured as a CUDA graph
+    and replayed a segment (``serving/graphs.py``): the first segment is
+    the warm-up, the state's tensors are updated in place and returned.
+    ``capture=False`` loops eagerly, as the CPU does; a session's
+    ``route_many`` keeps its graph across calls."""
+    from repro_torch.serving.graphs import RoundGraph
+    from repro_torch.serving.policy import Observation
+
+    s = dx_seq.shape[0]
+    if difficulty.dim() == 1:
+        difficulty = torch.broadcast_to(difficulty, (s,) + difficulty.shape)
+    if acc_req.dim() == 1:
+        acc_req = torch.broadcast_to(acc_req, (s,) + acc_req.shape)
+
+    def step(st, obs):
+        return route_step(prob, gate_cfg, gate_params, st, obs.dx, obs.z,
+                          obs.aq, rcfg, force=force)
+
+    seq = Observation(z=difficulty, aq=acc_req, dx=dx_seq)
+    on_card = dx_seq.device.type == "cuda"
+    if capture is True or capture is None and on_card:
+        return state, RoundGraph(step, state, seq, capture=on_card).run(seq)
+    sols = []
+    for i in range(s):
+        state, sol = step(state, seq.round(i))
+        sols.append(sol)
+    return state, {k: torch.stack([x[k] for x in sols]) for k in sols[0]}
+
+
+def route(prob: RobustProblem, gate_cfg: GateConfig, gate_params,
+          dx_segments, difficulty, acc_req, prev_route=None, prev_tau=None,
+          rcfg: RouterConfig = RouterConfig(), force: str = "auto",
+          tier_ok=None):
+    """Windowed, stateless routing: :func:`gate_window_scan` over the
+    (M, T, d) feature window from a fresh gate state, the last step's τ,
+    then the same two-stage selection and C6 repair as the streaming step.
+    ``prev_route`` defaults to -1 (no history), ``prev_tau`` to 0."""
+    m = dx_segments.shape[0]
+    dev = dx_segments.device
+    if prev_route is None:
+        prev_route = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    if prev_tau is None:
+        prev_tau = torch.zeros((m,), dtype=torch.float32, device=dev)
+    taus_seq, _, _ = gate_window_scan(gate_cfg, gate_params, dx_segments,
+                                      force=force)
+    taus = taus_seq[:, -1]
+    sol = _two_stage_select(prob, taus, difficulty, acc_req, prev_route,
+                            prev_tau, rcfg, force=force, tier_ok=tier_ok)
+    sol, bw_hist = enforce_bandwidth(prob.lat, sol, difficulty, acc_req,
+                                     rounds=rcfg.repair_rounds, force=force)
+    sol["bw_history"] = bw_hist
+    return sol

@@ -365,10 +365,23 @@ int launch(const void* t_comp, const void* route, const void* order,
            int n_cloud, cudaStream_t stream) {
   const size_t smem = smem_bytes(M);
   auto kernel = lpt_queue_kernel<kE, kC>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // opt in to all the dynamic shared memory a block may take, once per
+  // device: later launches (a captured one among them) are the launch alone
+  static int opted_in = -1;   // the device whose limit this kernel took
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (opted_in != dev) {
+    int optin = 0;
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)attr.sharedSizeBytes);
     if (e != cudaSuccess) return (int)e;
+    opted_in = dev;
   }
   if (R > 0 && M > 0) {
     kernel<<<R, kThreads, smem, stream>>>(

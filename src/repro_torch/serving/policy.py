@@ -27,6 +27,7 @@ ROADMAP queue A.15.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -80,16 +81,19 @@ class Observation:
 
 def capacity_budget(sys: SystemConfig, tier_ok=None, bw_scale=None):
     """The round's planning bandwidth budget (Mbps) from capacity telemetry,
-    or None when none rides the observation (``total_bw_mbps`` applies)."""
+    or None when none rides the observation (``total_bw_mbps`` applies).
+
+    The nominal budget meets the float32 scale as a Python scalar: torch
+    rounds it to float32 and takes one float32 product, the reference's
+    ``float32(total) * scale``, with no tensor made on the host (a copy to
+    the card every round, which a CUDA graph cannot hold)."""
     if bw_scale is not None:
-        return torch.as_tensor(sys.total_bw_mbps, dtype=torch.float32,
-                               device=bw_scale.device) * bw_scale
+        return bw_scale * sys.total_bw_mbps
     if tier_ok is not None:
         cap = sys.edge_bw_mbps + sys.cloud_bw_mbps
         frac = (sys.edge_bw_mbps * (tier_ok[..., 0] > 0)
                 + sys.cloud_bw_mbps * (tier_ok[..., 1] > 0)) / cap
-        return torch.as_tensor(sys.total_bw_mbps, dtype=torch.float32,
-                               device=tier_ok.device) * frac
+        return frac * sys.total_bw_mbps
     return None
 
 
@@ -112,10 +116,11 @@ def _argmin_feasible(lat: DecisionLattice, z, aq, *, force_route=None,
             torch.arange(lat.n_flat, device=lat.device))
         feas = feas & (y_route == force_route)[None, :, None]
     if allowed_versions is not None:
-        mv = torch.zeros((sys.num_versions,), dtype=torch.bool,
-                         device=lat.device)
-        for v in allowed_versions:      # fills on the device, no host copy
-            mv[v] = True
+        # compares on the device: setting an element from a Python value
+        # copies it from the host, which a CUDA graph cannot hold
+        ks = torch.arange(sys.num_versions, device=lat.device)
+        mv = functools.reduce(torch.logical_or,
+                              [ks == v for v in allowed_versions])
         feas = feas & mv[None, None, :]
     obj = torch.where(feas, total, BIG)
     flat = obj.reshape(obj.shape[0], -1)

@@ -1,27 +1,40 @@
 """ServeSession: the serve driver — port of ``repro/serving/session.py``:
-``__init__`` :572, ``reset``, ``step`` :705, ``run`` :717 with the round
-body ``_serve_step`` / ``_serve_run`` :160/:169 and the scenario inputs of
-``_realize_obs`` :143; slot-pool churn with SLA-aware admission
-(``AdmissionConfig`` and ``_churn_admit`` :62-117, ``_churn_round`` and
-``_serve_run_churn`` :180-231, ``_churn_init`` / ``_check_churn``
-:636-662); and the live model pools (``dispatch``, ``feedback``,
-``apply_feedback`` :870-972).
+``__init__`` :572, ``reset``, ``gate_params``, the decide-only ``route`` /
+``route_many`` :625-660 (the reference's ``_decide_step`` / ``_decide_scan``
+:131-141), ``step`` :705, ``run`` :717 with the round body ``_serve_step``
+/ ``_serve_run`` :160/:169 and the scenario inputs of ``_realize_obs``
+:143; slot-pool churn with SLA-aware admission (``AdmissionConfig`` and
+``_churn_admit`` :62-117, ``_churn_round`` and ``_serve_run_churn``
+:180-231, ``_churn_init`` / ``_check_churn`` :636-662); and the live model
+pools (``dispatch``, ``feedback``, ``apply_feedback`` :870-972).
 
-The reference runs the rounds under one ``lax.scan``; here ``run`` is a
-Python loop over rounds, each of which launches its work on the policy's
-device and never reads back to the host: the churn bookkeeping (alive,
-degrade pins, queue, admitted, dropped) stays in device tensors across
-rounds.  Mesh and finetune are later slices of the port (ROADMAP queue A).
+The reference runs each run under one ``lax.scan``, one compiled program.
+Here, on the card, a session captures its round once as a CUDA graph
+(``serving/graphs.py``) and replays it a round: ``run`` (plain, scenario
+and churn streams), ``route_many``, ``step`` and ``route``.  The eager
+loop (``capture=False``, and the CPU) calls the same round function from
+Python a round.  Either way no round reads back to the host: the churn
+bookkeeping (alive, degrade pins, queue, admitted, dropped) stays in
+device tensors across rounds.  Mesh and finetune are later slices of the
+port (ROADMAP queue A).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.serving.dispatch import DispatchExecutor, Request
+from repro_torch.serving.graphs import (
+    RoundGraph,
+    assign,
+    signature,
+    tree_leaves,
+    tree_map,
+)
 from repro_torch.serving.policy import Observation, Policy, capacity_budget
 from repro_torch.serving.simulator import SimConfig, realize_rounds
 
@@ -153,24 +166,45 @@ def _churn_round(policy: Policy, bw_floor, total_bw, acfg: AdmissionConfig,
     return (st, alive, degr, queue), out
 
 
+def _churn_consts(policy: Policy, alive):
+    """The round-invariant operands of :func:`_churn_round`, made on the
+    device once a run (or once a graph): the per-stream minimum-fidelity
+    draw the admission cap is computed against (the worst tier's (r = 0,
+    p = 0) draw), the nominal budget as a 0-d float32 tensor (a fill, not
+    a copy from the host) and the all-valid slot mask."""
+    lat = policy.lat
+    return (lat.bw[0, 0, :].max(),
+            torch.full((), lat.sys.total_bw_mbps, dtype=torch.float32,
+                       device=lat.device),
+            torch.ones_like(alive))
+
+
 def _serve_run_churn(policy: Policy, carry, obs_seq: Observation,
                      acfg: AdmissionConfig, n_edge: int, n_cloud: int):
     """:func:`_serve_run` on a fixed-capacity slot pool: the carry also
     holds the alive mask, the degrade pins and the queue depth, and the
     arrival / departure traces ride the stream."""
-    lat = policy.lat
-    # the per-stream minimum-fidelity draw the admission cap is computed
-    # against: the worst tier's (r = 0, p = 0) draw
-    bw_floor = lat.bw[0, 0, :].max()
-    total_bw = torch.tensor(np.float32(lat.sys.total_bw_mbps),
-                            device=lat.device)
-    valid = torch.ones_like(carry[1])
+    bw_floor, total_bw, valid = _churn_consts(policy, carry[1])
     outs = []
     for i in range(obs_seq.n_rounds):
         carry, out = _churn_round(policy, bw_floor, total_bw, acfg, n_edge,
                                   n_cloud, valid, carry, obs_seq.round(i))
         outs.append(out)
     return carry, _stack(outs)
+
+
+def _prefix(stream: Observation, n_rounds: int) -> Observation:
+    """The first ``n_rounds`` rounds of a round-stacked stream (views)."""
+    return Observation(**{f.name: None if getattr(stream, f.name) is None
+                          else getattr(stream, f.name)[:n_rounds]
+                          for f in dataclasses.fields(stream)})
+
+
+def _one_round(obs: Observation) -> Observation:
+    """One round's observation as a round-stacked stream of length 1."""
+    return Observation(**{f.name: None if getattr(obs, f.name) is None
+                          else getattr(obs, f.name).unsqueeze(0)
+                          for f in dataclasses.fields(obs)})
 
 
 class ServeSession:
@@ -185,13 +219,23 @@ class ServeSession:
     ``admission=AdmissionConfig(...)`` makes ``n_streams`` a slot pool's
     capacity and ``run`` take ``arrive_n`` / ``depart`` traces; ``force``
     replaces the policy's kernel pin.
+
+    ``capture`` pins how rounds run, as ``force`` pins the kernels: None
+    (default) captures each kind of round once as a CUDA graph on the card
+    and replays it (:class:`~repro_torch.serving.graphs.RoundGraph`), and
+    runs the eager loop on the CPU; False always runs the eager loop; True
+    always runs the graph's round function, captured on the card and
+    called eagerly on the CPU (where nothing is captured).  A graph holds
+    the session's carry by address: :meth:`reset` refills it in place, and
+    a carry assigned to ``state`` from outside is captured anew.
     """
 
     def __init__(self, policy: Policy, n_streams: int, *,
                  sim: SimConfig | None = None, n_edge: int | None = None,
                  n_cloud: int | None = None, device="cuda", state=None,
                  mesh=None, finetune=None, hedge=None, admission=None,
-                 force: str | None = None, pools=None):
+                 force: str | None = None, pools=None,
+                 capture: bool | None = None):
         for key, val, item in (("mesh", mesh, "A.15"),
                                ("finetune", finetune, "A.11")):
             if val is not None:
@@ -201,6 +245,9 @@ class ServeSession:
         if policy.device.type != dev.type:
             raise ValueError(f"ServeSession(device={device!r}) but the "
                              f"policy lives on {policy.device}")
+        if capture not in (None, True, False):
+            raise ValueError(f"capture must be None, True or False, got "
+                             f"{capture!r}")
         if force is not None:
             policy = dataclasses.replace(policy, force=force)
         if hedge is not None:
@@ -216,8 +263,10 @@ class ServeSession:
         self.n_cloud = sim.n_cloud_servers if n_cloud is None else n_cloud
         self.hedge = hedge
         self.admission = admission
+        self.capture = capture
         self.state = policy.init(n_streams) if state is None else state
         self._churn_carry = None
+        self.graphs = {}            # (kind, stream signature) -> RoundGraph
         self.pools = pools
         self._executor = None
 
@@ -225,11 +274,31 @@ class ServeSession:
     def sys_cfg(self):
         return self.policy.lat.sys
 
+    @property
+    def gate_params(self):
+        """The gate-mode policy's gate parameters (None for the others)."""
+        return getattr(self.policy, "gate_params", None)
+
     def reset(self, n_streams: int | None = None):
-        if n_streams is not None:
+        """A fresh carry (and an empty slot pool).  A carry that captured
+        graphs hold is refilled in place, so they stay valid; any other is
+        replaced (an eager carry may share memory with the caller's
+        observations).  A new size drops the graphs."""
+        if n_streams is not None and n_streams != self.n_streams:
             self.n_streams = n_streams
-        self.state = self.policy.init(self.n_streams)
-        self._churn_carry = None
+            self.graphs.clear()
+        held = self._held()
+        fresh = self.policy.init(self.n_streams)
+        old = tree_leaves(self.state)
+        if all(id(t) in held for t in old):
+            assign(old, tree_leaves(fresh))
+        else:
+            self.state = fresh
+        if self._churn_carry is not None:
+            if all(id(t) in held for t in self._churn_carry):
+                assign(list(self._churn_carry), list(self._churn_init()))
+            else:
+                self._churn_carry = None
 
     def _churn_init(self):
         """Fresh slot-pool carry: the first ``init_alive`` slots occupied
@@ -261,8 +330,8 @@ class ServeSession:
         return has_churn
 
     def _check_obs(self, obs: Observation, rounds: bool):
-        want = 2 if rounds else 1
-        if obs.z.dim() != want:
+        want = (2, 3) if rounds else (1, 2)
+        if obs.z.dim() not in want:
             raise ValueError(f"Observation.z has rank {obs.z.dim()}; "
                              f"expected a {'round-stacked ' if rounds else ''}"
                              f"stream batch")
@@ -270,28 +339,140 @@ class ServeSession:
             raise ValueError(
                 f"Observation carries {obs.z.shape[-1]} streams but the "
                 f"session was sized for {self.n_streams}")
-        if obs.u is None or obs.bw_mult is None:
-            raise ValueError("serving needs bw_mult and u on the observation")
 
+    # -- the round graphs ---------------------------------------------------
+    @property
+    def _graphed(self) -> bool:
+        return self.capture is True or (
+            self.capture is None and self.policy.device.type == "cuda")
+
+    def _carry(self, kind: str):
+        """The carry a kind of round reads and updates: the policy state,
+        with the slot pool's (alive, degrade pins, queue) under churn."""
+        if kind != "churn":
+            return self.state
+        if self._churn_carry is None:
+            self._churn_carry = self._churn_init()
+        return (self.state, *self._churn_carry)
+
+    def _step(self, kind: str):
+        """``step(carry, obs) -> (carry, out)`` of a kind of round: the
+        function the eager loop calls a round."""
+        pol = self.policy
+        if kind == "decide":
+            return pol.decide
+        if kind == "serve":
+            # no reference back to the session: a graph that the session
+            # holds and that holds the session would be freed by the cyclic
+            # collector at any moment, a capture of another graph included
+            n_edge, n_cloud, hedge = self.n_edge, self.n_cloud, self.hedge
+            return lambda st, obs: _serve_step(pol, st, obs, n_edge, n_cloud,
+                                               hedge)
+        bw_floor, total_bw, valid = _churn_consts(pol, self._churn_carry[0])
+        return functools.partial(_churn_round, pol, bw_floor, total_bw,
+                                 self.admission, self.n_edge, self.n_cloud,
+                                 valid)
+
+    def _held(self) -> set:
+        """The ids of the carry tensors the session's graphs hold."""
+        return {id(t) for g in self.graphs.values() for t in g.leaves}
+
+    def _replay(self, kind: str, stream: Observation) -> dict:
+        """Serve a round-stacked stream through the session's graph of
+        this kind of round, capturing one first where there is none for
+        this stream's fields and shapes, or only a shorter one, or one on
+        a carry the session no longer holds.  A new graph gets carry
+        tensors of its own: each tensor no graph holds yet is copied, so
+        the replays' in-place writes reach no tensor of the caller's."""
+        carry = self._carry(kind)
+        key = (kind, signature(stream))
+        graph = self.graphs.get(key)
+        if graph is None or graph.capacity < stream.n_rounds or \
+                not graph.holds(carry):
+            held = self._held()
+            mine = lambda t: t if id(t) in held else t.clone()
+            self.state = tree_map(mine, self.state)
+            if self._churn_carry is not None:
+                self._churn_carry = tuple(map(mine, self._churn_carry))
+            carry = self._carry(kind)
+            graph = RoundGraph(self._step(kind), carry, stream,
+                               capture=self.policy.device.type == "cuda")
+            out = graph.run(stream)     # a failed capture raises here
+            self.graphs[key] = graph
+            return out
+        return graph.run(stream)
+
+    # -- decide-only paths --------------------------------------------------
+    def route(self, obs: Observation):
+        """Route one segment batch (no realization): the solution."""
+        if self._graphed:
+            return {k: v[0] for k, v in
+                    self._replay("decide", _one_round(obs)).items()}
+        self.state, sol = self.policy.decide(self.state, obs)
+        return sol
+
+    def route_many(self, dx_seq, difficulty, acc_req):
+        """Route S segment batches in one run of the decide round.
+
+        dx_seq: (S, M, d) (or None for gate-free policies); difficulty /
+        acc_req: (M,) or (S, M).  Returns the stacked solutions."""
+        if dx_seq is not None:
+            s = dx_seq.shape[0]
+        elif difficulty.dim() > 1:
+            s = difficulty.shape[0]
+        else:
+            raise ValueError(
+                "route_many cannot infer the segment count: pass dx_seq or "
+                "round-stacked (S, M) difficulty/acc_req")
+        if difficulty.dim() == 1:
+            difficulty = torch.broadcast_to(difficulty,
+                                            (s,) + difficulty.shape)
+        if acc_req.dim() == 1:
+            acc_req = torch.broadcast_to(acc_req, (s,) + acc_req.shape)
+        obs_seq = Observation(z=difficulty, aq=acc_req, dx=dx_seq)
+        if self._graphed:
+            return self._replay("decide", obs_seq)
+        sols = []
+        for i in range(s):
+            self.state, sol = self.policy.decide(self.state,
+                                                 obs_seq.round(i))
+            sols.append(sol)
+        return _stack(sols)
+
+    # -- serve (decide + realize) ------------------------------------------
     def step(self, obs: Observation):
-        """One serving round -> dict of (M,) metrics and decisions.  Churn
+        """One serving round -> dict of (M,) metrics and decisions; without
+        ``bw_mult``/``u`` on the observation this is :meth:`route`.  Churn
         runs through :meth:`run`."""
         self._check_obs(obs, rounds=False)
+        if obs.u is None or obs.bw_mult is None:
+            return self.route(obs)
         if self._check_churn(obs):
             raise ValueError("churn traces (arrive_n/depart) are served by "
                              "ServeSession.run, not step")
+        if self._graphed:
+            return {k: v[0] for k, v in
+                    self._replay("serve", _one_round(obs)).items()}
         self.state, out = _serve_step(self.policy, self.state, obs,
                                       self.n_edge, self.n_cloud, self.hedge)
         return out
 
-    def run(self, stream: Observation):
+    def run(self, stream: Observation, n_rounds: int | None = None):
         """Serve R rounds; returns the per-round dict of (R, M) tensors
         (deterministic delay / energy / cost / accuracy + decisions + τ).
-        A stream with churn traces runs the slot pool and also returns
-        ``alive`` (R, M) and ``queue_depth`` / ``admitted`` / ``dropped``
-        (R,); its ``route`` is -1 on dead slots."""
+        ``n_rounds`` serves a prefix.  A stream with churn traces runs the
+        slot pool and also returns ``alive`` (R, M) and ``queue_depth`` /
+        ``admitted`` / ``dropped`` (R,); its ``route`` is -1 on dead
+        slots."""
         self._check_obs(stream, rounds=True)
+        if stream.u is None or stream.bw_mult is None:
+            raise ValueError("session.run needs bw_mult and u on the stream "
+                             "(use route_many for decide-only scans)")
+        if n_rounds is not None:
+            stream = _prefix(stream, n_rounds)
         if self._check_churn(stream):
+            if self._graphed:
+                return self._replay("churn", stream)
             if self._churn_carry is None:
                 self._churn_carry = self._churn_init()
             carry = (self.state, *self._churn_carry)
@@ -300,6 +481,8 @@ class ServeSession:
                 self.n_cloud)
             self._churn_carry = tuple(churn)
             return mets
+        if self._graphed:
+            return self._replay("serve", stream)
         self.state, mets = _serve_run(self.policy, self.state, stream,
                                       self.n_edge, self.n_cloud, self.hedge)
         return mets

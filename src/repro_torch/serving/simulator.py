@@ -12,7 +12,9 @@ observation-noise model, copied, so a stream can be made and a run scored
 without JAX; for one seed its numbers are the reference's.
 ``Simulator.run`` serves a policy through ``ServeSession.run`` and returns
 the paper's scalars (delay, energy, cost, accuracy, success, cloud_frac),
-as ``benchmarks/paper_tables.run_method`` reads them from the reference.
+as ``benchmarks/paper_tables.run_method`` reads them from the reference;
+``realize`` / ``realize_batch`` (:294-320, :374-398) realize the host's
+round dicts and decisions on the simulator's device and return numpy.
 """
 from __future__ import annotations
 
@@ -215,6 +217,47 @@ class Simulator:
             u=f32(np.stack([rd["u"] for rd in rnds])),
         )
 
+    @functools.cached_property
+    def lat(self) -> DecisionLattice:
+        return DecisionLattice.build(self.sys, self.device)
+
+    def _realize(self, z, bw_mult, u, cfg):
+        """``realize_rounds`` of host arrays on the simulator's device ->
+        numpy metrics."""
+        f32 = lambda a: torch.from_numpy(
+            np.asarray(a, dtype=np.float32)).to(self.device)
+        i64 = lambda k: torch.from_numpy(
+            np.asarray(cfg[k]).astype(np.int64)).to(self.device)
+        met = realize_rounds(self.lat, f32(z), f32(bw_mult), f32(u),
+                             i64("route"), i64("r"), i64("p"), i64("v"),
+                             n_edge=self.sim.n_edge_servers,
+                             n_cloud=self.sim.n_cloud_servers)
+        return {k: v.cpu().numpy() for k, v in met.items()}
+
+    def _realize_deterministic(self, rnd, cfg):
+        """One round's realization without observation noise: ``rnd`` a
+        round dict (``sample_round``), ``cfg`` the (M,) route/r/p/v."""
+        return self._realize(rnd["z"], rnd["bw_mult"], rnd["u"], cfg)
+
+    def realize(self, rnd, cfg):
+        """One round's per-task metrics with the observation noise drawn
+        from ``self.rng`` (``observe``) and the SLA success."""
+        met = self._realize_deterministic(rnd, cfg)
+        acc, success = self.observe(met["accuracy"], rnd["aq"])
+        return dict(met, accuracy=acc, success=success)
+
+    def realize_batch(self, rnds, cfgs):
+        """``realize`` of R rounds in one pass: lists of round dicts and
+        of decision dicts -> (R, M) metrics, the noise drawn for all R
+        rounds at once."""
+        stack = lambda key, ds: np.stack([np.asarray(d[key]) for d in ds])
+        met = self._realize(stack("z", rnds), stack("bw_mult", rnds),
+                            stack("u", rnds),
+                            {k: stack(k, cfgs) for k in ("route", "r", "p",
+                                                         "v")})
+        acc, success = self.observe(met["accuracy"], stack("aq", rnds))
+        return dict(met, accuracy=acc, success=success)
+
     def observe(self, acc, aq):
         """Observation noise (σ = 0.008, from ``self.rng``) and SLA success:
         ``(noisy accuracy, success)`` as float64 numpy arrays."""
@@ -247,3 +290,7 @@ class Simulator:
         session = ServeSession(policy, n_streams=self.sim.n_tasks,
                                sim=self.sim, device=self.device)
         return self.aggregate(session.run(stream), stream.aq)
+
+    def run_batch(self, policy, n_rounds=None) -> dict:
+        """The reference's deprecated alias of :meth:`run`."""
+        return self.run(policy, n_rounds)
