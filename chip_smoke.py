@@ -52,16 +52,21 @@ Phases, one JSON line each; any failure exits non-zero:
                  before and read just after (gate_cell, ccg_solve,
                  c6_repair and lpt_queue once a round, no c6_tail): the
                  session captures its round as a CUDA graph (the first
-                 round is the warm-up) and replays it; the eager loop
-                 (``capture=False``) must give the same bits, and one of
-                 its rounds runs under ``set_sync_debug_mode("error")``;
+                 round is the warm-up) and replays it; the same round
+                 function run uncaptured (``capture=False``) must give the
+                 same bits, and one of its rounds runs under
+                 ``set_sync_debug_mode("error")``;
                  then the same run on the plain
                  versions (``force="ref"``) on the card, whose decisions must
                  agree on >= 99.9% of lane-rounds; then rounds/s and
                  segments/s, captured and eager in turns on reused
                  sessions (median of three), each with a profiled run
-                 (device busy time, activities, the profiler's count of
-                 each ported kernel a round, which must be one each).
+                 (device busy time, activities, and the profiler's count
+                 of each ported kernel, which must equal the wrappers'
+                 count of that same run; a trace that lost its last
+                 rounds is taken again, at most three times, every
+                 attempt kept), the profiler's window held open 20 ms on
+                 each side of the run.
 5. ``trace``     one profiled run of the captured main path: device busy
                  time and idle share per round, device activities and
                  host<->device copies per round, the costliest device
@@ -79,21 +84,22 @@ Phases, one JSON line each; any failure exits non-zero:
                  sniper, r2evid in τ-proxy mode and its no-Stage-1 and
                  no-Stage-2 ablations through ``ServeSession.run`` on the
                  main path's stream (M = 4096, R = 16, no motion features):
-                 launch counts, the captured run bit-equal to the eager
-                 loop, an eager round free of host syncs, rounds/s and a
+                 launch counts, the captured run bit-equal to the
+                 uncaptured one, an uncaptured round under the sync debug
+                 mode, rounds/s and a
                  profiled run, captured and eager in turns as in
                  ``main_path``, and ``Simulator.aggregate``'s paper
                  scalars; the τ-proxy run also on the plain versions, with
                  bit-equal decisions.
 8. ``decide``    the decide-only paths at M = 4096 on the main path's
                  stream and gate weights: ``route_step`` over 8 segments,
-                 ``route_scan`` (its step captured a call), the windowed
+                 ``route_scan`` (the same steps in one call), the windowed
                  ``route`` (T = 8),
                  ``ServeSession.route_many`` / ``route`` / ``step``
                  without ``u`` (captured) and ``Simulator.realize`` /
                  ``realize_batch``: launches counted, decisions against
                  the plain versions (the simulator against a CPU simulator
-                 of the same seed), captured against eager bit for bit,
+                 of the same seed), captured against uncaptured bit for bit,
                  segments or calls a second in turns.
 9. ``scenarios`` the robustness path (``serving/scenarios.py``): the golden
                  point (``run_suite``'s 5 policies × ``none`` and the 9
@@ -108,7 +114,8 @@ Phases, one JSON line each; any failure exits non-zero:
                  zeroed just before each run and read just after:
                  gate_cell (gate mode), ccg_solve, c6_repair and lpt_queue
                  once a round, no c6_tail; the two runs equal bit for bit;
-                 an eager round free of host syncs), rounds/s and a
+                 an uncaptured round under the sync debug mode), rounds/s
+                 and a
                  profiled run, captured and eager in turns (device busy
                  time, idle share, activities and copies a round), the rounds
                  whose C6 repair demoted, churn occupancy, queue and drops,
@@ -172,6 +179,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 M, M_RAGGED, ROUNDS = 4096, 4093, 16
+TRACE_PAD_S = 0.02        # host sleep on each side of a profiled run
 # H100 SXM peaks (NVIDIA's data sheet) and the clocks they imply
 HBM_BYTES_PER_S = 3.35e12        # device memory
 FP32_FLOP_PER_S = 67e12          # float32 outside the tensor cores: 132 SMs ×
@@ -1226,7 +1234,7 @@ def main_path_phase(torch, dev, stream, counts_reset, counts_read):
     eager = session("auto", capture=False)
     lane_rounds = assert_bit_equal(torch, mets, eager.run(stream),
                                    "main path")
-    host_syncs = no_sync_round(torch, eager, stream)
+    sync_debug = no_sync_round(torch, eager, stream)
 
     # the same run on the plain versions, on the card
     ref = session("ref", capture=False)
@@ -1254,7 +1262,8 @@ def main_path_phase(torch, dev, stream, counts_reset, counts_read):
 
     # throughput: captured and eager runs in turns, median of three, each
     # session reused (reset between runs); then one profiled run of each
-    turns = captured_vs_eager(torch, sess, eager, stream, ROUNDS, launches)
+    turns = captured_vs_eager(torch, sess, eager, stream, ROUNDS,
+                              counts_reset, counts_read)
     secs = turns["captured"]["run_s"]
     trace = trace_round(torch, sess, stream, secs)
     return launches, trace, {
@@ -1262,7 +1271,7 @@ def main_path_phase(torch, dev, stream, counts_reset, counts_read):
         "launches": launches, "c6_budget_held_rounds": held,
         "c6_no_feasible_demotion_rounds": stuck,
         "captured_vs_eager_lane_rounds_bitequal": lane_rounds,
-        "eager_round_host_syncs": host_syncs,
+        "eager_round_ran_under_sync_debug": sync_debug,
         "first_run_s": first_run_s, "captured_vs_eager": turns,
         "decision_agreement_vs_plain": agree,
         "rounds_bitequal_vs_plain": int(rounds_equal.sum()),
@@ -1409,10 +1418,12 @@ def run_turns(torch, sessions: dict, stream, reps: int = 3) -> dict:
     return {label: statistics.median(t) for label, t in times.items()}
 
 
-def no_sync_round(torch, sess, stream) -> int:
-    """One eager round under ``torch.cuda.set_sync_debug_mode("error")``: a
-    synchronising call (a read back to the host, a copy from pageable host
-    memory) raises.  Returns the host syncs seen: 0."""
+def no_sync_round(torch, sess, stream) -> bool:
+    """One uncaptured round under ``torch.cuda.set_sync_debug_mode
+    ("error")``: a synchronising call (a read back to the host) raises.
+    Returns True once the round ran.  The mode does not see every copy
+    from the host (a small copy from pageable memory passed it); the
+    capture of the same round, which refuses any, is that check."""
     sess.reset()
     sess.run(stream, n_rounds=1)          # tables cached before the check
     torch.cuda.synchronize()
@@ -1422,7 +1433,7 @@ def no_sync_round(torch, sess, stream) -> int:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return 0
+    return True
 
 
 def assert_bit_equal(torch, got: dict, want: dict, what: str) -> int:
@@ -1444,28 +1455,40 @@ def capture_seconds(sess) -> float:
 
 
 def captured_vs_eager(torch, graphed, eager, stream, rounds: int,
-                      launches: dict) -> dict:
-    """Rounds/s of a captured and an eager session in turns, and each one's
-    profiled run (device busy time, activities and kernels a round).  The
-    profiler's count of the ported kernels must equal the wrappers' count
-    of a run (``launches``): a trace that dropped kernel records (CUPTI
-    now and then returns one) is taken again, at most three times."""
+                      counts_reset, counts_read) -> dict:
+    """Rounds/s of a captured and an uncaptured session in turns, and each
+    one's profiled run (device busy time, activities and kernels a round).
+    The profiled run is also counted by the wrappers (a replay adds the
+    counts its capture recorded): the profiler's count of each ported
+    kernel in that run must equal the wrappers' count of it.  A trace that
+    lost the records of a run's last rounds (the profiler's fault: 1 of
+    120 traces without the window's margin on an H100, in
+    ``tools/trace_window.py``) is taken again, at most three times; every
+    attempt's counts
+    and the gap between its last device activity and the run's end are
+    kept in the record."""
     secs = run_turns(torch, {"captured": graphed, "eager": eager}, stream)
     out = {"capture_s": capture_seconds(graphed)}
-    want = {k: n / rounds for k, n in launches.items()}
     for label, sess in (("captured", graphed), ("eager", eager)):
-        for traces in range(1, 4):
+        attempts = []
+        while len(attempts) < 3:
+            counts_reset()
             prof = trace_round(torch, sess, stream, secs[label],
                                rounds=rounds, host=False)
-            if prof["kernel_launches_per_round"] == want:
+            wrappers = counts_read()
+            attempts.append({
+                "profiler": prof["kernel_launches"], "wrappers": wrappers,
+                "last_device_before_run_end_us":
+                    prof["last_device_before_run_end_us"]})
+            if prof["kernel_launches"] == wrappers:
                 break
         else:
-            raise AssertionError(
-                f"{label} run: the profiler counts "
-                f"{prof['kernel_launches_per_round']} kernels a round in "
-                f"three traces, the wrappers {want}")
-        out[label] = {"run_s": secs[label], "traces_taken": traces,
+            raise AssertionError(f"{label} run: the profiler's and the "
+                                 f"wrappers' counts differ in three "
+                                 f"traces: {attempts}")
+        out[label] = {"run_s": secs[label],
                       "rounds_per_s": rounds / secs[label],
+                      "trace_attempts": attempts,
                       **{k: prof[k] for k in (
                           "device_busy_ms_per_round",
                           "device_activities_per_round",
@@ -1532,7 +1555,8 @@ def policies_phase(torch, dev, stream, counts_reset, counts_read):
         eager = session("auto", capture=False)
         row["captured_vs_eager_lane_rounds_bitequal"] = assert_bit_equal(
             torch, mets, eager.run(obs), label)
-        row["eager_round_host_syncs"] = no_sync_round(torch, eager, obs)
+        row["eager_round_ran_under_sync_debug"] = no_sync_round(
+            torch, eager, obs)
         if label == "r2evid_tau_proxy":
             counts_reset()
             ref = session("ref", capture=False).run(obs)
@@ -1554,7 +1578,7 @@ def policies_phase(torch, dev, stream, counts_reset, counts_read):
                 for k in ("delay", "energy", "cost", "accuracy")}
 
         turns = captured_vs_eager(torch, graphed, eager, obs, ROUNDS,
-                                  launches)
+                                  counts_reset, counts_read)
         secs = turns["captured"]["run_s"]
         row.update({"run_s": secs, "rounds_per_s": ROUNDS / secs,
                     "eager_rounds_per_s": turns["eager"]["rounds_per_s"],
@@ -1570,8 +1594,9 @@ DECIDE_S, DECIDE_T = 8, 8          # segments of the scans, window length
 
 def decide_phase(torch, dev, stream, counts_reset, counts_read):
     """The decide-only paths at M = 4096 on the main path's stream and
-    gate weights: ``route_step`` over S segments, ``route_scan`` (a graph
-    replayed a segment) and the windowed ``route`` (T = 8), the session's
+    gate weights: ``route_step`` over S segments, ``route_scan`` (the
+    same steps in one call) and the windowed ``route`` (T = 8), the
+    session's
     ``route_many``, ``route`` and ``step`` without ``u`` (graphs), and
     ``Simulator.realize`` / ``realize_batch``.  Each on the kernels
     (launches counted from zero) and on the plain versions (decisions
@@ -1656,17 +1681,15 @@ def decide_phase(torch, dev, stream, counts_reset, counts_read):
     keep("route_step", got, steps("ref"), want,
          timed({"segments": lambda: steps("auto")}, S))
 
-    # route_scan: the step captured a call, replayed a segment
-    def scan(force, capture):
+    # route_scan: the same S steps in one call (a session's route_many
+    # is the scan that replays a graph)
+    def scan(force):
         return router.route_scan(prob, gcfg, params, fresh_state(), dx, z,
-                                 aq, force=force, capture=capture)[1]
+                                 aq, force=force)[1]
 
-    got = counted(lambda: scan("auto", None), want)
-    lane = assert_bit_equal(torch, got, scan("auto", False), "route_scan")
-    keep("route_scan", got, scan("ref", False), want,
-         timed({"captured_segments": lambda: scan("auto", None),
-                "eager_segments": lambda: scan("auto", False)}, S),
-         captured_vs_eager_lanes_bitequal=lane)
+    got = counted(lambda: scan("auto"), want)
+    keep("route_scan", got, scan("ref"), want,
+         timed({"segments": lambda: scan("auto")}, S))
 
     # the windowed route over T segments of features
     def windowed(force):
@@ -1937,9 +1960,9 @@ def scenarios_phase(torch, dev, counts_reset, counts_read, rows):
                     bool(demoting[first]),)
                 captured["lpt_dead_lanes"] = packs[0][:2]
             scalars = sc.scenario_metrics(mets, obs, trace)
-            syncs = no_sync_round(torch, eager, obs)
+            sync_debug = no_sync_round(torch, eager, obs)
             turns = captured_vs_eager(torch, sess, eager, obs, SCEN_ROUNDS,
-                                      launches)
+                                      counts_reset, counts_read)
             secs = turns["captured"]["run_s"]
             row = {"launches_per_round": {k: v / SCEN_ROUNDS
                                           for k, v in launches.items()},
@@ -1947,7 +1970,7 @@ def scenarios_phase(torch, dev, counts_reset, counts_read, rows):
                    "eager_rounds_per_s": turns["eager"]["rounds_per_s"],
                    "captured_vs_eager": turns,
                    "captured_vs_eager_lane_rounds_bitequal": bitequal,
-                   "eager_round_host_syncs": syncs,
+                   "eager_round_ran_under_sync_debug": sync_debug,
                    "c6_demoting_rounds": int(demoting.sum()),
                    "cloud_frac": scalars["cloud_frac"],
                    "sla_violation_rate": scalars["sla_violation_rate"],
@@ -2397,12 +2420,20 @@ def trace_round(torch, sess, stream, untraced_s: float,
 
     sess.reset()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU] * host
                  + [ProfilerActivity.CUDA]) as prof:
+        # idle host time on both sides of the run: a trace without it now
+        # and then lost a run's last rounds (tools/trace_window.py)
+        t_open = time.perf_counter()
+        time.sleep(TRACE_PAD_S)
+        t0 = time.perf_counter()
         sess.run(stream)
         torch.cuda.synchronize()
-    traced_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        time.sleep(TRACE_PAD_S)
+    traced_s = t1 - t0
+    ends = [e.time_range.end for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
     acts = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in acts) / 1e3
@@ -2411,6 +2442,9 @@ def trace_round(torch, sess, stream, untraced_s: float,
     ours_ms = sum(e.self_device_time_total for e in acts
                   if any(k in e.key for k in ours)) / 1e3
     top = sorted(acts, key=lambda e: -e.self_device_time_total)[:8]
+    launches = {k[:-len("_kernel")]: sum(e.count for e in acts
+                                         if k in e.key)
+                for k in ours if any(k in e.key for e in acts)}
     return {
         "phase": "trace", "rounds": rounds,
         "device_busy_ms_per_round": busy_ms / rounds,
@@ -2425,10 +2459,14 @@ def trace_round(torch, sess, stream, untraced_s: float,
         "ported_kernels_share_of_busy": ours_ms / busy_ms if busy_ms else None,
         # the profiler's own count of the ported kernels: the witness of
         # the wrappers' counters (a replay makes no wrapper call)
-        "kernel_launches_per_round": {
-            k[:-len("_kernel")]: sum(e.count for e in acts if k in e.key)
-            / rounds for k in ours
-            if any(k in e.key for e in acts)},
+        "kernel_launches": launches,
+        # µs between the last device activity's end and the run's final
+        # synchronize (the trace's clock from the window's opening): a
+        # trace that lost its last rounds ends them early
+        "last_device_before_run_end_us":
+            (t1 - t_open) * 1e6 - max(ends) if ends else None,
+        "kernel_launches_per_round": {k: n / rounds
+                                      for k, n in launches.items()},
         "top_device_time": [
             {"name": e.key[:90], "ms_per_round":
              e.self_device_time_total / 1e3 / rounds,

@@ -204,36 +204,21 @@ def route_step(prob: RobustProblem, gate_cfg: GateConfig, gate_params,
 
 def route_scan(prob: RobustProblem, gate_cfg: GateConfig, gate_params,
                state: RouterState, dx_seq, difficulty, acc_req,
-               rcfg: RouterConfig = RouterConfig(), force: str = "auto",
-               capture: bool | None = None):
+               rcfg: RouterConfig = RouterConfig(), force: str = "auto"):
     """:func:`route_step` over S segments -> (state, sols stacked to (S,
-    ...)).  dx_seq: (S, M, d); difficulty / acc_req: (M,) or (S, M).
-
-    On the card (``capture=None``) the step is captured as a CUDA graph
-    and replayed a segment (``serving/graphs.py``): the first segment is
-    the warm-up, the state's tensors are updated in place and returned.
-    ``capture=False`` loops eagerly, as the CPU does; a session's
-    ``route_many`` keeps its graph across calls."""
-    from repro_torch.serving.graphs import RoundGraph
-    from repro_torch.serving.policy import Observation
-
+    ...)).  dx_seq: (S, M, d); difficulty / acc_req: (M,) or (S, M).  A
+    session's ``route_many`` is the same scan replayed as a CUDA graph
+    that the session keeps across calls."""
     s = dx_seq.shape[0]
     if difficulty.dim() == 1:
         difficulty = torch.broadcast_to(difficulty, (s,) + difficulty.shape)
     if acc_req.dim() == 1:
         acc_req = torch.broadcast_to(acc_req, (s,) + acc_req.shape)
-
-    def step(st, obs):
-        return route_step(prob, gate_cfg, gate_params, st, obs.dx, obs.z,
-                          obs.aq, rcfg, force=force)
-
-    seq = Observation(z=difficulty, aq=acc_req, dx=dx_seq)
-    on_card = dx_seq.device.type == "cuda"
-    if capture is True or capture is None and on_card:
-        return state, RoundGraph(step, state, seq, capture=on_card).run(seq)
     sols = []
     for i in range(s):
-        state, sol = step(state, seq.round(i))
+        state, sol = route_step(prob, gate_cfg, gate_params, state,
+                                dx_seq[i], difficulty[i], acc_req[i], rcfg,
+                                force=force)
         sols.append(sol)
     return state, {k: torch.stack([x[k] for x in sols]) for k in sols[0]}
 

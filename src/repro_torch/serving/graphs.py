@@ -168,7 +168,7 @@ class RoundGraph:
             raise RuntimeError(
                 "capturing the serving round failed: a round must make no "
                 "host synchronisation and no host-to-device copy "
-                "(ServeSession(capture=False) runs the eager loop)") from e
+                "(ServeSession(capture=False) runs it uncaptured)") from e
         finally:
             if collecting:
                 gc.enable()

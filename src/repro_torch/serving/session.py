@@ -2,21 +2,21 @@
 ``__init__`` :572, ``reset``, ``gate_params``, the decide-only ``route`` /
 ``route_many`` :625-660 (the reference's ``_decide_step`` / ``_decide_scan``
 :131-141), ``step`` :705, ``run`` :717 with the round body ``_serve_step``
-/ ``_serve_run`` :160/:169 and the scenario inputs of ``_realize_obs``
-:143; slot-pool churn with SLA-aware admission (``AdmissionConfig`` and
-``_churn_admit`` :62-117, ``_churn_round`` and ``_serve_run_churn``
-:180-231, ``_churn_init`` / ``_check_churn`` :636-662); and the live model
-pools (``dispatch``, ``feedback``, ``apply_feedback`` :870-972).
+:160 and the scenario inputs of ``_realize_obs`` :143; slot-pool churn
+with SLA-aware admission (``AdmissionConfig`` and ``_churn_admit``
+:62-117, ``_churn_round`` :180, ``_churn_init`` / ``_check_churn``
+:636-662); and the live model pools (``dispatch``, ``feedback``,
+``apply_feedback`` :870-972).
 
-The reference runs each run under one ``lax.scan``, one compiled program.
-Here, on the card, a session captures its round once as a CUDA graph
-(``serving/graphs.py``) and replays it a round: ``run`` (plain, scenario
-and churn streams), ``route_many``, ``step`` and ``route``.  The eager
-loop (``capture=False``, and the CPU) calls the same round function from
-Python a round.  Either way no round reads back to the host: the churn
-bookkeeping (alive, degrade pins, queue, admitted, dropped) stays in
-device tensors across rounds.  Mesh and finetune are later slices of the
-port (ROADMAP queue A).
+The reference runs each run under one ``lax.scan`` (``_serve_run``,
+``_decide_scan``, ``_serve_run_churn``), one compiled program.  Here every
+run goes through a :class:`~repro_torch.serving.graphs.RoundGraph` of its
+kind of round (serve, churn or decide): on the card it captures the round
+once as a CUDA graph and replays it a round; with ``capture=False``, and
+on the CPU, it calls the same round function from Python a round.  Either
+way no round reads back to the host: the churn bookkeeping (alive, degrade
+pins, queue, admitted, dropped) stays in device tensors across rounds.
+Mesh and finetune are later slices of the port (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -122,21 +122,6 @@ def _serve_step(policy: Policy, state, obs: Observation, n_edge: int,
     return state, _round_output(sol, met)
 
 
-def _stack(outs):
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
-
-
-def _serve_run(policy: Policy, state, obs_seq: Observation, n_edge: int,
-               n_cloud: int, hedge=None):
-    """R rounds of :func:`_serve_step`; outputs stacked to (R, M)."""
-    outs = []
-    for i in range(obs_seq.n_rounds):
-        state, out = _serve_step(policy, state, obs_seq.round(i), n_edge,
-                                 n_cloud, hedge)
-        outs.append(out)
-    return state, _stack(outs)
-
-
 def _churn_round(policy: Policy, bw_floor, total_bw, acfg: AdmissionConfig,
                  n_edge: int, n_cloud: int, valid, carry, obs: Observation):
     """One slot-pool round: admission → reset of re-admitted slots →
@@ -168,7 +153,7 @@ def _churn_round(policy: Policy, bw_floor, total_bw, acfg: AdmissionConfig,
 
 def _churn_consts(policy: Policy, alive):
     """The round-invariant operands of :func:`_churn_round`, made on the
-    device once a run (or once a graph): the per-stream minimum-fidelity
+    device once a round graph: the per-stream minimum-fidelity
     draw the admission cap is computed against (the worst tier's (r = 0,
     p = 0) draw), the nominal budget as a 0-d float32 tensor (a fill, not
     a copy from the host) and the all-valid slot mask."""
@@ -177,20 +162,6 @@ def _churn_consts(policy: Policy, alive):
             torch.full((), lat.sys.total_bw_mbps, dtype=torch.float32,
                        device=lat.device),
             torch.ones_like(alive))
-
-
-def _serve_run_churn(policy: Policy, carry, obs_seq: Observation,
-                     acfg: AdmissionConfig, n_edge: int, n_cloud: int):
-    """:func:`_serve_run` on a fixed-capacity slot pool: the carry also
-    holds the alive mask, the degrade pins and the queue depth, and the
-    arrival / departure traces ride the stream."""
-    bw_floor, total_bw, valid = _churn_consts(policy, carry[1])
-    outs = []
-    for i in range(obs_seq.n_rounds):
-        carry, out = _churn_round(policy, bw_floor, total_bw, acfg, n_edge,
-                                  n_cloud, valid, carry, obs_seq.round(i))
-        outs.append(out)
-    return carry, _stack(outs)
 
 
 def _prefix(stream: Observation, n_rounds: int) -> Observation:
@@ -220,14 +191,15 @@ class ServeSession:
     capacity and ``run`` take ``arrive_n`` / ``depart`` traces; ``force``
     replaces the policy's kernel pin.
 
-    ``capture`` pins how rounds run, as ``force`` pins the kernels: None
-    (default) captures each kind of round once as a CUDA graph on the card
-    and replays it (:class:`~repro_torch.serving.graphs.RoundGraph`), and
-    runs the eager loop on the CPU; False always runs the eager loop; True
-    always runs the graph's round function, captured on the card and
-    called eagerly on the CPU (where nothing is captured).  A graph holds
-    the session's carry by address: :meth:`reset` refills it in place, and
-    a carry assigned to ``state`` from outside is captured anew.
+    ``capture`` pins how rounds run, as ``force`` pins the kernels: each
+    kind of round runs through one
+    :class:`~repro_torch.serving.graphs.RoundGraph`, which captures it as
+    a CUDA graph and replays it when ``capture`` is true (the default on
+    the card: None means "on CUDA") and calls the same round function a
+    round when it is false (the default on the CPU, which cannot capture).
+    A graph holds the session's carry by address: :meth:`reset` refills it
+    in place, and a carry assigned to ``state`` from outside is adopted
+    anew (copied) by the next run.
     """
 
     def __init__(self, policy: Policy, n_streams: int, *,
@@ -248,6 +220,11 @@ class ServeSession:
         if capture not in (None, True, False):
             raise ValueError(f"capture must be None, True or False, got "
                              f"{capture!r}")
+        if capture is None:
+            capture = dev.type == "cuda"
+        elif capture and dev.type != "cuda":
+            raise ValueError(f"capture=True needs the card; a session on "
+                             f"{dev} runs its rounds uncaptured")
         if force is not None:
             policy = dataclasses.replace(policy, force=force)
         if hedge is not None:
@@ -280,10 +257,10 @@ class ServeSession:
         return getattr(self.policy, "gate_params", None)
 
     def reset(self, n_streams: int | None = None):
-        """A fresh carry (and an empty slot pool).  A carry that captured
-        graphs hold is refilled in place, so they stay valid; any other is
-        replaced (an eager carry may share memory with the caller's
-        observations).  A new size drops the graphs."""
+        """A fresh carry (and an empty slot pool).  A carry that the
+        session's graphs hold is refilled in place, so they stay valid; any
+        other (one no run has adopted yet) is replaced.  A new size drops
+        the graphs."""
         if n_streams is not None and n_streams != self.n_streams:
             self.n_streams = n_streams
             self.graphs.clear()
@@ -341,11 +318,6 @@ class ServeSession:
                 f"session was sized for {self.n_streams}")
 
     # -- the round graphs ---------------------------------------------------
-    @property
-    def _graphed(self) -> bool:
-        return self.capture is True or (
-            self.capture is None and self.policy.device.type == "cuda")
-
     def _carry(self, kind: str):
         """The carry a kind of round reads and updates: the policy state,
         with the slot pool's (alive, degrade pins, queue) under churn."""
@@ -357,7 +329,7 @@ class ServeSession:
 
     def _step(self, kind: str):
         """``step(carry, obs) -> (carry, out)`` of a kind of round: the
-        function the eager loop calls a round."""
+        function a graph captures, or calls a round uncaptured."""
         pol = self.policy
         if kind == "decide":
             return pol.decide
@@ -377,13 +349,13 @@ class ServeSession:
         """The ids of the carry tensors the session's graphs hold."""
         return {id(t) for g in self.graphs.values() for t in g.leaves}
 
-    def _replay(self, kind: str, stream: Observation) -> dict:
+    def _rounds(self, kind: str, stream: Observation) -> dict:
         """Serve a round-stacked stream through the session's graph of
-        this kind of round, capturing one first where there is none for
-        this stream's fields and shapes, or only a shorter one, or one on
-        a carry the session no longer holds.  A new graph gets carry
-        tensors of its own: each tensor no graph holds yet is copied, so
-        the replays' in-place writes reach no tensor of the caller's."""
+        this kind of round, making one first where there is none for this
+        stream's fields and shapes, or only a shorter one, or one on a
+        carry the session no longer holds.  A new graph gets carry tensors
+        of its own: each tensor no graph holds yet is copied, so the
+        rounds' in-place writes reach no tensor of the caller's."""
         carry = self._carry(kind)
         key = (kind, signature(stream))
         graph = self.graphs.get(key)
@@ -396,7 +368,7 @@ class ServeSession:
                 self._churn_carry = tuple(map(mine, self._churn_carry))
             carry = self._carry(kind)
             graph = RoundGraph(self._step(kind), carry, stream,
-                               capture=self.policy.device.type == "cuda")
+                               capture=self.capture)
             out = graph.run(stream)     # a failed capture raises here
             self.graphs[key] = graph
             return out
@@ -405,11 +377,8 @@ class ServeSession:
     # -- decide-only paths --------------------------------------------------
     def route(self, obs: Observation):
         """Route one segment batch (no realization): the solution."""
-        if self._graphed:
-            return {k: v[0] for k, v in
-                    self._replay("decide", _one_round(obs)).items()}
-        self.state, sol = self.policy.decide(self.state, obs)
-        return sol
+        return {k: v[0] for k, v in
+                self._rounds("decide", _one_round(obs)).items()}
 
     def route_many(self, dx_seq, difficulty, acc_req):
         """Route S segment batches in one run of the decide round.
@@ -429,15 +398,8 @@ class ServeSession:
                                             (s,) + difficulty.shape)
         if acc_req.dim() == 1:
             acc_req = torch.broadcast_to(acc_req, (s,) + acc_req.shape)
-        obs_seq = Observation(z=difficulty, aq=acc_req, dx=dx_seq)
-        if self._graphed:
-            return self._replay("decide", obs_seq)
-        sols = []
-        for i in range(s):
-            self.state, sol = self.policy.decide(self.state,
-                                                 obs_seq.round(i))
-            sols.append(sol)
-        return _stack(sols)
+        return self._rounds("decide", Observation(z=difficulty, aq=acc_req,
+                                                  dx=dx_seq))
 
     # -- serve (decide + realize) ------------------------------------------
     def step(self, obs: Observation):
@@ -450,12 +412,8 @@ class ServeSession:
         if self._check_churn(obs):
             raise ValueError("churn traces (arrive_n/depart) are served by "
                              "ServeSession.run, not step")
-        if self._graphed:
-            return {k: v[0] for k, v in
-                    self._replay("serve", _one_round(obs)).items()}
-        self.state, out = _serve_step(self.policy, self.state, obs,
-                                      self.n_edge, self.n_cloud, self.hedge)
-        return out
+        return {k: v[0] for k, v in
+                self._rounds("serve", _one_round(obs)).items()}
 
     def run(self, stream: Observation, n_rounds: int | None = None):
         """Serve R rounds; returns the per-round dict of (R, M) tensors
@@ -470,22 +428,8 @@ class ServeSession:
                              "(use route_many for decide-only scans)")
         if n_rounds is not None:
             stream = _prefix(stream, n_rounds)
-        if self._check_churn(stream):
-            if self._graphed:
-                return self._replay("churn", stream)
-            if self._churn_carry is None:
-                self._churn_carry = self._churn_init()
-            carry = (self.state, *self._churn_carry)
-            (self.state, *churn), mets = _serve_run_churn(
-                self.policy, carry, stream, self.admission, self.n_edge,
-                self.n_cloud)
-            self._churn_carry = tuple(churn)
-            return mets
-        if self._graphed:
-            return self._replay("serve", stream)
-        self.state, mets = _serve_run(self.policy, self.state, stream,
-                                      self.n_edge, self.n_cloud, self.hedge)
-        return mets
+        return self._rounds("churn" if self._check_churn(stream) else "serve",
+                            stream)
 
     # -- live model pools ---------------------------------------------------
     def _make_executor(self):

@@ -8,12 +8,14 @@ realizations, and the reference's refusals.
 Decisions (route/r/p/v, the solver's iters and infeasible, the churn
 bookkeeping) are compared exactly; τ, the gate's state and the C6 draw
 history to 1e-5; metrics and the solver's objectives to 1e-5 relative, the
-bar of ``test_torch_session.py``.  ``capture=True`` on the CPU runs the
-round function a CUDA graph captures on the card (``serving/graphs.py``)
-without capturing it: its runs must equal the eager loop's bit for bit and
-the live JAX session, at a small size and at the card's own cells (the
-main path at M = 4096, R = 16; ``churn`` at M = 4096, R = 30).
+bar of ``test_torch_session.py``.  On the CPU a session runs every round
+through its ``RoundGraph`` uncaptured (``serving/graphs.py``): the same
+round function over the same static buffers that the card captures.  Its
+runs must equal a plain loop over the round function bit for bit and the
+live JAX session, at a small size and at the card's own cells (the main
+path at M = 4096, R = 16; ``churn`` at M = 4096, R = 30).
 """
+import functools
 import dataclasses
 import gc
 import weakref
@@ -43,7 +45,12 @@ from repro_torch.core.robust import RobustProblem
 from repro_torch.serving import scenarios as tsc
 from repro_torch.serving.graphs import tree_leaves
 from repro_torch.serving.policy import Observation, make_policy
-from repro_torch.serving.session import ServeSession
+from repro_torch.serving.session import (
+    ServeSession,
+    _churn_consts,
+    _churn_round,
+    _serve_step,
+)
 from repro_torch.serving.simulator import SimConfig, Simulator
 
 JSYS, TSYS = jcm.SystemConfig(), tcm.SystemConfig()
@@ -171,37 +178,59 @@ def test_route_step_with_a_tier_out_matches_reference():
     assert (tsol["route"] == 1).all()
 
 
-@pytest.mark.parametrize("capture", [False, True])
+@pytest.mark.parametrize("calls", [1, 2])
 @pytest.mark.parametrize("stacked", [False, True])
-def test_route_scan_matches_reference(stacked, capture):
-    """S segments with (M,) or (S, M) difficulty / requirements, eagerly
-    and through the round graph's function: the stacked solutions and the
-    final carry."""
+def test_route_scan_matches_reference(stacked, calls):
+    """S segments with (M,) or (S, M) difficulty / requirements, in one
+    call or in two threading the state, against one reference scan: the
+    stacked solutions and the final carry."""
     dx, z, aq = _inputs(3)
     zz, aa = (z, aq) if stacked else (z[0], aq[0])
     jst, jsols = jrouter.route_scan(
         JPROB, JGCFG, JGPARAMS, jrouter.init_router_state(JGCFG, M),
         jnp.asarray(dx), jnp.asarray(zz), jnp.asarray(aa))
-    tst, tsols = router.route_scan(
-        TPROB, TGCFG, TGPARAMS, router.init_router_state(TGCFG, M, "cpu"),
-        _t(dx), _t(zz), _t(aa), capture=capture)
-    _assert_sol(tsols, jsols)
+    tst, parts = router.init_router_state(TGCFG, M, "cpu"), []
+    for seg in np.array_split(np.arange(S), calls):
+        part = slice(seg[0], seg[-1] + 1)
+        tst, sols = router.route_scan(
+            TPROB, TGCFG, TGPARAMS, tst, _t(dx[part]),
+            _t(zz[part] if stacked else zz), _t(aa[part] if stacked else aa))
+        parts.append(sols)
+    _assert_sol({k: torch.cat([p[k] for p in parts]) for k in parts[0]},
+                jsols)
     _assert_states(tst, jst)
 
 
 def test_route_scan_threaded_state_equals_eager_loop():
-    """Two ``route_scan`` calls threading the state: the round graph's
-    function (which updates the state in place) against the eager loop,
-    bit for bit."""
+    """Two ``route_scan`` calls threading the state against a loop of
+    ``route_step``, bit for bit; the caller's route, τ and hidden state
+    are not written (only the gate's ring buffer is, as ``route_step``
+    documents)."""
     dx, z, aq = _inputs(14)
     outs = []
-    for capture in (False, True):
+    for scan in (True, False):
         st = router.init_router_state(TGCFG, M, "cpu")
+        given = [t.clone() for t in (st.prev_route, st.prev_tau, st.gate.h)]
         sols = []
         for half in (slice(0, S // 2), slice(S // 2, S)):
-            st, sol = router.route_scan(TPROB, TGCFG, TGPARAMS, st,
-                                        _t(dx[half]), _t(z[half]),
-                                        _t(aq[half]), capture=capture)
+            if scan:
+                new, sol = router.route_scan(TPROB, TGCFG, TGPARAMS, st,
+                                             _t(dx[half]), _t(z[half]),
+                                             _t(aq[half]))
+            else:
+                new, steps = st, []
+                for i in range(half.start, half.stop):
+                    new, one = router.route_step(TPROB, TGCFG, TGPARAMS, new,
+                                                 _t(dx[i]), _t(z[i]),
+                                                 _t(aq[i]))
+                    steps.append(one)
+                sol = {k: torch.stack([x[k] for x in steps])
+                       for k in steps[0]}
+            for a, b in zip(given, (st.prev_route, st.prev_tau, st.gate.h)):
+                assert torch.equal(a, b)
+            st = new
+            given = [t.clone() for t in (st.prev_route, st.prev_tau,
+                                         st.gate.h)]
             sols.append(sol)
         outs.append((sols, tree_leaves(st)))
     for x, y in zip(outs[0][0], outs[1][0]):
@@ -248,19 +277,24 @@ def _policies(kind):
 KINDS = ["gate", "tau_proxy", "rdap"]
 
 
-@pytest.mark.parametrize("capture", [False, True])
+@pytest.mark.parametrize("warm", [False, True])
 @pytest.mark.parametrize("kind, stacked", [("gate", False), ("gate", True),
                                            ("tau_proxy", True),
                                            ("rdap", True)])
-def test_session_route_many_matches_reference(kind, stacked, capture):
+def test_session_route_many_matches_reference(kind, stacked, warm):
     """``route_many`` twice on one session (the carry continues), then
     ``route`` of one more segment, then ``step`` without ``u``: every
     solution, against the reference session.  (M,) difficulty needs the
-    features to set S, so only gate mode takes it."""
+    features to set S, so only gate mode takes it.  ``warm``: the session
+    first routes all S segments and is ``reset``, so the halves run on
+    that longer graph, its carry refilled in place."""
     dx, z, aq = _inputs(5)
     jp, tp = _policies(kind)
     js = JSession(jp, M)
-    ts = ServeSession(tp, M, device="cpu", capture=capture)
+    ts = ServeSession(tp, M, device="cpu")
+    if warm:
+        ts.route_many(None if kind != "gate" else _t(dx), _t(z), _t(aq))
+        ts.reset()
     if kind == "gate":
         np.testing.assert_array_equal(ts.gate_params["w_g"].numpy(),
                                       np.asarray(js.gate_params["w_g"]))
@@ -292,61 +326,105 @@ def _stream(m, r, seed, features):
     return js, ts
 
 
-@pytest.mark.parametrize("capture", [False, True])
+@pytest.mark.parametrize("warm", [False, True])
 @pytest.mark.parametrize("kind", KINDS)
-def test_session_run_n_rounds_matches_reference(kind, capture):
+def test_session_run_n_rounds_matches_reference(kind, warm):
     """``run(stream, n_rounds=)`` serves a prefix, twice in a row (the
-    carry continues), as the reference does."""
+    carry continues), as the reference does; ``warm``: after a whole run
+    and ``reset``, on the longer graph."""
     js_obs, ts_obs = _stream(M, S, 6, kind == "gate")
     jp, tp = _policies(kind)
     js = JSession(jp, M)
-    ts = ServeSession(tp, M, device="cpu", capture=capture)
+    ts = ServeSession(tp, M, device="cpu")
+    if warm:
+        ts.run(ts_obs)
+        ts.reset()
     for n in (3, 5):
         want, got = js.run(js_obs, n_rounds=n), ts.run(ts_obs, n_rounds=n)
         assert tuple(got["route"].shape) == (n, M)
         _assert_sol(got, want, f"n_rounds={n}")
 
 
+def _loop(step, carry, stream):
+    """The eager loop: ``step`` called a round from Python over the
+    round-stacked ``stream``; the carry and the outputs stacked to (R,
+    ...)."""
+    outs = []
+    for i in range(stream.n_rounds):
+        carry, out = step(carry, stream.round(i))
+        outs.append(out)
+    return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 @pytest.mark.parametrize("kind", ["gate", "sniper"])
 def test_round_graph_function_equals_eager_loop(kind):
-    """The round graph's function (``capture=True``, uncaptured on the
-    CPU) and the eager loop give the same bits: ``run`` twice, ``step``,
+    """A session's round graphs (uncaptured on the CPU) and a plain loop
+    over the round functions give the same bits: ``run`` twice, ``step``,
     ``route_many`` and ``route``, and the same carry after."""
     _, stream = _stream(M, S, 7, kind == "gate")
     _, tp = _policies(kind)
-    a = ServeSession(tp, M, device="cpu", capture=False)
-    b = ServeSession(tp, M, device="cpu", capture=True)
-    outs = [[sess.run(stream), sess.run(stream, n_rounds=3),
-             sess.step(stream.round(4)),
-             sess.route_many(stream.dx, stream.z, stream.aq),
-             sess.route(stream.round(2))] for sess in (a, b)]
-    for x, y in zip(*outs):
+    sess = ServeSession(tp, M, device="cpu")
+    got = [sess.run(stream), sess.run(stream, n_rounds=3),
+           sess.step(stream.round(4)),
+           sess.route_many(stream.dx, stream.z, stream.aq),
+           sess.route(stream.round(2))]
+    serve = functools.partial(_serve_step, tp, n_edge=sess.n_edge,
+                              n_cloud=sess.n_cloud)
+    prefix = Observation(**{f.name: None if getattr(stream, f.name) is None
+                            else getattr(stream, f.name)[:3]
+                            for f in dataclasses.fields(stream)})
+    want = []
+    st, out = _loop(serve, tp.init(M), stream)
+    want.append(out)
+    st, out = _loop(serve, st, prefix)
+    want.append(out)
+    st, out = serve(st, stream.round(4))
+    want.append(out)
+    st, out = _loop(tp.decide, st,
+                    Observation(z=stream.z, aq=stream.aq, dx=stream.dx))
+    want.append(out)
+    st, out = tp.decide(st, stream.round(2))
+    want.append(out)
+    for x, y in zip(got, want):
         _assert_bits(x, y)
-    for x, y in zip(tree_leaves(a.state), tree_leaves(b.state)):
+    for x, y in zip(tree_leaves(sess.state), tree_leaves(st)):
         assert torch.equal(x, y)
-    assert set(k for k, _ in b.graphs) == {"serve", "decide"}
+    assert set(k for k, _ in sess.graphs) == {"serve", "decide"}
 
 
 @pytest.mark.parametrize("scenario", ["flash_churn", "straggler_tail"])
 def test_round_graph_scenario_equals_eager_loop(scenario):
-    """A churned and a hedged run through the round graph's function and
-    through the eager loop: the same bits, over two runs (the slot pool
-    continues) and after ``reset``."""
+    """A churned and a hedged run through the session's round graph
+    (uncaptured on the CPU) and through a plain loop over the round
+    function: the same bits, over two runs (the slot pool continues) and
+    after ``reset``."""
     simc = SimConfig(n_tasks=M, seed=3, bw_fluctuation=0.2)
     trace = tsc.compile_scenario(scenario, TSYS, simc, S, seed=0)
     _, stream = _stream(M, S, 3, True)
     obs = tsc.apply_scenario(stream, trace)
     _, tp = _policies("gate")
-    outs = []
-    for capture in (False, True):
-        sess = ServeSession(tp, M, sim=simc, device="cpu", capture=capture,
-                            hedge=trace.hedge, admission=trace.admission)
-        first = sess.run(obs)
-        outs.append([first, sess.run(obs)])
-        sess.reset()
-        _assert_bits(sess.run(obs), first)
-    for x, y in zip(*outs):
+    sess = ServeSession(tp, M, sim=simc, device="cpu", hedge=trace.hedge,
+                        admission=trace.admission)
+    if trace.admission is None:
+        carry = tp.init(M)
+        step = functools.partial(_serve_step, tp, n_edge=sess.n_edge,
+                                 n_cloud=sess.n_cloud, hedge=sess.hedge)
+    else:
+        carry = (tp.init(M), *sess._churn_init())
+        bw_floor, total_bw, valid = _churn_consts(tp, carry[1])
+        step = functools.partial(_churn_round, tp, bw_floor, total_bw,
+                                 trace.admission, sess.n_edge, sess.n_cloud,
+                                 valid)
+    first = sess.run(obs)
+    got = [first, sess.run(obs)]
+    want = []
+    for _ in range(2):
+        carry, out = _loop(step, carry, obs)
+        want.append(out)
+    for x, y in zip(got, want):
         _assert_bits(x, y)
+    sess.reset()
+    _assert_bits(sess.run(obs), first)
 
 
 def test_round_graph_reset_refills_in_place():
@@ -354,7 +432,7 @@ def test_round_graph_reset_refills_in_place():
     by address): a run after it equals a fresh session's."""
     _, stream = _stream(M, 4, 8, True)
     _, tp = _policies("gate")
-    sess = ServeSession(tp, M, device="cpu", capture=True)
+    sess = ServeSession(tp, M, device="cpu")
     first = sess.run(stream)
     leaves = tree_leaves(sess.state)
     sess.reset()
@@ -377,7 +455,7 @@ def test_round_graphs_die_with_their_session_without_the_collector():
     collecting = gc.isenabled()
     gc.disable()
     try:
-        sess = ServeSession(tp, M, sim=simc, device="cpu", capture=True,
+        sess = ServeSession(tp, M, sim=simc, device="cpu",
                             admission=trace.admission)
         sess.run(stream)
         sess.run(tsc.apply_scenario(stream, trace))
@@ -391,24 +469,29 @@ def test_round_graphs_die_with_their_session_without_the_collector():
             gc.enable()
 
 
-@pytest.mark.parametrize("capture", [False, True])
-def test_reset_and_replay_leave_the_callers_stream_alone(capture):
-    """τ-proxy's eager carry shares memory with the observation (its
-    prev_tau is the round's z): ``reset`` replaces such a carry instead of
-    zeroing it in place, and a round graph adopting it copies it first."""
+@pytest.mark.parametrize("given_state", [False, True])
+def test_reset_and_replay_leave_the_callers_stream_alone(given_state):
+    """The caller's stream, and a state given to the session, are never
+    written: a round graph adopts copies of the carry (τ-proxy's round
+    makes its prev_tau the round's z), and ``reset`` refills only the
+    graph's own tensors."""
     _, stream = _stream(M, 4, 15, False)
     z = stream.z.clone()
     _, tp = _policies("tau_proxy")
-    eager = ServeSession(tp, M, device="cpu", capture=False)
-    eager.run(stream)
-    assert eager.state.prev_tau.data_ptr() == stream.z[-1].data_ptr()
-    sess = ServeSession(tp, M, device="cpu", capture=capture,
-                        state=eager.state)
-    eager.reset()
+    state = None
+    if given_state:
+        state = tp.init(M)
+        state.prev_tau.uniform_(generator=torch.Generator().manual_seed(1))
+        kept = [t.clone() for t in tree_leaves(state)]
+    sess = ServeSession(tp, M, device="cpu", state=state)
     sess.run(stream)
+    assert sess.state.prev_tau.data_ptr() != stream.z[-1].data_ptr()
     sess.reset()
     sess.run(stream, n_rounds=1)
     assert torch.equal(stream.z, z)
+    if given_state:
+        for a, b in zip(kept, tree_leaves(state)):
+            assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -490,6 +573,8 @@ def test_decide_only_refusals_match_reference():
         ts.step(mk(np.zeros((M + 1,), np.float32)))
     with pytest.raises(ValueError, match="capture"):
         ServeSession(tp, M, device="cpu", capture="yes")
+    with pytest.raises(ValueError, match="capture=True needs the card"):
+        ServeSession(tp, M, device="cpu", capture=True)
     # the reference's step without u is route: the carry advances once
     obs = Observation(z=_t(z[0]), aq=_t(aq[0]))
     a = ServeSession(tp, M, device="cpu")
@@ -508,7 +593,7 @@ def test_main_path_cell_through_round_graph_matches_reference():
     js_obs, ts_obs = _stream(4096, 16, 0, True)
     jp, tp = _policies("gate")
     want = JSession(jp, 4096).run(js_obs)
-    got = ServeSession(tp, 4096, device="cpu", capture=True).run(ts_obs)
+    got = ServeSession(tp, 4096, device="cpu").run(ts_obs)
     _assert_sol(got, want)
 
 
@@ -526,7 +611,7 @@ def test_churn_cell_through_round_graph_matches_reference():
                     admission=jt.admission).run(jsc.apply_scenario(js_obs,
                                                                    jt))
     got = ServeSession(tp, 4096, sim=SimConfig(**simc), device="cpu",
-                       admission=tt.admission, capture=True).run(
+                       admission=tt.admission).run(
         tsc.apply_scenario(ts_obs, tt))
     _assert_sol(got, want)
     assert int(got["alive"][-1].sum()) == 2061

@@ -1,18 +1,19 @@
 """The port's serving rounds as CUDA graphs (``serving/graphs.py``) on the
-card: a replayed run against the eager loop (``capture=False``) of the same
-session kind, bit for bit on every output and on the carry after it.
+card: a replayed run against the same round function run uncaptured
+(``capture=False``) in a session of the same kind, bit for bit on every
+output and on the carry after it.
 
 Needs an NVIDIA GPU and nvcc; skipped where CUDA is absent.  On a machine
 with the card and without JAX (whose import ``tests/conftest.py`` needs),
 run ``PYTHONPATH=src python -m pytest -q --noconftest
 tests/test_torch_graphs_cuda.py``.  The replay runs the same kernels on the
-same inputs in the same order as the eager loop, so nothing may differ:
+same inputs in the same order as the uncaptured run, so nothing may differ:
 the main path, a baseline, ``straggler_tail`` (the hedge's quantile inside
 the graph) and ``flash_churn`` (admission and the alive mask), the
 decide-only paths, and ``reset`` before a replay.  A host synchronisation
 forced into the round makes the capture raise (no fallback); launches
-after a replay are the capture's counts times the rounds; one eager round
-of every policy and scenario makes no synchronising call
+after a replay are the capture's counts times the rounds; one uncaptured
+round of every policy and scenario makes no synchronising call
 (``torch.cuda.set_sync_debug_mode("error")``).
 """
 import dataclasses
@@ -24,7 +25,6 @@ import torch
 from repro_torch.core import router
 from repro_torch.core.cost_model import SystemConfig
 from repro_torch.core.gating import GateConfig
-from repro_torch.core.robust import RobustProblem
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.serving import scenarios as sc
 from repro_torch.serving.graphs import tree_leaves
@@ -105,8 +105,9 @@ def test_scenario_replay_equals_eager(dev, name):
 
 
 def test_decide_paths_replay_equals_eager(dev):
-    """``route_many`` ((S, M) and (M,) difficulty), ``route``, ``step``
-    without ``u`` and ``route_scan``, captured and eager."""
+    """``route_many`` ((S, M) and (M,) difficulty), ``route`` and ``step``
+    without ``u``, captured and uncaptured; ``route_scan`` (a plain loop)
+    decides as a fresh session's replayed ``route_many``."""
     stream = _stream(dev)
     pol = _policy("gate", dev)
     graphed, eager = _sessions(pol, dev)
@@ -116,20 +117,18 @@ def test_decide_paths_replay_equals_eager(dev):
     one = dataclasses.replace(stream.round(1), bw_mult=None, u=None)
     _assert_bits(graphed.route(one), eager.route(one))
     _assert_bits(graphed.step(one), eager.step(one))
-    prob = RobustProblem.build(SYS, dev)
-    outs = []
-    for capture in (None, False):
-        state = router.init_router_state(GCFG, M, dev)
-        _, sols = router.route_scan(prob, GCFG, pol.gate_params, state,
-                                    stream.dx, stream.z, stream.aq,
-                                    capture=capture)
-        outs.append(sols)
-    _assert_bits(*outs)
+    _, sols = router.route_scan(pol.prob, GCFG, pol.gate_params,
+                                router.init_router_state(GCFG, M, dev),
+                                stream.dx, stream.z, stream.aq)
+    fresh = ServeSession(pol, M, device=dev).route_many(stream.dx, stream.z,
+                                                        stream.aq)
+    for k in ("route", "r", "p", "v", "tau"):
+        assert torch.equal(sols[k], fresh[k]), k
 
 
 def test_capture_raises_on_a_host_sync(dev):
     """A round that reads a value back to the host cannot be captured: the
-    session raises and keeps no graph; the eager loop still serves it."""
+    session raises and keeps no graph; uncaptured, the round still runs."""
     @dataclasses.dataclass(frozen=True)
     class Syncing(JCABPolicy):
         def decide_stream(self, state, obs):
@@ -176,7 +175,7 @@ def test_reset_then_replay_equals_a_fresh_session(dev):
 @pytest.mark.parametrize("name", ("none",) + sc.SUITE)
 @pytest.mark.parametrize("kind", ["gate", "tau_proxy"])
 def test_eager_round_makes_no_sync(dev, kind, name):
-    """One eager round of R2E-VID through each scenario under
+    """One uncaptured round of R2E-VID through each scenario under
     ``set_sync_debug_mode("error")`` (after one unchecked round builds the
     cached tables)."""
     simc = SimConfig(n_tasks=M, seed=0)

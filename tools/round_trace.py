@@ -2,13 +2,14 @@
 """Where the main path's serving round spends its time, for one checkout of
 the repository, on one NVIDIA GPU.
 
-    python3 tools/round_trace.py [--tree DIR] [--runs 3]
+    python3 tools/round_trace.py [--tree DIR] [--runs 3] [--uncaptured]
 
 Loads ``src/`` and ``chip_smoke.py`` of ``DIR`` (default: this checkout),
 builds that tree's kernels into ``DIR/build/``, and serves the main path
 of ``chip_smoke.py`` (gate-mode R2E-VID, M = 4096 streams, R = 16 rounds of
-the seeded stream): one warm-up run, ``--runs`` untraced runs timed by the
-host's clock to a synchronize (median), then that tree's own
+the seeded stream; ``--uncaptured``: a session with ``capture=False``, its
+rounds run from Python a round): one warm-up run, ``--runs`` untraced runs
+timed by the host's clock to a synchronize (median), then that tree's own
 ``chip_smoke.trace_round``: device busy ms and device activities a round,
 the idle share, the costliest device activities.  Then the unrolled
 solver ``solve_ccg`` on round 0, warm-started from Stage 1 (the solve of
@@ -78,6 +79,8 @@ def main() -> int:
     ap.add_argument("--tree", type=Path,
                     default=Path(__file__).resolve().parents[1])
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--uncaptured", action="store_true",
+                    help="serve with ServeSession(capture=False)")
     args = ap.parse_args()
     import torch
 
@@ -110,7 +113,8 @@ def main() -> int:
         pol = make_policy("r2evid", sys_, device=dev,
                           gate_cfg=GateConfig(d_feature=35),
                           generator=torch.Generator().manual_seed(0))
-        return ServeSession(pol, n_streams=m, device=dev)
+        kw = {"capture": False} if args.uncaptured else {}
+        return ServeSession(pol, n_streams=m, device=dev, **kw)
 
     def timed():
         sess = session()
@@ -123,7 +127,8 @@ def main() -> int:
     timed()
     runs = [timed() for _ in range(args.runs)]
     rec = smoke.trace_round(torch, session(), stream, statistics.median(runs))
-    rec.update({"tree": str(tree), "run_s": runs,
+    rec.update({"tree": str(tree), "uncaptured": args.uncaptured,
+                "run_s": runs,
                 "rounds_per_s": rounds / statistics.median(runs),
                 "solve_ccg_warm": trace_solve(torch, sys_, stream, args.runs)})
     print(json.dumps(rec), flush=True)
