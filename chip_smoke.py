@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port of the R2E-VID router on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--only PHASE,...]
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -11,7 +11,11 @@ Phases, one JSON line each; any failure exits non-zero:
                  ``build/repro_torch_kernels/`` (or loads the built library).
 3. ``kernels``   every kernel against its plain PyTorch version on the card,
                  at the paths' shapes (M = 4096) and at a ragged M = 4093:
-                 gate_cell within 1e-5, ccg_solve, c6_tail, lpt_queue (on
+                 gate_cell within 1e-5; gate_cell_bwd (the cell's VJP, the
+                 finetune's gradient) at B = 4096 and 37, d = 35, with
+                 nonzero dh_new, dτ and dg_mean, every gradient within 1e-5
+                 of max(1, its largest |entry|) and two launches bit-equal;
+                 ccg_solve, c6_tail, lpt_queue (on
                  all-edge routes, the main path's, and also on all-cloud
                  and mixed routes and with a server down; timed on the
                  main path's routes and on mixed ones),
@@ -26,7 +30,8 @@ Phases, one JSON line each; any failure exits non-zero:
                  prefills of B ∈ {1, 2, 4, 8} × 16..80 tokens) and at ragged,
                  windowed and non-causal shapes, and at RecurrentGemma's
                  (MQA with G = 16, D = 256, a slab of 16 × 80 entries,
-                 window 2048), within 2e-2 + 2e-2·|plain| in bf16 and
+                 window 2048), and at the serve launcher's SMOKE tiers
+                 (head dims 16 and 8), within 2e-2 + 2e-2·|plain| in bf16 and
                  2e-5 + 2e-5·|plain| in float32; mamba_scan and rglru_scan
                  at the recurrent pools' decode step (16 rows) and longest
                  prefill (8 × 80) and at ragged shapes, x in bf16 and
@@ -101,7 +106,30 @@ Phases, one JSON line each; any failure exits non-zero:
                  the plain versions (the simulator against a CPU simulator
                  of the same seed), captured against uncaptured bit for bit,
                  segments or calls a second in turns.
-9. ``scenarios`` the robustness path (``serving/scenarios.py``): the golden
+9. ``finetune``  online gate finetuning: gate-mode R2E-VID with
+                 ``FinetuneConfig()`` through ``ServeSession.run`` at the
+                 main path's cell (M = 4096, R = 16, its stream and
+                 weights): launches counted (gate_cell_bwd once a round,
+                 in the graph), captured against uncaptured bit for bit
+                 (the tuned parameters too), the rounds before the first
+                 update bit-equal to the plain ``run``, the plain versions
+                 on the card (decisions >= 99.9% of lane-rounds, tuned
+                 parameters within 1e-6), an uncaptured round under the
+                 sync debug mode, rounds/s captured and eager with their
+                 profiled runs (the profiler's counts against the
+                 wrappers'), and in turns beside the plain main path; then
+                 ``offline_warmup`` (50 steps, B = 16, T = 12) on segment
+                 features of synthetic video, labels the segments' motion
+                 level > 0.5, on the kernels (gate_cell and gate_cell_bwd
+                 once a step of T) and plain: losses within 1e-5 relative,
+                 the loss falling; last, ``python -m
+                 repro_torch.launch.serve --rounds 2 --streams 8``
+                 (in-process) on the SMOKE pools (head dims 16 and 8,
+                 bf16), its launches counted from zero (flash_attention and
+                 decode_attention once a call) and every attention call it
+                 made held against the plain version on a copy of that
+                 call's inputs, within the ``kernels`` phase's tolerances.
+10. ``scenarios`` the robustness path (``serving/scenarios.py``): the golden
                  point (``run_suite``'s 5 policies × ``none`` and the 9
                  scenarios of ``SUITE``, 64 streams, 30 rounds, seed 11) on
                  the kernels and on the plain versions, every scalar of
@@ -125,7 +153,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  tier out and ``c6_repair`` with the churned pool's alive
                  mask, on inputs those runs gave them, held to their plain
                  versions and timed (a second time in their kernel rows).
-10. ``dispatch`` the tier pools at full width and depth (Qwen1.5-0.5B edge,
+11. ``dispatch`` the tier pools at full width and depth (Qwen1.5-0.5B edge,
                  Qwen3-8B cloud, bf16, random weights from seeded
                  generators): (a) ``ServeSession.dispatch`` of a gate-mode
                  round over the first 256 streams of the main path's stream,
@@ -142,7 +170,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  fed-back observation; last, a decode step and a prefill
                  per tier, timed on both paths in turns and profiled
                  (device busy time, idle share, top device and host costs).
-11. ``dispatch_recurrent``  the same phase on the sub-quadratic tier pools,
+12. ``dispatch_recurrent``  the same phase on the sub-quadratic tier pools,
                  after the dense pools are freed: Falcon-Mamba-7B (64 Mamba
                  layers) as the edge tier and RecurrentGemma-9B (26 RG-LRU
                  and 12 local-attention layers) as the cloud tier, full
@@ -159,6 +187,9 @@ Phases, one JSON line each; any failure exits non-zero:
 The last three lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``--out DIR`` also
 writes the nvcc/ptxas build log and every phase's record there.
+``--only`` runs the named phases alone (``device`` and ``build`` always
+run; ``gate_cell_bwd`` is that kernel row alone, to time two checkouts'
+kernels in turns): a partial run, not the smoke.
 """
 from __future__ import annotations
 
@@ -869,11 +900,12 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
 
 def attention_rows(torch, dev):
     """decode_attention and flash_attention against their plain versions
-    at the dispatch path's shapes and at ragged ones, then timed at the
-    cloud tier's shapes (the edge tier's beside them)."""
+    at the dispatch path's shapes and at ragged ones, for the full-width
+    tiers and the serve launcher's SMOKE tiers, then timed at the cloud
+    tier's shapes (the edge tier's beside them)."""
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels.decode_attention.ops import decode_attention, \
         split_rule
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -882,10 +914,13 @@ def attention_rows(torch, dev):
     tiers = {"edge": get_config("qwen1.5-0.5b"),
              "cloud": get_config("qwen3-8b"),
              "recurrentgemma": get_config("recurrentgemma-9b")}
+    # checked, not timed: the serve launcher's SMOKE pools (head dims 16, 8)
+    checked = {**tiers, "edge_smoke": get_smoke_config("qwen1.5-0.5b"),
+               "cloud_smoke": get_smoke_config("qwen3-8b")}
     # cache entries of a tier's slab: prompts up to 80 + the decode
     # headroom, or min(window, 80) for RecurrentGemma's local attention
     slab_len = {t: min(c.attn_window, PROMPTS[-1]) if c.attn_window else SLAB
-                for t, c in tiers.items()}
+                for t, c in checked.items()}
 
     def normal(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -911,7 +946,7 @@ def attention_rows(torch, dev):
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = {"decode_attention": [], "flash_attention": []}
-    for tier, cfg in tiers.items():
+    for tier, cfg in checked.items():
         win = {"window": cfg.attn_window} if cfg.attn_window else {}
         for dt in (bf16, f32):
             cases["decode_attention"].append(
@@ -951,7 +986,9 @@ def attention_rows(torch, dev):
             "max_abs_err_float32": errs["float32"],
             "tolerance": "2e-2 + 2e-2·|plain| (bf16); 2e-5 + 2e-5·|plain| "
                          "(float32)",
-            "cases_compared": len(cases[name])}
+            "cases_compared": len(cases[name]),
+            "head_dims_compared": sorted({c.head_dim
+                                          for c in checked.values()})}
 
     def timed(name, fn, args, kw, library, nbytes, flops):
         """Kernel and library each by CUDA events around the call, taken
@@ -1773,6 +1810,327 @@ def decide_phase(torch, dev, stream, counts_reset, counts_read):
                     "window": DECIDE_T, "paths": paths}
 
 
+GRAD_TOL = 1e-5            # gate_cell_bwd: |kernel - plain| / max(1, max |plain|)
+FT_PARAM_TOL = 1e-6        # tuned gate parameters, kernels vs plain (absolute)
+WARMUP_STEPS, WARMUP_B, WARMUP_T = 50, 16, 12
+WARMUP_LOSS_TOL = 1e-5     # warm-up losses, kernels vs plain (relative)
+
+
+def gate_bwd_flops(b: int, d: int, m: int = 32) -> int:
+    """Operations of the cell's VJP over ``b`` streams: the forward again
+    (the packed products, the h·U_h product, τ's dot product and ~30 a
+    unit of gates and elementwise terms), the backward through the hidden
+    units (d(r·h) and dh: three m × m products, ~25 a unit), and the weight
+    gradients (a multiply and an add a stream for each entry of the three
+    d × m and three m × m matrices, w_o and alpha's m products; an add for
+    each bias entry)."""
+    fwd = 2 * (3 * d * m + 3 * m * m + m) + 30 * m
+    bwd = 3 * 2 * m * m + 25 * m
+    wgrad = 2 * (3 * d * m + 3 * m * m + m + m) + 3 * m + 1
+    return b * (fwd + bwd + wgrad)
+
+
+def gate_bwd_row(torch, stream, dev):
+    """gate_cell_bwd against its plain VJP on the card at the finetune
+    round's shape (M = 4096, d = 35) and at a ragged B = 37, with nonzero
+    dh_new, dτ and dg_mean: every gradient within GRAD_TOL of max(1, its
+    largest |entry|), and two launches bit-equal; timed by the profiler (both of
+    its kernels: the per-tile pass and the ordered sum over tiles)."""
+    from repro_torch.core.gating import GateConfig, init_gate_params
+    from repro_torch.kernels.temporal_gate.ops import gate_cell_vjp
+    from repro_torch.kernels.temporal_gate.ref import PARAM_NAMES
+
+    gen = torch.Generator().manual_seed(11)
+    gp = init_gate_params(GateConfig(d_feature=35), gen, dev)
+    gp = {k: v + 0.1 * torch.randn(v.shape, generator=gen).to(dev)
+          if k.startswith("b_") else v for k, v in gp.items()}
+
+    def case(b):
+        rand = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+        return ((stream.dx[0, :b].contiguous(),
+                 (torch.rand((b, 32), generator=gen) * 2 - 1).to(dev),
+                 (torch.rand((b,), generator=gen) * 2).to(dev), gp),
+                dict(dh_new=rand(b, 32), dtau=rand(b), dg_mean=rand(b)))
+
+    worst, cases = 0.0, {M: case(M), 37: case(37)}
+    for b, (args, kw) in cases.items():
+        got, dh = gate_cell_vjp(*args, **kw, force="kernel")
+        again, dh2 = gate_cell_vjp(*args, **kw, force="kernel")
+        want, dh_want = gate_cell_vjp(*args, **kw, force="ref")
+        torch.cuda.synchronize()
+        got, again, want = (dict(x, dh=y) for x, y in
+                            ((got, dh), (again, dh2), (want, dh_want)))
+        for k in want:
+            if not torch.equal(got[k], again[k]):
+                raise AssertionError(f"gate_cell_bwd: two launches differ "
+                                     f"in {k} at B = {b}")
+            rel = float((got[k] - want[k]).abs().max()
+                        / want[k].abs().max().clamp_min(1.0))
+            worst = max(worst, rel)
+    if not worst <= GRAD_TOL:
+        raise AssertionError(f"gate_cell_bwd: kernel vs plain {worst} of the "
+                             f"largest entry > {GRAD_TOL}")
+    args, kw = cases[M]
+    call = lambda: gate_cell_vjp(*args, **kw, force="kernel")
+    plain = lambda: gate_cell_vjp(*args, **kw, force="ref")
+    ms = device_ms(torch, call)
+    n_grad = sum(p.numel() for p in gp.values())
+    d, m = 35, 32
+    nbytes = 4 * (M * (d + m + 1 + m + 1 + 1) + n_grad + M * m + n_grad)
+    flops = gate_bwd_flops(M, d, m)
+    t_bound, by = bound(nbytes, flops, sfu_ops=M * (3 * m + 1))
+    return {
+        "name": "gate_cell_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/temporal_gate_bwd.cu",
+        "replaces": "none: port-only, the backward of "
+                    "src/repro/kernels/temporal_gate/kernel.py:50, whose "
+                    "VJP the reference takes of its jnp cell "
+                    "(src/repro/serving/session.py:255-258)",
+        "max_abs_err": worst, "max_err_relative_to": "max(1, each "
+        "gradient's largest |entry|)", "tolerance": GRAD_TOL,
+        "cases_compared": len(cases), "two_launches_bitequal": True,
+        "ms": ms, "ms_from": "profiler (both kernels of a call)",
+        "ms_by_kernel": {k: device_ms(torch, call, k) for k in (
+            "gate_cell_bwd_kernel", "gate_cell_bwd_reduce_kernel")},
+        "call_ms": event_ms(torch, call, reps=50),
+        "plain_ms": event_ms(torch, plain, reps=20, warmup=1),
+        "bytes": nbytes, "flops": flops, "bound_ms": t_bound,
+        "bound_by": by, "inputs": f"B = {M}, d = 35, dh_new, dtau and "
+        f"dg_mean nonzero ({PARAM_NAMES[0]} … {PARAM_NAMES[-1]} and dh out)",
+        "library_ms": None,
+        "library_call": "none: no PyTorch call computes the cell's VJP",
+    }
+
+
+def warmup_batches(torch, dev, seed: int = 3):
+    """The warm-up's data from the gate's own front end: 32 synthetic video
+    streams of 24 segments (``generate_stream``), their segment features
+    (``segment_features``, on the card), and per step B windows of T
+    segments at seeded streams and offsets, labelled by the segments'
+    motion level (the content difficulty) above 0.5."""
+    from repro_torch.core.features import segment_features
+    from repro_torch.data.video import VideoConfig, generate_stream
+
+    vcfg = VideoConfig()
+    streams = [generate_stream(vcfg, 24, rng=np.random.default_rng(i))
+               for i in range(32)]
+    frames = torch.as_tensor(np.stack([f for f, _ in streams]), device=dev)
+    feats = segment_features(frames, vcfg.frames_per_segment)  # (32, 24, d)
+    motion = torch.as_tensor(np.stack([mp for _, mp in streams]),
+                             dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(WARMUP_STEPS):
+        pick = torch.as_tensor(rng.integers(0, 32, WARMUP_B), device=dev)
+        start = torch.as_tensor(rng.integers(0, 24 - WARMUP_T + 1, WARMUP_B),
+                                device=dev)
+        idx = start[:, None] + torch.arange(WARMUP_T, device=dev)
+        out.append((feats[pick[:, None], idx],
+                    (motion[pick[:, None], idx] > 0.5).to(torch.float32)))
+    return out
+
+
+def launcher_check(torch, dev, counts_reset, counts_read):
+    """One short call of the serve launcher on ``dev``, its launches
+    counted from zero; each attention call it makes (copies of its inputs
+    and its output) is then held against the plain version on the same
+    inputs. Returns (its launches, the record)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve
+
+    argv = ["--rounds", "2", "--streams", "8", "--device", dev.type]
+    buf = io.StringIO()
+    counts_reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), \
+            Recorder(flash_ops, "flash_attention", copy=True) as flash_calls, \
+            Recorder(decode_ops, "decode_attention", copy=True) as dec_calls:
+        code = serve.main(argv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    launcher_s = time.perf_counter() - t0
+    launches = counts_read()
+    lines = buf.getvalue().splitlines()
+    rounds_printed = [ln for ln in lines if ln.startswith("round ")]
+    if code != 0 or len(rounds_printed) != 2 or \
+            sum(ln.startswith("pool[") for ln in lines) != 2:
+        raise AssertionError(f"serve launcher: exit {code}, output {lines}")
+    attn = {}
+    for mod, name, calls in ((flash_ops, "flash_attention", flash_calls),
+                             (decode_ops, "decode_attention", dec_calls)):
+        if not calls or launches.get(name) != len(calls):
+            raise AssertionError(f"serve launcher: {len(calls)} {name} calls,"
+                                 f" {launches.get(name)} launches")
+        err, shapes = 0.0, set()
+        for args, kw, out in calls:
+            want = getattr(mod, name)(*args, **{**kw, "force": "ref"})
+            dtype = str(out.dtype)[6:]
+            tol = ATTN_TOL[dtype]
+            diff = (out.double() - want.double()).abs()
+            if not bool((diff <= tol + tol * want.double().abs()).all()):
+                raise AssertionError(
+                    f"serve launcher's {name} {tuple(args[0].shape)} "
+                    f"{dtype}: kernel vs plain max |diff| "
+                    f"{float(diff.max())} over {tol} + {tol}·|plain|")
+            err = max(err, float(diff.max()))
+            shapes.add(f"{tuple(args[0].shape)} {dtype}")
+        attn[name] = {"calls": len(calls), "max_abs_err": err,
+                      "tolerance": "2e-2 + 2e-2·|plain| (bf16); 2e-5 + "
+                                   "2e-5·|plain| (float32)",
+                      "q_shapes": sorted(shapes)}
+    return launches, {"argv": " ".join(argv), "s": launcher_s,
+                      "launches": launches, "attention_vs_plain": attn,
+                      "output": lines}
+
+
+def finetune_phase(torch, dev, stream, counts_reset, counts_read):
+    """Online gate finetuning (``ServeSession(finetune=FinetuneConfig())``)
+    at the main path's cell, captured and uncaptured and on the plain
+    versions; the curriculum's warm-up on video and motion-feature data on
+    the kernels and on the plain versions; one call of the serve launcher.
+    Returns (the launches of the counted runs, the launcher's launches,
+    the record)."""
+    from repro_torch.core.cost_model import SystemConfig
+    from repro_torch.core.curriculum import CurriculumConfig, offline_warmup
+    from repro_torch.core.gating import GateConfig
+    from repro_torch.serving.policy import make_policy
+    from repro_torch.serving.session import FinetuneConfig, ServeSession
+
+    sys_, gcfg, ft = SystemConfig(), GateConfig(d_feature=35), FinetuneConfig()
+
+    def session(force="auto", capture=None, tune=True):
+        pol = make_policy("r2evid", sys_, device=dev, gate_cfg=gcfg,
+                          generator=torch.Generator().manual_seed(0),
+                          force=force)
+        return ServeSession(pol, n_streams=M, device=dev, capture=capture,
+                            finetune=ft if tune else None)
+
+    graphed = session()
+    counts_reset()
+    mets = graphed.run(stream)
+    torch.cuda.synchronize()
+    launches = counts_read()
+    want = {"gate_cell": ROUNDS, "gate_cell_bwd": ROUNDS, "ccg_solve": ROUNDS,
+            "c6_repair": ROUNDS, "lpt_queue": ROUNDS}
+    if launches != want:
+        raise AssertionError(f"finetune run launched {launches}, want {want}")
+    (graph,) = graphed.graphs.values()
+    if graph.graph is None or graph.launches.get("gate_cell_bwd") != 1:
+        raise AssertionError("finetune round not captured with its backward")
+    # the session's parameters (one flat tensor) against its offline anchor
+    drift = float((graphed._params - graphed._anchor).abs().max())
+    if not drift > 0:
+        raise AssertionError("finetune left the gate parameters unchanged")
+
+    # the same round uncaptured: every output and the tuned parameters
+    eager = session(capture=False)
+    lane_rounds = assert_bit_equal(torch, mets, eager.run(stream), "finetune")
+    for k, v in graphed.gate_params.items():
+        if not torch.equal(v, eager.gate_params[k]):
+            raise AssertionError(f"finetune: captured and uncaptured tuned "
+                                 f"{k} differ")
+    # the rounds before the first update are the plain run's
+    plain_run = session(tune=False)
+    before = plain_run.run(stream)
+    n_before = ft.resync_period
+    assert_bit_equal(torch, {k: v[:n_before] for k, v in mets.items()},
+                     {k: v[:n_before] for k, v in before.items()},
+                     "finetune rounds before the first update")
+    # the plain versions on the card
+    ref = session(force="ref", capture=False)
+    counts_reset()
+    ref_mets = ref.run(stream)
+    torch.cuda.synchronize()
+    if counts_read():
+        raise AssertionError("force='ref' finetune run launched a kernel")
+    same = torch.ones((ROUNDS, M), dtype=torch.bool, device=dev)
+    for k in DECISIONS:
+        same &= mets[k] == ref_mets[k]
+    agree = float(same.double().mean())
+    if agree < 0.999:
+        raise AssertionError(f"finetune kernels vs plain decisions agree on "
+                             f"{agree}")
+    param_err = max(float((v - ref.gate_params[k]).abs().max())
+                    for k, v in graphed.gate_params.items())
+    if not param_err <= FT_PARAM_TOL:
+        raise AssertionError(f"finetune kernels vs plain tuned parameters "
+                             f"differ by {param_err} > {FT_PARAM_TOL}")
+    sync_debug = no_sync_round(torch, eager, stream)
+
+    # rounds/s: captured and uncaptured finetune with their profiled runs
+    # (the profiler's count of each kernel against the wrappers'), then the
+    # captured finetune and the plain main path in turns
+    turns = captured_vs_eager(torch, graphed, eager, stream, ROUNDS,
+                              counts_reset, counts_read)
+    beside = run_turns(torch, {"finetune": graphed, "main_path": plain_run},
+                       stream)
+
+    # the curriculum's warm-up, kernels and plain, on the same batches
+    t0 = time.perf_counter()
+    batches = warmup_batches(torch, dev)
+    data_s = time.perf_counter() - t0
+    ccfg = CurriculumConfig(warmup_steps=WARMUP_STEPS, lr=5e-2)
+    losses, warm_s = {}, {}
+    for force in ("auto", "ref"):
+        counts_reset()
+        t0 = time.perf_counter()
+        _, losses[force] = offline_warmup(
+            gcfg, iter(batches), ccfg, torch.Generator().manual_seed(0), dev,
+            force=force)
+        torch.cuda.synchronize()
+        warm_s[force] = time.perf_counter() - t0
+        if force == "auto":
+            warm_launches = counts_read()
+        elif counts_read():
+            raise AssertionError("force='ref' warm-up launched a kernel")
+    steps = WARMUP_STEPS * WARMUP_T
+    if warm_launches != {"gate_cell": steps, "gate_cell_bwd": steps}:
+        raise AssertionError(f"warm-up launched {warm_launches}")
+    got, want = np.asarray(losses["auto"]), np.asarray(losses["ref"])
+    loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    if not loss_rel <= WARMUP_LOSS_TOL:
+        raise AssertionError(f"warm-up losses kernels vs plain: {loss_rel}")
+    if not got[-10:].mean() < got[:10].mean():
+        raise AssertionError("warm-up did not lower the loss")
+
+    launcher_launches, launcher = launcher_check(torch, dev, counts_reset,
+                                                 counts_read)
+
+    totals = collections.Counter(launches)
+    totals.update(warm_launches)
+    return totals, launcher_launches, {
+        "phase": "finetune", "streams": M, "rounds": ROUNDS,
+        "config": dataclasses.asdict(ft), "launches": launches,
+        "captured_vs_eager_lane_rounds_bitequal": lane_rounds,
+        "tuned_params_captured_vs_eager_bitequal": True,
+        "rounds_before_first_update_bitequal_to_plain_run": n_before,
+        "param_max_drift": drift,
+        "decision_agreement_vs_plain": agree,
+        "tuned_param_max_abs_vs_plain": param_err,
+        "tau_max_abs_vs_plain": float((mets["tau"] - ref_mets["tau"])
+                                      .abs().max()),
+        "eager_round_ran_under_sync_debug": sync_debug,
+        "captured_vs_eager": turns,
+        "rounds_per_s": ROUNDS / turns["captured"]["run_s"],
+        "eager_rounds_per_s": turns["eager"]["rounds_per_s"],
+        "in_turns_run_s": beside,
+        "in_turns_rounds_per_s": {k: ROUNDS / s for k, s in beside.items()},
+        "warmup": {"steps": WARMUP_STEPS, "batch": WARMUP_B,
+                   "segments": WARMUP_T, "lr": ccfg.lr,
+                   "data_s": data_s, "run_s": warm_s,
+                   "launches": warm_launches,
+                   "loss_first_last": [float(got[0]), float(got[-1])],
+                   "loss_mean_first10_last10": [float(got[:10].mean()),
+                                                float(got[-10:].mean())],
+                   "loss_max_rel_vs_plain": loss_rel},
+        "launcher": launcher,
+    }
+
+
 SCEN_ROUNDS, SCEN_PLAIN_ROUNDS = 30, 12
 # the plain path's scenarios: the outage mask (y_ok, avail), the hedge and
 # the alive mask (task_mask), in turn
@@ -1783,17 +2141,23 @@ DECISIONS = ("route", "r", "p", "v")
 
 class Recorder:
     """Wraps ``module.name`` while active: every call's (args, kwargs,
-    result) is kept (the tensors stay on the card; nothing is read)."""
+    result) is kept (the tensors stay on the card; nothing is read). With
+    ``copy``, the tensors are copies taken at the call, for inputs that the
+    caller writes in place afterwards (a KV slab)."""
 
-    def __init__(self, module, name):
-        self.module, self.name = module, name
+    def __init__(self, module, name, copy=False):
+        self.module, self.name, self.copy = module, name, copy
         self.real = getattr(module, name)
         self.calls = []
 
     def __enter__(self):
+        def snap(x):
+            return x.clone() if self.copy and hasattr(x, "clone") else x
+
         def record(*args, **kw):
+            args = tuple(snap(a) for a in args)
             out = self.real(*args, **kw)
-            self.calls.append((args, kw, out))
+            self.calls.append((args, kw, snap(out)))
             return out
         setattr(self.module, self.name, record)
         return self.calls
@@ -2437,10 +2801,13 @@ def trace_round(torch, sess, stream, untraced_s: float,
     acts = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in acts) / 1e3
-    ours = ("gate_cell_kernel", "ccg_solve_kernel", "c6_tail_kernel",
-            "c6_repair_kernel", "lpt_queue_kernel")
+    ours = ("gate_cell_kernel", "gate_cell_bwd_kernel", "ccg_solve_kernel",
+            "c6_tail_kernel", "c6_repair_kernel", "lpt_queue_kernel")
+    # gate_cell_bwd's second kernel (its ordered sum over tiles) counts in
+    # the time, not in the launches (one a wrapper call, as the wrappers')
     ours_ms = sum(e.self_device_time_total for e in acts
-                  if any(k in e.key for k in ours)) / 1e3
+                  if any(k in e.key for k in
+                         ours + ("gate_cell_bwd_reduce_kernel",))) / 1e3
     top = sorted(acts, key=lambda e: -e.self_device_time_total)[:8]
     launches = {k[:-len("_kernel")]: sum(e.count for e in acts
                                          if k in e.key)
@@ -2474,11 +2841,25 @@ def trace_round(torch, sess, stream, untraced_s: float,
     }
 
 
+PHASES = ("kernels", "gate_cell_bwd", "main_path", "solve_ccg", "policies",
+          "decide", "finetune", "scenarios", "dispatch", "dispatch_recurrent")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for the build log and phase records")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run, of " + ", ".join(
+                        PHASES) + " (default: all; gate_cell_bwd is that "
+                        "kernel row alone, which kernels includes; scenarios "
+                        "needs kernels); the kernels line then lists only "
+                        "the rows made")
     args = ap.parse_args()
+    only = set(PHASES if args.only is None else args.only.split(","))
+    if only - set(PHASES) or ("scenarios" in only and "kernels" not in only):
+        ap.error(f"--only {args.only}: phases are {', '.join(PHASES)}, and "
+                 "scenarios needs kernels")
 
     import torch
 
@@ -2519,58 +2900,74 @@ def main() -> int:
     stream = Simulator(SystemConfig(), SimConfig(n_tasks=M, seed=0),
                        device=dev).sample_stream(n_rounds=ROUNDS,
                                                  feature_seed=1)
-    rows = kernel_phase(torch, stream, dev)
-    rows["c6_repair"], above_cap_launches = c6_repair_row(
-        torch, stream, dev, reset_launch_counts, launch_counts)
-    rows.update(attention_rows(torch, dev))
-    rows.update(scan_rows(torch, dev))
-    record({"phase": "kernels", "compared": [
-        {k: rows[n][k] for k in ("name", "max_abs_err", "tolerance")}
-        for n in rows]})
-
-    launches, trace, main_rec = main_path_phase(
-        torch, dev, stream, reset_launch_counts, launch_counts)
-    record(main_rec)
-    record(trace)
-    solve_launches, solve_rec = solve_phase(
-        torch, dev, stream, reset_launch_counts, launch_counts)
-    record(solve_rec)
-    record(policies_phase(torch, dev, stream, reset_launch_counts,
-                          launch_counts))
-    decide_launches, decide_rec = decide_phase(
-        torch, dev, stream, reset_launch_counts, launch_counts)
-    record(decide_rec)
-    scen_launches, scen_rec = scenarios_phase(
-        torch, dev, reset_launch_counts, launch_counts, rows)
-    record(scen_rec)
-    dispatch_by_call, dispatch_rec = dispatch_phase(
-        torch, dev, stream, reset_launch_counts, launch_counts)
-    record(dispatch_rec)
-    recurrent_by_call, recurrent_rec = dispatch_phase(
-        torch, dev, stream, reset_launch_counts, launch_counts,
-        phase="dispatch_recurrent",
-        archs=("falcon-mamba-7b", "recurrentgemma-9b"), m=64, trace_reps=2)
-    record(recurrent_rec)
+    counted = (reset_launch_counts, launch_counts)
     # launches of each kernel on its paths, each counted from zero just
     # before its run and read just after: the main path's serving round for
-    # the slice-1 kernels (c6_repair among them), the per-round repair above
-    # the one-block cap for c6_tail, the cold and the warm solve for
-    # ccg_encode and ccg_master, the kernel-path request sets of the two
-    # dispatch phases for the attention kernels and the scans
-    # (the dispatch phases' counts, checked against layers × calls, split
-    # by the call that launched them: prefill or decode step)
-    phases = {"main_path": launches, "decide": decide_launches,
-              "solve_ccg": solve_launches,
-              "c6_repair_above_cap": above_cap_launches,
-              "scenarios": scen_launches,
-              "dispatch": per_kernel(dispatch_by_call),
-              "dispatch_recurrent": per_kernel(recurrent_by_call)}
+    # the router's kernels (c6_repair among them), the finetune run and the
+    # warm-up for gate_cell_bwd, the serve launcher for the attention
+    # kernels on its SMOKE pools, the per-round repair above the one-block
+    # cap for c6_tail, the cold and the warm solve for ccg_encode and
+    # ccg_master, the kernel-path request sets of the two dispatch phases
+    # for the attention kernels and the scans (the dispatch phases' counts,
+    # checked against layers × calls, split by the call that launched
+    # them: prefill or decode step)
+    phases = {}
+    rows = kernel_phase(torch, stream, dev) if "kernels" in only else {}
+    if only & {"kernels", "gate_cell_bwd"}:
+        rows["gate_cell_bwd"] = gate_bwd_row(torch, stream, dev)
+    if "kernels" in only:
+        rows["c6_repair"], phases["c6_repair_above_cap"] = c6_repair_row(
+            torch, stream, dev, *counted)
+        rows.update(attention_rows(torch, dev))
+        rows.update(scan_rows(torch, dev))
+    if rows:
+        record({"phase": "kernels", "compared": [
+            {k: rows[n][k] for k in ("name", "max_abs_err", "tolerance")}
+            for n in rows]})
+
+    if "main_path" in only:
+        phases["main_path"], trace, main_rec = main_path_phase(
+            torch, dev, stream, *counted)
+        record(main_rec)
+        record(trace)
+    if "solve_ccg" in only:
+        phases["solve_ccg"], solve_rec = solve_phase(torch, dev, stream,
+                                                     *counted)
+        record(solve_rec)
+    if "policies" in only:
+        record(policies_phase(torch, dev, stream, *counted))
+    if "decide" in only:
+        phases["decide"], decide_rec = decide_phase(torch, dev, stream,
+                                                    *counted)
+        record(decide_rec)
+    if "finetune" in only:
+        phases["finetune"], phases["launcher"], ft_rec = finetune_phase(
+            torch, dev, stream, *counted)
+        record(ft_rec)
+    if "scenarios" in only:
+        phases["scenarios"], scen_rec = scenarios_phase(torch, dev, *counted,
+                                                        rows)
+        record(scen_rec)
+    by_calls = []
+    if "dispatch" in only:
+        dispatch_by_call, dispatch_rec = dispatch_phase(torch, dev, stream,
+                                                        *counted)
+        record(dispatch_rec)
+        phases["dispatch"] = per_kernel(dispatch_by_call)
+        by_calls.append(dispatch_by_call)
+    if "dispatch_recurrent" in only:
+        recurrent_by_call, recurrent_rec = dispatch_phase(
+            torch, dev, stream, *counted, phase="dispatch_recurrent",
+            archs=("falcon-mamba-7b", "recurrentgemma-9b"), m=64,
+            trace_reps=2)
+        record(recurrent_rec)
+        phases["dispatch_recurrent"] = per_kernel(recurrent_by_call)
+        by_calls.append(recurrent_by_call)
     for name, row in rows.items():
         by_phase = {ph: c[name] for ph, c in phases.items() if c.get(name)}
         row["launches"] = sum(by_phase.values())
         row["launches_by_phase"] = by_phase
-        by_call = {kind: sum(c.get((name, kind), 0) for c in
-                             (dispatch_by_call, recurrent_by_call))
+        by_call = {kind: sum(c.get((name, kind), 0) for c in by_calls)
                    for kind in ("prefill", "decode")}
         if any(by_call.values()):
             row["launches_by_call"] = by_call

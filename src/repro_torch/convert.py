@@ -1,7 +1,8 @@
 """Carry weights and state across from the JAX reference as numpy arrays.
 
 The reference's gate parameters are a dict of arrays (its
-``init_params(gate_specs(cfg), key)``), its router carry a ``RouterState``
+``init_params(gate_specs(cfg), key)``), its per-stream gate state a
+``GateState``, its router carry a ``RouterState``
 with a ``GateBatchState``, its baselines' and τ-proxy carries the named
 tuples ``RDAPState``, ``SniperState`` and ``HistoryState``, and its model
 parameters and caches (K/V, convolution and recurrent states) nested dicts
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.gating import GateBatchState
+from repro_torch.core.gating import GateBatchState, GateState
 from repro_torch.core.router import RouterState
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -34,6 +35,25 @@ def gate_params_from_numpy(params, device="cuda") -> dict:
 
 def gate_params_to_numpy(params) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def gate_state_from_numpy(state, device="cuda") -> GateState:
+    """A reference ``GateState`` (one stream's or a batch's; or a dict with
+    ``h``, ``var_buf`` and ``var_idx``) -> the port's :class:`GateState`
+    on device (the step count as int64)."""
+    dev = resolve_device(device)
+    get = state.get if isinstance(state, dict) else \
+        lambda k: getattr(state, k)
+    return GateState(**{
+        k: torch.from_numpy(np.array(get(k))).to(
+            device=dev, dtype=torch.int64 if k == "var_idx" else
+            torch.float32)
+        for k in ("h", "var_buf", "var_idx")})
+
+
+def gate_state_to_numpy(state: GateState) -> dict:
+    return {k: getattr(state, k).detach().cpu().numpy()
+            for k in ("h", "var_buf", "var_idx")}
 
 
 def router_state_from_numpy(state, device="cuda") -> RouterState:

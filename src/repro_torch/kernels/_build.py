@@ -29,9 +29,10 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("temporal_gate.cu", "ccg_solve.cu", "c6_tail.cu", "lpt_queue.cu",
-           "ccg_encode.cu", "ccg_master.cu", "decode_attention.cu",
-           "flash_attention.cu", "mamba_scan.cu", "rglru_scan.cu")
+SOURCES = ("temporal_gate.cu", "temporal_gate_bwd.cu", "ccg_solve.cu",
+           "c6_tail.cu", "lpt_queue.cu", "ccg_encode.cu", "ccg_master.cu",
+           "decode_attention.cu", "flash_attention.cu", "mamba_scan.cu",
+           "rglru_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +49,10 @@ _SIGNATURES = {
     # dx, h, vol, w_x, u_gr, b_g, alpha, b_r, u_h, b_h, w_o, b_o,
     # h_out, tau, g_mean, B, d, m, stream
     "gate_cell_launch": [_P] * 15 + [_I, _I, _I, _P],
+    # dx, h, vol, w_g, u_g, b_g, alpha, w_r, u_r, b_r, w_h, u_h, b_h, w_o,
+    # b_o, dh_new, dtau, dg_mean (each or null), dh (or null), partial,
+    # its rows, grads, B, d, m, stream
+    "gate_cell_bwd_launch": [_P] * 20 + [_I, _P, _I, _I, _I, _P],
     # z, aq, warm_y, rn, pn, tier, y_ok, b2k, u_all, c1,
     # y_f, v_star, o_up, o_down, iters, infeasible,
     # M, F, K, P, n_steps, margin, theta, stream

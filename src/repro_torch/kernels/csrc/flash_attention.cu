@@ -55,10 +55,15 @@
 // handling or divisions by BQ: at these shapes the kernel is bound by its
 // instructions' latency, not by the tensor cores.
 //
-// float32, flash_attention_kernel_f32: float32 multiply-adds on the CUDA
-// cores (the tensor cores have no float32 product of full precision):
-// tiles of 32 keys, two threads per row, each computing 16 of a tile's
-// scores from shared memory, rows padded by one float.
+// float32, flash_attention_kernel_simt<float, D>: float32 multiply-adds on
+// the CUDA cores (the tensor cores have no float32 product of full
+// precision): tiles of 32 keys, two threads per row, each computing 16 of a
+// tile's scores from shared memory, rows padded by one float.  The same
+// kernel takes bfloat16 at the head dims under one m16n8k16 product's
+// depth and width (D = 8 and 16, the SMOKE tier models of the serve
+// launcher): operands widened to float32 as they are staged, each
+// probability rounded to bf16 before P·V (l summed from the float32
+// ones), the output rounded to bf16.
 //
 // Built with the repository's -fmad=false like every source; the kernel is
 // held to a stated tolerance, not to the plain version's bits (its sums run
@@ -83,23 +88,36 @@ constexpr int kRows = 64;             // query rows of a block (G × BQ)
 constexpr int kKeysF32 = 32;              // keys of a tile
 constexpr int kPerThread = kKeysF32 / 2;  // scores per thread of a row's pair
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 template <int D>
 constexpr int smem_bytes_f32() {
   return (int)sizeof(float) * (kRows * (D + 1) + kKeysF32 * (D + 1) +
                                kKeysF32 * D + kRows * (kKeysF32 + 1));
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel_f32(const float* __restrict__ q,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
-                               float* __restrict__ out, long long q_sb,
-                               long long q_sh, long long q_ss, long long k_sb,
-                               long long k_sh, long long k_ss, long long v_sb,
-                               long long v_sh, long long v_ss, int H, int KV,
-                               int Sq, int Sk, int BQ, int window, int causal,
-                               float scale) {
+    flash_attention_kernel_simt(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v, T* __restrict__ out,
+                                long long q_sb, long long q_sh, long long q_ss,
+                                long long k_sb, long long k_sh, long long k_ss,
+                                long long v_sb, long long v_sh, long long v_ss,
+                                int H, int KV, int Sq, int Sk, int BQ,
+                                int window, int causal, float scale) {
   extern __shared__ float smem[];
   float* q_s = smem;                        // [kRows][D + 1], then the output
   float* k_s = q_s + kRows * (D + 1);       // [kKeysF32][D + 1]
@@ -111,15 +129,16 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y / KV, kh = blockIdx.y % KV;
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x;
-  const float* kb = k + b * k_sb + kh * k_sh;
-  const float* vb = v + b * v_sb + kh * v_sh;
+  const T* kb = k + b * k_sb + kh * k_sh;
+  const T* vb = v + b * v_sb + kh * v_sh;
 
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int g = r / BQ, qpos = q0 + r % BQ;
     q_s[r * (D + 1) + d] =
-        r < R && qpos < Sq ? q[b * q_sb + (kh * G + g) * q_sh + qpos * q_ss + d]
-                           : 0.0f;
+        r < R && qpos < Sq
+            ? to_f(q[b * q_sb + (kh * G + g) * q_sh + qpos * q_ss + d])
+            : 0.0f;
   }
 
   // this thread's row and half of the tile's keys
@@ -141,8 +160,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < kKeysF32 * D; i += kThreads) {
       const int j = i / D, d = i % D;
       const bool in = t0 + j < Sk;
-      k_s[j * (D + 1) + d] = in ? kb[(t0 + j) * k_ss + d] : 0.0f;
-      v_s[j * D + d] = in ? vb[(t0 + j) * v_ss + d] : 0.0f;
+      k_s[j * (D + 1) + d] = in ? to_f(kb[(t0 + j) * k_ss + d]) : 0.0f;
+      v_s[j * D + d] = in ? to_f(vb[(t0 + j) * v_ss + d]) : 0.0f;
     }
     __syncthreads();
 
@@ -174,7 +193,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kPerThread; ++i) {
       const float p = ok[i] ? expf(s[i] - m_new) : 0.0f;
       sum += p;
-      p_s[r * (kKeysF32 + 1) + half + 2 * i] = p;
+      // P·V takes the probability in the value type (a no-op in float32)
+      p_s[r * (kKeysF32 + 1) + half + 2 * i] = to_f(from_f<T>(p));
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     l = l * corr + sum;
@@ -201,7 +221,7 @@ __global__ void __launch_bounds__(kThreads)
     const int g = rr / BQ, qp = q0 + rr % BQ;
     if (qp < Sq)
       out[(((long long)b * H + kh * G + g) * Sq + qp) * D + d] =
-          q_s[rr * (D + 1) + d];
+          from_f<T>(q_s[rr * (D + 1) + d]);
   }
 }
 
@@ -505,14 +525,14 @@ int launch(const void* q, const void* k, const void* v, void* out,
            int window, int causal, float scale, cudaStream_t stream) {
   static std::atomic<unsigned> done{0};
   const dim3 grid((Sq + BQ - 1) / BQ, B * KV);
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (std::is_same<T, float>::value || D < 32) {
     constexpr int smem = smem_bytes_f32<D>();
-    cudaError_t e = allow_smem(flash_attention_kernel_f32<D>, smem, done);
+    cudaError_t e = allow_smem(flash_attention_kernel_simt<T, D>, smem, done);
     if (e != cudaSuccess) return (int)e;
-    flash_attention_kernel_f32<D><<<grid, kThreads, smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], H, KV,
-        Sq, Sk, BQ, window, causal, scale);
+    flash_attention_kernel_simt<T, D><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, st[0], st[1], st[2],
+        st[3], st[4], st[5], st[6], st[7], st[8], H, KV, Sq, Sk, BQ, window,
+        causal, scale);
   } else {
     constexpr int smem = smem_bytes_bf16<D>();
     cudaError_t e = allow_smem(flash_attention_kernel_bf16<D>, smem, done);
@@ -533,6 +553,12 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
              int BQ, int window, int causal, float scale,
              cudaStream_t stream) {
   switch (D) {
+    case 8:
+      return launch<T, 8>(q, k, v, out, st, B, H, KV, Sq, Sk, BQ, window,
+                          causal, scale, stream);
+    case 16:
+      return launch<T, 16>(q, k, v, out, st, B, H, KV, Sq, Sk, BQ, window,
+                           causal, scale, stream);
     case 32:
       return launch<T, 32>(q, k, v, out, st, B, H, KV, Sq, Sk, BQ, window,
                            causal, scale, stream);

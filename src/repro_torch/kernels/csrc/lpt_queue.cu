@@ -228,8 +228,12 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int u = 0; u < kGatherPer; ++u) {
-      t[u] = src[u] >= 0 ? t_comp[base + src[u]] : 0.0f;
-      cloud[u] = (src[u] >= 0) & (route[base + src[u]] != 0);
+      // a padding slot (src -1) reads its round's task 0, never route[-1]:
+      // `&` evaluates both sides, and the word before round 0's route may
+      // lie outside its allocation
+      const long long at = src[u] >= 0 ? src[u] : 0;
+      t[u] = src[u] >= 0 ? t_comp[base + at] : 0.0f;
+      cloud[u] = (src[u] >= 0) & (route[base + at] != 0);
       odd |= !(t[u] >= 0.0f) | (__float_as_uint(t[u]) >> 31);
     }
 #pragma unroll

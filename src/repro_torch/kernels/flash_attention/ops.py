@@ -10,7 +10,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (32, 64, 128, 256)   # the kernel's instantiations
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # the kernel's instantiations
 ROWS = 64                   # query rows of a block: G heads × BQ positions
 
 

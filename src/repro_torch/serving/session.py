@@ -11,12 +11,20 @@ with SLA-aware admission (``AdmissionConfig`` and ``_churn_admit``
 The reference runs each run under one ``lax.scan`` (``_serve_run``,
 ``_decide_scan``, ``_serve_run_churn``), one compiled program.  Here every
 run goes through a :class:`~repro_torch.serving.graphs.RoundGraph` of its
-kind of round (serve, churn or decide): on the card it captures the round
-once as a CUDA graph and replays it a round; with ``capture=False``, and
-on the CPU, it calls the same round function from Python a round.  Either
-way no round reads back to the host: the churn bookkeeping (alive, degrade
-pins, queue, admitted, dropped) stays in device tensors across rounds.
-Mesh and finetune are later slices of the port (ROADMAP queue A).
+kind of round (serve, churn, finetune or decide): on the card it captures
+the round once as a CUDA graph and replays it a round; with
+``capture=False``, and on the CPU, it calls the same round function from
+Python a round.  Either way no round reads back to the host: the churn
+bookkeeping (alive, degrade pins, queue, admitted, dropped) and the
+finetune's round counter stay in device tensors across rounds.
+
+Online gate fine-tuning (``finetune=FinetuneConfig(...)``, the reference's
+``_serve_run_finetune`` :233-282 and its wiring :606-619, :629-634,
+:656-658, :749-756): every ``resync_period`` rounds of ``run`` take one
+gradient step on the gate parameters, the BCE of τ against the round's SLA
+misses plus a proximal anchor at the offline parameters, inside the round
+(``_finetune_round``).  The mesh is a later slice of the port (ROADMAP
+queue A.15).
 """
 from __future__ import annotations
 
@@ -26,7 +34,9 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.core.gating import batch_volatility
 from repro_torch.device import resolve_device
+from repro_torch.kernels.temporal_gate.ops import gate_cell_vjp
 from repro_torch.serving.dispatch import DispatchExecutor, Request
 from repro_torch.serving.graphs import (
     RoundGraph,
@@ -40,6 +50,14 @@ from repro_torch.serving.simulator import SimConfig, realize_rounds
 
 _MET_KEYS = ("delay", "energy", "cost", "accuracy")
 _SOL_KEYS = ("route", "r", "p", "v", "tau")
+
+
+@dataclasses.dataclass(frozen=True)
+class FinetuneConfig:
+    """Online gate fine-tuning knobs (off unless passed to the session)."""
+    lr: float = 1e-3
+    resync_period: int = 4     # apply one gradient step every this many rounds
+    mu: float = 0.1            # proximal anchor weight (catastrophic-forgetting guard)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +140,61 @@ def _serve_step(policy: Policy, state, obs: Observation, n_edge: int,
     return state, _round_output(sol, met)
 
 
+def _flat_params(params: dict):
+    """One flat float32 copy of the gate parameters, in the dict's order,
+    and a dict of views of it shaped as ``params`` (the finetune round
+    updates all of them with a few elementwise ops on the flat tensor)."""
+    flat = torch.cat([v.detach().reshape(-1) for v in params.values()])
+    views = flat.split([v.numel() for v in params.values()])
+    return flat, {k: t.view(v.shape)
+                  for (k, v), t in zip(params.items(), views)}
+
+
+def _finetune_round(policy: Policy, n_edge: int, n_cloud: int, hedge,
+                    ft: FinetuneConfig, params, anchor, carry,
+                    obs: Observation):
+    """One serving round that also tunes the gate (the body of the
+    reference's ``_serve_run_finetune``).  ``carry`` is (policy state,
+    rounds done: a 0-d int64 tensor on the device); ``params`` is the flat
+    tensor whose views (``_flat_params``, in their dict's order) are
+    ``policy.gate_params``, ``anchor`` the offline parameters in the same
+    layout.
+
+    The round decides and realizes as :func:`_serve_step`; on every
+    ``ft.resync_period``-th round it then takes one SGD step on the BCE of
+    the round's τ against its SLA misses (accuracy < aq) plus μ/2·‖θ −
+    θ_offline‖².  The gradient is truncated to this round's gate cell: its
+    inputs are this round's dx, the carried hidden state before the round
+    (the carry is written back only after the round) and the volatility the
+    step fed the cell (:func:`~repro_torch.core.gating.batch_volatility` of
+    the new state's sums), and ``gate_cell_vjp`` takes dτ of the BCE (the
+    backward kernel on the card).  The parameters are updated in place (a
+    round graph reads them by address): every round computes the step and
+    keeps it or the old values with ``torch.where`` on the device counter,
+    so a round without an update leaves them bit-unchanged and no round
+    reads back to the host."""
+    st, done = carry
+    p = policy.gate_params
+    h_prev = st.gate.h
+    new_st, sol = policy.decide(st, obs)
+    met = _realize_obs(policy, obs, sol, n_edge, n_cloud, hedge)
+    fail = (met["accuracy"] < obs.aq).to(torch.float32)        # SLA misses
+    tau = sol["tau"]
+    eps = 1e-6
+    # d/dτ of −mean(fail·log(τ + ε) + (1 − fail)·log(1 − τ + ε))
+    dtau = ((1.0 - fail) / (1.0 - tau + eps) - fail / (tau + eps)) \
+        / tau.shape[0]
+    vol = batch_volatility(policy.gate_cfg, new_st.gate.var_sum,
+                           new_st.gate.var_sumsq)
+    grads, _ = gate_cell_vjp(obs.dx, h_prev, vol, p, dtau=dtau,
+                             need_dh=False, force=policy.force)
+    grad = torch.cat([grads[k].reshape(-1) for k in p])
+    step = params - ft.lr * (grad + ft.mu * (params - anchor))
+    params.copy_(torch.where((done + 1) % ft.resync_period == 0, step,
+                             params))
+    return (new_st, done + 1), _round_output(sol, met)
+
+
 def _churn_round(policy: Policy, bw_floor, total_bw, acfg: AdmissionConfig,
                  n_edge: int, n_cloud: int, valid, carry, obs: Observation):
     """One slot-pool round: admission → reset of re-admitted slots →
@@ -191,6 +264,15 @@ class ServeSession:
     capacity and ``run`` take ``arrive_n`` / ``depart`` traces; ``force``
     replaces the policy's kernel pin.
 
+    ``finetune=FinetuneConfig(...)`` (gate-mode R2E-VID only) tunes the
+    gate while ``run`` serves.  The session takes its own copy of the gate
+    parameters (the caller's are never written) and a copy as the proximal
+    anchor; the tuning updates its copy in place, which ``gate_params``
+    returns and every later round reads.  The count of tuned rounds
+    persists across runs and :meth:`reset` zeroes it, keeping the tuned
+    parameters; :meth:`step`, ``route`` and ``route_many`` neither tune nor
+    count.
+
     ``capture`` pins how rounds run, as ``force`` pins the kernels: each
     kind of round runs through one
     :class:`~repro_torch.serving.graphs.RoundGraph`, which captures it as
@@ -208,11 +290,9 @@ class ServeSession:
                  mesh=None, finetune=None, hedge=None, admission=None,
                  force: str | None = None, pools=None,
                  capture: bool | None = None):
-        for key, val, item in (("mesh", mesh, "A.15"),
-                               ("finetune", finetune, "A.11")):
-            if val is not None:
-                raise NotImplementedError(
-                    f"ServeSession({key}=...) is ROADMAP queue {item}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServeSession(mesh=...) is ROADMAP queue A.15")
         dev = resolve_device(device)
         if policy.device.type != dev.type:
             raise ValueError(f"ServeSession(device={device!r}) but the "
@@ -227,6 +307,18 @@ class ServeSession:
                              f"{dev} runs its rounds uncaptured")
         if force is not None:
             policy = dataclasses.replace(policy, force=force)
+        self._params = self._anchor = None
+        if finetune is not None:
+            if getattr(policy, "gate_params", None) is None:
+                raise ValueError(
+                    "finetune requires a gate-mode r2evid policy "
+                    "(gate_params must be set)")
+            # the session tunes its own copy in place, one flat tensor that
+            # the policy's parameters view; the proximal anchor is the
+            # offline parameters at session start
+            self._params, params = _flat_params(policy.gate_params)
+            self._anchor = self._params.clone()
+            policy = dataclasses.replace(policy, gate_params=params)
         if hedge is not None:
             hq, hc = hedge
             hedge = (float(hq), float(hc))
@@ -240,9 +332,13 @@ class ServeSession:
         self.n_cloud = sim.n_cloud_servers if n_cloud is None else n_cloud
         self.hedge = hedge
         self.admission = admission
+        self.finetune = finetune
         self.capture = capture
         self.state = policy.init(n_streams) if state is None else state
         self._churn_carry = None
+        # rounds served by finetune runs (the tuning cadence's counter)
+        self._rounds_done = torch.zeros((), dtype=torch.int64,
+                                        device=policy.device)
         self.graphs = {}            # (kind, stream signature) -> RoundGraph
         self.pools = pools
         self._executor = None
@@ -257,10 +353,10 @@ class ServeSession:
         return getattr(self.policy, "gate_params", None)
 
     def reset(self, n_streams: int | None = None):
-        """A fresh carry (and an empty slot pool).  A carry that the
-        session's graphs hold is refilled in place, so they stay valid; any
-        other (one no run has adopted yet) is replaced.  A new size drops
-        the graphs."""
+        """A fresh carry (an empty slot pool, a zero finetune round count;
+        tuned gate parameters stay).  A carry that the session's graphs
+        hold is refilled in place, so they stay valid; any other (one no
+        run has adopted yet) is replaced.  A new size drops the graphs."""
         if n_streams is not None and n_streams != self.n_streams:
             self.n_streams = n_streams
             self.graphs.clear()
@@ -276,6 +372,10 @@ class ServeSession:
                 assign(list(self._churn_carry), list(self._churn_init()))
             else:
                 self._churn_carry = None
+        if id(self._rounds_done) in held:
+            self._rounds_done.zero_()
+        else:
+            self._rounds_done = torch.zeros_like(self._rounds_done)
 
     def _churn_init(self):
         """Fresh slot-pool carry: the first ``init_alive`` slots occupied
@@ -300,6 +400,9 @@ class ServeSession:
                 "stream carries churn traces (arrive_n/depart) but the "
                 "session has no AdmissionConfig — pass admission= to "
                 "ServeSession")
+        if has_churn and self.finetune is not None:
+            raise NotImplementedError(
+                "online fine-tuning under stream churn is not supported")
         if has_churn and self.hedge is not None:
             raise ValueError(
                 "hedged dispatch is not supported under churn (the hedge "
@@ -320,7 +423,10 @@ class ServeSession:
     # -- the round graphs ---------------------------------------------------
     def _carry(self, kind: str):
         """The carry a kind of round reads and updates: the policy state,
-        with the slot pool's (alive, degrade pins, queue) under churn."""
+        with the slot pool's (alive, degrade pins, queue) under churn and
+        the round count under finetune."""
+        if kind == "finetune":
+            return (self.state, self._rounds_done)
         if kind != "churn":
             return self.state
         if self._churn_carry is None:
@@ -340,6 +446,10 @@ class ServeSession:
             n_edge, n_cloud, hedge = self.n_edge, self.n_cloud, self.hedge
             return lambda st, obs: _serve_step(pol, st, obs, n_edge, n_cloud,
                                                hedge)
+        if kind == "finetune":
+            return functools.partial(_finetune_round, pol, self.n_edge,
+                                     self.n_cloud, self.hedge, self.finetune,
+                                     self._params, self._anchor)
         bw_floor, total_bw, valid = _churn_consts(pol, self._churn_carry[0])
         return functools.partial(_churn_round, pol, bw_floor, total_bw,
                                  self.admission, self.n_edge, self.n_cloud,
@@ -366,6 +476,7 @@ class ServeSession:
             self.state = tree_map(mine, self.state)
             if self._churn_carry is not None:
                 self._churn_carry = tuple(map(mine, self._churn_carry))
+            self._rounds_done = mine(self._rounds_done)
             carry = self._carry(kind)
             graph = RoundGraph(self._step(kind), carry, stream,
                                capture=self.capture)
@@ -421,14 +532,16 @@ class ServeSession:
         ``n_rounds`` serves a prefix.  A stream with churn traces runs the
         slot pool and also returns ``alive`` (R, M) and ``queue_depth`` /
         ``admitted`` / ``dropped`` (R,); its ``route`` is -1 on dead
-        slots."""
+        slots.  A finetune session tunes the gate as it serves."""
         self._check_obs(stream, rounds=True)
         if stream.u is None or stream.bw_mult is None:
             raise ValueError("session.run needs bw_mult and u on the stream "
                              "(use route_many for decide-only scans)")
         if n_rounds is not None:
             stream = _prefix(stream, n_rounds)
-        return self._rounds("churn" if self._check_churn(stream) else "serve",
+        if self._check_churn(stream):
+            return self._rounds("churn", stream)
+        return self._rounds("serve" if self.finetune is None else "finetune",
                             stream)
 
     # -- live model pools ---------------------------------------------------

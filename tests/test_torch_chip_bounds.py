@@ -269,3 +269,26 @@ def test_master_work_counts_each_steps_generated_poles(smoke):
     assert smoke.master_work([], fs_ok) == (0.0, 0.0)
     # a first step's handful of poles is far below the float32 peak: bytes
     assert smoke.bound(nbytes, flops)[1] == "bytes"
+
+
+@pytest.mark.parametrize("d", [1, 35, 64])
+def test_gate_bwd_counts_forward_backward_and_weight_gradients(smoke, d):
+    """``gate_cell_bwd``'s operations a stream: the forward again (the
+    count ``chip_smoke.py`` gives ``gate_cell``), the backward through the
+    hidden units (three 32 × 32 products), and two operations a stream for
+    each entry of the weight gradients; ~34 kFLOP a stream at d = 35,
+    139 MFLOP at B = 4096: an operations bound of ~2.07 µs."""
+    m = 32
+    per = smoke.gate_bwd_flops(1, d, m)
+    fwd = 2 * (3 * d * m + 3 * m * m + m) + 30 * m
+    n_weights = 3 * d * m + 3 * m * m
+    assert per >= fwd + 3 * 2 * m * m + 2 * n_weights
+    assert smoke.gate_bwd_flops(4096, d, m) == 4096 * per
+    if d == 35:
+        assert 33_000 <= per <= 35_000
+        flops = smoke.gate_bwd_flops(4096, d, m)
+        t, by = smoke.bound(4 * 4096 * (d + 3 * m + 3), flops,
+                            sfu_ops=4096 * (3 * m + 1))
+        assert by == "operations"
+        assert t == pytest.approx(flops / smoke.FP32_FLOP_PER_S * 1e3)
+        assert 0.0020 < t < 0.0022

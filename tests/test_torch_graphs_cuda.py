@@ -14,7 +14,10 @@ decide-only paths, and ``reset`` before a replay.  A host synchronisation
 forced into the round makes the capture raise (no fallback); launches
 after a replay are the capture's counts times the rounds; one uncaptured
 round of every policy and scenario makes no synchronising call
-(``torch.cuda.set_sync_debug_mode("error")``).
+(``torch.cuda.set_sync_debug_mode("error")``).  The finetune round (the
+gate tuned in the graph, its gradient on the backward kernel) likewise:
+replay against uncaptured run, counts, ``reset`` and an uncaptured round
+under the sync debug mode.
 """
 import dataclasses
 
@@ -29,7 +32,7 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.serving import scenarios as sc
 from repro_torch.serving.graphs import tree_leaves
 from repro_torch.serving.policy import JCABPolicy, make_policy
-from repro_torch.serving.session import ServeSession
+from repro_torch.serving.session import FinetuneConfig, ServeSession
 from repro_torch.serving.simulator import SimConfig, Simulator
 
 pytestmark = pytest.mark.cuda
@@ -223,3 +226,103 @@ def test_simulator_realize_on_the_card_equals_the_cpu(dev):
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
                                        atol=1e-7, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the finetune round (online gate tuning inside the graph)
+# ---------------------------------------------------------------------------
+FT = FinetuneConfig(lr=1e-2, resync_period=2)
+
+
+def _ft_sessions(dev, **kw):
+    pol = _policy("gate", dev)
+    return pol, (ServeSession(pol, M, device=dev, finetune=FT, **kw),
+                 ServeSession(pol, M, device=dev, finetune=FT, capture=False,
+                              **kw))
+
+
+def _params_equal(a, b):
+    for k, v in a.gate_params.items():
+        assert torch.equal(v, b.gate_params[k]), k
+
+
+@pytest.mark.parametrize("name", ["none", "straggler_tail"])
+def test_finetune_replay_equals_eager(dev, name):
+    """The finetune round captured and replayed against the same round
+    uncaptured: outputs, carries, the round counter and the tuned
+    parameters bit for bit over two runs; the caller's parameters are
+    never written; a replayed update runs the backward kernel."""
+    simc = SimConfig(n_tasks=M, seed=0)
+    trace = sc.compile_scenario(name, SYS, simc, R, seed=0)
+    obs = sc.apply_scenario(_stream(dev), trace)
+    pol, (graphed, eager) = _ft_sessions(dev, sim=simc, hedge=trace.hedge)
+    before = {k: v.clone() for k, v in pol.gate_params.items()}
+    for _ in range(2):
+        _assert_bits(graphed.run(obs), eager.run(obs))
+        _params_equal(graphed, eager)
+    for x, y in zip(tree_leaves((graphed.state, graphed._rounds_done)),
+                    tree_leaves((eager.state, eager._rounds_done))):
+        assert torch.equal(x, y)
+    assert int(graphed._rounds_done) == 2 * R
+    (graph,) = graphed.graphs.values()
+    assert graph.graph is not None and graph.replays == 2 * R - 1
+    assert graph.launches["gate_cell_bwd"] == 1
+    for k, v in pol.gate_params.items():
+        assert torch.equal(v, before[k]), k
+        assert not torch.equal(graphed.gate_params[k], v), k
+
+
+def test_finetune_rounds_before_the_update_equal_the_plain_run(dev):
+    stream = _stream(dev)
+    pol, (graphed, _) = _ft_sessions(dev)
+    tuned = graphed.run(stream)
+    plain = ServeSession(pol, M, device=dev).run(stream)
+    for k in plain:
+        assert torch.equal(tuned[k][:FT.resync_period],
+                           plain[k][:FT.resync_period]), k
+
+
+def test_finetune_replay_launches_and_reset(dev):
+    """Launches after a replayed run are the capture's counts times the
+    rounds (one backward a round, kept or not); ``reset`` zeroes the
+    counter and keeps the tuned parameters, and the next run equals an
+    uncaptured session's after the same reset."""
+    stream = _stream(dev)
+    _, (graphed, eager) = _ft_sessions(dev)
+    reset_launch_counts()
+    graphed.run(stream)
+    want = {"gate_cell": R, "gate_cell_bwd": R, "ccg_solve": R,
+            "c6_repair": R, "lpt_queue": R}
+    assert launch_counts() == want
+    (graph,) = graphed.graphs.values()
+    assert dict(graph.launches) == {k: 1 for k in want}
+    eager.run(stream)
+    tuned = {k: v.clone() for k, v in graphed.gate_params.items()}
+    graphed.reset()
+    eager.reset()
+    assert int(graphed._rounds_done) == 0
+    for k, v in graphed.gate_params.items():
+        assert torch.equal(v, tuned[k]), k
+    graphs = dict(graphed.graphs)
+    reset_launch_counts()
+    _assert_bits(graphed.run(stream), eager.run(stream))
+    assert graphed.graphs == graphs
+    _params_equal(graphed, eager)
+
+
+def test_finetune_eager_round_makes_no_sync(dev):
+    """An uncaptured finetune round that updates (the counter at 1 with
+    resync_period 2) under ``set_sync_debug_mode("error")``."""
+    stream = _stream(dev, rounds=2)
+    _, (_, eager) = _ft_sessions(dev)
+    eager.run(stream, n_rounds=1)
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in eager.gate_params.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager.run(stream, n_rounds=1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert any(not torch.equal(v, before[k])
+               for k, v in eager.gate_params.items())

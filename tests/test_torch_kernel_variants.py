@@ -23,7 +23,8 @@ def tool():
 @pytest.mark.parametrize("kernel", ["ccg_encode", "ccg_master", "mamba_scan",
                                     "flash_attention", "decode_attention",
                                     "lpt_queue", "rglru_scan", "ccg_solve",
-                                    "gate_cell", "c6_repair"])
+                                    "gate_cell", "gate_cell_bwd",
+                                    "c6_repair"])
 @pytest.mark.parametrize("make", ["variants", "diagnostics"])
 def test_every_variant_edits_the_committed_source(tool, kernel, make):
     src = (CSRC / tool.source_file(kernel)).read_text()

@@ -6,7 +6,13 @@ needs), run ``PYTHONPATH=src python -m pytest -q --noconftest
 tests/test_torch_kernels_cuda.py``.
 ``gate_cell`` is held to 1e-5 absolute (its dot products sum in another
 order than torch's GEMM) and must give the bits of its order of work
-emulated on the card (``torch_kernel_orders``); ``c6_repair`` must give
+emulated on the card (``torch_kernel_orders``); ``gate_cell_bwd`` to 1e-5
+of max(1, each weight gradient's largest sum over the streams of |a
+stream's term|) (its weight gradients sum the B streams in tiles of 32,
+then the tiles: 4.5e-7 of the largest entry in float32 on the CPU at
+B = 4096; a gradient that cancels, as alpha, is held to its terms' size)
+and dh to 1e-5 of max(1, its largest |entry|), and two of its launches
+give the same bits; ``c6_repair`` must give
 the bits of its emulated order and equal the plain version's r and p
 outside the boundary exemption of ``test_torch_c6_repair.py`` (the draw and
 the prefix gains sum in another order than torch's); ``ccg_solve``,
@@ -56,7 +62,12 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.kernels.rglru.ops import rglru_scan
-from repro_torch.kernels.temporal_gate.ops import gate_cell
+from repro_torch.kernels.temporal_gate.ops import (
+    gate_cell,
+    gate_cell_autograd,
+    gate_cell_vjp,
+)
+from repro_torch.kernels.temporal_gate.ref import gate_cell_vjp_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -121,6 +132,122 @@ def test_gate_cell_kernel_persistent(dev, b, d):
     for g, w, e in zip(got, want, emulated):
         assert torch.equal(g, e)
         torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+
+
+# gate_cell_bwd: |kernel - plain| <= GRAD_TOL · max(1, the largest sum over
+# the streams of |a stream's term|) for a weight gradient, max(1, the
+# largest |entry|) for dh
+GRAD_TOL = 1e-5
+
+
+def _grad_case(dev, b, d, seed):
+    """A gate cell's operands and nonzero incoming gradients."""
+    dx, h, vol, p = _gate_case(dev, b, d, seed)
+    rng = _gen(seed + 1)
+    return (dx, h, vol, p, _t(rng.normal(size=(b, 32)).astype(np.float32),
+                              dev),
+            _t(rng.normal(size=b).astype(np.float32), dev),
+            _t(rng.normal(size=b).astype(np.float32), dev))
+
+
+def _term_sums(dx, h, vol, p, dh_new=None, dtau=None, dg_mean=None):
+    """Each weight gradient's Σ over the streams of |that stream's term|:
+    the plain VJP of every stream alone (a weight gradient sums them), so a
+    gradient that cancels to a small sum is held to its terms' size."""
+    def one(x, hh, v, *grads):
+        grads = [g[None] for g in grads]
+        kw = dict(zip([k for k, g in (("dh_new", dh_new), ("dtau", dtau),
+                                      ("dg_mean", dg_mean)) if g is not None],
+                      grads))
+        return gate_cell_vjp_ref(x[None], hh[None], v[None], p, **kw,
+                                 need_dh=False)[0]
+    given = [g for g in (dh_new, dtau, dg_mean) if g is not None]
+    per = torch.func.vmap(one)(dx, h, vol, *given)
+    return {k: v.abs().sum(0) for k, v in per.items()}
+
+
+def _assert_grads(got, want, tol=GRAD_TOL, terms=None):
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape, k
+        ref = w if terms is None else terms[k]
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((g - w).abs().max())
+        assert err <= tol * scale, (k, err, scale)
+
+
+@pytest.mark.parametrize("d", [1, 35, 64])
+@pytest.mark.parametrize("b", [1, 37, 4096, 4099])
+def test_gate_cell_bwd_kernel(dev, b, d):
+    """The backward kernel against the plain VJP: every parameter's
+    gradient within 1e-5 of max(1, its largest Σ over the streams of
+    |a stream's term|) (the kernel sums the B streams in tiles of 32, then
+    the tiles, and torch in its own order, so a gradient that cancels to a
+    small sum, as alpha, keeps its terms' rounding: 1.3e-5 off at
+    |alpha| = 0.45, B = 4096, d = 1), dh within 1e-5 of max(1, its largest
+    |entry|), one launch a call, and two launches bit-equal."""
+    dx, h, vol, p, dh_new, dtau, dg = _grad_case(dev, b, d, seed=b + d)
+    reset_launch_counts()
+    got, dh = gate_cell_vjp(dx, h, vol, p, dh_new, dtau, dg, force="kernel")
+    assert launch_counts() == {"gate_cell_bwd": 1}
+    want, dh_want = gate_cell_vjp(dx, h, vol, p, dh_new, dtau, dg,
+                                  force="ref")
+    _assert_grads(got, want,
+                  terms=_term_sums(dx, h, vol, p, dh_new, dtau, dg))
+    _assert_grads({"dh": dh}, {"dh": dh_want})
+    again, dh_again = gate_cell_vjp(dx, h, vol, p, dh_new, dtau, dg,
+                                    force="kernel")
+    assert torch.equal(dh, dh_again)
+    for k in want:
+        assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.parametrize("given", ["dtau", "dh_new", "dg_mean", "none"])
+def test_gate_cell_bwd_kernel_absent_gradients(dev, given):
+    """Each incoming gradient alone (the others None: zero), and none at
+    all (every gradient exactly zero); without ``need_dh`` no dh."""
+    dx, h, vol, p, dh_new, dtau, dg = _grad_case(dev, 300, 35, seed=3)
+    kw = {"dh_new": dh_new, "dtau": dtau, "dg_mean": dg}
+    kw = {k: v for k, v in kw.items() if k == given}
+    got, dh = gate_cell_vjp(dx, h, vol, p, **kw, force="kernel")
+    want, dh_want = gate_cell_vjp(dx, h, vol, p, **kw, force="ref")
+    if given == "none":
+        assert all(not bool(g.any()) for g in got.values())
+        assert not bool(dh.any())
+    else:
+        _assert_grads(got, want, terms=_term_sums(dx, h, vol, p, **kw))
+        _assert_grads({"dh": dh}, {"dh": dh_want})
+    only, none = gate_cell_vjp(dx, h, vol, p, **kw, need_dh=False,
+                               force="kernel")
+    assert none is None
+    for k in got:
+        assert torch.equal(only[k], got[k]), k
+
+
+def test_gate_cell_autograd_runs_the_backward_kernel(dev):
+    """``GateCellFn`` on the card: the forward kernel forward, the
+    backward kernel backward (no plain version), gradients of h and the
+    parameters within 1e-5 of autograd through the plain cell; a wrong
+    shape raises instead of falling back."""
+    dx, h, vol, p, dh_new, dtau, dg = _grad_case(dev, 513, 35, seed=5)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    h1 = h.clone().requires_grad_(True)
+    reset_launch_counts()
+    out = gate_cell_autograd(dx, h1, vol, leaves)
+    loss = sum((o * w).sum() for o, w in zip(out, (dh_new, dtau, dg)))
+    loss.backward()
+    assert launch_counts() == {"gate_cell": 1, "gate_cell_bwd": 1}
+    plain = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    h2 = h.clone().requires_grad_(True)
+    out = gate_cell(dx, h2, vol, plain, force="ref")
+    sum((o * w).sum() for o, w in zip(out, (dh_new, dtau, dg))).backward()
+    _assert_grads({k: v.grad for k, v in leaves.items()},
+                  {k: v.grad for k, v in plain.items()},
+                  terms=_term_sums(dx, h, vol, p, dh_new, dtau, dg))
+    _assert_grads({"h": h1.grad}, {"h": h2.grad})
+    with pytest.raises(ValueError):
+        gate_cell_vjp(dx[:, :1].expand(513, 65).contiguous(), h, vol, p,
+                      force="kernel")
 
 
 def test_gate_cell_kernel_unaligned_operands(dev):
@@ -626,6 +753,10 @@ def test_decode_attention_kernel_generic_pieces(dev, dtype):
     # G query heads per KV head × head dims, across two key tiles
     *[(2, 2 * g, 2, 65, 65, d, None, True)
       for g in (1, 4, 16) for d in (64, 128, 256)],
+    # the SMOKE tier models' head dims (the serve launcher's pools)
+    (2, 4, 4, 48, 48, 16, None, True),       # qwen1.5-0.5b SMOKE
+    (2, 8, 2, 48, 48, 8, None, True),        # qwen3-8b SMOKE
+    (2, 8, 2, 40, 40, 16, 16, True),         # D = 16, window, two tiles
 ])
 def test_flash_attention_kernel(dev, dtype, b, h, kv, sq, sk, d, window,
                                 causal):

@@ -12,7 +12,13 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.cost_model import SystemConfig, fps_norm, res_norm
-from repro_torch.core.gating import GateConfig, init_batch_state, init_gate_params
+from repro_torch.core.curriculum import CurriculumConfig, offline_warmup
+from repro_torch.core.gating import (
+    GateConfig,
+    init_batch_state,
+    init_gate_params,
+    init_state,
+)
 from repro_torch.core.lattice import DecisionLattice
 from repro_torch.core.robust import RobustProblem, solve_ccg_fused
 from repro_torch.core.router import init_router_state
@@ -26,13 +32,14 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.kernels.rglru.ops import rglru_scan
-from repro_torch.kernels.temporal_gate.ops import gate_cell
+from repro_torch.kernels.temporal_gate.ops import gate_cell, gate_cell_vjp
+from repro_torch.launch import serve
 from repro_torch.models.config import MoEConfig, RGLRUConfig, SSMConfig
 from repro_torch.models.model import model_specs
 from repro_torch.models.params import init_params
 from repro_torch.serving.policy import Observation, make_policy
 from repro_torch.serving.pools import ModelPool, make_tier_pools
-from repro_torch.serving.session import ServeSession
+from repro_torch.serving.session import FinetuneConfig, ServeSession
 from repro_torch.serving.simulator import Simulator, SimConfig
 
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
@@ -101,7 +108,8 @@ def _no_cuda():
 @pytest.mark.parametrize("entry", [
     "make_policy", "lattice", "robust_problem", "router_state", "gate_state",
     "gate_params", "simulator", "baseline_policy", "model_pool",
-    "tier_pools", "model_params"])
+    "tier_pools", "model_params", "gate_stream_state", "offline_warmup",
+    "serve_launcher"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     _no_cuda()
     calls = {
@@ -120,6 +128,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
             get_smoke_config("qwen1.5-0.5b"), get_smoke_config("qwen3-8b")),
         "model_params": lambda: init_params(
             model_specs(get_smoke_config("qwen3-8b")), torch.Generator()),
+        "gate_stream_state": lambda: init_state(GCFG, 4),
+        "offline_warmup": lambda: offline_warmup(
+            GCFG, iter([]), CurriculumConfig(), torch.Generator()),
+        "serve_launcher": lambda: serve.main(["--rounds", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -158,6 +170,9 @@ def _kernel_calls():
                                          res_norm(SystemConfig(), "cpu"),
                                          fps_norm(SystemConfig(), "cpu"),
                                          600.0, n_fps=5, rounds=2, force=f),
+        "gate_cell_bwd": lambda f: gate_cell_vjp(
+            torch.zeros(m, 35), torch.zeros(m, 32), f32, gp, dtau=f32,
+            force=f),
         "lpt_queue": lambda f: lpt_queue(f32, i32, 4, 1, force=f),
         "ccg_encode": lambda f: ccg_encode(
             f32, f32, lat.rn_flat, lat.pn_flat, lat.tier_flat,
@@ -182,7 +197,8 @@ def _kernel_calls():
     }
 
 
-@pytest.mark.parametrize("name", ["gate_cell", "ccg_solve", "c6_tail",
+@pytest.mark.parametrize("name", ["gate_cell", "gate_cell_bwd",
+                                  "ccg_solve", "c6_tail",
                                   "c6_repair", "lpt_queue", "ccg_encode",
                                   "ccg_master", "decode_attention",
                                   "flash_attention",
@@ -202,10 +218,11 @@ def test_force_kernel_on_cpu_tensor_raises(name):
 
 def test_unported_branches_raise():
     """Only the branches still to port raise, naming their ROADMAP item:
-    the mesh (A.15), online finetuning (A.11), and model pools of configs
-    with MoE blocks, M-RoPE or an embedding-input front end (A.14).  Tier
-    outages, ported with the scenarios (A.9), run: the fused solve and a
-    session's step with ``tier_ok`` return solutions off the dead tier.
+    the mesh (A.15) and model pools of configs with MoE blocks, M-RoPE or
+    an embedding-input front end (A.14).  Online finetuning (A.11) runs: a
+    session with a ``FinetuneConfig`` serves a round.  Tier outages, ported
+    with the scenarios (A.9), run: the fused solve and a session's step
+    with ``tier_ok`` return solutions off the dead tier.
     Every registered policy builds, including R2E-VID's τ-proxy mode and
     its ablations, a session takes live tier pools, and pools with SSM or
     RG-LRU blocks (a dense config given either mixer, and the Falcon-Mamba
@@ -224,8 +241,17 @@ def test_unported_branches_raise():
                       generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="A.15"):
         ServeSession(pol, n_streams=3, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A.11"):
-        ServeSession(pol, n_streams=3, device="cpu", finetune=object())
+    # online finetuning (A.11) is ported: a session builds and serves a
+    # round, and its first round (before any update) is the plain round
+    ft = ServeSession(pol, n_streams=3, device="cpu",
+                      finetune=FinetuneConfig())
+    stream = Observation(z=z[None], aq=z[None], dx=torch.zeros(1, 3, 35),
+                         bw_mult=torch.ones(1, 2), u=torch.zeros(1, 5))
+    out = ft.run(stream)
+    assert int(ft._rounds_done) == 1
+    plain = ServeSession(pol, n_streams=3, device="cpu").run(stream)
+    for k in plain:
+        assert torch.equal(out[k], plain[k]), k
     obs = Observation(z=z, aq=z, dx=torch.zeros(3, 35), bw_mult=torch.ones(2),
                       u=torch.zeros(5), tier_ok=torch.tensor([0.0, 1.0]))
     for p in (pol, make_policy("sniper", SystemConfig(), device="cpu")):

@@ -6,7 +6,7 @@ NVIDIA GPU.
                                       mamba_scan|flash_attention|
                                       decode_attention|lpt_queue|
                                       rglru_scan|ccg_solve|gate_cell|
-                                      c6_repair]
+                                      gate_cell_bwd|c6_repair]
                                      [--rounds 2] [--diagnose] [--reps 200]
 
 Builds each kernel as committed (``src/repro_torch/kernels/csrc/``) and
@@ -96,6 +96,14 @@ timed.
                                   kernel's first shape)
                    warps4_streams8  4 warps × 8 streams a tile
                    tile64         16 warps × 4 streams: 64-stream tiles
+  gate_cell_bwd    committed      a 512-thread block a 32-stream tile
+                                  (source temporal_gate_bwd.cu): 16 warps
+                                  × 2 streams side by side, then 4 × 4
+                                  tiles of the weight gradients; then the
+                                  ordered sum over tiles in 256-thread
+                                  blocks
+                   warps32_streams1  32 warps × 1 stream a tile
+                   reduce64       the sum over tiles in 64-thread blocks
   c6_repair        committed      one block of 1024 threads (source
                                   c6_tail.cu)
                    threads512     one block of 512 threads (another order
@@ -182,6 +190,15 @@ kernel's time goes:
                    copies_only    no product at all: the launch, the copies,
                                   the gates and the stores
                    fma            (as above, timed beside the cuts)
+  gate_cell_bwd    no_phase1      no stream's forward or chain rule
+                                  (the tile sums of stale values)
+                   no_phase2      no weight-gradient sum (the launch, the
+                                  copies, the per-stream pass, the
+                                  reduction)
+                   no_weights     the weights not copied into shared
+                                  memory
+                   reduce_only    none of the three: the launch, the
+                                  tile's copies and the reduction
   c6_repair        no_sort        the keys not sorted (demotes in
                                   compaction order)
                    no_early_stop  every round runs its pass, sort and scan
@@ -551,8 +568,18 @@ WALKERS = ("(tid == 0) & (n_edge_tasks > 0)", "(tid == 32) & (n_cloud_tasks > 0)
            "} else if (!sorted & (tid == 0)) {")
 
 
+# temporal_gate_bwd.cu
+BWD_STREAMS = "  if (sf < rows) {                               // warp-uniform"
+BWD_ITEMS = "  for (int it = tid; it < n_items; it += nt) {"
+BWD_WEIGHTS = ("  for (int i = tid; i < d * kM; i += nt) {",
+               "  for (int i = tid; i < kM * kM; i += nt) {")
+BWD_REDUCE = "constexpr int kReduceThreads = 256;"
+BWD_SHAPE = ("constexpr int kWarps = 16;", "constexpr int kS = 2;")
+
+
 # the source file of a kernel whose file is named otherwise
-SOURCE_OF = {"gate_cell": "temporal_gate", "c6_repair": "c6_tail"}
+SOURCE_OF = {"gate_cell": "temporal_gate", "c6_repair": "c6_tail",
+             "gate_cell_bwd": "temporal_gate_bwd"}
 
 
 def source_file(kernel: str) -> str:
@@ -649,6 +676,14 @@ def variants(kernel: str, src: str) -> dict:
                 "warps8_streams4": edit(src, *gate_shape(8, 4), no_unroll),
                 "warps4_streams8": edit(src, *gate_shape(4, 8)),
                 "tile64": edit(src, *gate_shape(16, 4))}
+    if kernel == "gate_cell_bwd":
+        return {"committed": src,
+                "warps32_streams1": edit(src, (BWD_SHAPE[0], BWD_SHAPE[0]
+                                               .replace("16", "32")),
+                                         (BWD_SHAPE[1], BWD_SHAPE[1]
+                                          .replace("2", "1"))),
+                "reduce64": edit(src, (BWD_REDUCE,
+                                       BWD_REDUCE.replace("256", "64")))}
     if kernel == "c6_repair":
         return {"committed": src,
                 "threads512": edit(src, (REPAIR_THREADS,
@@ -773,6 +808,18 @@ def diagnostics(kernel: str, src: str) -> dict:
                     *((loop, loop.replace("k < d", "k < 0 * d"))
                       for loop in GATE_X)),
                 "fma": edit(src, (GATE_MADD, "  return fmaf(x, w, acc);"))}
+    if kernel == "gate_cell_bwd":
+        no_phase1 = (BWD_STREAMS, BWD_STREAMS.replace("sf < rows",
+                                                      "sf < 0 * rows"))
+        no_phase2 = (BWD_ITEMS, BWD_ITEMS.replace("it < n_items",
+                                                  "it < 0 * n_items"))
+        no_weights = tuple((loop, loop.replace("i < ", "i < 0 * "))
+                           for loop in BWD_WEIGHTS)
+        return {"committed": src,
+                "no_phase1": edit(src, no_phase1),
+                "no_phase2": edit(src, no_phase2),
+                "no_weights": edit(src, *no_weights),
+                "reduce_only": edit(src, no_phase1, no_phase2, *no_weights)}
     if kernel == "c6_repair":
         return {"committed": src,
                 "no_sort": edit(src, (REPAIR_SORT, "")),
@@ -1138,6 +1185,67 @@ class GateCell:
                     torch.equal(g, c) for g, c in zip(got, self.committed))}
 
 
+class GateCellBwd:
+    """``gate_cell_bwd`` at B = 4096, d = 35 on ``chip_smoke.py``'s
+    kernel-row inputs (the stream's round-0 features, random h, vol and
+    incoming gradients), through its wrapper with the variant's library:
+    every gradient within ``chip_smoke.GRAD_TOL`` of max(1, its largest
+    |entry|);
+    timed by the profiler's device time of a call (both kernels)."""
+
+    def __init__(self, torch, reps: int, chip_smoke):
+        from repro_torch.core.cost_model import SystemConfig
+        from repro_torch.core.gating import GateConfig, init_gate_params
+        from repro_torch.kernels.temporal_gate.ops import gate_cell_vjp
+        from repro_torch.serving.simulator import SimConfig, Simulator
+
+        self.torch, self.reps, self.smoke = torch, reps, chip_smoke
+        self.fn = gate_cell_vjp
+        dev = torch.device("cuda")
+        gen = torch.Generator().manual_seed(11)
+        p = init_gate_params(GateConfig(d_feature=35), gen, dev)
+        p = {k: v + 0.1 * torch.randn(v.shape, generator=gen).to(dev)
+             if k.startswith("b_") else v for k, v in p.items()}
+        stream = Simulator(SystemConfig(), SimConfig(n_tasks=M, seed=0),
+                           device=dev).sample_stream(n_rounds=1,
+                                                     feature_seed=1)
+        rand = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+        self.args = (stream.dx[0].contiguous(),
+                     (torch.rand((M, 32), generator=gen) * 2 - 1).to(dev),
+                     (torch.rand((M,), generator=gen) * 2).to(dev), p)
+        self.kw = dict(dh_new=rand(M, 32), dtau=rand(M), dg_mean=rand(M))
+        self.want = self._flat(gate_cell_vjp(*self.args, **self.kw,
+                                             force="ref"))
+        self.committed = self._flat(gate_cell_vjp(*self.args, **self.kw,
+                                                  force="kernel"))
+
+    @staticmethod
+    def _flat(out):
+        grads, dh = out
+        return dict(grads, dh=dh)
+
+    def __call__(self, lib, exact_required: bool) -> dict:
+        from repro_torch.kernels import _build
+
+        torch = self.torch
+        _build.library = lambda: lib
+        call = lambda: self.fn(*self.args, **self.kw, force="kernel")
+        got = self._flat(call())
+        torch.cuda.synchronize()
+        err = max(float((got[k] - w).abs().max()
+                        / w.abs().max().clamp_min(1.0))
+                  for k, w in self.want.items())
+        if exact_required and not err <= self.smoke.GRAD_TOL:
+            return {"outside_tolerance": f"{err} of the largest entry > "
+                                         f"{self.smoke.GRAD_TOL}"}
+        return {"ms": self.smoke.device_ms(torch, call, None, self.reps),
+                "events_ms": _event_ms(torch, call, self.reps),
+                "max_err_rel_to_max_1_largest": err,
+                "bit_equal_to_committed": all(
+                    torch.equal(got[k], c) for k, c in
+                    self.committed.items())}
+
+
 class C6Repair:
     """``c6_repair`` at M = 4096 on ``chip_smoke.c6_repair_cases`` (the
     main path's inputs and the demoting case), through its wrapper with the
@@ -1275,7 +1383,7 @@ class SmokeRows:
 
 KERNELS = ("ccg_encode", "ccg_master", "mamba_scan", "flash_attention",
            "decode_attention", "lpt_queue", "rglru_scan", "ccg_solve",
-           "gate_cell", "c6_repair")
+           "gate_cell", "gate_cell_bwd", "c6_repair")
 EVENT_TIMED = {"lpt_queue": LptQueue}
 
 
@@ -1308,6 +1416,8 @@ def main() -> int:
                                               chip_smoke.device_ms),
                 "gate_cell": lambda: GateCell(torch, args.reps,
                                               chip_smoke.device_ms),
+                "gate_cell_bwd": lambda: GateCellBwd(torch, args.reps,
+                                                     chip_smoke),
                 "c6_repair": lambda: C6Repair(torch, args.reps, chip_smoke)}
     runs = {k: profiled[k]() if k in profiled
             else EVENT_TIMED[k](torch, args.reps)
