@@ -30,8 +30,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  prefills of B ∈ {1, 2, 4, 8} × 16..80 tokens) and at ragged,
                  windowed and non-causal shapes, and at RecurrentGemma's
                  (MQA with G = 16, D = 256, a slab of 16 × 80 entries,
-                 window 2048), and at the serve launcher's SMOKE tiers
-                 (head dims 16 and 8), within 2e-2 + 2e-2·|plain| in bf16 and
+                 window 2048), at the MoE and front-end models' (Moonshot
+                 G = 1, D = 128; Mixtral G = 6, window 4096, a slab of
+                 16 × 80; Qwen2-VL G = 6; MusicGen D = 64), and at the serve
+                 launcher's SMOKE tiers (head dims 16 and 8), flash_attention
+                 also at runtime positions (Qwen2-VL's image-grid layout and
+                 shuffled ones, with and without a window; positions
+                 0..S-1 bit-equal to the index launch), within
+                 2e-2 + 2e-2·|plain| in bf16 and
                  2e-5 + 2e-5·|plain| in float32; mamba_scan and rglru_scan
                  at the recurrent pools' decode step (16 rows) and longest
                  prefill (8 × 80) and at ragged shapes, x in bf16 and
@@ -183,6 +189,28 @@ Phases, one JSON line each; any failure exits non-zero:
                  profiled windows 2 calls, not 5: the plain selective scan
                  is a Python loop over the steps of every layer (~1 s for
                  an 8 × 80 prefill), and every id flip is replayed on it.
+13. ``dispatch_moe`` the same phase with the MoE cloud tier, after the
+                 earlier pools are freed: Qwen1.5-0.5B edge, Moonshot-v1-
+                 16B-A3B cloud at full width and depth (48 layers, 64
+                 experts, top-6, bf16: 56.1 GB of weights, its stacked
+                 expert leaves drawn a layer at a time), 64 routed streams,
+                 profiled windows of 2 calls, its peak device memory; then,
+                 Moonshot freed, Mixtral-8x22B at full width and 4 of its 56
+                 layers (5.0 GB a layer): one 8 × 80 prefill into the slab
+                 and 8 slab decode steps, greedy on the kernels and plain
+                 (logits, ids by the margin rule, flash_attention = 4 and
+                 decode_attention = 32 launches), its pool calls profiled.
+14. ``front_end`` the embedding-input models at full width and depth in
+                 bf16: Qwen2-VL-2B (28 layers, M-RoPE) and MusicGen-medium
+                 (48 layers), each a prefill of seeded (8, 80, d)
+                 embeddings, then 8 decode steps of seeded (8, 1, d) ones;
+                 Qwen2-VL's prefill at its own position layout (16 text
+                 tokens, a 2 × 4 × 4 patch grid, 32 text tokens: the
+                 kernel masks by those positions) and its decode steps at
+                 explicit (8, 3, 1) positions, MusicGen's at the default
+                 ones; kernels against plain (logits, ids by the margin
+                 rule, launches = layers × calls, each flash_attention call
+                 held against its plain version with its positions).
 
 The last three lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``--out DIR`` also
@@ -901,19 +929,28 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
 def attention_rows(torch, dev):
     """decode_attention and flash_attention against their plain versions
     at the dispatch path's shapes and at ragged ones, for the full-width
-    tiers and the serve launcher's SMOKE tiers, then timed at the cloud
-    tier's shapes (the edge tier's beside them)."""
+    tiers (the MoE and front-end models' too) and the serve launcher's
+    SMOKE tiers, flash_attention also at runtime positions (Qwen2-VL's
+    image-grid layout, shuffled, with and without a window; positions
+    0..S-1 must give the index launch's bits), then timed at the cloud
+    tier's shapes (every other tier's beside them, and the positions mode
+    at Qwen2-VL's)."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels.decode_attention.ops import decode_attention, \
         split_rule
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.layers import mrope_positions
 
     gen = torch.Generator(dev).manual_seed(11)
     tiers = {"edge": get_config("qwen1.5-0.5b"),
              "cloud": get_config("qwen3-8b"),
-             "recurrentgemma": get_config("recurrentgemma-9b")}
+             "recurrentgemma": get_config("recurrentgemma-9b"),
+             "moonshot": get_config("moonshot-v1-16b-a3b"),
+             "mixtral": get_config("mixtral-8x22b"),
+             "qwen2_vl": get_config("qwen2-vl-2b"),
+             "musicgen": get_config("musicgen-medium")}
     # checked, not timed: the serve launcher's SMOKE pools (head dims 16, 8)
     checked = {**tiers, "edge_smoke": get_smoke_config("qwen1.5-0.5b"),
                "cloud_smoke": get_smoke_config("qwen3-8b")}
@@ -961,6 +998,26 @@ def attention_rows(torch, dev):
                 (str(dt)[6:], flash_case(cfg, dt, 2, 65)),
                 (str(dt)[6:], flash_case(cfg, dt, 2, 100, window=16)),
                 (str(dt)[6:], flash_case(cfg, dt, 1, 5, 70, causal=False))]
+
+    def shuffled(b, s):
+        return torch.stack([torch.randperm(s, generator=gen, device=dev)
+                            for _ in range(b)]).to(torch.int32)
+
+    # runtime positions: Qwen2-VL's temporal stream (16 text tokens, a
+    # 2 × 4 × 4 patch grid, 32 text tokens), and shuffled ones
+    vl = mrope_positions(16, (2, 4, 4), 32, 8, dev)[:, 0]
+    n_positioned = len(cases["flash_attention"])
+    for cfg in (tiers["qwen2_vl"], tiers["mixtral"], tiers["musicgen"],
+                get_smoke_config("qwen2-vl-2b")):
+        for dt in (bf16, f32):
+            cases["flash_attention"] += [
+                (str(dt)[6:], flash_case(cfg, dt, 8, 80, positions=vl)),
+                (str(dt)[6:], flash_case(cfg, dt, 8, 80, positions=vl,
+                                         window=16)),
+                (str(dt)[6:], flash_case(cfg, dt, 2, 70,
+                                         positions=shuffled(2, 70),
+                                         window=24))]
+    n_positioned = len(cases["flash_attention"]) - n_positioned
     fns = {"decode_attention": decode_attention,
            "flash_attention": flash_attention}
     rows = {}
@@ -977,6 +1034,9 @@ def attention_rows(torch, dev):
                     f"{name} ({dtype}): kernel vs plain max |diff| "
                     f"{float(diff.max())} over {tol} + {tol}·|plain|")
             errs[dtype] = max(errs[dtype], float(diff.max()))
+            if "positions" in kw:
+                errs["positions"] = max(errs.get("positions", 0.0),
+                                        float(diff.max()))
         rows[name] = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -989,6 +1049,24 @@ def attention_rows(torch, dev):
             "cases_compared": len(cases[name]),
             "head_dims_compared": sorted({c.head_dim
                                           for c in checked.values()})}
+    rows["flash_attention"]["positions_cases_compared"] = n_positioned
+    rows["flash_attention"]["positions_max_abs_err"] = errs["positions"]
+    # positions 0..S-1 visit every key tile; the ones the index launch
+    # skips are fully masked, so the two launches give the same bits
+    same = []
+    for tier in ("cloud", "recurrentgemma", "mixtral", "qwen2_vl"):
+        cfg = tiers[tier]
+        win = {"window": cfg.attn_window} if cfg.attn_window else {}
+        for b, s in ((8, 80), (2, 100)):
+            args, _ = flash_case(cfg, bf16, b, s)
+            ar = torch.arange(s, device=dev, dtype=torch.int32).expand(b, s)
+            same.append(torch.equal(
+                flash_attention(*args, force="kernel", **win),
+                flash_attention(*args, force="kernel", positions=ar, **win)))
+    if not all(same):
+        raise AssertionError(f"flash_attention: positions 0..S-1 differ "
+                             f"from the index launch ({same})")
+    rows["flash_attention"]["arange_positions_bit_equal_cases"] = len(same)
 
     def timed(name, fn, args, kw, library, nbytes, flops):
         """Kernel and library each by CUDA events around the call, taken
@@ -1052,8 +1130,29 @@ def attention_rows(torch, dev):
             "torch.nn.functional.scaled_dot_product_attention(enable_gqa="
             "True" + (", attn_mask=lengths)" if name == "decode_attention"
                       else ", is_causal=True)"))
-        row["edge"] = shapes["edge"][name]
-        row["recurrentgemma"] = shapes["recurrentgemma"][name]
+        for tier in tiers:
+            if tier != "cloud":
+                row[tier] = shapes[tier][name]
+    # the positions mode at Qwen2-VL's prefill (every key tile visited);
+    # operations: 4·D a (head, visible query-key pair) of this input
+    cfg = tiers["qwen2_vl"]
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    (fq, fk, fv), _ = flash_case(cfg, bf16, 8, 80)
+    seen = vl[:, :, None] >= vl[:, None, :]                 # (B, Sq, Sk)
+    pos_row = timed("flash_attention", flash_attention, (fq, fk, fv),
+                    {"positions": vl},
+                    lambda: F.scaled_dot_product_attention(
+                        fq, fk, fv, attn_mask=seen[:, None],
+                        enable_gqa=True),
+                    2 * 8 * 80 * d * (2 * h + 2 * kv) + 4 * 8 * 80,
+                    4 * h * d * float(seen.sum()))
+    pos_row["shape"] = (f"B=8 Sq=Sk=80 H={h} KV={kv} D={d} bf16, Qwen2-VL "
+                        "positions (text 16, patches 2 × 4 × 4, text 32)")
+    pos_row["index_launch_ms"] = shapes["qwen2_vl"]["flash_attention"]["ms"]
+    pos_row["library_call"] = ("torch.nn.functional.scaled_dot_product_"
+                               "attention(enable_gqa=True, attn_mask="
+                               "pos_q >= pos_k)")
+    rows["flash_attention"]["positions"] = pos_row
     return rows
 
 
@@ -2620,10 +2719,7 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
 
     sys_ = SystemConfig()
     cfgs = {t: get_config(a) for t, a in enumerate(archs)}
-    gc.collect()
-    torch.cuda.empty_cache()
-    memory_before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
+    memory_before = free_device_memory(torch)
     t0 = time.perf_counter()
     pools = make_tier_pools(cfgs[0], cfgs[1], device=dev)
     torch.cuda.synchronize()
@@ -2688,10 +2784,9 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
            "layers": layers, "depth_cut": None, "dtype": "bfloat16",
            "routed_streams": m,
            "weights_init_s": init_s,
-           "weights_gb": {p.name: sum(t.numel() * t.element_size()
-                                      for t in tree_leaves(p.params)) / 1e9
+           "weights_gb": {p.name: weights_gb(p.params)
                           for p in pools.values()},
-           "device_memory_gb_before": memory_before / 1e9,
+           "device_memory_gb_before": memory_before,
            "slab": {p.name: {"slots": SLOTS, "max_prompt": PROMPTS[-1],
                              "gb": slab_gb(p.cfg)} for p in pools.values()}}
     totals = collections.Counter()
@@ -2769,6 +2864,211 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
     return totals, rec
 
 
+def free_device_memory(torch) -> float:
+    """Collect the earlier phases' garbage (pools, slabs, sessions) and
+    return the caching allocator's blocks; the GB still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def weights_gb(params) -> float:
+    from repro_torch.models.params import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+
+
+def greedy_flips(torch, got, want, what: str) -> dict:
+    """Kernel against plain logits of the same calls (a list of (B, V)
+    float32, one per call, rows in lockstep): the greedy ids of each row
+    agree until its first difference, which must fall where the plain
+    path's top-2 margin is at most LOGIT_MARGIN (later calls of that row
+    took other inputs, or are compared no further)."""
+    live = torch.ones(got[0].shape[0], dtype=torch.bool, device=got[0].device)
+    flips, margins, max_diff = 0, [], 0.0
+    for t, (g, w) in enumerate(zip(got, want)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: non-finite logits at call {t}")
+        max_diff = max(max_diff, float((g - w)[live].abs().max())
+                       if bool(live.any()) else 0.0)
+        top2 = w.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        differ = live & (g.argmax(-1) != w.argmax(-1))
+        if bool((differ & (margin > LOGIT_MARGIN)).any()):
+            raise AssertionError(
+                f"{what}: kernel and plain ids differ at call {t} where the "
+                f"plain margin is {float(margin[differ].max())} > "
+                f"{LOGIT_MARGIN}")
+        flips += int(differ.sum())
+        margins += [float(x) for x in margin[differ]]
+        live &= ~differ
+    return {"calls": len(got), "rows": int(got[0].shape[0]),
+            "ids_flips_under_margin": flips, "flip_margins": margins,
+            "logits_max_abs_diff": max_diff}
+
+
+def mixtral_cut_phase(torch, dev, counts_reset, counts_read, layers=4,
+                      steps=8, trace_reps=2):
+    """Mixtral-8x22B at full width and ``layers`` of its 56 layers (5.0 GB
+    a layer in bf16: one card cannot hold 56), kernels against plain on
+    the same weights: one 8 × 80 prefill into a 16-slot slab (rows 0..7),
+    then ``steps`` decode steps over the slab, greedy on each path; launches
+    = layers × calls; then the pool calls traced."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.serving.pools import ModelPool
+
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), num_layers=layers)
+    before = free_device_memory(torch)
+    t0 = time.perf_counter()
+    pool = ModelPool(cfg, torch.Generator(dev).manual_seed(2), name="cloud",
+                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pools = {"kernels": pool,
+             "plain": ModelPool(cfg, name="cloud", device=dev, force="ref",
+                                params=pool.params)}
+    toks = torch.as_tensor((np.arange(8)[:, None] * 131 + np.arange(80))
+                           % cfg.vocab_size, device=dev).long()
+    logits, walls, launches = {}, {}, {}
+    for path, p in pools.items():
+        slab = p.make_slab(SLOTS, PROMPTS[-1])
+        counts_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, cache = prefill(p.ctx, p.params, {"tokens": toks})
+        p.insert_slab(slab, cache, list(range(8)))
+        last = torch.zeros(SLOTS, dtype=torch.long, device=dev)
+        seq = [first]
+        for _ in range(steps):
+            last[:8] = seq[-1][:8].argmax(-1)
+            step_logits, slab = decode_step(p.ctx, p.params, slab,
+                                            {"tokens": last[:, None]})
+            seq.append(step_logits)
+        torch.cuda.synchronize()
+        walls[path] = time.perf_counter() - t0
+        launches[path] = counts_read()
+        logits[path] = [x[:8] for x in seq]
+    want = {"flash_attention": layers, "decode_attention": layers * steps}
+    if launches["kernels"] != want or launches["plain"]:
+        raise AssertionError(f"mixtral cut launched {launches}, want "
+                             f"{want} on the kernels and none plain")
+    rec = {"arch": cfg.name, "layers": layers, "depth_cut": f"{layers} of 56",
+           "dtype": "bfloat16", "weights_gb": weights_gb(pool.params),
+           "weights_init_s": init_s, "device_memory_gb_before": before,
+           "slab": {"slots": SLOTS, "entries": min(cfg.attn_window,
+                                                    PROMPTS[-1])},
+           "launches": launches["kernels"], "wall_s": walls,
+           "prefill_then_steps": greedy_flips(
+               torch, logits["kernels"], logits["plain"], "mixtral cut"),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    rec["trace"] = trace_pools(torch, pools, trace_reps)
+    return want, rec
+
+
+def front_end_phase(torch, dev, counts_reset, counts_read, b=8, s=80,
+                    steps=8):
+    """The embedding-input models at full width and depth in bf16:
+    Qwen2-VL-2B (M-RoPE; a prefill at Qwen2-VL's positions, 16 text
+    tokens, a 2 × 4 × 4 patch grid and 32 text tokens, then decode steps at
+    explicit (B, 3, 1) text positions) and MusicGen-medium (default
+    positions), each a prefill of seeded (B, S, d) embeddings then
+    ``steps`` decode steps of seeded (B, 1, d) ones, on the kernels and
+    plain: launches = layers × calls, logits and greedy ids by the margin
+    rule, every flash_attention call of the kernels' prefill held against
+    the plain version on a copy of its inputs (with its positions, for
+    Qwen2-VL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.layers import Ctx, mrope_positions
+    from repro_torch.models.model import decode_step, model_specs, prefill
+    from repro_torch.models.params import init_params
+
+    totals = collections.Counter()
+    rec = {"phase": "front_end"}
+    for arch in ("qwen2-vl-2b", "musicgen-medium"):
+        cfg = get_config(arch)
+        before = free_device_memory(torch)
+        t0 = time.perf_counter()
+        params = init_params(model_specs(cfg),
+                             torch.Generator(dev).manual_seed(3), dev,
+                             torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gen = torch.Generator(dev).manual_seed(4)
+
+        def emb(n):
+            return torch.randn((b, n, cfg.d_model), generator=gen,
+                               device=dev).to(torch.bfloat16)
+
+        batches = [{"embeddings": emb(s)}] + [{"embeddings": emb(1)}
+                                              for _ in range(steps)]
+        if cfg.mrope:
+            pos = mrope_positions(16, (2, 4, 4), s - 48, b, dev)
+            batches[0]["positions"] = pos
+            for i, batch in enumerate(batches[1:]):
+                batch["positions"] = torch.full(
+                    (b, 3, 1), int(pos.max()) + 1 + i, dtype=torch.int32,
+                    device=dev)
+        logits, walls, launches = {}, {}, {}
+        for path, force in (("kernels", "auto"), ("plain", "ref")):
+            ctx = Ctx(cfg=cfg, force=force)
+            counts_reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with Recorder(flash_ops, "flash_attention",
+                          copy=True) as flash_calls:
+                out, cache = prefill(ctx, params, batches[0])
+            seq = [out]
+            for batch in batches[1:]:
+                out, cache = decode_step(ctx, params, cache, batch)
+                seq.append(out)
+            torch.cuda.synchronize()
+            walls[path] = time.perf_counter() - t0
+            launches[path] = counts_read()
+            logits[path] = seq
+            if path == "kernels":
+                kernel_calls = flash_calls
+        layers = cfg.num_layers
+        want = {"flash_attention": layers, "decode_attention": layers * steps}
+        if launches["kernels"] != want or launches["plain"]:
+            raise AssertionError(f"{arch} launched {launches}, want {want} "
+                                 "on the kernels and none plain")
+        if any(x.shape != (b, cfg.vocab_size) for x in logits["kernels"]):
+            raise AssertionError(f"{arch}: logits of the wrong shape")
+        flash_err = 0.0
+        for args, kw, got in kernel_calls:
+            if (kw.get("positions") is not None) != cfg.mrope:
+                raise AssertionError(f"{arch}: flash_attention positions "
+                                     f"{kw.get('positions')}")
+            ref = flash_ops.flash_attention(*args, **{**kw, "force": "ref"})
+            diff = (got.double() - ref.double()).abs()
+            tol = ATTN_TOL["bfloat16"]
+            if not bool((diff <= tol + tol * ref.double().abs()).all()):
+                raise AssertionError(f"{arch}: flash_attention kernel vs "
+                                     f"plain max |diff| {float(diff.max())}")
+            flash_err = max(flash_err, float(diff.max()))
+        totals.update(want)
+        rec[arch] = {
+            "layers": layers, "depth_cut": None, "dtype": "bfloat16",
+            "batch": b, "prompt": s, "decode_steps": steps,
+            "positions": ("Qwen2-VL layout: text 16, patches 2 × 4 × 4 at "
+                          "(s0 + frame, s0 + row, s0 + col), text 32; "
+                          "decode (B, 3, 1) after the largest")
+            if cfg.mrope else "default (arange; length on decode)",
+            "weights_gb": weights_gb(params), "weights_init_s": init_s,
+            "device_memory_gb_before": before, "launches": launches["kernels"],
+            "wall_s": walls,
+            "prefill_then_steps": greedy_flips(torch, logits["kernels"],
+                                               logits["plain"], arch),
+            "flash_calls_vs_plain": {"calls": len(kernel_calls),
+                                     "max_abs_err": flash_err},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del params, cache, kernel_calls, flash_calls, logits
+    return dict(totals), rec
+
+
 def trace_round(torch, sess, stream, untraced_s: float,
                 rounds: int = ROUNDS, host: bool = True) -> dict:
     """Where the time goes: one profiled run of ``rounds`` rounds of the
@@ -2842,7 +3142,8 @@ def trace_round(torch, sess, stream, untraced_s: float,
 
 
 PHASES = ("kernels", "gate_cell_bwd", "main_path", "solve_ccg", "policies",
-          "decide", "finetune", "scenarios", "dispatch", "dispatch_recurrent")
+          "decide", "finetune", "scenarios", "dispatch", "dispatch_recurrent",
+          "dispatch_moe", "front_end")
 
 
 def main() -> int:
@@ -2963,6 +3264,29 @@ def main() -> int:
         record(recurrent_rec)
         phases["dispatch_recurrent"] = per_kernel(recurrent_by_call)
         by_calls.append(recurrent_by_call)
+    if "dispatch_moe" in only:
+        moe_by_call, moe_rec = dispatch_phase(
+            torch, dev, stream, *counted, phase="dispatch_moe",
+            archs=("qwen1.5-0.5b", "moonshot-v1-16b-a3b"), m=64,
+            trace_reps=2)
+        # Moonshot's pools freed: Mixtral-8x22B at full width, 4 layers
+        cut, moe_rec["mixtral_cut"] = mixtral_cut_phase(torch, dev, *counted)
+        record(moe_rec)
+        cut_by_call = {("flash_attention", "prefill"): cut["flash_attention"],
+                       ("decode_attention", "decode"):
+                           cut["decode_attention"]}
+        phases["dispatch_moe"] = per_kernel(
+            collections.Counter(moe_by_call) + collections.Counter(
+                cut_by_call))
+        by_calls += [moe_by_call, cut_by_call]
+    if "front_end" in only:
+        phases["front_end"], fe_rec = front_end_phase(torch, dev, *counted)
+        record(fe_rec)
+        by_calls.append({
+            ("flash_attention", "prefill"): phases["front_end"][
+                "flash_attention"],
+            ("decode_attention", "decode"): phases["front_end"][
+                "decode_attention"]})
     for name, row in rows.items():
         by_phase = {ph: c[name] for ph, c in phases.items() if c.get(name)}
         row["launches"] = sum(by_phase.values())

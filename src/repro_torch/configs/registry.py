@@ -1,10 +1,11 @@
 """Architecture registry: dashed public ids -> config modules.
 
-The ids are the reference's (``repro/configs/registry.py``).  The dense
-decoders and the two sub-quadratic models (Falcon-Mamba's SSM blocks,
-RecurrentGemma's RG-LRU and local-attention blocks) are copied into the
-port; the others need MoE blocks or front ends the port does not have yet,
-and asking for them raises, naming ROADMAP queue A.14.
+The ids are the reference's (``repro/configs/registry.py``), and every one
+of its ten configs is copied into the port: the dense decoders, the two
+sub-quadratic models (Falcon-Mamba's SSM blocks, RecurrentGemma's RG-LRU
+and local-attention blocks), the MoE models (Moonshot-v1-16B-A3B,
+Mixtral-8x22B) and the two embedding-input front ends (Qwen2-VL-2B with
+M-RoPE, MusicGen-medium).
 """
 from __future__ import annotations
 
@@ -19,23 +20,16 @@ _MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
 }
 
-# ids of the reference whose layers the port cannot run yet
-_UNPORTED = {
-    "musicgen-medium": "an embedding-input front end",
-    "moonshot-v1-16b-a3b": "MoE blocks",
-    "mixtral-8x22b": "MoE blocks and sliding-window attention",
-    "qwen2-vl-2b": "M-RoPE and an embedding-input front end",
-}
-
-ARCH_IDS = tuple(_MODULES) + tuple(_UNPORTED)
+ARCH_IDS = tuple(_MODULES)
 
 
 def _module(arch: str):
-    if arch in _UNPORTED:
-        raise NotImplementedError(
-            f"{arch!r} needs {_UNPORTED[arch]}: ROADMAP queue A.14")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_IDS)}")
     return importlib.import_module(_MODULES[arch])

@@ -111,16 +111,19 @@ def _f32(x) -> np.ndarray:
     return np.asarray(x).astype(np.float32)
 
 
-def model_params_from_numpy(params, cfg: ModelConfig, device="cuda"):
-    """A reference parameter tree (``init_params(model_specs(cfg), key)``)
-    -> the port's: each leaf in its spec's dtype (the compute dtype, or
-    float32 for the norm scales) on ``device``."""
+def model_params_from_numpy(params, cfg: ModelConfig, device="cuda",
+                            serve: bool = False):
+    """A reference parameter tree (``init_params(model_specs(cfg, serve),
+    key)``) -> the port's: each leaf in its spec's dtype (the compute dtype;
+    float32 for the norm scales and the int8 experts' scales; int8 for
+    serve-time quantized expert weights, exact through float32) on
+    ``device``."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.compute_dtype)
     return tree_map(
         lambda spec, x: torch.from_numpy(_f32(x)).to(
             device=dev, dtype=leaf_dtype(spec, dt)),
-        model_specs(cfg), params)
+        model_specs(cfg, serve=serve), params)
 
 
 def cache_from_numpy(cache, cfg: ModelConfig, device="cuda") -> dict:
@@ -140,7 +143,8 @@ def cache_from_numpy(cache, cfg: ModelConfig, device="cuda") -> dict:
 
 
 def tree_to_numpy(tree):
-    """Port tensors -> numpy copies (floating leaves as float32), which
+    """Port tensors -> numpy copies (floating leaves as float32, integer
+    leaves such as int8 expert weights in their own dtype), which
     later in-place writes of the port (a decode step into its slab) leave
     unchanged."""
     return tree_map(lambda t: np.array((t.float() if t.is_floating_point()

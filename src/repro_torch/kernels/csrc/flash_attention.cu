@@ -65,6 +65,17 @@
 // probability rounded to bf16 before P·V (l summed from the float32
 // ones), the output rounded to bf16.
 //
+// Runtime positions (kPos, both paths): with an int32 (B, S) positions
+// tensor (self-attention, Sq = Sk), query i sees key j iff pos[i] >= pos[j]
+// and, with a window, pos[i] - pos[j] < window: the reference model's
+// chunked_attention mask (src/repro/models/attention.py), which M-RoPE's
+// temporal stream drives.  Positions need not grow with the index, so the
+// block visits every key tile (k_lo = 0, k_hi = Sk) and masks each score
+// from its row's position (a register) and the tile's key positions
+// (staged in shared memory beside the K/V tile).  Every row sees its own
+// key, so no row is empty.  Without positions (kPos false) the kernels are
+// the index-masked ones, instruction for instruction.
+//
 // Built with the repository's -fmad=false like every source; the kernel is
 // held to a stated tolerance, not to the plain version's bits (its sums run
 // in another order).  wgmma and TMA are later work.
@@ -108,11 +119,13 @@ constexpr int smem_bytes_f32() {
                                kKeysF32 * D + kRows * (kKeysF32 + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPos>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel_simt(const T* __restrict__ q,
                                 const T* __restrict__ k,
-                                const T* __restrict__ v, T* __restrict__ out,
+                                const T* __restrict__ v,
+                                const int* __restrict__ pos,
+                                T* __restrict__ out,
                                 long long q_sb, long long q_sh, long long q_ss,
                                 long long k_sb, long long k_sh, long long k_ss,
                                 long long v_sb, long long v_sh, long long v_ss,
@@ -123,6 +136,7 @@ __global__ void __launch_bounds__(kThreads)
   float* k_s = q_s + kRows * (D + 1);       // [kKeysF32][D + 1]
   float* v_s = k_s + kKeysF32 * (D + 1);    // [kKeysF32][D]
   float* p_s = v_s + kKeysF32 * D;          // [kRows][kKeysF32 + 1]
+  __shared__ int kpos_s[kKeysF32];          // the tile's key positions
 
   const int G = H / KV;
   const int R = G * BQ;                     // rows in use (<= kRows)
@@ -145,15 +159,17 @@ __global__ void __launch_bounds__(kThreads)
   const int r = tid >> 1, half = tid & 1;
   const bool live = r < R && q0 + r % BQ < Sq;
   const int qpos = q0 + (r < R ? r % BQ : 0);
+  const int* pb = kPos ? pos + (long long)b * Sk : nullptr;
+  const int qp = kPos && live ? pb[qpos] : 0;   // the row's position
   float m = kAttnNegInf, l = 0.0f;
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
 
-  // keys any row of the tile may see: [k_lo, k_hi)
+  // keys any row of the tile may see: [k_lo, k_hi) (all, by positions)
   const int q_last = min(q0 + BQ, Sq) - 1;
-  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal && !kPos ? min(Sk, q_last + 1) : Sk;
+  const int k_lo = window > 0 && !kPos ? max(0, q0 - window + 1) : 0;
 
   for (int t0 = k_lo - k_lo % kKeysF32; t0 < k_hi; t0 += kKeysF32) {
     __syncthreads();   // q_s loaded; the previous tile's P·V done
@@ -163,6 +179,8 @@ __global__ void __launch_bounds__(kThreads)
       k_s[j * (D + 1) + d] = in ? to_f(kb[(t0 + j) * k_ss + d]) : 0.0f;
       v_s[j * D + d] = in ? to_f(vb[(t0 + j) * v_ss + d]) : 0.0f;
     }
+    if (kPos && tid < kKeysF32)
+      kpos_s[tid] = t0 + tid < Sk ? pb[t0 + tid] : 0;
     __syncthreads();
 
     float s[kPerThread];
@@ -180,8 +198,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const int kpos = t0 + half + 2 * i;
-      ok[i] = live && kpos < Sk && (!causal || qpos >= kpos) &&
-              (window <= 0 || qpos - kpos < window);
+      if (kPos) {
+        const int kp = kpos_s[half + 2 * i];
+        ok[i] = live && kpos < Sk && qp >= kp &&
+                (window <= 0 || qp - kp < window);
+      } else {
+        ok[i] = live && kpos < Sk && (!causal || qpos >= kpos) &&
+                (window <= 0 || qpos - kpos < window);
+      }
       s[i] = ok[i] ? s[i] * scale : kAttnNegInf;
       mx = fmaxf(mx, s[i]);
     }
@@ -296,12 +320,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // registers capped for 4 blocks an SM (2 at D = 256), as many as the shared
 // memory admits
-template <int D>
+template <int D, bool kPos>
 __global__ void __launch_bounds__(kThreads, D <= 128 ? 4 : 2)
     flash_attention_kernel_bf16(
         const __nv_bfloat16* __restrict__ q,
         const __nv_bfloat16* __restrict__ k,
-        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+        const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
+        __nv_bfloat16* __restrict__ out,
         long long q_sb, long long q_sh, long long q_ss, long long k_sb,
         long long k_sh, long long k_ss, long long v_sb, long long v_sh,
         long long v_ss, int H, int KV, int Sq, int Sk, int BQ, int window,
@@ -320,6 +345,8 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 4 : 2)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const __nv_bfloat16* kb = k + b * k_sb + kh * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + kh * v_sh;
+  const int* pb = kPos ? pos + (long long)b * Sk : nullptr;
+  __shared__ int kpos_s[2][kKeys];          // key positions of the K/V tiles
 
   // element offsets of each row's q and output (-1: a row not in use),
   // one division by BQ per row
@@ -340,9 +367,10 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 4 : 2)
   }
 
   // keys any row of the tile may see: [k_lo, k_hi), in tiles from t_first
+  // (every key, by positions)
   const int q_last = min(q0 + BQ, Sq) - 1;
-  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal && !kPos ? min(Sk, q_last + 1) : Sk;
+  const int k_lo = window > 0 && !kPos ? max(0, q0 - window + 1) : 0;
   const int t_first = k_lo - k_lo % kKeys;
   const int n_tiles = k_hi > t_first ? (k_hi - t_first + kKeys - 1) / kKeys : 0;
 
@@ -358,6 +386,8 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 4 : 2)
       cp_async16(smem_addr(vd + j * LD + c * 8),
                  in ? vb + key * v_ss + c * 8 : vb, in);
     }
+    // read after the barrier that follows this tile's cp.async wait
+    if (kPos && tid < kKeys) kpos_s[buf][tid] = t0 + tid < Sk ? pb[t0 + tid] : 0;
   };
 
   if (n_tiles > 0) load_kv(t_first, 0);
@@ -368,13 +398,20 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 4 : 2)
   const int gq = lane >> 2, tq = lane & 3;
   const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row address
   int lo[2], hi[2];                         // keys [lo, hi) a row sees
+  int qp[2];                                // kPos: the row's position
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = warp * kWarpRows + gq + 8 * h;
     const int pos = q0 + (r < R ? r % BQ : 0);
     const bool live = r < R && pos < Sq;
-    hi[h] = !live ? 0 : causal ? min(pos + 1, Sk) : Sk;
-    lo[h] = window > 0 ? pos - window + 1 : 0;
+    if (kPos) {           // index bounds only; the positions mask the rest
+      hi[h] = live ? Sk : 0;
+      lo[h] = 0;
+      qp[h] = live ? pb[pos] : 0;
+    } else {
+      hi[h] = !live ? 0 : causal ? min(pos + 1, Sk) : Sk;
+      lo[h] = window > 0 ? pos - window + 1 : 0;
+    }
   }
   float m[2] = {kAttnNegInf, kAttnNegInf}, l[2] = {0.0f, 0.0f};
   float o[D / 8][4];
@@ -424,7 +461,11 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 4 : 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1, kpos = t0 + j * 8 + 2 * tq + (e & 1);
-        const bool in = kpos >= lo[h] && kpos < hi[h];
+        bool in = kpos >= lo[h] && kpos < hi[h];
+        if (kPos) {
+          const int kp = kpos_s[buf][j * 8 + 2 * tq + (e & 1)];
+          in = in && qp[h] >= kp && (window <= 0 || qp[h] - kp < window);
+        }
         ok |= (uint32_t)in << (4 * j + e);
         s[j][e] = in ? s[j][e] * scale_log2 : kAttnNegInf;
         mx[h] = fmaxf(mx[h], s[j][e]);
@@ -519,58 +560,72 @@ cudaError_t allow_smem(F* fn, int bytes, std::atomic<unsigned>& done) {
   return e;
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const long long* st, int B, int H, int KV, int Sq, int Sk, int BQ,
-           int window, int causal, float scale, cudaStream_t stream) {
+template <typename T, int D, bool kPos>
+int launch(const void* q, const void* k, const void* v, const int* pos,
+           void* out, const long long* st, int B, int H, int KV, int Sq,
+           int Sk, int BQ, int window, int causal, float scale,
+           cudaStream_t stream) {
   static std::atomic<unsigned> done{0};
   const dim3 grid((Sq + BQ - 1) / BQ, B * KV);
   if constexpr (std::is_same<T, float>::value || D < 32) {
     constexpr int smem = smem_bytes_f32<D>();
-    cudaError_t e = allow_smem(flash_attention_kernel_simt<T, D>, smem, done);
+    cudaError_t e =
+        allow_smem(flash_attention_kernel_simt<T, D, kPos>, smem, done);
     if (e != cudaSuccess) return (int)e;
-    flash_attention_kernel_simt<T, D><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, st[0], st[1], st[2],
-        st[3], st[4], st[5], st[6], st[7], st[8], H, KV, Sq, Sk, BQ, window,
-        causal, scale);
+    flash_attention_kernel_simt<T, D, kPos><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, pos, (T*)out, st[0], st[1],
+        st[2], st[3], st[4], st[5], st[6], st[7], st[8], H, KV, Sq, Sk, BQ,
+        window, causal, scale);
   } else {
     constexpr int smem = smem_bytes_bf16<D>();
-    cudaError_t e = allow_smem(flash_attention_kernel_bf16<D>, smem, done);
+    cudaError_t e =
+        allow_smem(flash_attention_kernel_bf16<D, kPos>, smem, done);
     if (e != cudaSuccess) return (int)e;
     const float log2e = 1.4426950408889634f;
-    flash_attention_kernel_bf16<D><<<grid, kThreads, smem, stream>>>(
+    flash_attention_kernel_bf16<D, kPos><<<grid, kThreads, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, st[0], st[1], st[2],
-        st[3], st[4], st[5], st[6], st[7], st[8], H, KV, Sq, Sk, BQ, window,
-        causal, scale * log2e);
+        (const __nv_bfloat16*)v, pos, (__nv_bfloat16*)out, st[0], st[1],
+        st[2], st[3], st[4], st[5], st[6], st[7], st[8], H, KV, Sq, Sk, BQ,
+        window, causal, scale * log2e);
   }
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int launch_p(const void* q, const void* k, const void* v, const int* pos,
+             void* out, const long long* st, int B, int H, int KV, int Sq,
+             int Sk, int BQ, int window, int causal, float scale,
+             cudaStream_t stream) {
+  return pos ? launch<T, D, true>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
+                                  window, causal, scale, stream)
+             : launch<T, D, false>(q, k, v, pos, out, st, B, H, KV, Sq, Sk,
+                                   BQ, window, causal, scale, stream);
+}
+
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* out,
-             const long long* st, int B, int H, int KV, int Sq, int Sk, int D,
-             int BQ, int window, int causal, float scale,
+int launch_d(const void* q, const void* k, const void* v, const int* pos,
+             void* out, const long long* st, int B, int H, int KV, int Sq,
+             int Sk, int D, int BQ, int window, int causal, float scale,
              cudaStream_t stream) {
   switch (D) {
     case 8:
-      return launch<T, 8>(q, k, v, out, st, B, H, KV, Sq, Sk, BQ, window,
-                          causal, scale, stream);
+      return launch_p<T, 8>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
+                            window, causal, scale, stream);
     case 16:
-      return launch<T, 16>(q, k, v, out, st, B, H, KV, Sq, Sk, BQ, window,
-                           causal, scale, stream);
+      return launch_p<T, 16>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
+                             window, causal, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, out, st, B, H, KV, Sq, Sk, BQ, window,
-                           causal, scale, stream);
+      return launch_p<T, 32>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
+                             window, causal, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, st, B, H, KV, Sq, Sk, BQ, window,
-                           causal, scale, stream);
+      return launch_p<T, 64>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
+                             window, causal, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, st, B, H, KV, Sq, Sk, BQ, window,
-                            causal, scale, stream);
+      return launch_p<T, 128>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
+                              window, causal, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, out, st, B, H, KV, Sq, Sk, BQ, window,
-                            causal, scale, stream);
+      return launch_p<T, 256>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
+                              window, causal, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -582,29 +637,33 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
 // of q, k and v); out is (B, H, Sq, D) contiguous.  In bfloat16 every row
 // start (the pointers and the strides in bytes) is a multiple of 16 bytes.
 // BQ query positions per block with G·BQ <= 64; window 0 means none; scale
-// is D^-0.5 as the caller rounds it to float.
+// is D^-0.5 as the caller rounds it to float.  pos: null, or int32 (B, S)
+// contiguous positions of causal self-attention (Sq = Sk, causal = 1).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, long long q_sb,
+    const void* q, const void* k, const void* v, const void* pos, void* out,
+    long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, int B,
     int H, int KV, int Sq, int Sk, int D, int BQ, int window, int causal,
     float scale, int dtype, void* stream) {
   if (B < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 || BQ < 1 ||
-      (H / KV) * BQ > kRows || window < 0)
+      (H / KV) * BQ > kRows || window < 0 ||
+      (pos && (Sq != Sk || !causal)))
     return (int)cudaErrorInvalidValue;
+  const int* p = (const int*)pos;
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_d<float>(q, k, v, out, st, B, H, KV, Sq, Sk, D, BQ, window,
-                           causal, scale, s);
+    return launch_d<float>(q, k, v, p, out, st, B, H, KV, Sq, Sk, D, BQ,
+                           window, causal, scale, s);
   if (dtype == 1) {
     const uintptr_t base = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                            (uintptr_t)out;
     for (int i = 0; i < 9; ++i)
       if (st[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
     if (base % 16 != 0) return (int)cudaErrorMisalignedAddress;
-    return launch_d<__nv_bfloat16>(q, k, v, out, st, B, H, KV, Sq, Sk, D, BQ,
-                                   window, causal, scale, s);
+    return launch_d<__nv_bfloat16>(q, k, v, p, out, st, B, H, KV, Sq, Sk, D,
+                                   BQ, window, causal, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -11,19 +11,29 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, window: Optional[int] = None,
-                  causal: bool = True):
+                  causal: bool = True, positions=None):
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D).
 
     Query i and key j are positions i and j of their own sequences (causal:
-    j <= i; window: i - j < window)."""
+    j <= i; window: i - j < window).  ``positions`` (B, S), self-attention
+    only (Sq = Sk): query i sees key j iff pos[i] >= pos[j] and, with a
+    window, pos[i] - pos[j] < window — the reference model's
+    ``chunked_attention`` mask; ``causal`` must then be True."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     g = h // kv
     qg = q.reshape(b, kv, g, sq, d)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), k.float()) * (d ** -0.5)
-    q_pos = torch.arange(sq, device=q.device)[:, None]
-    k_pos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if positions is not None:
+        if not causal or sq != sk:
+            raise ValueError("attention_ref: positions mask causal "
+                             "self-attention (causal=True, Sq = Sk)")
+        pos = positions.to(torch.int64)
+        q_pos, k_pos = pos[:, None, None, :, None], pos[:, None, None, None, :]
+    else:
+        q_pos = torch.arange(sq, device=q.device)[:, None]
+        k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones_like(q_pos >= k_pos)
     if causal:
         mask &= q_pos >= k_pos
     if window is not None:

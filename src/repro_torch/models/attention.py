@@ -11,9 +11,16 @@ the kernels for CUDA tensors, the plain functions for CPU tensors.
 
 The decode step writes its K/V row into the cache slab in place (the
 reference returns an updated copy); the slab is the caller's and every
-later step reads it.  The reference's O(S·W) gather for windowed prefill
-(``_windowed_blocks``) is an optimisation of the same function and is not
-ported: :func:`chunked_attention` masks the window over the full key range.
+later step reads it.  Where a window binds (``sk > window + q_chunk``),
+:func:`chunked_attention` takes the reference's O(S·W) path,
+``_windowed_blocks``: one softmax over the gathered ``window + q_chunk``
+key span, normalised before the product with v.  Its roundings differ from
+the online softmax's, so the two paths are kept apart as in the reference.
+
+Prefill positions: the kernel takes the caller's runtime positions (the
+M-RoPE temporal stream, or any (B, S) positions the caller passed) and
+masks by them; positions that ``forward`` built itself as ``arange(S)``
+keep the index-causal launch.
 """
 from __future__ import annotations
 
@@ -66,8 +73,10 @@ def chunked_attention(q, k, v, positions, *, window: Optional[int] = None,
                       q_chunk: int = 1024, k_chunk: int = 1024):
     """positions: (B, S) token positions of both q and k (self-attention).
 
-    Online softmax over (q chunk × k chunk) blocks, as the reference's
-    ``_full_blocks``; padded keys get position 2^30 so causality masks them.
+    Padded keys get position 2^30 so causality masks them.  Where a window
+    binds (``sk > window + q_chunk``), one softmax a q chunk over its
+    gathered key span (the reference's ``_windowed_blocks``); otherwise an
+    online softmax over (q chunk × k chunk) blocks (``_full_blocks``).
     """
     b, sq, h, d = q.shape
     _, sk, kvh, _ = k.shape
@@ -84,29 +93,47 @@ def chunked_attention(q, k, v, positions, *, window: Optional[int] = None,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, sk_pad))
         k_pos = torch.nn.functional.pad(k_pos, (0, sk_pad), value=2 ** 30)
     orig_sq, sq, sk = sq, sq + sq_pad, sk + sk_pad
-    nq, nk = sq // q_chunk, sk // k_chunk
+    nq = sq // q_chunk
 
-    # (nq, B, KV, G, Cq, D) and (nk, B, KV, Ck, D)
+    # (nq, B, KV, G, Cq, D) and (nq, B, Cq)
     qg = q.reshape(b, nq, q_chunk, kvh, g, d).permute(1, 0, 3, 4, 2, 5)
     qp = q_pos.reshape(b, nq, q_chunk).transpose(0, 1)
+    if window is not None and sk > window + q_chunk:
+        out = _windowed_blocks(qg, qp, k, v, k_pos, window, q_chunk, scale)
+    else:
+        out = _full_blocks(qg, qp, k, v, k_pos, window, k_chunk, scale)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, d)
+    return out[:, :orig_sq]
+
+
+def _mask(q_p, kp, window):
+    """(B, Cq, Ck): query position >= key position, within the window."""
+    mask = q_p[:, :, None] >= kp[:, None, :]
+    if window is not None:
+        mask &= q_p[:, :, None] - kp[:, None, :] < window
+    return mask
+
+
+def _full_blocks(qg, qp, k, v, k_pos, window, k_chunk, scale):
+    nq, b, kvh, g, cq, d = qg.shape
+    sk = k.shape[1]
+    nk = sk // k_chunk
+    # (nk, B, KV, Ck, D) and (nk, B, Ck)
     kb = k.transpose(1, 2).reshape(b, kvh, nk, k_chunk, d).permute(2, 0, 1, 3, 4)
     vb = v.transpose(1, 2).reshape(b, kvh, nk, k_chunk, d).permute(2, 0, 1, 3, 4)
     kpb = k_pos.reshape(b, nk, k_chunk).transpose(0, 1)
-
     outs = []
     for qi in range(nq):
         q_blk, q_p = qg[qi], qp[qi]
-        m = torch.full((b, kvh, g, q_chunk), NEG_INF, device=q.device)
-        l = torch.zeros((b, kvh, g, q_chunk), device=q.device)
-        acc = torch.zeros((b, kvh, g, q_chunk, d), device=q.device)
+        m = torch.full((b, kvh, g, cq), NEG_INF, device=qg.device)
+        l = torch.zeros((b, kvh, g, cq), device=qg.device)
+        acc = torch.zeros((b, kvh, g, cq, d), device=qg.device)
         for ki in range(nk):
             k_blk, v_blk, kp = kb[ki], vb[ki], kpb[ki]
             s = torch.einsum("bkgqd,bkcd->bkgqc", q_blk, k_blk).float()
             s = s * scale
-            mask = q_p[:, :, None] >= kp[:, None, :]           # (B, Cq, Ck)
-            if window is not None:
-                mask &= q_p[:, :, None] - kp[:, None, :] < window
-            s = torch.where(mask[:, None, None], s, NEG_INF)
+            s = torch.where(_mask(q_p, kp, window)[:, None, None], s,
+                            NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -115,10 +142,32 @@ def chunked_attention(q, k, v, positions, *, window: Optional[int] = None,
                               v_blk).float()
             acc = acc * corr[..., None] + pv
             m = m_new
-        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
-    out = torch.stack(outs)                           # (nq, B, KV, G, Cq, D)
-    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, d)
-    return out[:, :orig_sq]
+        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(qg.dtype))
+    return torch.stack(outs)                          # (nq, B, KV, G, Cq, D)
+
+
+def _windowed_blocks(qg, qp, k, v, k_pos, window, q_chunk, scale):
+    """Only the (window + q_chunk) key span of each q chunk: O(S·W)."""
+    nq = qg.shape[0]
+    sk = k.shape[1]
+    span = min(window + q_chunk, sk)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)     # (B, KV, Sk, D)
+    outs = []
+    for qi in range(nq):
+        q_blk, q_p = qg[qi], qp[qi]
+        k_start = min(max(qi * q_chunk + q_chunk - span, 0),
+                      max(sk - span, 0))
+        k_blk = kt[:, :, k_start:k_start + span]
+        v_blk = vt[:, :, k_start:k_start + span]
+        kp = k_pos[:, k_start:k_start + span]
+        s = torch.einsum("bkgqd,bkcd->bkgqc", q_blk, k_blk).float() * scale
+        s = torch.where(_mask(q_p, kp, window)[:, None, None], s, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1, keepdim=True)
+        outs.append(torch.einsum("bkgqc,bkcd->bkgqd",
+                                 (p / torch.clamp_min(l, 1e-30)).to(
+                                     v_blk.dtype), v_blk))
+    return torch.stack(outs)
 
 
 def decode_attention(q, k_cache, v_cache, *, length):
@@ -142,13 +191,15 @@ def decode_attention(q, k_cache, v_cache, *, length):
 # ---------------------------------------------------------------------------
 # Full attention block forward
 # ---------------------------------------------------------------------------
-def _prefill_attention(ctx: Ctx, q, k, v, positions):
+def _prefill_attention(ctx: Ctx, q, k, v, positions, positions_given):
     cfg = ctx.cfg
     if _build.dispatch("flash_attention", ctx.force, q.device):
-        # prefill positions are arange(S): causality by index, as the kernel
+        # positions that forward built are arange(S): causality by index;
+        # the caller's positions go to the kernel, which masks by them
         out = flash_ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            window=cfg.attn_window, causal=True, force="kernel")
+            window=cfg.attn_window, causal=True,
+            positions=positions if positions_given else None, force="kernel")
         return out.transpose(1, 2)
     return chunked_attention(q, k, v, positions, window=cfg.attn_window,
                              q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)
@@ -167,11 +218,14 @@ def _decode_attention(ctx: Ctx, q, k_cache, v_cache, length):
 
 
 def attn_forward(ctx: Ctx, p, x, *, positions, cache=None,
-                 cache_out_len: Optional[int] = None):
-    """x: (B, S, d); positions: (B, S).  Decode (``ctx.mode == "decode"``):
+                 cache_out_len: Optional[int] = None,
+                 positions_given: bool = False):
+    """x: (B, S, d); positions: (B, S), or (B, 3, S) for M-RoPE (whose
+    temporal stream drives causality).  Decode (``ctx.mode == "decode"``):
     ``cache`` = {k, v: (B, C, KV, D), length: scalar or (B,)}, written in
     place at ``length mod C``.  Prefill: emits a cache of ``cache_out_len``
-    entries when given.  Returns (y, new_cache or None)."""
+    entries when given; ``positions_given``: the caller passed the
+    positions (the kernel masks by them).  Returns (y, new_cache or None)."""
     cfg = ctx.cfg
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -192,9 +246,11 @@ def attn_forward(ctx: Ctx, p, x, *, positions, cache=None,
     if cfg.mrope:
         q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        pos_scalar = positions[:, 0]     # the temporal stream: causality
     else:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+        pos_scalar = positions
 
     new_cache = None
     if ctx.mode == "decode":
@@ -209,7 +265,7 @@ def attn_forward(ctx: Ctx, p, x, *, positions, cache=None,
         out = _decode_attention(ctx, q, k_cache, v_cache, idx + 1)
         new_cache = {"k": k_cache, "v": v_cache, "length": idx + 1}
     else:
-        out = _prefill_attention(ctx, q, k, v, positions)
+        out = _prefill_attention(ctx, q, k, v, pos_scalar, positions_given)
         if cache_out_len is not None:
             keep = min(cache_out_len, s)
             k_keep, v_keep = k[:, s - keep:], v[:, s - keep:]

@@ -1,7 +1,7 @@
 """Decoder blocks: port of ``repro/models/blocks.py`` — a pre-norm mixer
 (attention, RG-LRU or Mamba SSM) and, after attention and RG-LRU mixers, a
-pre-norm dense gated MLP (SSM blocks are mixer-only).  The MoE MLP is
-ROADMAP queue A.14."""
+pre-norm gated MLP: dense, or the MoE of ``models/moe.py`` when the config
+has one (SSM blocks are mixer-only)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,6 +10,7 @@ from repro_torch.models.attention import attn_forward, attn_specs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Ctx, rmsnorm, rmsnorm_specs
 from repro_torch.models.mlp import mlp_forward, mlp_specs
+from repro_torch.models.moe import moe_forward, moe_specs
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.rglru import rglru_forward, rglru_specs
 from repro_torch.models.ssm import ssm_forward, ssm_specs
@@ -17,19 +18,20 @@ from repro_torch.models.ssm import ssm_forward, ssm_specs
 _MIXERS = {"attn": attn_specs, "rglru": rglru_specs, "ssm": ssm_specs}
 
 
-def _check(cfg: ModelConfig, kind: str) -> None:
+def _check(kind: str) -> None:
     if kind not in _MIXERS:
         raise ValueError(f"unknown block kind {kind!r}")
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE MLPs are ROADMAP queue A.14")
 
 
-def block_specs(cfg: ModelConfig, kind: str) -> dict:
-    _check(cfg, kind)
+def block_specs(cfg: ModelConfig, kind: str, serve: bool = False) -> dict:
+    """``serve``: int8 expert weights where ``cfg.quant_experts_serve``."""
+    _check(kind)
     specs = {"norm1": rmsnorm_specs(cfg.d_model), kind: _MIXERS[kind](cfg)}
     if kind != "ssm":
         specs["norm2"] = rmsnorm_specs(cfg.d_model)
-        specs["mlp"] = mlp_specs(cfg)
+        specs["mlp"] = (moe_specs(cfg, quantized=serve
+                                  and cfg.quant_experts_serve)
+                        if cfg.moe is not None else mlp_specs(cfg))
     return specs
 
 
@@ -44,7 +46,7 @@ def block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
     """Per-layer cache: K/V for attention (compute dtype); the convolution
     state (compute dtype) and the float32 recurrent state ``h`` for the
     RG-LRU and SSM mixers."""
-    _check(cfg, kind)
+    _check(kind)
     dt = cfg.compute_dtype
     if kind == "attn":
         shape = (batch, attn_cache_len(cfg, seq_len), cfg.num_kv_heads,
@@ -62,17 +64,21 @@ def block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
 
 
 def block_apply(ctx: Ctx, kind: str, p: dict, x, *, positions, length=None,
-                cache: Optional[dict] = None, emit_cache: bool = False):
+                cache: Optional[dict] = None, emit_cache: bool = False,
+                positions_given: bool = False):
     """Returns (x, new_cache or None); the reference's third output, the
-    MoE auxiliary loss, is zero for a dense MLP and is not carried.  The
-    block kind was checked when the specs were built."""
+    MoE auxiliary loss, is not carried (``moe_forward`` computes it; the
+    training loss that reads it is ROADMAP queue A.16).  The block kind was
+    checked when the specs were built.  ``positions_given``: the caller
+    passed ``positions`` (the prefill kernel masks by them)."""
     cfg = ctx.cfg
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind == "attn":
         c = dict(cache, length=length) if cache is not None else None
         out_len = attn_cache_len(cfg, x.shape[1]) if emit_cache else None
         y, new_cache = attn_forward(ctx, p["attn"], h, positions=positions,
-                                    cache=c, cache_out_len=out_len)
+                                    cache=c, cache_out_len=out_len,
+                                    positions_given=positions_given)
         if new_cache is not None:
             new_cache.pop("length", None)
     else:
@@ -82,5 +88,9 @@ def block_apply(ctx: Ctx, kind: str, p: dict, x, *, positions, length=None,
     x = x + y
     if kind != "ssm":
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + mlp_forward(ctx, p["mlp"], h2, activation=cfg.mlp_activation)
+        if cfg.moe is not None:
+            y2, _ = moe_forward(ctx, p["mlp"], h2)
+        else:
+            y2 = mlp_forward(ctx, p["mlp"], h2, activation=cfg.mlp_activation)
+        x = x + y2
     return x, new_cache

@@ -1,11 +1,10 @@
 """Model configuration dataclasses: a copy of ``repro/models/config.py``.
 
-The port reads the attention, MLP, SSM, RG-LRU, embedding, cache and
-numerics fields; the MoE sub-config is carried so that every config of the
-reference can be stated, and the model raises on it (ROADMAP queue A.14).
-The reference's sharding overrides and Pallas switch have no counterpart
-here: the port has no sharding rules yet (A.15), and its kernels are pinned
-per call with ``force=``."""
+The port reads the attention (RoPE and M-RoPE), MLP, MoE, SSM, RG-LRU,
+embedding, cache and numerics fields.  The reference's sharding overrides
+and Pallas switch have no counterpart here: the port has no sharding rules
+yet (ROADMAP queue A.15), and its kernels are pinned per call with
+``force=``."""
 from __future__ import annotations
 
 import dataclasses

@@ -36,7 +36,11 @@ def rmsnorm(p, x, eps: float):
 
 
 def embed_specs(cfg: ModelConfig) -> dict:
-    out = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), stddev=1.0)}
+    """The token table (none where the front end feeds embeddings:
+    ``cfg.embed_inputs=False``) and the output head unless tied."""
+    out = {}
+    if cfg.embed_inputs:
+        out["tok"] = ParamSpec((cfg.vocab_size, cfg.d_model), stddev=1.0)
     if not cfg.tie_embeddings:
         out["out"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                stddev=cfg.d_model ** -0.5)
@@ -62,9 +66,14 @@ def rope_freqs(head_dim: int, theta: float, device=None):
 
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, D); positions: broadcastable to (..., S) integers."""
-    half = x.shape[-1] // 2
     freqs = rope_freqs(x.shape[-1], theta, x.device)            # (half,)
     angles = positions[..., None].to(torch.float32) * freqs     # (..., S, half)
+    return _rotate(x, angles)
+
+
+def _rotate(x, angles):
+    """x (..., S, H, D) rotated by ``angles`` (..., S, D/2), in float32."""
+    half = x.shape[-1] // 2
     cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, half)
     sin = torch.sin(angles)[..., None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
@@ -93,5 +102,37 @@ def causal_conv(x, w, b, state=None):
     return out + b, x_pad[:, s:]
 
 
+def mrope_positions(n_text: int, grid: tuple[int, int, int], n_after: int,
+                    batch: int = 1, device=None):
+    """(batch, 3, S) int32 M-RoPE position ids in Qwen2-VL's layout:
+    ``n_text`` text tokens at t = h = w = i; a (frames, rows, cols) patch
+    grid at (s0 + frame, s0 + row, s0 + col) with s0 = ``n_text``; then
+    ``n_after`` text tokens resuming at the largest id + 1.  The temporal
+    stream repeats within a frame, so its causal mask is not the index's."""
+    ar = torch.arange
+    text = ar(n_text).expand(3, n_text)
+    grids = torch.meshgrid(*(ar(n) for n in grid), indexing="ij")
+    patches = torch.stack(grids).reshape(3, -1) + n_text
+    start = int(patches.max()) + 1 if patches.numel() else n_text
+    after = (start + ar(n_after)).expand(3, n_after)
+    pos = torch.cat([text, patches, after], dim=1).to(torch.int32)
+    return pos.expand(batch, 3, pos.shape[1]).contiguous().to(device)
+
+
 def apply_mrope(x, positions3, theta: float, sections):
-    raise NotImplementedError("M-RoPE (qwen2-vl) is ROADMAP queue A.14")
+    """M-RoPE (Qwen2-VL): frequency channels split over the (t, h, w)
+    position streams, ``sections`` channels each (summing to D/2).
+
+    x: (B, S, H, D); positions3: (B, 3, S).  Each channel's angle is its
+    stream's position times its frequency; the reference picks the stream
+    by a one-hot sum (the other terms exact zeros), the port by an index:
+    the same numbers."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"head_dim/2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (half,)
+    stream = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)
+    pos = positions3.to(torch.float32)[:, stream]               # (B, half, S)
+    return _rotate(x, pos.transpose(1, 2) * freqs)

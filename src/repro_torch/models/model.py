@@ -30,18 +30,12 @@ from repro_torch.models.params import ParamSpec, tree_map
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise, naming ROADMAP queue A.14, for what the port cannot run yet:
-    MoE MLPs, M-RoPE and embedding-input front ends.  Attention, RG-LRU and
-    Mamba SSM blocks, in any layer pattern, are ported."""
+    """Raise on block kinds the reference does not have.  Attention,
+    RG-LRU and Mamba SSM blocks, in any layer pattern, with dense or MoE
+    MLPs, RoPE or M-RoPE, and token or embedding inputs, are ported."""
     unknown = set(cfg.layer_kinds()) - {"attn", "rglru", "ssm"}
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
-    for flag, what in ((cfg.moe is not None, "MoE MLPs"),
-                       (cfg.mrope, "M-RoPE"),
-                       (not cfg.embed_inputs, "embedding-input front ends")):
-        if flag:
-            raise NotImplementedError(f"{cfg.name}: {what} are ROADMAP "
-                                      f"queue A.14")
 
 
 def build_segments(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
@@ -60,9 +54,12 @@ def _stack_specs(specs: dict, n: int) -> dict:
                     specs)
 
 
-def model_specs(cfg: ModelConfig) -> dict:
+def model_specs(cfg: ModelConfig, serve: bool = False) -> dict:
+    """``serve``: the serve-time specs (int8 experts where
+    ``cfg.quant_experts_serve``)."""
     check_supported(cfg)
-    segments = [{f"pos{i}": _stack_specs(block_specs(cfg, kind), n)
+    segments = [{f"pos{i}": _stack_specs(block_specs(cfg, kind, serve=serve),
+                                         n)
                  for i, kind in enumerate(pattern)}
                 for pattern, n in build_segments(cfg)]
     return {"embed": embed_specs(cfg), "segments": segments,
@@ -83,28 +80,46 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _default_positions(cfg: ModelConfig, mode: str, length, b: int, s: int,
+                       device):
+    """The reference's positions when the caller passes none: the slab's
+    per-row (or the cache's) ``length`` on a decode step, ``arange(S)`` on
+    a prefill; for M-RoPE the same broadcast to (B, 3, ·)."""
+    if mode == "decode":
+        pos = length.reshape(1, 1) if length.dim() == 0 else length[:, None]
+        positions = torch.broadcast_to(pos, (b, 1)).to(torch.int32)
+    else:
+        positions = torch.broadcast_to(
+            torch.arange(s, dtype=torch.int32, device=device)[None], (b, s))
+    if cfg.mrope:
+        positions = torch.broadcast_to(positions[:, None, :],
+                                       (b, 3, positions.shape[1]))
+    return positions
+
+
 def forward(ctx: Ctx, params: dict, inputs: dict, *,
             cache: Optional[dict] = None, emit_cache: bool = False):
-    """inputs: {"tokens": (B, S)}.  Returns (hidden (B, S, d), new_cache).
+    """inputs: {"tokens": (B, S)} or {"embeddings": (B, S, d)} (configs
+    with ``embed_inputs=False``); optional {"positions": (B, S), or
+    (B, 3, S) for M-RoPE}.  Returns (hidden (B, S, d), new_cache).
 
     Decode (``cache`` given): the cache's leaves (K/V, convolution and
     recurrent states) are updated in place and returned under the new
     ``length`` (scalar or per-row (B,))."""
     cfg = ctx.cfg
-    tokens = inputs["tokens"]
-    x = embed_tokens(ctx, params["embed"], tokens)
-    if cfg.family == "hybrid":      # gemma-style embedding scale
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                             device=x.device)
-    b, s = tokens.shape
-    length = cache["length"] if cache is not None else None
-    if ctx.mode == "decode":
-        pos = length.reshape(1, 1) if length.dim() == 0 else length[:, None]
-        positions = torch.broadcast_to(pos, (b, 1)).to(torch.int32)
+    if cfg.embed_inputs:
+        tokens = inputs["tokens"]
+        x = embed_tokens(ctx, params["embed"], tokens)
+        if cfg.family == "hybrid":      # gemma-style embedding scale
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                                 device=x.device)
     else:
-        positions = torch.broadcast_to(
-            torch.arange(s, dtype=torch.int32, device=tokens.device)[None],
-            (b, s))
+        x = inputs["embeddings"].to(ctx.compute_dtype)
+    b, s = x.shape[0], x.shape[1]
+    length = cache["length"] if cache is not None else None
+    given = "positions" in inputs
+    positions = inputs["positions"] if given else _default_positions(
+        cfg, ctx.mode, length, b, s, x.device)
 
     new_segments = []
     for seg_idx, (pattern, n) in enumerate(build_segments(cfg)):
@@ -121,7 +136,7 @@ def forward(ctx: Ctx, params: dict, inputs: dict, *,
                     ctx, kind, layer_p[key], x, positions=positions,
                     length=length,
                     cache=layer_c[key] if layer_c is not None else None,
-                    emit_cache=emit_cache)
+                    emit_cache=emit_cache, positions_given=given)
                 if nc is not None:
                     new_c[key] = nc
             emitted.append(new_c)
@@ -137,7 +152,7 @@ def forward(ctx: Ctx, params: dict, inputs: dict, *,
     new_cache = None
     if any(sg is not None for sg in new_segments):
         new_len = length + s if length is not None else torch.tensor(
-            s, dtype=torch.int32, device=tokens.device)
+            s, dtype=torch.int32, device=x.device)
         new_cache = {"length": new_len, "segments": new_segments}
     return x, new_cache
 

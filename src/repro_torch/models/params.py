@@ -5,7 +5,10 @@ A model is a tree (nested dicts and lists) of :class:`ParamSpec` leaves.
 :func:`init_params` draws each normal leaf in float32 from an explicit
 ``torch.Generator`` on the target device and casts it, one tensor at a
 time, so a large model never holds more than one float32 leaf beside its
-weights.
+weights.  A leaf of more than ``CHUNKED_DRAW_ELEMENTS`` (2^32) elements —
+Moonshot's stacked experts, 8.9e9 each — is drawn one slice of its leading
+axis at a time straight into a tensor of its own dtype, so its float32
+temporary is one slice; every smaller leaf keeps its whole draw.
 
 Serving weights are stored once in the compute dtype (``dtype`` of
 :func:`init_params`) instead of being cast on every use: the reference casts
@@ -54,12 +57,23 @@ def leaf_dtype(spec: ParamSpec, dtype: torch.dtype) -> torch.dtype:
     return dtype if spec.dtype is None else getattr(torch, spec.dtype)
 
 
+CHUNKED_DRAW_ELEMENTS = 2 ** 32
+
+
 def init_params(specs, generator: torch.Generator, device="cuda",
                 dtype: torch.dtype = torch.float32):
     """Materialise a spec tree: zeros, ones, or normal draws at each spec's
     ``stddev`` (float32 on ``device`` from ``generator``, which must live on
-    that device, then cast to the leaf's dtype)."""
+    that device, then cast to the leaf's dtype; a leaf of more than
+    ``CHUNKED_DRAW_ELEMENTS`` elements one slice of its leading axis at a
+    time).  An integer leaf (int8 expert weights) gets the cast's
+    truncation toward zero, as the reference's ``astype``."""
     dev = resolve_device(device)
+
+    def draw(shape, stddev, dt):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return w.mul_(stddev).to(dt)
 
     def make(spec: ParamSpec):
         dt = leaf_dtype(spec, dtype)
@@ -67,9 +81,12 @@ def init_params(specs, generator: torch.Generator, device="cuda",
             return torch.zeros(spec.shape, dtype=dt, device=dev)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dt, device=dev)
-        w = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                        device=dev)
-        return w.mul_(spec.stddev).to(dt)
+        if math.prod(spec.shape) <= CHUNKED_DRAW_ELEMENTS:
+            return draw(spec.shape, spec.stddev, dt)
+        out = torch.empty(spec.shape, dtype=dt, device=dev)
+        for i in range(spec.shape[0]):
+            out[i] = draw(spec.shape[1:], spec.stddev, dt)
+        return out
 
     return tree_map(make, specs)
 

@@ -17,7 +17,14 @@ On a CUDA device each prefill and each decode step runs, once per layer,
 the kernel of that layer's mixer: ``flash_attention`` (prefill) or
 ``decode_attention`` (decode step) for an attention layer, ``mamba_scan``
 for an SSM layer, ``rglru_scan`` for an RG-LRU layer (``force`` pins the
-plain versions instead).
+plain versions instead).  A MoE config's pool routes every token of a call
+(bucket padding rows and inactive slab slots included, as the reference)
+through its experts with the capacity of that call.
+
+A pool serves token ids; a config whose front end feeds embeddings
+(``embed_inputs=False``: Qwen2-VL-2B, MusicGen-medium) has no token table,
+and building its pool raises: such models are driven through
+``models.model.prefill`` / ``decode_step`` with ``{"embeddings": ...}``.
 """
 from __future__ import annotations
 
@@ -82,6 +89,12 @@ class ModelPool:
                  = None, name: str = "pool", *, device="cuda",
                  force: str = "auto", params=None):
         check_supported(cfg)
+        if not cfg.embed_inputs:
+            raise ValueError(
+                f"{cfg.name}: its front end feeds embeddings "
+                "(embed_inputs=False) and it has no token table, so a pool "
+                "cannot serve token ids; drive it through models.model."
+                "prefill / decode_step with {'embeddings': (B, S, d)}")
         self.cfg = cfg
         self.name = name
         self.device = resolve_device(device)

@@ -31,6 +31,8 @@ the plain versions' float32 state updates in order with ``-fmad=false``;
 the selective scan takes exp(dt·A) in base 2 on the special function unit
 and sums y in another order than torch's einsum, so both are held to
 1e-5 + 1e-5·|plain| (their outputs are float32 whatever the input dtype).
+With runtime positions (``positions=``), ``flash_attention`` masks by
+them (same tolerances), and positions 0..S-1 give the index launch's bits.
 The bf16 flash kernel copies 16-byte row chunks: misaligned rows raise.
 The decode kernel splits each cache over a cluster of blocks and combines
 the splits in a fixed order (two calls are bit-equal); bf16 rows on 16-byte
@@ -68,6 +70,10 @@ from repro_torch.kernels.temporal_gate.ops import (
     gate_cell_vjp,
 )
 from repro_torch.kernels.temporal_gate.ref import gate_cell_vjp_ref
+from repro_torch.configs import get_smoke_config
+from repro_torch.models.layers import Ctx, mrope_positions
+from repro_torch.models.model import model_specs, prefill
+from repro_torch.models.params import init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -773,6 +779,101 @@ def test_flash_attention_kernel(dev, dtype, b, h, kv, sq, sk, d, window,
     want = flash_attention(q, k, v, force="ref", **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+
+
+def _positions(layout, b, s, dev, seed=0):
+    """(B, S) runtime positions: Qwen2-VL's temporal stream (16 text
+    tokens, a 2 × 4 × 4 patch grid, text after it; S = 80), a random
+    permutation of 0..S-1 per row, or each position repeated three times."""
+    if layout == "qwen2vl":
+        return mrope_positions(16, (2, 4, 4), s - 48, b, dev)[:, 0]
+    if layout == "shuffled":
+        rng = _gen(seed)
+        return _t(np.stack([rng.permutation(s) for _ in range(b)]).astype(
+            np.int32), dev)
+    return (torch.arange(s, device=dev) // 3).to(torch.int32).expand(
+        b, s).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d,window,layout", [
+    (8, 12, 2, 80, 128, None, "qwen2vl"),    # Qwen2-VL-2B prefill
+    (2, 12, 2, 80, 128, 16, "qwen2vl"),      # with a window
+    (2, 8, 2, 70, 64, 24, "shuffled"),       # non-monotone, window
+    (2, 24, 24, 80, 64, None, "repeats"),    # MusicGen's heads
+    (2, 4, 4, 37, 16, None, "shuffled"),     # the CUDA-core bf16 kernel
+    (1, 16, 1, 65, 256, 20, "repeats"),      # D = 256, window
+])
+def test_flash_attention_kernel_positions(dev, dtype, b, h, kv, s, d,
+                                          window, layout):
+    """Runtime positions mask the kernel as the plain version: query i sees
+    key j iff pos[i] >= pos[j] (and pos[i] - pos[j] < window)."""
+    rng = _gen(b * s + d)
+    q = _normal(rng, (b, s, h, d), dtype, dev).transpose(1, 2)
+    k = _normal(rng, (b, s, kv, d), dtype, dev).transpose(1, 2)
+    v = _normal(rng, (b, s, kv, d), dtype, dev).transpose(1, 2)
+    pos = _positions(layout, b, s, dev, seed=s)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, window=window, positions=pos,
+                          force="kernel")
+    assert launch_counts() == {"flash_attention": 1}
+    want = flash_attention(q, k, v, window=window, positions=pos,
+                           force="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,s,d,window", [
+    (12, 2, 80, 128, None), (8, 2, 100, 64, 16), (4, 4, 48, 16, None),
+    (16, 1, 80, 256, 2048)])
+def test_flash_attention_arange_positions_give_the_index_launch(
+        dev, dtype, h, kv, s, d, window):
+    """Positions 0..S-1 visit every key tile, but the tiles the index launch
+    skips are fully masked (probability 0, correction 1): the two give the
+    same bits."""
+    rng = _gen(s + d)
+    q = _normal(rng, (2, s, h, d), dtype, dev).transpose(1, 2)
+    k = _normal(rng, (2, s, kv, d), dtype, dev).transpose(1, 2)
+    v = _normal(rng, (2, s, kv, d), dtype, dev).transpose(1, 2)
+    pos = torch.arange(s, device=dev, dtype=torch.int32).expand(2, s)
+    by_index = flash_attention(q, k, v, window=window, force="kernel")
+    by_pos = flash_attention(q, k, v, window=window, positions=pos,
+                             force="kernel")
+    assert torch.equal(by_index, by_pos)
+
+
+def test_flash_attention_positions_reject_cross_attention(dev):
+    q = torch.zeros((1, 4, 16, 64), device=dev)
+    k = torch.zeros((1, 4, 20, 64), device=dev)
+    pos = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="self-attention"):
+        flash_attention(q, k, k, positions=pos, force="kernel")
+    with pytest.raises(ValueError, match="self-attention"):
+        flash_attention(q, q, q, positions=pos, causal=False)
+    assert launch_counts() == {}
+
+
+def test_qwen2_vl_prefill_with_positions_launches_flash(dev):
+    """A Qwen2-VL SMOKE prefill (bf16) with explicit M-RoPE positions runs
+    ``flash_attention`` once a layer with its positions, never the plain
+    path, and its logits match the plain path's within the bf16 model
+    tolerance of ``test_torch_model.py`` (0.1)."""
+    cfg = get_smoke_config("qwen2-vl-2b")
+    params = init_params(model_specs(cfg), torch.Generator(dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    rng = _gen(80)
+    batch = {"embeddings": _normal(rng, (2, 80, cfg.d_model), torch.bfloat16,
+                                   dev),
+             "positions": mrope_positions(16, (2, 4, 4), 32, 2, dev)}
+    reset_launch_counts()
+    got, _ = prefill(Ctx(cfg=cfg), params, batch)
+    assert launch_counts() == {"flash_attention": cfg.num_layers}
+    want, _ = prefill(Ctx(cfg=cfg, force="ref"), params, batch)
+    assert launch_counts() == {"flash_attention": cfg.num_layers}
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0.1)
 
 
 @pytest.mark.parametrize("layout", ["offset_pointer", "odd_row_stride"])

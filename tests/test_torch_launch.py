@@ -117,3 +117,17 @@ def test_serve_launcher_runs_on_the_cpu(policy, capsys):
     assert [p.split("]")[0] for p in pools] == ["pool[edge", "pool[cloud"]
     served = sum(int(p.split("requests=")[1].split()[0]) for p in pools)
     assert served == 4
+
+
+@pytest.mark.parametrize("cloud", ["moonshot-v1-16b-a3b", "mixtral-8x22b"])
+def test_serve_launcher_runs_a_moe_cloud_tier(cloud, capsys):
+    """``--cloud-arch`` of a MoE model (its SMOKE config, as the
+    reference's launcher builds it): the cloud pool routes its segments
+    through the experts and reports its summary."""
+    assert serve.main(["--rounds", "1", "--streams", "6",
+                       "--segments-per-round", "2", "--device", "cpu",
+                       "--policy", "A2", "--cloud-arch", cloud]) == 0
+    out = capsys.readouterr().out.splitlines()
+    cloud_pool = [line for line in out if line.startswith("pool[cloud]")]
+    assert len(cloud_pool) == 1
+    assert int(cloud_pool[0].split("requests=")[1].split()[0]) == 6

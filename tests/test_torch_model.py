@@ -194,8 +194,10 @@ def test_kernel_branch_wiring(monkeypatch, arch):
     cfg = get_smoke_config(arch)
     calls = collections.Counter()
 
-    def flash(q, k, v, *, window=None, causal=True, force="auto"):
+    def flash(q, k, v, *, window=None, causal=True, positions=None,
+              force="auto"):
         assert force == "kernel" and causal and window == cfg.attn_window
+        assert positions is None                # forward's arange: by index
         assert all(t.stride(-1) == 1 for t in (q, k, v))
         assert not q.is_contiguous()            # a view of (B, S, H, D)
         calls["flash_attention"] += 1
@@ -254,22 +256,40 @@ def test_kernel_branch_wiring(monkeypatch, arch):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_registry_copies_or_names_the_roadmap_item(arch):
+    """Every id of the reference's registry is copied: the config and its
+    SMOKE equal the reference's field for field (sub-configs included) but
+    for the reference's sharding overrides and Pallas switch, which the
+    port has no counterpart of, and the spec tree counts the config's
+    parameters.  A SMOKE pool of each config with a token table serves a
+    segment on the CPU (the MoE ones included); one whose front end feeds
+    embeddings refuses to build a pool."""
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
     from repro.configs import get_config as j_get_config
-    try:
-        cfg = get_config(arch)
-    except NotImplementedError as e:
-        assert "A.14" in str(e)
-        with pytest.raises(NotImplementedError, match="A.14"):
-            get_smoke_config(arch)
-        return
+    assert set(ARCH_IDS) == set(J_ARCH_IDS)
+    cfg = get_config(arch)
     for full, jc in ((cfg, j_get_config(arch)),
                      (get_smoke_config(arch), j_smoke(arch))):
+        assert {f.name for f in dataclasses.fields(jc)} - {
+            f.name for f in dataclasses.fields(full)} == {
+            "sharding_overrides", "kernels"}
         for f in dataclasses.fields(full):
             got, want = getattr(full, f.name), getattr(jc, f.name)
-            if dataclasses.is_dataclass(got):      # SSM / RG-LRU sub-config
+            if dataclasses.is_dataclass(got):      # MoE / SSM / RG-LRU
                 got, want = dataclasses.asdict(got), dataclasses.asdict(want)
             assert got == want, f.name
         assert count_params(model_specs(full)) == full.param_count()
+        assert count_params(model_specs(full, serve=True)) == \
+            full.param_count() + 3 * full.num_layers * (
+                full.moe.num_experts if full.quant_experts_serve else 0)
+    smoke = get_smoke_config(arch)
+    if not smoke.embed_inputs:
+        with pytest.raises(ValueError, match="embeddings"):
+            ModelPool(smoke, device="cpu")
+        return
+    pool = ModelPool(smoke, device="cpu")
+    ids = pool.serve_segment(torch.zeros((2, 16), dtype=torch.long), 3)
+    assert ids.shape == (2, 3)
+    assert ((ids >= 0) & (ids < smoke.vocab_size)).all()
 
 
 def test_init_params_dtypes_scales_and_seed():

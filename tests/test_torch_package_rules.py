@@ -218,8 +218,10 @@ def test_force_kernel_on_cpu_tensor_raises(name):
 
 def test_unported_branches_raise():
     """Only the branches still to port raise, naming their ROADMAP item:
-    the mesh (A.15) and model pools of configs with MoE blocks, M-RoPE or
-    an embedding-input front end (A.14).  Online finetuning (A.11) runs: a
+    the mesh (A.15).  Model pools of configs with MoE blocks or M-RoPE
+    serve (A.14 is ported); a config whose front end feeds embeddings has
+    no token table, so its pool raises, as the reference's cannot serve it
+    either.  Online finetuning (A.11) runs: a
     session with a ``FinetuneConfig`` serves a round.  Tier outages, ported
     with the scenarios (A.9), run: the fused solve and a session's step
     with ``tier_ok`` return solutions off the dead tier.
@@ -259,19 +261,19 @@ def test_unported_branches_raise():
         assert out["route"].tolist() == [1, 1, 1]
         assert bool(torch.isfinite(out["cost"]).all())
     dense = get_smoke_config("qwen1.5-0.5b")
-    unported = {
+    with pytest.raises(ValueError, match="embeddings"):
+        ModelPool(dataclasses.replace(dense, embed_inputs=False),
+                  device="cpu")
+    for arch in ("mixtral-8x22b", "moonshot-v1-16b-a3b", "qwen2-vl-2b",
+                 "musicgen-medium"):
+        assert get_config(arch).name == arch
+    ported = {
         "moe": dataclasses.replace(dense, family="moe", moe=MoEConfig(
             num_experts=4, top_k=2, d_expert=32)),
-        "mrope": dataclasses.replace(dense, mrope=True),
-        "front_end": dataclasses.replace(dense, embed_inputs=False),
-    }
-    for cfg in unported.values():
-        with pytest.raises(NotImplementedError, match="A.14"):
-            ModelPool(cfg, device="cpu")
-    for arch in ("mixtral-8x22b", "moonshot-v1-16b-a3b", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError, match="A.14"):
-            get_config(arch)
-    ported = {
+        "mrope": dataclasses.replace(dense, mrope=True,
+                                     mrope_sections=(2, 3, 3)),
+        "moonshot-v1-16b-a3b": get_smoke_config("moonshot-v1-16b-a3b"),
+        "mixtral-8x22b": get_smoke_config("mixtral-8x22b"),
         "ssm": dataclasses.replace(dense, family="ssm",
                                    layer_pattern=("ssm",), ssm=SSMConfig()),
         "rglru": dataclasses.replace(dense, layer_pattern=("rglru", "attn"),
