@@ -159,7 +159,41 @@ Phases, one JSON line each; any failure exits non-zero:
                  tier out and ``c6_repair`` with the churned pool's alive
                  mask, on inputs those runs gave them, held to their plain
                  versions and timed (a second time in their kernel rows).
-11. ``dispatch`` the tier pools at full width and depth (Qwen1.5-0.5B edge,
+11. ``sharded`` stream-sharded serving on ``torch.distributed`` at the main
+                 path's cell (M = 4096, R = 16, ``bw_scale`` 0.5 on every
+                 round, pools 16 edge / 8 cloud): one rank on NCCL in this
+                 process, ``run_sharded`` gathered and hierarchical,
+                 captured, for gate-mode R2E-VID, rdap, jcab, a2_cloud_only
+                 and sniper, each bit-equal to the dense ``run`` (launches
+                 counted from zero per run; rounds/s of the two modes and
+                 the dense run in turns; collectives and elements a round;
+                 R2E-VID's runs profiled); then 4 ranks on the one card over
+                 gloo (spawned, uncaptured, each collective staged through
+                 the host): the five policies in both modes (gathered:
+                 decisions exact, metrics within 1e-5 relative of dense;
+                 hierarchical: decisions, τ, accuracy and energy equal to
+                 dense, no in-round collective above 4 elements, and
+                 R2E-VID's delay and cost within 1e-5 of the same 4-rank run
+                 on the plain versions on the CPU, on the rounds whose
+                 decisions agree), the ``churn`` trace in both modes (alive,
+                 queue, admitted, dropped exact), ``repair_local`` on
+                 max-fidelity solutions at M = 4096 (the global draw within
+                 the budget, each shard within its target, no task more
+                 than one level from the dense repair) and on a skewed
+                 case at M = 65,536 (two shards under their fair share keep
+                 their draw, the two over it demote to the targets the
+                 split grants them), ``run_elastic`` with failures
+                 {6: [3], 11: [2]} (4 → 3 → 2 ranks) equal to dense, and
+                 the hierarchical run at M = 65,536, R = 4 (16,384 streams
+                 a rank, a budget of 2.5 Mbps a stream, C6 held every
+                 round; its exchanges beside the gathered mode's at
+                 M = 53,248, the most its one-block LPT walk holds, and the
+                 gathered mode refused at 65,536 by that limit); each
+                 rank's peak memory.  With two cards or more, also one rank
+                 a card on NCCL.  Also ``lpt_queue`` at the whole and the
+                 per-shard pools (16 + 8, 8 + 4, 4 + 2) against its plain
+                 version, bit for bit.
+12. ``dispatch`` the tier pools at full width and depth (Qwen1.5-0.5B edge,
                  Qwen3-8B cloud, bf16, random weights from seeded
                  generators): (a) ``ServeSession.dispatch`` of a gate-mode
                  round over the first 256 streams of the main path's stream,
@@ -176,7 +210,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  fed-back observation; last, a decode step and a prefill
                  per tier, timed on both paths in turns and profiled
                  (device busy time, idle share, top device and host costs).
-12. ``dispatch_recurrent``  the same phase on the sub-quadratic tier pools,
+13. ``dispatch_recurrent``  the same phase on the sub-quadratic tier pools,
                  after the dense pools are freed: Falcon-Mamba-7B (64 Mamba
                  layers) as the edge tier and RecurrentGemma-9B (26 RG-LRU
                  and 12 local-attention layers) as the cloud tier, full
@@ -189,7 +223,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  profiled windows 2 calls, not 5: the plain selective scan
                  is a Python loop over the steps of every layer (~1 s for
                  an 8 × 80 prefill), and every id flip is replayed on it.
-13. ``dispatch_moe`` the same phase with the MoE cloud tier, after the
+14. ``dispatch_moe`` the same phase with the MoE cloud tier, after the
                  earlier pools are freed: Qwen1.5-0.5B edge, Moonshot-v1-
                  16B-A3B cloud at full width and depth (48 layers, 64
                  experts, top-6, bf16: 56.1 GB of weights, its stacked
@@ -200,7 +234,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  and 8 slab decode steps, greedy on the kernels and plain
                  (logits, ids by the margin rule, flash_attention = 4 and
                  decode_attention = 32 launches), its pool calls profiled.
-14. ``front_end`` the embedding-input models at full width and depth in
+15. ``front_end`` the embedding-input models at full width and depth in
                  bf16: Qwen2-VL-2B (28 layers, M-RoPE) and MusicGen-medium
                  (48 layers), each a prefill of seeded (8, 80, d)
                  embeddings, then 8 decode steps of seeded (8, 1, d) ones;
@@ -3069,6 +3103,585 @@ def front_end_phase(torch, dev, counts_reset, counts_read, b=8, s=80,
     return dict(totals), rec
 
 
+SHARD_POLICIES = ("r2evid", "rdap", "jcab", "a2_cloud_only", "sniper")
+SHARD_POOLS = {"n_edge": 16, "n_cloud": 8}   # divide by D = 1, 2, 4 and 8
+SHARD_WORLD = 4                    # ranks on the one card, over gloo
+SHARD_SCALE_M, SHARD_SCALE_R = 65536, 4    # 16,384 streams a rank
+# the scale runs' C6 budget a stream, in Mbps.  The session's decisions sit
+# on the accuracy floor (no feasible demotion is left in any round), so a
+# budget below their draw cannot be met; the main cell's bw_scale 0.5 is
+# 0.073 Mbps a stream.  The demotions at 16,384 a rank are the skewed
+# repair case's (``inflated_case``).
+SHARD_SCALE_BW = 2.5
+# the gathered mode realizes every stream in one lpt_queue block, whose
+# shared memory holds 54,656 tasks: its scale run takes the largest
+# multiple of 4096 within that
+SHARD_GATHER_M = 53248
+ELASTIC_FAILURES = {6: [3], 11: [2]}       # 4 → 3 → 2 ranks
+SHARD_TOL = 1e-5                   # relative, metrics against the reference
+
+
+def sharded_cell(torch, dev, m: int, rounds: int, bw_scale: float = 0.5):
+    """The sharded phase's stream: the main path's (seed 0, features of
+    seed 1) with ``bw_scale`` on every round (0.5: C6 binds)."""
+    from repro_torch.core.cost_model import SystemConfig
+    from repro_torch.serving.simulator import SimConfig, Simulator
+
+    stream = Simulator(SystemConfig(), SimConfig(n_tasks=m, seed=0),
+                       device=dev).sample_stream(n_rounds=rounds,
+                                                 feature_seed=1)
+    return dataclasses.replace(
+        stream, bw_scale=torch.full((rounds,), bw_scale, device=dev))
+
+
+def shard_policy(torch, name, dev, force="auto", **kw):
+    """A policy of the sharded phase: R2E-VID in gate mode with the main
+    path's seeded weights; the others as registered."""
+    from repro_torch.core.cost_model import SystemConfig
+    from repro_torch.core.gating import GateConfig
+    from repro_torch.serving.policy import make_policy
+
+    if name == "r2evid":
+        kw.update(gate_cfg=GateConfig(d_feature=35),
+                  generator=torch.Generator().manual_seed(0))
+    return make_policy(name, SystemConfig(), device=dev, force=force, **kw)
+
+
+def shard_obs(stream, name):
+    """Gate-mode R2E-VID reads the motion features; the others do not."""
+    return stream if name == "r2evid" else dataclasses.replace(stream,
+                                                               dx=None)
+
+
+def max_rel(torch, got, want) -> float:
+    """max |got − want| / max(|want|, 1e-12) over float tensors."""
+    a, b = got.double(), want.double()
+    return float(((a - b).abs() / b.abs().clamp_min(1e-12)).max())
+
+
+def compare_to(torch, got: dict, want: dict, exact, close, what: str):
+    """``exact`` keys equal, ``close`` keys within SHARD_TOL relative;
+    returns the max relative difference of each close key."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} vs "
+                             f"{sorted(want)}")
+    for k in exact:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"{what}: {k} differs")
+    rel = {k: max_rel(torch, got[k], want[k]) for k in close}
+    bad = {k: v for k, v in rel.items() if not v <= SHARD_TOL}
+    if bad:
+        raise AssertionError(f"{what}: {bad} above {SHARD_TOL} relative")
+    return rel
+
+
+def digest(arrays: dict) -> dict:
+    """A short hash of each array: ranks other than 0 return these."""
+    import hashlib
+
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in arrays.items()}
+
+
+def lpt_wide_check(torch, dev) -> dict:
+    """``lpt_queue``'s wide instantiation (up to 16 servers a tier: the
+    sharded phase's whole pools) and its per-shard pools against the plain
+    version, on tie-heavy times and mixed routes at M = 4096, all servers
+    up and one of each tier down: bit for bit; the kernel's ms at 16 + 8."""
+    from repro_torch.kernels.lpt_queue.ops import lpt_queue
+
+    rng = np.random.default_rng(24)
+    out = {}
+    for n_edge, n_cloud in ((16, 8), (8, 4), (4, 2)):
+        t = torch.from_numpy((rng.integers(1, 5, (2, M)) * 0.125).astype(
+            np.float32)).to(dev)
+        route = torch.from_numpy(rng.integers(0, 2, (2, M)).astype(
+            np.int32)).to(dev)
+        down = torch.ones((2, n_edge + n_cloud), device=dev)
+        down[1, 0] = down[1, n_edge] = 0.0
+        for avail in (None, down):
+            got = lpt_queue(t, route, n_edge, n_cloud, avail=avail,
+                            force="kernel")
+            want = lpt_queue(t, route, n_edge, n_cloud, avail=avail,
+                             force="ref")
+            if not torch.equal(got, want):
+                raise AssertionError(f"lpt_queue at {n_edge} + {n_cloud} "
+                                     f"servers differs from its plain version")
+        out[f"{n_edge}+{n_cloud}"] = {
+            "bitequal_vs_plain": True,
+            "ms": event_ms(torch, lambda: lpt_queue(t, route, n_edge,
+                                                    n_cloud), reps=20)}
+    return out
+
+
+def inflated_case(torch, m: int, dev, skewed: bool = False):
+    """The reference's max-fidelity solutions with loose requirements
+    (tests/test_hierarchical.py:86) at ``m`` tasks, real demotion slack:
+    (solution, z, aq) on ``dev``.  ``skewed``: the second half of the
+    streams at the middle (r, p) level instead, so that with 4 shards two
+    draw under their fair share and grant their headroom to the two over
+    it (the sub-budget split's every term is non-zero)."""
+    from repro_torch.core.cost_model import SystemConfig
+
+    sys_ = SystemConfig()
+    rng = np.random.default_rng(5)
+    z = torch.from_numpy(rng.uniform(0.1, 0.6, m).astype(np.float32))
+    aq = torch.from_numpy(rng.uniform(0.5, 0.6, m).astype(np.float32))
+    full = lambda v: torch.full((m,), v, dtype=torch.int64, device=dev)
+    sol = {"route": full(0), "r": full(sys_.n_res - 1),
+           "p": full(sys_.n_fps - 1), "v": full(sys_.num_versions - 1)}
+    if skewed:
+        sol["r"][m // 2:] = sys_.n_res // 2
+        sol["p"][m // 2:] = sys_.n_fps // 2
+    return sol, z.to(dev), aq.to(dev)
+
+
+def sharded_rank(device: str, force: str, parts: tuple, sizes: tuple) -> dict:
+    """One rank of a world started by ``run_ranks`` (4 ranks on the one
+    card over gloo, or on the CPU for the plain path): the ``parts`` of
+    the sharded phase, each run's launches counted from zero just before
+    it and read just after.  ``sizes``: (M, R) of the cell and of the scale
+    run.  Rank 0 returns the outputs (numpy), the other ranks their
+    digests."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.cost_model import SystemConfig
+    from repro_torch.core.router import RouterConfig, shard_bandwidth_target
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.serving.scenarios import apply_scenario, compile_scenario
+    from repro_torch.serving.session import ServeSession
+    from repro_torch.serving.simulator import SimConfig
+    from repro_torch.sharding.audit import round_footprint
+    from repro_torch.sharding.collectives import COLLECTIVES
+
+    dev = torch.device(device)
+    m, rounds, scale_m, scale_r, gather_m = sizes
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = host_mesh()
+    rank = dist.get_rank()
+    sys_ = SystemConfig()
+    res = {"rank": rank, "runs": {}, "launches": collections.Counter()}
+    host = lambda out: {k: v.cpu().numpy() for k, v in out.items()}
+
+    def keep(out):
+        return host(out) if rank == 0 else digest(host(out))
+
+    def counted(fn, rounds):
+        """Run ``fn``: its outputs, launches and exchanges, and the seconds
+        of a second, warm run (of the first on the CPU)."""
+        reset_launch_counts()
+        start = len(COLLECTIVES)
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+        ex = round_footprint(COLLECTIVES[start:], rounds)
+        res["launches"].update(launches)
+        if dev.type == "cuda":
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            secs = time.perf_counter() - t0
+        return out, launches, ex, secs
+
+    stream = sharded_cell(torch, dev, m, rounds)
+    if "policies" in parts or "hier_r2evid" in parts:
+        names = SHARD_POLICIES if "policies" in parts else ("r2evid",)
+        modes = (False, True) if "policies" in parts else (True,)
+        for name in names:
+            obs = shard_obs(stream, name)
+            pol = shard_policy(torch, name, dev, force)
+            for hier in modes:
+                sess = ServeSession(pol, m, device=dev, **SHARD_POOLS)
+
+                def run():
+                    sess.reset()
+                    return sess.run_sharded(mesh, obs, hierarchical=hier)
+                out, launches, ex, secs = counted(run, rounds)
+                res["runs"][name, hier] = {
+                    "out": keep(out), "launches": launches, "exchanges": ex,
+                    "rounds_per_s": rounds / secs}
+    if "churn" in parts:
+        simc = SimConfig(n_tasks=m, seed=0)
+        trace = compile_scenario("churn", sys_, simc, rounds, seed=1)
+        obs = apply_scenario(stream, trace)
+        pol = shard_policy(torch, "r2evid", dev, force)
+        for hier in (False, True):
+            sess = ServeSession(pol, m, device=dev, admission=trace.admission,
+                                **SHARD_POOLS)
+
+            def run():
+                sess.reset()
+                return sess.run_sharded(mesh, obs, hierarchical=hier)
+            out, launches, ex, secs = counted(run, rounds)
+            res["runs"]["churn", hier] = {
+                "out": keep(out), "launches": launches, "exchanges": ex,
+                "rounds_per_s": rounds / secs}
+    if "repair" in parts:
+        # the reference's case at the cell's M (half its draw), and the
+        # skewed one at 16,384 streams a rank (three quarters of its draw)
+        pol = shard_policy(torch, "r2evid", dev, force,
+                           rcfg=RouterConfig(repair_rounds=64))
+        lat = pol.lat
+        res["repair"] = {}
+        for key, mm, skewed, frac in (("cell", m, False, 0.5),
+                                      ("scale", scale_m, True, 0.75)):
+            sol, z, aq = inflated_case(torch, mm, dev, skewed)
+            scale = (frac * lat.solution_bandwidth(sol).sum()
+                     / sys_.total_bw_mbps)
+            ml = mm // mesh.size()
+            sl = slice(rank * ml, (rank + 1) * ml)
+            local = {k: v[sl] for k, v in sol.items()}
+            reset_launch_counts()
+            fixed = pol.repair_local(local, z[sl], aq[sl], mesh=mesh,
+                                     bw_scale=scale)
+            sync()
+            res["launches"].update(launch_counts())
+            target = shard_bandwidth_target(
+                lat.solution_bandwidth(local).sum(),
+                torch.tensor(float(ml), device=dev),
+                scale * sys_.total_bw_mbps, mesh)
+            res["repair"][key] = {
+                "r": fixed["r"].cpu().numpy(), "p": fixed["p"].cpu().numpy(),
+                "target": float(target),
+                "budget": float(scale * sys_.total_bw_mbps),
+                "draw_before": float(lat.solution_bandwidth(local).sum()),
+                "draw": float(lat.solution_bandwidth(fixed).sum()),
+                "demotions": int((fixed["r"] != local["r"]).sum()
+                                 + (fixed["p"] != local["p"]).sum())}
+    if "elastic" in parts:
+        pol = shard_policy(torch, "r2evid", dev, force)
+        sess = ServeSession(pol, m, device=dev, **SHARD_POOLS)
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = sess.run_elastic(stream, ELASTIC_FAILURES)
+        sync()
+        launches = launch_counts()
+        res["launches"].update(launches)
+        res["elastic"] = {"out": keep(out),
+                          "sizes": [m.size() for _, m in sess.mesh_history],
+                          "seconds": time.perf_counter() - t0,
+                          "launches": launches}
+    if "scale" in parts:
+        from repro_torch.kernels.lpt_queue.ops import MAX_TASKS
+
+        pol = shard_policy(torch, "r2evid", dev, force)
+        for hier, mm in ((True, scale_m), (False, gather_m)):
+            bw_scale = SHARD_SCALE_BW * mm / sys_.total_bw_mbps
+            big = sharded_cell(torch, dev, mm, scale_r, bw_scale)
+            sess = ServeSession(pol, mm, device=dev, **SHARD_POOLS)
+
+            def run():
+                sess.reset()
+                return sess.run_sharded(mesh, big, hierarchical=hier)
+            out, launches, ex, secs = counted(run, scale_r)
+            budget = bw_scale * sys_.total_bw_mbps
+            draws = [float(pol.lat.solution_bandwidth(
+                {k: out[k][t] for k in ("route", "r", "p", "v")}).sum())
+                for t in range(scale_r)]
+            if not all(d <= budget for d in draws):
+                raise AssertionError(f"scale (hierarchical={hier}): C6 "
+                                     f"draws {draws} over {budget}")
+            res["runs"]["scale", hier] = {
+                "streams": mm, "launches": launches, "exchanges": ex,
+                "rounds_per_s": scale_r / secs, "budget": budget,
+                "draw_per_stream": [d / mm for d in draws]}
+        # the gathered mode at the hierarchical run's M: refused, since the
+        # realization's one-block LPT walk cannot hold the batch
+        big = sharded_cell(torch, dev, scale_m, scale_r)
+        sess = ServeSession(pol, scale_m, device=dev, **SHARD_POOLS)
+        try:
+            sess.run_sharded(mesh, big, hierarchical=False)
+        except ValueError as e:
+            if f"M <= {MAX_TASKS}" not in str(e):
+                raise
+            res["gathered_at_scale"] = f"refused: {e}"
+        else:
+            raise AssertionError(f"the gathered mode ran {scale_m} streams "
+                                 f"past lpt_queue's {MAX_TASKS} tasks")
+    if dev.type == "cuda":
+        res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def sharded_phase(torch, dev, counts_reset, counts_read):
+    """Stream-sharded serving on the card (see the module doc).  Returns
+    (the kernel launches of the counted runs, summed over the ranks, the
+    phase's record)."""
+    from repro_torch.core.cost_model import SystemConfig
+    from repro_torch.core.router import enforce_bandwidth
+    from repro_torch.launch.mesh import host_mesh, run_ranks, \
+        single_rank_group
+    from repro_torch.serving.scenarios import apply_scenario, compile_scenario
+    from repro_torch.serving.session import ServeSession
+    from repro_torch.serving.simulator import SimConfig
+    from repro_torch.sharding.audit import round_footprint
+    from repro_torch.sharding.collectives import COLLECTIVES
+
+    stream = sharded_cell(torch, dev, M, ROUNDS)
+    sizes = (M, ROUNDS, SHARD_SCALE_M, SHARD_SCALE_R, SHARD_GATHER_M)
+    dec = ("route", "r", "p", "v")
+    totals = collections.Counter()
+    rec = {"phase": "sharded", "streams": M, "rounds": ROUNDS,
+           "pools": SHARD_POOLS, "bw_scale": 0.5, "world1_nccl": {},
+           "lpt_queue_pools": lpt_wide_check(torch, dev)}
+
+    # world 1 on NCCL, in this process: captured, the dense run's bits
+    dense = {}
+    with single_rank_group("nccl"):
+        mesh = host_mesh()
+        for name in SHARD_POLICIES:
+            obs = shard_obs(stream, name)
+            pol = shard_policy(torch, name, dev)
+            plain = ServeSession(pol, M, device=dev, **SHARD_POOLS)
+            dense[name] = want = plain.run(obs)
+            torch.cuda.synchronize()
+            sessions = {"dense": plain}
+            row = {}
+            for hier in (False, True):
+                mode = "hierarchical" if hier else "gathered"
+                sess = sessions[mode] = ServeSession(
+                    pol, M, device=dev, mesh=mesh, hierarchical=hier,
+                    **SHARD_POOLS)
+                counts_reset()
+                start = len(COLLECTIVES)
+                got = sess.run(obs)
+                torch.cuda.synchronize()
+                launches = counts_read()
+                totals.update(launches)
+                expect = {"lpt_queue": ROUNDS}
+                if name == "r2evid":
+                    expect.update(gate_cell=ROUNDS, ccg_solve=ROUNDS,
+                                  c6_repair=ROUNDS)
+                if launches != expect:
+                    raise AssertionError(f"world 1 {name} {mode} launched "
+                                         f"{launches}, want {expect}")
+                (graph,) = sess.graphs.values()
+                if graph.graph is None:
+                    raise AssertionError(f"world 1 {name} {mode}: the NCCL "
+                                         f"round was not captured")
+                compare_to(torch, got, want, list(want), [],
+                           f"world 1 {name} {mode} vs dense")
+                row[mode] = {"launches": launches,
+                             "lane_rounds_bitequal_vs_dense":
+                                 got["route"].numel(),
+                             "capture_s": graph.capture_s,
+                             **round_footprint(COLLECTIVES[start:], ROUNDS)}
+            secs = run_turns(torch, sessions, obs)
+            for mode, s in secs.items():
+                row.setdefault(mode, {})["rounds_per_s"] = ROUNDS / s
+            if name == "r2evid":
+                for mode in ("gathered", "hierarchical", "dense"):
+                    prof = trace_round(torch, sessions[mode], obs, secs[mode],
+                                       host=False)
+                    row[mode]["trace"] = {k: prof[k] for k in (
+                        "device_busy_ms_per_round",
+                        "device_activities_per_round", "device_idle_share",
+                        "kernel_launches_per_round")}
+            rec["world1_nccl"][name] = row
+        # the rounds' graphs hold the group's communicator: free them
+        # before the group goes
+        del sessions, sess, plain
+        gc.collect()
+    dense_cpu = {k: {n: v.cpu() for n, v in out.items()}
+                 for k, out in dense.items()}
+
+    # world 4 on the one card over gloo, uncaptured
+    t0 = time.perf_counter()
+    ranks = run_ranks(sharded_rank, SHARD_WORLD, backend="gloo", timeout=600,
+                      threads=2, args=("cuda", "auto", (
+                          "policies", "churn", "repair", "elastic", "scale"),
+                          sizes))
+    rec["world4_gloo_seconds"] = time.perf_counter() - t0
+    # the same hierarchical run on the plain versions, on the CPU
+    t0 = time.perf_counter()
+    plain4 = run_ranks(sharded_rank, SHARD_WORLD, backend="gloo",
+                       timeout=600, threads=2,
+                       args=("cpu", "ref", ("hier_r2evid",), sizes))
+    rec["world4_cpu_plain_seconds"] = time.perf_counter() - t0
+    for res in ranks:
+        totals.update(res["launches"])
+        if res["rank"] == 0:
+            continue
+        for key, run in res["runs"].items():
+            if "out" in run and run["out"] != digest(ranks[0]["runs"][key][
+                    "out"]):
+                raise AssertionError(f"world 4: rank {res['rank']} returned "
+                                     f"other outputs of {key}")
+    r0 = ranks[0]
+    t = lambda arrays: {k: torch.from_numpy(v) for k, v in arrays.items()}
+    w4 = {}
+    for name in SHARD_POLICIES:
+        want = dense_cpu[name]
+        gathered = t(r0["runs"][name, False]["out"])
+        hier = t(r0["runs"][name, True]["out"])
+        same = [k for k in dec + ("tau", "accuracy", "energy") if k in want]
+        row = {"gathered_max_rel_vs_dense": compare_to(
+            torch, gathered, want, dec, ("delay", "energy", "cost",
+                                         "accuracy"), f"world 4 {name}")}
+        compare_to(torch, {k: hier[k] for k in same}, {k: want[k] for k in
+                                                       same}, same, (),
+                   f"world 4 {name} hierarchical")
+        row["hierarchical_equal_to_dense"] = same
+        for hier_mode in (False, True):
+            run = r0["runs"][name, hier_mode]
+            mode = "hierarchical" if hier_mode else "gathered"
+            row[mode] = {k: run[k] for k in ("launches", "exchanges",
+                                             "rounds_per_s")}
+            if hier_mode and run["exchanges"]["max_elements"] > 4:
+                raise AssertionError(f"world 4 {name}: a hierarchical round "
+                                     f"exchanged {run['exchanges']}")
+        w4[name] = row
+    # hierarchical delay and cost: the plain path's 4-rank run
+    card = t(r0["runs"]["r2evid", True]["out"])
+    ref = t(plain4[0]["runs"]["r2evid", True]["out"])
+    same = torch.ones_like(card["route"], dtype=torch.bool)
+    for k in dec:
+        same &= card[k] == ref[k]
+    rounds_eq = same.all(dim=1)
+    agree = float(same.double().mean())
+    if agree < 0.999 or not bool(rounds_eq.any()):
+        raise AssertionError(f"world 4 hierarchical: kernels vs plain "
+                             f"decisions agree on {agree}")
+    w4["r2evid"]["hierarchical_vs_plain_cpu"] = {
+        "decision_agreement": agree, "rounds_compared": int(rounds_eq.sum()),
+        **compare_to(torch, {k: card[k][rounds_eq] for k in ("delay", "cost")},
+                     {k: ref[k][rounds_eq] for k in ("delay", "cost")}, (),
+                     ("delay", "cost"), "world 4 hierarchical vs plain")}
+    rec["world4_gloo"] = w4
+
+    # churn: the slot pool's bookkeeping exact against the dense run
+    trace = compile_scenario("churn", SystemConfig(),
+                             SimConfig(n_tasks=M, seed=0), ROUNDS, seed=1)
+    pol = shard_policy(torch, "r2evid", dev)
+    churn_dense = ServeSession(pol, M, device=dev, admission=trace.admission,
+                               **SHARD_POOLS).run(apply_scenario(stream,
+                                                                 trace))
+    churn_keys = ("alive", "queue_depth", "admitted", "dropped")
+    rec["churn"] = {}
+    for hier in (False, True):
+        got = t(r0["runs"]["churn", hier]["out"])
+        for k in churn_keys + (dec if not hier else ()):
+            if not torch.equal(got[k], churn_dense[k].cpu()):
+                raise AssertionError(f"churn (hierarchical={hier}): {k} "
+                                     f"differs from dense")
+        rec["churn"]["hierarchical" if hier else "gathered"] = {
+            "admitted": int(got["admitted"].sum()),
+            "dropped": int(got["dropped"].sum()),
+            "rounds_per_s": r0["runs"]["churn", hier]["rounds_per_s"]}
+
+    # repair_local where it must demote: the reference's case at the cell
+    rep = [res["repair"]["cell"] for res in ranks]
+    budget = rep[0]["budget"]
+    lat = pol.lat
+    sys_ = SystemConfig()
+    sol, z, aq = inflated_case(torch, M, dev)
+    dense_fix, _ = enforce_bandwidth(lat, sol, z, aq, total_budget=budget,
+                                     rounds=64)
+    hier_fix = dict(sol, r=torch.from_numpy(np.concatenate(
+        [x["r"] for x in rep])).to(dev), p=torch.from_numpy(np.concatenate(
+            [x["p"] for x in rep])).to(dev))
+    depth = lambda s: (sys_.n_res - 1 - s["r"]) + (sys_.n_fps - 1 - s["p"])
+    gap = int((depth(dense_fix) - depth(hier_fix)).abs().max())
+    draw = float(lat.solution_bandwidth(hier_fix).sum())
+    if draw > budget + 1e-3 or gap > 1 or not all(
+            x["draw"] <= x["target"] + 1e-3 for x in rep) or \
+            int(depth(hier_fix).sum()) == 0:
+        raise AssertionError(f"repair_local: draw {draw} vs budget {budget}, "
+                             f"gap {gap}, shards {rep}")
+    rec["repair_local"] = {"budget": budget, "draw": draw,
+                           "max_level_gap_vs_dense": gap,
+                           "demotions": int(depth(hier_fix).sum()),
+                           "shard_draw_vs_target": [
+                               (x["draw"], x["target"]) for x in rep]}
+    # and the skewed case at 16,384 streams a rank: the shards under their
+    # fair share keep their draw and grant the rest to the two over it,
+    # which demote to targets above the fair share
+    rep = [res["repair"]["scale"] for res in ranks]
+    budget = rep[0]["budget"]
+    fair = budget / len(rep)
+    over = [x["draw_before"] > fair for x in rep]
+    total = sum(x["target"] for x in rep)
+    bad = [r for r, x in enumerate(rep)
+           if x["draw"] > x["target"] + 1e-3
+           or (x["demotions"] > 0) != over[r]
+           or (over[r] and not x["target"] > fair)
+           or (not over[r] and x["target"] != x["draw_before"])]
+    if bad or over != [True, True, False, False] or \
+            abs(total - budget) > 1e-5 * budget or \
+            sum(x["draw"] for x in rep) > budget:
+        raise AssertionError(f"repair_local at {SHARD_SCALE_M}: shards {bad}"
+                             f" of {rep}, targets sum to {total} of {budget}")
+    rec["repair_local_scale"] = {
+        "streams": SHARD_SCALE_M, "budget": budget, "fair_share": fair,
+        "draw": sum(x["draw"] for x in rep),
+        "shards": [{k: x[k] for k in ("draw_before", "target", "draw",
+                                      "demotions")} for x in rep]}
+
+    # run_elastic 4 → 3 → 2 against the dense run
+    el = r0["elastic"]
+    if el["sizes"] != [4, 3, 2]:
+        raise AssertionError(f"run_elastic meshes {el['sizes']}")
+    rec["elastic"] = {
+        "failures": {str(k): v for k, v in ELASTIC_FAILURES.items()},
+        "mesh_sizes": el["sizes"], "seconds": el["seconds"],
+        "launches": el["launches"],
+        "max_rel_vs_dense": compare_to(
+            torch, t(el["out"]), dense_cpu["r2evid"], dec,
+            ("delay", "energy", "cost", "accuracy", "tau"),
+            "run_elastic vs dense")}
+    for res in ranks[1:]:
+        if res["elastic"]["out"] != digest(el["out"]):
+            raise AssertionError(f"run_elastic: rank {res['rank']} returned "
+                                 f"other outputs")
+
+    # scale: 16,384 streams a rank
+    scale = {hier: r0["runs"]["scale", hier] for hier in (True, False)}
+    if scale[True]["exchanges"]["max_elements"] > 4:
+        raise AssertionError(f"scale: hierarchical exchanges "
+                             f"{scale[True]['exchanges']}")
+    rec["scale"] = {"streams": SHARD_SCALE_M, "rounds": SHARD_SCALE_R,
+                    "bw_mbps_per_stream": SHARD_SCALE_BW,
+                    "c6_held_rounds": SHARD_SCALE_R,
+                    "gathered_at_hierarchical_m": r0["gathered_at_scale"],
+                    **{("hierarchical" if h else "gathered"): {
+                        k: scale[h][k] for k in (
+                            "streams", "rounds_per_s", "exchanges",
+                            "launches", "budget", "draw_per_stream")}
+                       for h in (True, False)}}
+    rec["peak_memory_bytes_by_rank"] = [res.get("peak_memory_bytes")
+                                        for res in ranks]
+    n_cards = torch.cuda.device_count()
+    rec["nccl_multi_card"] = "not run: one card" if n_cards < 2 else \
+        nccl_multi_card(torch, n_cards, dense_cpu["r2evid"], totals, sizes)
+    return totals, rec
+
+
+def nccl_multi_card(torch, n_cards, dense, totals, sizes) -> dict:
+    """One rank a card on NCCL, gate-mode R2E-VID in both modes, against
+    the dense run."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(sharded_rank, n_cards, backend="nccl", timeout=600,
+                      threads=2, args=("cuda", "auto", ("hier_r2evid",),
+                                       sizes))
+    for res in ranks:
+        totals.update(res["launches"])
+    out = {k: torch.from_numpy(v) for k, v in
+           ranks[0]["runs"]["r2evid", True]["out"].items()}
+    compare_to(torch, {k: out[k] for k in dense}, dense,
+               ("route", "r", "p", "v", "tau"), ("accuracy", "energy"),
+               "multi-card hierarchical")
+    return {"world": n_cards, "seconds": time.perf_counter() - t0,
+            "rounds_per_s": ranks[0]["runs"]["r2evid", True]["rounds_per_s"]}
+
+
 def trace_round(torch, sess, stream, untraced_s: float,
                 rounds: int = ROUNDS, host: bool = True) -> dict:
     """Where the time goes: one profiled run of ``rounds`` rounds of the
@@ -3142,8 +3755,8 @@ def trace_round(torch, sess, stream, untraced_s: float,
 
 
 PHASES = ("kernels", "gate_cell_bwd", "main_path", "solve_ccg", "policies",
-          "decide", "finetune", "scenarios", "dispatch", "dispatch_recurrent",
-          "dispatch_moe", "front_end")
+          "decide", "finetune", "scenarios", "sharded", "dispatch",
+          "dispatch_recurrent", "dispatch_moe", "front_end")
 
 
 def main() -> int:
@@ -3249,6 +3862,9 @@ def main() -> int:
         phases["scenarios"], scen_rec = scenarios_phase(torch, dev, *counted,
                                                         rows)
         record(scen_rec)
+    if "sharded" in only:
+        phases["sharded"], shard_rec = sharded_phase(torch, dev, *counted)
+        record(shard_rec)
     by_calls = []
     if "dispatch" in only:
         dispatch_by_call, dispatch_rec = dispatch_phase(torch, dev, stream,

@@ -1,7 +1,8 @@
 """Two-stage robust optimization (paper §3.1/§3.3, Eq. 2-10, Alg. 2) —
 port of ``repro/core/robust.py``: the pole set, :class:`RobustProblem`, the
 fused CCG solve that serves every round, the unrolled solver
-:func:`solve_ccg` and the brute-force :func:`exact_oracle`.
+:func:`solve_ccg`, the stream-sharded :func:`solve_ccg_sharded` (:433) and
+the brute-force :func:`exact_oracle`.
 
 The Γ-budget uncertainty set U = { u : u_k = g_k·ũ_k, g_k∈[0,1], Σ g_k ≤ Γ }
 scales the second-stage cost of model k by (1+u_k); its worst case sits at a
@@ -22,6 +23,12 @@ from repro_torch.core.lattice import BIG, DecisionLattice
 from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
+from repro_torch.sharding.collectives import (
+    all_gather,
+    shard_count,
+    shard_index,
+)
+from repro_torch.sharding.compat import pad_leading
 
 
 def _poles(num_versions: int, gamma: int, device="cpu"):
@@ -248,6 +255,31 @@ def solve_ccg(prob: RobustProblem, difficulty, acc_req, max_iters: int = 8,
         "route": route, "r": r_idx, "p": p_idx, "v": v_star,
         "o_up": o_up, "o_down": o_down, "iters": iters, "infeasible": none_ok,
     }
+
+
+def solve_ccg_sharded(prob: RobustProblem, difficulty, acc_req, mesh,
+                      axis: str = "data", max_iters: int = 8,
+                      theta: float = 1e-4, warm_y=None, force: str = "auto"):
+    """:func:`solve_ccg_fused` with the task batch split over the ranks of
+    ``mesh`` along ``axis``: every rank passes the same full (M,) inputs,
+    solves its own slice and the slices are all-gathered back, so every
+    rank returns the whole solution.  M pads to a multiple of the shard
+    count with the reference's dummies (difficulty and requirement 0, warm
+    start -1) that are sliced off.  The solve is per task, so the
+    decisions are the unsharded solve's."""
+    m = difficulty.shape[0]
+    n_dev = shard_count(mesh, axis)
+    pad = (-m) % n_dev
+    m_l = (m + pad) // n_dev
+    start = shard_index(mesh, axis) * m_l
+    if warm_y is None:
+        warm_y = torch.full((m,), -1, dtype=torch.int64,
+                            device=difficulty.device)
+    local = lambda x, value=0: pad_leading(x, pad, value)[start:start + m_l]
+    sol = solve_ccg_fused(prob, local(difficulty), local(acc_req),
+                          max_iters=max_iters, theta=theta,
+                          warm_y=local(warm_y, -1), force=force)
+    return {k: all_gather(v, mesh, axis)[:m] for k, v in sol.items()}
 
 
 def exact_oracle(prob: RobustProblem, difficulty, acc_req, tier_ok=None):

@@ -1,5 +1,7 @@
 """R2E-VID two-stage router (paper Alg. 1 + Alg. 2 glue) — port of
-``repro/core/router.py``: the streaming path (:48-351), the stateful step
+``repro/core/router.py``: the streaming path (:48-351), the hierarchical
+C6 sub-budgets of the sharded session (``subbudget_from_stats`` :206,
+``shard_bandwidth_target`` :236), the stateful step
 ``route_step`` and its scan ``route_scan`` (:351-420) and the windowed,
 stateless ``route`` (:478-516).
 
@@ -30,6 +32,7 @@ from repro_torch.core.lattice import DecisionLattice
 from repro_torch.core.robust import RobustProblem, solve_ccg_fused
 from repro_torch.device import resolve_device
 from repro_torch.kernels.c6_tail.ops import c6_repair
+from repro_torch.sharding.collectives import all_gather, shard_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +119,46 @@ def enforce_bandwidth(lat: DecisionLattice, sol, difficulty, acc_req,
                            fps_norm(sys, dev), budget, n_fps=sys.n_fps,
                            rounds=rounds, force=force, task_mask=task_mask)
     return dict(sol, r=r, p=p), hist
+
+
+def subbudget_from_stats(bw_d, w_d, budget):
+    """Per-shard C6 sub-budgets from the fleet's (draw, weight) vectors.
+
+    ``bw_d``: (D,) each shard's pre-repair bandwidth draw; ``w_d``: (D,)
+    each shard's alive-lane weight; ``budget``: the global C6 budget B (a
+    float or a 0-d tensor).  The fair share is weight-proportional; a shard
+    under it keeps its whole draw and grants its headroom to the shards
+    over theirs, so only the true global shortfall max(Σbw − B, 0) is
+    demoted, pro-rated over the shards that own excess:
+
+        fair_d   = B · w_d / Σw
+        excess_d = max(bw_d − fair_d, 0);  head_d = max(fair_d − bw_d, 0)
+        target_d = bw_d − excess_d · max(Σexcess − Σhead, 0) / Σexcess
+
+    The targets sum to min(Σbw, B); with one shard, min(bw, B).  float32,
+    in the reference's order of operations.
+    """
+    bw_d = torch.as_tensor(bw_d, dtype=torch.float32)
+    w_d = torch.as_tensor(w_d, dtype=torch.float32, device=bw_d.device)
+    fair = budget * w_d / torch.clamp_min(w_d.sum(), 1e-9)
+    excess = torch.clamp_min(bw_d - fair, 0.0)
+    head = torch.clamp_min(fair - bw_d, 0.0)
+    shortfall = torch.clamp_min(excess.sum() - head.sum(), 0.0)
+    scale = shortfall / torch.clamp_min(excess.sum(), 1e-9)
+    return bw_d - excess * scale
+
+
+def shard_bandwidth_target(local_bw, local_weight, budget, mesh,
+                           axis: str = "data"):
+    """This shard's C6 repair target from one exchange of two scalars a
+    shard: the (draw, weight) of every shard along ``axis`` of ``mesh`` is
+    all-gathered (the only traffic the hierarchical repair makes) and this
+    shard's :func:`subbudget_from_stats` entry returned, a 0-d tensor."""
+    stats = torch.stack([local_bw.to(torch.float32),
+                         local_weight.to(torch.float32)])
+    stats = all_gather(stats[None], mesh, axis)                 # (D, 2)
+    target = subbudget_from_stats(stats[:, 0], stats[:, 1], budget)
+    return target[shard_index(mesh, axis)]
 
 
 # ---------------------------------------------------------------------------

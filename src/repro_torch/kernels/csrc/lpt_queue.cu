@@ -20,7 +20,9 @@
 // in registers of their own, specialised at compile time for the
 // configuration the port runs (4 edge + 1 cloud servers) and padded with
 // +inf in a generic instantiation of the same kernel for every other split
-// of up to 8 servers; a task touches only its tier's loads.  A walk holds 32
+// of up to 8 servers, and in a wide one for up to 16 servers a tier (the
+// stream-sharded session's whole pools, 16 edge + 8 cloud); a task touches
+// only its tier's loads.  A walk holds 32
 // tasks in registers and reads the next 32 (eight 16-byte loads) before it
 // walks the current ones; a batch's starts are stored over the batch's own
 // times once they are walked, which keeps shared memory at 4.25 bytes a
@@ -54,7 +56,8 @@ namespace {
 // 256 threads: a larger block would cap the walking thread's registers
 // (64 at 1024 threads) below its 32-task batches, which then spill
 constexpr int kThreads = 256;
-constexpr int kMaxServers = 8;
+constexpr int kMaxServers = 8;  // the generic instantiation's servers
+constexpr int kMaxTier = 16;    // the wide instantiation's servers a tier
 constexpr int kBatch = 32;      // tasks the walking thread holds at once
 constexpr int kGatherPer = 16;  // tasks a thread gathers per pass
 
@@ -402,13 +405,15 @@ extern "C" int lpt_queue_launch(const void* t_comp, const void* route,
                                 const void* order, const void* init,
                                 void* start, int R, int M, int n_edge,
                                 int n_cloud, void* stream) {
-  if (n_edge < 1 || n_cloud < 1 || n_edge + n_cloud > kMaxServers) {
+  if (n_edge < 1 || n_cloud < 1 || n_edge > kMaxTier || n_cloud > kMaxTier) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  // the configuration the port runs (SystemConfig / SimConfig), then every
-  // other split of up to 8 servers
+  // the configuration the port runs (SystemConfig / SimConfig), every other
+  // split of up to 8 servers, then up to 16 a tier
   auto fn = n_edge == 4 && n_cloud == 1 ? launch<4, 1>
-                                        : launch<kMaxServers - 1, kMaxServers - 1>;
+            : n_edge + n_cloud <= kMaxServers
+                ? launch<kMaxServers - 1, kMaxServers - 1>
+                : launch<kMaxTier, kMaxTier>;
   return fn(t_comp, route, order, init, start, R, M, n_edge, n_cloud, st);
 }

@@ -8,7 +8,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.lpt_queue.ref import lpt_queue_ref
 
-MAX_SERVERS = 8
+MAX_TIER_SERVERS = 16     # the kernel's servers a tier
 MAX_SMEM = 227 * 1024     # bytes of shared memory a Hopper block can opt into
 
 
@@ -34,8 +34,8 @@ def lpt_queue(t_comp, route, n_edge: int, n_cloud: int, *, avail=None,
     first; (S,) with a 1-D pair), as the reference's: a dead server starts
     at +inf load.  The stable longest-first order is one ``torch.argsort``
     on the tensors' device for both paths; the serial walk is the kernel's
-    (one block per round) or the plain version's.  The kernel takes at most
-    8 servers and M <= ``MAX_TASKS`` (54,656) tasks.
+    (one block per round) or the plain version's.  The kernel takes 1 to
+    16 servers a tier and M <= ``MAX_TASKS`` (54,656) tasks.
     """
     one = t_comp.dim() == 1
     if one:
@@ -51,10 +51,10 @@ def lpt_queue(t_comp, route, n_edge: int, n_cloud: int, *, avail=None,
         return out[0] if one else out
     n_rounds, m = t_comp.shape
     if route.shape != t_comp.shape or n_edge < 1 or n_cloud < 1 \
-            or n_edge + n_cloud > MAX_SERVERS or m > MAX_TASKS \
+            or max(n_edge, n_cloud) > MAX_TIER_SERVERS or m > MAX_TASKS \
             or init is not None and init.shape != (n_rounds, n_edge + n_cloud):
         raise ValueError(f"lpt_queue kernel: route must match t_comp, avail "
-                         f"(R, servers), 2..8 servers with both tiers, M <= "
+                         f"(R, servers), 1..16 servers a tier, M <= "
                          f"{MAX_TASKS}")
     route = route.contiguous()
     _build.check_cuda("lpt_queue", t_comp, route, order,

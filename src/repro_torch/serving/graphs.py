@@ -23,9 +23,10 @@ built table happen there), then the round is captured
 (``capture_error_mode`` "global"), and the later rounds replay it.  A
 failed capture raises; nothing falls back to the eager loop.  A replay
 makes no wrapper call, so it adds the launches the capture recorded to
-``kernels._build.LAUNCHES`` (the capture itself launched nothing and
-counts nothing).  Without capture (``capture=False``, the CPU) every
-round runs the same function eagerly.
+``kernels._build.LAUNCHES``, and a sharded round's collectives to
+``sharding.collectives.COLLECTIVES`` (the capture itself launched and
+exchanged nothing and counts nothing).  Without capture
+(``capture=False``, the CPU) every round runs the same function eagerly.
 """
 from __future__ import annotations
 
@@ -38,34 +39,8 @@ import torch
 
 from repro_torch.kernels._build import LAUNCHES
 from repro_torch.serving.policy import Observation
-
-
-def tree_leaves(tree) -> list:
-    """The tensors of a carry (NamedTuples, dataclasses and tuples of
-    tensors, walked in field order)."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if dataclasses.is_dataclass(tree):
-        return [t for f in dataclasses.fields(tree)
-                for t in tree_leaves(getattr(tree, f.name))]
-    if isinstance(tree, (tuple, list)):
-        return [t for x in tree for t in tree_leaves(x)]
-    return []
-
-
-def tree_map(fn, tree):
-    """``tree`` with ``fn`` applied to each of its tensors, its NamedTuples,
-    dataclasses and tuples rebuilt around them."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **{
-            f.name: tree_map(fn, getattr(tree, f.name))
-            for f in dataclasses.fields(tree)})
-    if isinstance(tree, tuple):
-        vals = [tree_map(fn, x) for x in tree]
-        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
-    return tree
+from repro_torch.serving.tree import tree_leaves
+from repro_torch.sharding.collectives import COLLECTIVES
 
 
 def assign(dst: list, src: list) -> None:
@@ -122,6 +97,7 @@ class RoundGraph:
         self.graph = None
         self.capture_s = None          # host seconds of the capture
         self.launches = collections.Counter()   # kernel launches a replay
+        self.collectives = []       # collectives a replay (a sharded round)
         self.replays = 0
 
     def holds(self, carry) -> bool:
@@ -155,6 +131,7 @@ class RoundGraph:
             self._round()
         main.wait_stream(side)
         before = collections.Counter(LAUNCHES)
+        n_exchanges = len(COLLECTIVES)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         # no cyclic collection while capturing: freeing another graph (or
@@ -176,8 +153,11 @@ class RoundGraph:
             recorded.subtract(before)
             LAUNCHES.clear()
             LAUNCHES.update(before)
+            exchanges = COLLECTIVES[n_exchanges:]
+            del COLLECTIVES[n_exchanges:]
         self.capture_s = time.perf_counter() - t0
         self.launches = +recorded
+        self.collectives = exchanges
         self.graph = graph
 
     def run(self, stream: Observation) -> dict:
@@ -199,5 +179,6 @@ class RoundGraph:
             else:
                 self.graph.replay()
                 LAUNCHES.update(self.launches)
+                COLLECTIVES.extend(self.collectives)
                 self.replays += 1
         return {k: v[:n].clone() for k, v in self.outs.items()}

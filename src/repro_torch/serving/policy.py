@@ -21,8 +21,11 @@ kernels it runs.
                  ``use_stage1=False`` / ``use_stage2=False``.
 
 ``reset_streams`` (slot reuse under churn) re-initializes a re-admitted
-slot's carry rows; ``pad_state`` and ``preseed_sharded`` (sharding) are
-ROADMAP queue A.15.
+slot's carry rows.  The stream-sharded session (:205-291, :405-458, :562,
+:653) reads ``shardable`` and ``state_replicated``, grows the carry by
+dummy streams with ``pad_state``, repairs a shard against its C6
+sub-budget with ``repair_local`` and, for a replicated carry (sniper's
+profile table), builds it once a run with ``preseed_sharded``.
 """
 from __future__ import annotations
 
@@ -44,8 +47,11 @@ from repro_torch.core.router import (
     enforce_bandwidth,
     init_router_state,
     route_segment,
+    shard_bandwidth_target,
 )
 from repro_torch.device import resolve_device
+from repro_torch.serving.tree import tree_map
+from repro_torch.sharding.compat import pad_leading
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +145,12 @@ class Policy:
 
     name: str = "policy"
     force: str = "auto"
+    #: whether ``decide_stream`` is per-task independent, so that it may run
+    #: on a rank's slice of the streams
+    shardable: bool = True
+    #: whether the carry is global memory kept whole on every rank (sniper's
+    #: profile table) rather than per-stream rows split over the ranks
+    state_replicated: bool = False
 
     def init(self, n_streams: int):
         raise NotImplementedError
@@ -149,6 +161,25 @@ class Policy:
     def repair(self, sol, z, aq, tier_ok=None, bw_scale=None, task_mask=None):
         """Cross-task tail on the whole batch; identity by default."""
         return sol
+
+    def repair_local(self, sol, z, aq, *, mesh, mesh_axis: str = "data",
+                     tier_ok=None, bw_scale=None, task_mask=None):
+        """Cross-task tail on this rank's slice of the streams (the
+        hierarchical sharded round): it may exchange O(ranks) scalars over
+        ``mesh_axis`` of ``mesh``, never an (M, ...) array; it demotes
+        fidelity and never flips a route.  Identity by default."""
+        return sol
+
+    def preseed_sharded(self, state, z, aq, tier_ok=None):
+        """Run-start hook of a replicated carry: build the global memory
+        from the gathered round-0 ``(z, aq)``, so every rank holds the same
+        table without a collective inside a round.  Identity by default."""
+        return state
+
+    def pad_state(self, state, pad: int):
+        """The carry grown by ``pad`` dummy streams (every per-stream leaf
+        padded with zeros along its leading dim)."""
+        return tree_map(lambda x: pad_leading(x, pad), state)
 
     def reset_streams(self, state, fresh):
         """Re-initialize the carry rows where ``fresh`` (M,) bool is True
@@ -295,15 +326,51 @@ _SNIPER_FIELDS = ("route", "r", "p", "v")
 class SniperPolicy(Policy):
     """Sniper — similarity-aware reuse of the first round's profiled
     configs; the profile table is the carry, written once in the first
-    round (dense serving)."""
+    round (dense serving).
+
+    The nearest-profile match is a lookup across all streams, so a
+    sharded run keeps the table whole on every rank: with
+    ``replicated_profile=True`` (the default) the session preseeds it once
+    a run from the gathered round-0 batch (:meth:`preseed_sharded`), and the
+    ``warmup`` flag makes round 0 still serve the fresh configs, as the
+    dense capture round does.  ``replicated_profile=False`` refuses to run
+    sharded."""
     _lat: DecisionLattice
     n_profiles: int = 8
     force: str = "auto"
+    replicated_profile: bool = True
     name = "sniper"
+
+    @property
+    def shardable(self):
+        return self.replicated_profile
+
+    @property
+    def state_replicated(self):
+        return True
 
     @property
     def lat(self):
         return self._lat
+
+    def pad_state(self, state, pad):
+        # no per-stream leaves: the (n_profiles, ...) table never grows
+        return state
+
+    def preseed_sharded(self, state, z, aq, tier_ok=None):
+        """The round-0 profile table ahead of the rounds (a sharded run's
+        one gather): the dense capture round's rows, with ``warmup`` set so
+        that round 0 still serves each task's fresh config."""
+        k = min(self.n_profiles, z.shape[0])
+        fresh = _argmin_feasible(self._lat, z[:k], aq[:k], tier_ok=tier_ok)
+        key = state.key.clone()
+        key[:k] = torch.stack([z[:k], aq[:k]], dim=1)
+        rows = {}
+        for f in _SNIPER_FIELDS:
+            rows[f] = getattr(state, f).clone()
+            rows[f][:k] = fresh[f]
+        return SniperState(key=key, **rows, has=torch.ones_like(state.has),
+                           warmup=torch.ones_like(state.warmup))
 
     def reset_streams(self, state, fresh):
         # the profile table is memory shared by every stream, not a slot's:
@@ -416,6 +483,17 @@ class R2EVidPolicy(Policy):
             prev_tau=torch.zeros((n_streams,), dtype=torch.float32,
                                  device=self.device))
 
+    def pad_state(self, state, pad):
+        if not self._full:
+            return state
+        # dummy streams carry the no-history marker
+        prev = dict(prev_route=pad_leading(state.prev_route, pad, value=-1),
+                    prev_tau=pad_leading(state.prev_tau, pad))
+        if self.gate_params is not None:
+            return RouterState(**prev, gate=tree_map(
+                lambda x: pad_leading(x, pad), state.gate))
+        return HistoryState(**prev)
+
     def decide_stream(self, state, obs):
         lat = self.prob.lat
         sys = lat.sys
@@ -466,6 +544,40 @@ class R2EVidPolicy(Policy):
                                        bw_scale=bw_scale)
         sol, bw_hist = enforce_bandwidth(self.prob.lat, sol, z, aq,
                                          total_budget=total_budget,
+                                         rounds=self.rcfg.repair_rounds,
+                                         force=self.force,
+                                         task_mask=task_mask)
+        sol["bw_history"] = bw_hist
+        return sol
+
+    def repair_local(self, sol, z, aq, *, mesh, mesh_axis: str = "data",
+                     tier_ok=None, bw_scale=None, task_mask=None):
+        """Hierarchical C6: repair this shard against its sub-budget.
+
+        One all-gather of two scalars a shard (its pre-repair draw and its
+        alive-lane weight) gives the fleet-wide target
+        (:func:`~repro_torch.core.router.shard_bandwidth_target`); the
+        demotion itself is local.  The targets sum to min(Σbw, B), so the
+        shards together meet C6 whenever the dense repair does."""
+        if not self._full:
+            return sol
+        lat = self.prob.lat
+        sys = lat.sys
+        budget = capacity_budget(sys, tier_ok=tier_ok, bw_scale=bw_scale)
+        if budget is None:
+            budget = torch.full((), sys.total_bw_mbps, dtype=torch.float32,
+                                device=z.device)
+        bw_i = lat.solution_bandwidth(sol)
+        if task_mask is not None:
+            bw_i = torch.where(task_mask, bw_i, 0.0)
+            weight = task_mask.sum().to(torch.float32)
+        else:
+            weight = torch.full((), bw_i.shape[0], dtype=torch.float32,
+                                device=z.device)
+        target = shard_bandwidth_target(bw_i.sum(), weight, budget, mesh,
+                                        mesh_axis)
+        sol, bw_hist = enforce_bandwidth(lat, sol, z, aq,
+                                         total_budget=target,
                                          rounds=self.rcfg.repair_rounds,
                                          force=self.force,
                                          task_mask=task_mask)

@@ -23,8 +23,21 @@ Online gate fine-tuning (``finetune=FinetuneConfig(...)``, the reference's
 :656-658, :749-756): every ``resync_period`` rounds of ``run`` take one
 gradient step on the gate parameters, the BCE of τ against the round's SLA
 misses plus a proximal anchor at the offline parameters, inside the round
-(``_finetune_round``).  The mesh is a later slice of the port (ROADMAP
-queue A.15).
+(``_finetune_round``).
+
+Stream-sharded serving (``run_sharded`` :762, ``run_elastic`` :808, the
+round of ``_serve_run_sharded`` :285-525): one rank per device on
+``torch.distributed``, the streams split over a ``DeviceMesh``'s
+``"data"`` dim.  Every rank calls with the same full inputs and serves its
+own slice (M padded to a multiple of the ranks with inert dummy streams)
+through a round graph of the sharded kind (:func:`_sharded_round`).  The
+cross-task tail runs gathered (the decisions all-gathered to the real M,
+then ``Policy.repair`` and the realization, replicated: the dense run's
+arithmetic) or hierarchical (``Policy.repair_local`` against the shard's
+C6 sub-budget and a realization on the shard's slice of the server pool,
+with only O(ranks) scalars exchanged a round).  The carry stays local; it
+is gathered to the full M once, after the last round, as are the
+hierarchical mode's per-task outputs.
 """
 from __future__ import annotations
 
@@ -33,20 +46,29 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.gating import batch_volatility
 from repro_torch.device import resolve_device
 from repro_torch.kernels.temporal_gate.ops import gate_cell_vjp
 from repro_torch.serving.dispatch import DispatchExecutor, Request
-from repro_torch.serving.graphs import (
-    RoundGraph,
-    assign,
-    signature,
-    tree_leaves,
-    tree_map,
-)
+from repro_torch.serving.graphs import RoundGraph, assign, signature
 from repro_torch.serving.policy import Observation, Policy, capacity_budget
-from repro_torch.serving.simulator import SimConfig, realize_rounds
+from repro_torch.serving.simulator import (
+    SimConfig,
+    clamp_route_by_avail,
+    realize_rounds,
+)
+from repro_torch.serving.tree import tree_leaves, tree_map
+from repro_torch.sharding import collectives
+from repro_torch.sharding.collectives import (
+    all_gather,
+    psum,
+    shard_count,
+    shard_index,
+)
+from repro_torch.sharding.compat import pad_leading
 
 _MET_KEYS = ("delay", "energy", "cost", "accuracy")
 _SOL_KEYS = ("route", "r", "p", "v", "tau")
@@ -121,15 +143,19 @@ def _round_output(sol, met):
 
 
 def _realize_obs(policy: Policy, obs: Observation, sol, n_edge: int,
-                 n_cloud: int, hedge, task_mask=None):
+                 n_cloud: int, hedge, task_mask=None, n_tier=None,
+                 tier_frac=None):
     """The one realization call every round shares: the scenario's fault
     inputs (per-server availability, latency draws) ride on the
-    observation; None fields realize the nominal round."""
+    observation; None fields realize the nominal round.  ``n_tier`` /
+    ``tier_frac`` are the hierarchical sharded round's fleet-wide tier
+    counts and alive fractions (partitioned server pools)."""
     return realize_rounds(policy.lat, obs.z, obs.bw_mult, obs.u, sol["route"],
                           sol["r"], sol["p"], sol["v"], n_edge=n_edge,
                           n_cloud=n_cloud, force=policy.force,
                           avail=obs.avail, lat_mult=obs.lat_mult, hedge=hedge,
-                          task_mask=task_mask)
+                          task_mask=task_mask, n_tier=n_tier,
+                          tier_frac=tier_frac)
 
 
 def _serve_step(policy: Policy, state, obs: Observation, n_edge: int,
@@ -195,6 +221,12 @@ def _finetune_round(policy: Policy, n_edge: int, n_cloud: int, hedge,
     return (new_st, done + 1), _round_output(sol, met)
 
 
+def _zero_fidelity(sol, pinned):
+    """``sol`` with r = p = v = 0 where ``pinned`` (degraded slots)."""
+    return dict(sol, **{k: torch.where(pinned, torch.zeros_like(sol[k]),
+                                       sol[k]) for k in ("r", "p", "v")})
+
+
 def _churn_round(policy: Policy, bw_floor, total_bw, acfg: AdmissionConfig,
                  n_edge: int, n_cloud: int, valid, carry, obs: Observation):
     """One slot-pool round: admission → reset of re-admitted slots →
@@ -211,8 +243,7 @@ def _churn_round(policy: Policy, bw_floor, total_bw, acfg: AdmissionConfig,
     st, sol = policy.decide_stream(st, obs)
     # streams admitted under scarcity serve at minimum fidelity for their
     # lifetime in the pool (the contract their cap was computed against)
-    sol = dict(sol, **{k: torch.where(degr, torch.zeros_like(sol[k]), sol[k])
-                       for k in ("r", "p", "v")})
+    sol = _zero_fidelity(sol, degr)
     sol = policy.repair(sol, obs.z, obs.aq, tier_ok=obs.tier_ok,
                         bw_scale=obs.bw_scale, task_mask=alive)
     met = _realize_obs(policy, obs, sol, n_edge, n_cloud, None,
@@ -237,11 +268,179 @@ def _churn_consts(policy: Policy, alive):
             torch.ones_like(alive))
 
 
-def _prefix(stream: Observation, n_rounds: int) -> Observation:
-    """The first ``n_rounds`` rounds of a round-stacked stream (views)."""
+def _slice_rounds(stream: Observation, start: int, stop: int) -> Observation:
+    """Rounds ``start:stop`` of a round-stacked stream (views)."""
     return Observation(**{f.name: None if getattr(stream, f.name) is None
-                          else getattr(stream, f.name)[:n_rounds]
+                          else getattr(stream, f.name)[start:stop]
                           for f in dataclasses.fields(stream)})
+
+
+@dataclasses.dataclass(frozen=True)
+class _ShardPlan:
+    """What a sharded round graph is built for: the mesh dim and this
+    rank's slice of the streams, the tail mode, the pools (whole, and this
+    rank's slice of each in hierarchical mode), and the round-invariant
+    device tensors (the padded and the local valid-slot masks; under churn
+    the admission's minimum-fidelity draw and nominal budget)."""
+    mesh: DeviceMesh
+    axis: str
+    index: int            # this rank's shard
+    m: int                # real streams
+    pad: int              # dummy streams appended
+    m_l: int              # streams a shard
+    hierarchical: bool
+    n_edge: int
+    n_cloud: int
+    hedge: tuple | None
+    acfg: AdmissionConfig | None
+    valid: torch.Tensor   # (m + pad,) bool: real slots
+    bw_floor: torch.Tensor
+    total_bw: torch.Tensor
+
+    @classmethod
+    def build(cls, policy: Policy, mesh, axis: str, m: int, *, n_edge: int,
+              n_cloud: int, hedge, acfg, hierarchical: bool) -> "_ShardPlan":
+        n_dev = shard_count(mesh, axis)
+        pad = (-m) % n_dev
+        dev = policy.device
+        valid = torch.arange(m + pad, device=dev) < m
+        bw_floor, total_bw, _ = _churn_consts(policy, valid)
+        return cls(mesh=mesh, axis=axis, index=shard_index(mesh, axis), m=m,
+                   pad=pad, m_l=(m + pad) // n_dev, hierarchical=hierarchical,
+                   n_edge=n_edge, n_cloud=n_cloud, hedge=hedge, acfg=acfg,
+                   valid=valid, bw_floor=bw_floor, total_bw=total_bw)
+
+    @property
+    def n_dev(self) -> int:
+        return (self.m + self.pad) // self.m_l
+
+    @property
+    def local(self) -> slice:
+        """This rank's streams in the padded batch."""
+        return slice(self.index * self.m_l, (self.index + 1) * self.m_l)
+
+    def shard(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """This rank's slice of the padded ``x`` along ``axis``."""
+        return pad_leading(x, self.pad, axis=axis).narrow(
+            axis, self.index * self.m_l, self.m_l)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The real-M batch from every rank's (m_l, ...) slice."""
+        return all_gather(x, self.mesh, self.axis)[:self.m]
+
+
+def _shard_stream(stream: Observation, plan: _ShardPlan) -> Observation:
+    """The round-stacked stream a rank's sharded round reads: its slice of
+    the per-stream fields (z, aq, dx; lat_mult in hierarchical mode, which
+    the gathered mode realizes on the real batch), the departures padded
+    for the replicated admission, the rest replicated."""
+    per_rank = lambda x: None if x is None else plan.shard(x, axis=1)
+    return dataclasses.replace(
+        stream, z=per_rank(stream.z), aq=per_rank(stream.aq),
+        dx=per_rank(stream.dx),
+        lat_mult=per_rank(stream.lat_mult) if plan.hierarchical
+        else stream.lat_mult,
+        depart=None if stream.depart is None
+        else pad_leading(stream.depart, plan.pad, axis=1))
+
+
+def _sharded_round(policy: Policy, plan: _ShardPlan, carry,
+                   obs: Observation):
+    """One round of a rank's slice of a sharded run (the body of the
+    reference's ``_serve_run_sharded``).  ``carry`` is the rank's policy
+    state, with the slot pool's replicated (alive, degr, queue) at padded
+    width under churn; ``obs`` the rank's round (:func:`_shard_stream`).
+
+    Under churn the admission runs replicated over the padded pool (the
+    dummy slots are never valid) and only this rank's slice of the reset
+    mask touches its carry.  The per-stream decision runs on the slice;
+    then the gathered tail (z, aq and the decisions all-gathered to the
+    real M, ``repair`` and the realization replicated) or the hierarchical
+    one (``repair_local`` against the shard's C6 target, the realization on
+    the shard's ``n_edge / D`` edge and ``n_cloud / D`` cloud servers and
+    its slice of ``avail``, the fleet's tier counts as one 2-int ``psum``
+    and its tier alive fractions from the replicated ``avail``)."""
+    with collectives.in_round():
+        return _sharded_round_body(policy, plan, carry, obs)
+
+
+def _sharded_round_body(policy: Policy, plan: _ShardPlan, carry,
+                        obs: Observation):
+    local = plan.local
+    churn = plan.acfg is not None
+    task_mask = None
+    churn_out = {}
+    st = carry
+    if churn:
+        st, alive, degr, queue = carry
+        budget = capacity_budget(policy.lat.sys, tier_ok=obs.tier_ok,
+                                 bw_scale=obs.bw_scale)
+        budget = plan.total_bw if budget is None else budget
+        alive, degr, queue, newly, admitted, dropped = _churn_admit(
+            alive, degr, queue, obs.arrive_n, obs.depart, budget,
+            plan.total_bw, plan.bw_floor, plan.acfg, plan.valid)
+        st = policy.reset_streams(st, newly[local])
+        task_mask = alive[:plan.m]
+        churn_out = dict(queue_depth=queue, admitted=admitted,
+                         dropped=dropped)
+    st, sol = policy.decide_stream(st, Observation(
+        z=obs.z, aq=obs.aq, dx=obs.dx, tier_ok=obs.tier_ok))
+    new_carry = (st, alive, degr, queue) if churn else st
+
+    if plan.hierarchical:
+        mask_l = alive[local] if churn else plan.valid[local]
+        if churn:
+            sol = _zero_fidelity(sol, degr[local])
+        sol = policy.repair_local(sol, obs.z, obs.aq, mesh=plan.mesh,
+                                  mesh_axis=plan.axis, tier_ok=obs.tier_ok,
+                                  bw_scale=obs.bw_scale, task_mask=mask_l)
+        e_l, c_l = plan.n_edge // plan.n_dev, plan.n_cloud // plan.n_dev
+        avail_l = tier_frac = None
+        route_c = sol["route"]
+        if obs.avail is not None:
+            # this shard's statically partitioned slice of the pool
+            i, av = plan.index, obs.avail
+            avail_l = torch.cat([av[i * e_l:(i + 1) * e_l],
+                                 av[plan.n_edge + i * c_l:
+                                    plan.n_edge + (i + 1) * c_l]])
+            route_c = clamp_route_by_avail(route_c, avail_l, e_l, c_l)
+            tier_frac = torch.stack([av[:plan.n_edge].sum() / plan.n_edge,
+                                     av[plan.n_edge:].sum() / plan.n_cloud])
+        # the fleet's tier counts: one psum of two ints a shard
+        n_cloud_l = (route_c * mask_l).sum()
+        n_tier = psum(torch.stack([mask_l.sum() - n_cloud_l, n_cloud_l]),
+                      plan.mesh, plan.axis)
+        met = _realize_obs(policy, dataclasses.replace(obs, avail=avail_l),
+                           sol, e_l, c_l, None, task_mask=mask_l,
+                           n_tier=n_tier, tier_frac=tier_frac)
+        out = _round_output(sol, met)
+        if churn:
+            out.update(route=met["route"], alive=mask_l, **churn_out)
+        return new_carry, out
+
+    # gathered: the real batch on every rank, the dense round's arithmetic
+    z_g, aq_g = plan.gather(obs.z), plan.gather(obs.aq)
+    sol_g = {k: plan.gather(sol[k]) for k in _SOL_KEYS if k in sol}
+    if churn:
+        sol_g = _zero_fidelity(sol_g, degr[:plan.m])
+    sol_g = policy.repair(sol_g, z_g, aq_g, tier_ok=obs.tier_ok,
+                          bw_scale=obs.bw_scale, task_mask=task_mask)
+    met = _realize_obs(policy, dataclasses.replace(obs, z=z_g, aq=aq_g),
+                       sol_g, plan.n_edge, plan.n_cloud, plan.hedge,
+                       task_mask=task_mask)
+    out = _round_output(sol_g, met)
+    if churn:
+        out.update(route=met["route"], alive=task_mask, **churn_out)
+    return new_carry, out
+
+
+def _check_mesh(mesh, axis: str) -> None:
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got "
+                        f"{type(mesh).__name__}")
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"mesh has dims {mesh.mesh_dim_names}, no "
+                         f"{axis!r} to shard the streams over")
 
 
 def _one_round(obs: Observation) -> Observation:
@@ -282,17 +481,24 @@ class ServeSession:
     A graph holds the session's carry by address: :meth:`reset` refills it
     in place, and a carry assigned to ``state`` from outside is adopted
     anew (copied) by the next run.
+
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh``) makes :meth:`run`
+    serve stream-sharded over its ``mesh_axis`` dim (:meth:`run_sharded`),
+    in the gathered mode or, with ``hierarchical=True``, the hierarchical
+    one.  A sharded round is captured when the mesh's backend is NCCL
+    (``capture=None``); over gloo it runs uncaptured, and ``capture=True``
+    there raises.
     """
 
     def __init__(self, policy: Policy, n_streams: int, *,
                  sim: SimConfig | None = None, n_edge: int | None = None,
                  n_cloud: int | None = None, device="cuda", state=None,
-                 mesh=None, finetune=None, hedge=None, admission=None,
-                 force: str | None = None, pools=None,
+                 mesh=None, mesh_axis: str = "data",
+                 hierarchical: bool = False, finetune=None, hedge=None,
+                 admission=None, force: str | None = None, pools=None,
                  capture: bool | None = None):
         if mesh is not None:
-            raise NotImplementedError(
-                "ServeSession(mesh=...) is ROADMAP queue A.15")
+            _check_mesh(mesh, mesh_axis)
         dev = resolve_device(device)
         if policy.device.type != dev.type:
             raise ValueError(f"ServeSession(device={device!r}) but the "
@@ -300,6 +506,7 @@ class ServeSession:
         if capture not in (None, True, False):
             raise ValueError(f"capture must be None, True or False, got "
                              f"{capture!r}")
+        self._capture_arg = capture
         if capture is None:
             capture = dev.type == "cuda"
         elif capture and dev.type != "cuda":
@@ -333,6 +540,9 @@ class ServeSession:
         self.hedge = hedge
         self.admission = admission
         self.finetune = finetune
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.hierarchical = hierarchical
         self.capture = capture
         self.state = policy.init(n_streams) if state is None else state
         self._churn_carry = None
@@ -340,6 +550,7 @@ class ServeSession:
         self._rounds_done = torch.zeros((), dtype=torch.int64,
                                         device=policy.device)
         self.graphs = {}            # (kind, stream signature) -> RoundGraph
+        self._plans = {}            # sharded graph key -> its _ShardPlan
         self.pools = pools
         self._executor = None
 
@@ -360,6 +571,7 @@ class ServeSession:
         if n_streams is not None and n_streams != self.n_streams:
             self.n_streams = n_streams
             self.graphs.clear()
+            self._plans.clear()
         held = self._held()
         fresh = self.policy.init(self.n_streams)
         old = tree_leaves(self.state)
@@ -526,23 +738,212 @@ class ServeSession:
         return {k: v[0] for k, v in
                 self._rounds("serve", _one_round(obs)).items()}
 
-    def run(self, stream: Observation, n_rounds: int | None = None):
+    def run(self, stream: Observation, n_rounds: int | None = None,
+            mesh=None, mesh_axis: str | None = None):
         """Serve R rounds; returns the per-round dict of (R, M) tensors
         (deterministic delay / energy / cost / accuracy + decisions + τ).
         ``n_rounds`` serves a prefix.  A stream with churn traces runs the
         slot pool and also returns ``alive`` (R, M) and ``queue_depth`` /
         ``admitted`` / ``dropped`` (R,); its ``route`` is -1 on dead
-        slots.  A finetune session tunes the gate as it serves."""
+        slots.  A finetune session tunes the gate as it serves.  With a
+        mesh (here or the session's) the run is :meth:`run_sharded`."""
         self._check_obs(stream, rounds=True)
         if stream.u is None or stream.bw_mult is None:
             raise ValueError("session.run needs bw_mult and u on the stream "
                              "(use route_many for decide-only scans)")
         if n_rounds is not None:
-            stream = _prefix(stream, n_rounds)
+            stream = _slice_rounds(stream, 0, n_rounds)
+        mesh = self.mesh if mesh is None else mesh
+        if mesh is not None:
+            return self.run_sharded(mesh, stream,
+                                    mesh_axis=mesh_axis or self.mesh_axis)
         if self._check_churn(stream):
             return self._rounds("churn", stream)
         return self._rounds("serve" if self.finetune is None else "finetune",
                             stream)
+
+    # -- stream-sharded serving ---------------------------------------------
+    def _sharded_capture(self, mesh, axis: str) -> bool:
+        """Whether sharded rounds over ``mesh`` are captured: on NCCL by
+        default, never on gloo (its collectives go through the host)."""
+        nccl = dist.get_backend(mesh.get_group(axis)) == "nccl"
+        if nccl and self.policy.device.type != "cuda":
+            raise ValueError(f"an NCCL mesh exchanges CUDA tensors; the "
+                             f"session is on {self.policy.device}")
+        if self._capture_arg and not nccl:
+            raise ValueError(
+                "capture=True needs an NCCL mesh: a round over gloo stages "
+                "its collectives through the host, which a CUDA graph "
+                "cannot hold (gloo rounds run uncaptured)")
+        return nccl if self._capture_arg is None else self._capture_arg
+
+    def _local_carry(self, plan: _ShardPlan, local: Observation,
+                     has_churn: bool):
+        """This rank's carry at the start of a sharded run: its slice of
+        the padded per-stream state, or the whole replicated state
+        preseeded from the gathered round 0; under churn with the slot
+        pool padded to the padded width."""
+        pol = self.policy
+        if pol.state_replicated:
+            # the one O(M) gather of a replicated carry, before the rounds
+            st = pol.preseed_sharded(
+                self.state, plan.gather(local.z[0]), plan.gather(local.aq[0]),
+                tier_ok=None if local.tier_ok is None else local.tier_ok[0])
+        else:
+            st = tree_map(lambda x: x[plan.local],
+                          pol.pad_state(self.state, plan.pad))
+        if not has_churn:
+            return st
+        if self._churn_carry is None:
+            self._churn_carry = self._churn_init()
+        alive, degr, queue = self._churn_carry
+        return (st, pad_leading(alive, plan.pad),
+                pad_leading(degr, plan.pad), queue)
+
+    def run_sharded(self, mesh, stream: Observation,
+                    n_rounds: int | None = None, mesh_axis: str = "data",
+                    hierarchical: bool | None = None):
+        """The run with the streams split over ``mesh_axis`` of ``mesh``
+        (one rank per device; every rank calls with the same full stream).
+
+        The gathered mode (default, or the session's ``hierarchical``) gives
+        the dense :meth:`run`'s metrics and final carry, for any M.
+        ``hierarchical=True`` repairs and realizes each shard on its own
+        (exact C6, queueing on the shard's slice of the pools; ``n_edge``
+        and ``n_cloud`` must divide by the shard count; no hedge).  Every
+        rank returns the full (R, M) outputs, and ``state`` holds the full
+        carry after the run."""
+        self._check_obs(stream, rounds=True)
+        _check_mesh(mesh, mesh_axis)
+        if hierarchical is None:
+            hierarchical = self.hierarchical
+        if stream.u is None or stream.bw_mult is None:
+            raise ValueError("session.run_sharded needs bw_mult and u on "
+                             "the stream")
+        if not self.policy.shardable:
+            raise ValueError(
+                f"policy {self.policy.name!r} couples tasks globally in "
+                f"decide_stream and cannot run stream-sharded")
+        if self.finetune is not None:
+            raise NotImplementedError(
+                "online fine-tuning is single-mesh only for now")
+        if hierarchical and self.hedge is not None:
+            raise ValueError(
+                "hierarchical sharding cannot hedge: the deadline quantile "
+                "is a global order statistic (use the gathered mode)")
+        n_dev = shard_count(mesh, mesh_axis)
+        if hierarchical and (self.n_edge % n_dev or self.n_cloud % n_dev):
+            raise ValueError(
+                f"hierarchical sharding partitions the server pool "
+                f"statically: n_edge={self.n_edge} and n_cloud="
+                f"{self.n_cloud} must both divide by the {n_dev}-device "
+                f"mesh")
+        if n_rounds is not None:
+            stream = _slice_rounds(stream, 0, n_rounds)
+        has_churn = self._check_churn(stream)
+        capture = self._sharded_capture(mesh, mesh_axis)
+        key = ("sharded", id(mesh), mesh_axis, hierarchical, has_churn,
+               signature(stream))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = _ShardPlan.build(
+                self.policy, mesh, mesh_axis, self.n_streams,
+                n_edge=self.n_edge, n_cloud=self.n_cloud, hedge=self.hedge,
+                acfg=self.admission if has_churn else None,
+                hierarchical=hierarchical)
+        local = _shard_stream(stream, plan)
+        carry = self._local_carry(plan, local, has_churn)
+        graph = self.graphs.get(key)
+        if graph is None or graph.capacity < stream.n_rounds:
+            graph = RoundGraph(
+                functools.partial(_sharded_round, self.policy, plan),
+                tree_map(torch.clone, carry), local, capture=capture)
+            self.graphs[key], self._plans[key] = graph, plan
+        else:
+            assign(graph.leaves, tree_leaves(carry))
+        out = graph.run(local)
+
+        # the carry and the hierarchical per-task outputs, gathered once
+        st = graph.carry[0] if has_churn else graph.carry
+        self.state = tree_map(torch.clone, st) if \
+            self.policy.state_replicated else tree_map(plan.gather, st)
+        if has_churn:
+            alive, degr, queue = graph.carry[1:]
+            self._churn_carry = (alive[:plan.m].clone(),
+                                 degr[:plan.m].clone(), queue.clone())
+        if hierarchical:
+            out = {k: plan.gather(v.movedim(1, 0).contiguous()).movedim(
+                       0, 1).contiguous() if v.dim() >= 2 else v
+                   for k, v in out.items()}
+        return out
+
+    def run_elastic(self, stream: Observation, failures: dict, *,
+                    mesh_axis: str = "data", n_nodes: int | None = None):
+        """Serve through the loss of ranks: one sharded run a segment.
+
+        ``failures``: {round: node ids} killed before that round.  At each
+        boundary the dead nodes are registered with a :class:`ClusterSim`,
+        ``elastic_remesh(alive, prefer="data")`` builds the survivor mesh
+        (ranks ``0..alive-1``; every rank of the world makes the call) and
+        the next segment continues on it with the carry, which the last
+        segment gathered to the full M and the next re-pads and re-slices.
+        A rank outside a segment's mesh sits it out and receives its
+        metrics from rank 0.  Every rank returns the per-round outputs
+        concatenated over the segments; the meshes are kept on
+        ``mesh_history``.  ``n_nodes`` defaults to the world size."""
+        from repro_torch.runtime.cluster import ClusterSim, elastic_remesh
+
+        self._check_obs(stream, rounds=True)
+        r_total = stream.n_rounds
+        world = dist.get_world_size()
+        cluster = ClusterSim(n_nodes or world)
+        # a malformed plan silently skipped here would make the run look
+        # healthier than the experiment the caller asked for
+        for r, nodes in failures.items():
+            if not isinstance(r, (int, np.integer)) or not 0 < r < r_total:
+                raise ValueError(
+                    f"failures round {r!r} is outside the valid boundary "
+                    f"range 1..{r_total - 1} (failures fire *before* a "
+                    f"round; round 0 has no prior segment)")
+            for node in nodes:
+                if not 0 <= int(node) < cluster.n_nodes:
+                    raise ValueError(
+                        f"failures[{r}] names unknown node {node!r}; "
+                        f"cluster has nodes 0..{cluster.n_nodes - 1}")
+        bounds = sorted(failures)
+        mesh = elastic_remesh(cluster.alive, prefer="data")
+        self.mesh_history = [(0, mesh)]
+        parts, start = [], 0
+        for b in bounds + [r_total]:
+            seg = _slice_rounds(stream, start, b)
+            mets = None
+            if mesh.get_coordinate() is not None:
+                mets = self.run_sharded(mesh, seg, mesh_axis=mesh_axis)
+            parts.append(self._from_rank_zero(mesh, mets))
+            if b < r_total:
+                for node in failures[b]:
+                    cluster.kill(int(node))
+                if cluster.alive <= 0:
+                    raise RuntimeError(
+                        f"all {cluster.n_nodes} nodes dead at round {b}; "
+                        f"no survivor mesh to continue on")
+                mesh = elastic_remesh(cluster.alive, prefer="data")
+                self.mesh_history.append((b, mesh))
+            start = b
+        self.state, self._churn_carry = self._from_rank_zero(
+            mesh, (self.state, self._churn_carry))
+        return {k: torch.cat([p[k] for p in parts], dim=0) for k in parts[0]}
+
+    def _from_rank_zero(self, mesh, obj):
+        """``obj`` (tensors in tuples, dataclasses or a dict) as rank 0
+        holds it, on every rank of the world: a broadcast through the host
+        when ranks sat out ``mesh``."""
+        if mesh.size() == dist.get_world_size():
+            return obj
+        box = [tree_map(torch.Tensor.cpu, obj) if dist.get_rank() == 0
+               else None]
+        dist.broadcast_object_list(box, src=0)
+        return tree_map(lambda t: t.to(self.policy.device), box[0])
 
     # -- live model pools ---------------------------------------------------
     def _make_executor(self):

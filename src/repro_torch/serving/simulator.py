@@ -1,6 +1,7 @@
 """Round-based edge-cloud serving simulator (paper §4 evaluation substrate)
 — port of ``repro/serving/simulator.py`` (``clamp_route_by_avail`` :112,
-``realize_rounds`` :122-265 and the host-numpy stream generator).
+``realize_rounds`` :122-265 with the sharded session's ``n_tier`` /
+``tier_frac`` overrides :127-200, and the host-numpy stream generator).
 
 ``realize_rounds`` realizes a round's decisions: fair-share transmission on
 the tier uplink, LPT queueing on 4 edge / 1 cloud servers (the ``lpt_queue``
@@ -79,7 +80,8 @@ def clamp_route_by_avail(route, avail, n_edge: int, n_cloud: int):
 
 def realize_rounds(lat: DecisionLattice, z, bw_mult, u, route, r, p, v, *,
                    n_edge: int, n_cloud: int, force: str = "auto",
-                   avail=None, lat_mult=None, hedge=None, task_mask=None):
+                   avail=None, lat_mult=None, hedge=None, task_mask=None,
+                   n_tier=None, tier_frac=None):
     """Deterministic realization (no observation noise).
 
     z/route/r/p/v: (..., M) with at most one leading round axis; bw_mult:
@@ -103,6 +105,12 @@ def realize_rounds(lat: DecisionLattice, z, bw_mult, u, route, r, p, v, *,
                    LPT (they sort after every alive lane and add no load)
                    and come out with zeroed metrics and route -1.  Not
                    with ``hedge``.
+    ``n_tier`` / ``tier_frac``  (2,) the fleet's task count and alive
+                   fraction of each tier, for a caller that packs its
+                   shard's segments onto its slice of the server pool (the
+                   hierarchical sharded session): the uplink's fair share
+                   is the fleet's, while the clamp and the queue stay on
+                   the slice.  None derives both here.
     """
     if task_mask is not None and hedge is not None:
         raise ValueError("hedged dispatch is not supported with task_mask "
@@ -120,17 +128,19 @@ def realize_rounds(lat: DecisionLattice, z, bw_mult, u, route, r, p, v, *,
                                   avail[..., n_edge:].sum(-1) / n_cloud],
                                  dim=-1)
         route = clamp_route_by_avail(route, avail, n_edge, n_cloud)
+    if tier_frac is not None:
+        alive_frac = tier_frac
 
     # transmission: fair-share the tier uplink among its tasks
     bw = tier_bw * bw_mult                                     # (..., 2)
     if alive_frac is not None:
         bw = bw * alive_frac
     data_mbit = lat.bw[r, p, route]                            # (..., M)
-    if task_mask is not None:
+    if n_tier is None and task_mask is not None:
         n_cloud_tasks = (route * task_mask).sum(dim=-1, keepdim=True)
         n_live = task_mask.sum(dim=-1, keepdim=True)
         n_tier = torch.cat([n_live - n_cloud_tasks, n_cloud_tasks], dim=-1)
-    else:
+    elif n_tier is None:
         n_cloud_tasks = route.sum(dim=-1, keepdim=True)
         n_tier = torch.cat([m - n_cloud_tasks, n_cloud_tasks], dim=-1)
     n_tier = torch.clamp_min(n_tier, 1)

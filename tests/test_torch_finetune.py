@@ -33,6 +33,7 @@ from repro.serving.simulator import Simulator as JSimulator
 from repro_torch.convert import gate_params_from_numpy
 from repro_torch.core import cost_model as tcm
 from repro_torch.core import gating
+from repro_torch.launch.mesh import host_mesh, single_rank_group
 from repro_torch.serving import FinetuneConfig
 from repro_torch.serving import scenarios as tsc
 from repro_torch.serving.graphs import tree_leaves
@@ -206,8 +207,8 @@ def test_finetune_under_scenario_matches_reference(scenario):
 def test_finetune_session_rules():
     """The reference's rules: gate mode required; ``reset`` zeroes the
     counter and keeps the tuned parameters; ``step``, ``route`` and
-    ``route_many`` neither tune nor count; churn raises; the mesh is still
-    a later slice."""
+    ``route_many`` neither tune nor count; churn raises; so does a run on a
+    mesh."""
     js_obs, ts_obs = _golden_stream()
     with pytest.raises(ValueError, match="gate"):
         ServeSession(make_policy("jcab", TSYS, device="cpu"), 12,
@@ -245,9 +246,16 @@ def test_finetune_session_rules():
     with pytest.raises(NotImplementedError, match="churn"):
         ServeSession(tp, 12, device="cpu", finetune=FinetuneConfig(),
                      admission=tsc.AdmissionConfig()).run(churned)
-    with pytest.raises(NotImplementedError, match="A.15"):
+    # a mesh is ported (A.15): finetuning on one raises, as in the
+    # reference, and a mesh that is not a DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServeSession(tp, 12, device="cpu", finetune=FinetuneConfig(),
                      mesh=object())
+    with single_rank_group("gloo"):
+        sharded = ServeSession(tp, 12, device="cpu", mesh=host_mesh(),
+                               finetune=FinetuneConfig())
+        with pytest.raises(NotImplementedError, match="single-mesh"):
+            sharded.run(ts_obs)
 
 
 def _loop(step, carry, stream):

@@ -434,10 +434,13 @@ def _lpt_case(seed, shape, routes, ties):
 
 @pytest.mark.parametrize("routes", ["mixed", "all_edge", "all_cloud"])
 @pytest.mark.parametrize("n_edge,n_cloud", [(1, 1), (2, 2), (4, 1), (7, 1),
-                                            (3, 5)])
+                                            (3, 5), (16, 8), (8, 4), (1, 16),
+                                            (16, 16)])
 def test_lpt_queue_kernel_server_splits(dev, n_edge, n_cloud, routes):
-    """The specialised 4 + 1 walk and the generic one on every other split,
-    on tie-heavy times: equal to the plain version bit for bit, one launch."""
+    """The specialised 4 + 1 walk, the generic one on every other split of
+    up to 8 servers and the wide one up to 16 a tier (the sharded
+    session's whole pools), on tie-heavy times: equal to the plain version
+    bit for bit, one launch."""
     t, route = _lpt_case(n_edge * 8 + n_cloud, (2, 4096), routes, ties=True)
     reset_launch_counts()
     got = lpt_queue(_t(t, dev), _t(route, dev), n_edge, n_cloud,
@@ -465,7 +468,7 @@ def test_lpt_queue_kernel_task_counts(dev, m):
                   4, 1, force="kernel")
 
 
-@pytest.mark.parametrize("n_edge,n_cloud", [(4, 1), (3, 5)])
+@pytest.mark.parametrize("n_edge,n_cloud", [(4, 1), (3, 5), (16, 8)])
 def test_lpt_queue_kernel_tree_walk(dev, n_edge, n_cloud):
     """Times below zero (and a -0.0) send the kernel down its tree walk,
     whose picks must equal the plain version's too."""
@@ -483,6 +486,7 @@ def test_lpt_queue_kernel_tree_walk(dev, n_edge, n_cloud):
     (4, 1, (1,)),          # one edge server down
     (4, 1, (4,)),          # the cloud tier down: its tasks land on server 0
     (2, 2, (0, 1, 3)),     # the edge tier down, one cloud server left
+    (16, 8, (0, 5, 17)),   # the wide pools, two edge and a cloud down
 ])
 def test_lpt_queue_kernel_availability(dev, n_edge, n_cloud, dead):
     """Dead servers start at +inf load, as the reference's ``avail``."""

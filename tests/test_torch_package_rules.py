@@ -34,6 +34,7 @@ from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.temporal_gate.ops import gate_cell, gate_cell_vjp
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import host_mesh, run_ranks, single_rank_group
 from repro_torch.models.config import MoEConfig, RGLRUConfig, SSMConfig
 from repro_torch.models.model import model_specs
 from repro_torch.models.params import init_params
@@ -60,6 +61,10 @@ def _imports(tree):
 def test_package_imports_no_jax_and_no_reference():
     files = sorted(PKG.rglob("*.py")) + [PKG.parents[1] / "chip_smoke.py"]
     assert len(files) >= 16
+    # the stream-sharding modules are held to the rule like the rest
+    for mod in ("sharding/compat.py", "sharding/collectives.py",
+                "sharding/audit.py", "runtime/cluster.py", "launch/mesh.py"):
+        assert PKG / mod in files, mod
     for path in files:
         for name, top in _imports(ast.parse(path.read_text())):
             root = name.split(".")[0]
@@ -109,7 +114,7 @@ def _no_cuda():
     "make_policy", "lattice", "robust_problem", "router_state", "gate_state",
     "gate_params", "simulator", "baseline_policy", "model_pool",
     "tier_pools", "model_params", "gate_stream_state", "offline_warmup",
-    "serve_launcher"])
+    "serve_launcher", "nccl_ranks"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     _no_cuda()
     calls = {
@@ -132,6 +137,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         "offline_warmup": lambda: offline_warmup(
             GCFG, iter([]), CurriculumConfig(), torch.Generator()),
         "serve_launcher": lambda: serve.main(["--rounds", "1"]),
+        "nccl_ranks": lambda: run_ranks(print, 2, backend="nccl"),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -217,8 +223,9 @@ def test_force_kernel_on_cpu_tensor_raises(name):
 
 
 def test_unported_branches_raise():
-    """Only the branches still to port raise, naming their ROADMAP item:
-    the mesh (A.15).  Model pools of configs with MoE blocks or M-RoPE
+    """No branch of the serving path is left to port: a session on a mesh
+    (A.15, ported) serves a round, and a mesh that is not a
+    ``DeviceMesh`` raises ``TypeError``.  Model pools of configs with MoE blocks or M-RoPE
     serve (A.14 is ported); a config whose front end feeds embeddings has
     no token table, so its pool raises, as the reference's cannot serve it
     either.  Online finetuning (A.11) runs: a
@@ -241,8 +248,16 @@ def test_unported_branches_raise():
         make_policy("nope", SystemConfig(), device="cpu")
     pol = make_policy("r2evid", SystemConfig(), device="cpu", gate_cfg=GCFG,
                       generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A.15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServeSession(pol, n_streams=3, device="cpu", mesh=object())
+    with single_rank_group("gloo"):
+        sharded = ServeSession(pol, n_streams=3, device="cpu",
+                               mesh=host_mesh())
+        mesh_round = sharded.run(Observation(
+            z=z[None], aq=z[None], dx=torch.zeros(1, 3, 35),
+            bw_mult=torch.ones(1, 2), u=torch.zeros(1, 5)))
+    assert mesh_round["route"].shape == (1, 3)
+    assert bool(torch.isfinite(mesh_round["cost"]).all())
     # online finetuning (A.11) is ported: a session builds and serves a
     # round, and its first round (before any update) is the plain round
     ft = ServeSession(pol, n_streams=3, device="cpu",
