@@ -42,7 +42,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  at the recurrent pools' decode step (16 rows) and longest
                  prefill (8 × 80) and at ragged shapes, x in bf16 and
                  float32, h0 given, None and aliasing h_out, within
-                 1e-5 + 1e-5·|plain|; kernel, plain and library times (CUDA
+                 1e-5 + 1e-5·|plain|; flash_attention_bwd (the backward
+                 kernel of training) at Qwen1.5-0.5B's training shape (B 8,
+                 S 512, H = KV 16, D 64), Qwen3-8B's GQA, D = 256 with a
+                 window, Qwen2-VL's positions and a non-causal case, bf16
+                 and float32, dq, dk and dv within 2e-2 (bf16) and 1e-5
+                 (float32) of max(1, each gradient's largest |entry|) of
+                 attention_vjp_ref, two launches bit-equal, timed beside
+                 autograd through SDPA; kernel, plain and library times (CUDA
                  events or the profiler, median after warm-up; SDPA's
                  device time beside its event time) and each kernel's
                  bound: the larger of its bytes and its compute, where
@@ -245,13 +252,34 @@ Phases, one JSON line each; any failure exits non-zero:
                  ones; kernels against plain (logits, ids by the margin
                  rule, launches = layers × calls, each flash_attention call
                  held against its plain version with its positions).
+16. ``train``    training Qwen1.5-0.5B at full width and depth (24 layers,
+                 bf16 compute over float32 masters and AdamW state, remat)
+                 through ``Trainer`` on ``TokenPipeline`` batches of 8 × 512:
+                 step 1's loss and gradient norm on the kernels against the
+                 plain versions on the card (within 1e-2 and 5e-2
+                 relative); 10 steps of ``Trainer.run`` with the launch
+                 counters zeroed just before and read just after
+                 (flash_attention exactly 48 a step: the forward and its
+                 recomputation under remat; flash_attention_bwd exactly
+                 24), finite losses, each step's wall time, tokens/s, the
+                 model-FLOP share of 989 TFLOP/s, the peak device memory,
+                 one profiled step (device busy time and idle share, the
+                 costliest device activities); a run failing at step 7
+                 (``FailureInjector``) after its checkpoint at step 5
+                 (under ``build/train_ckpt``, removed after), resumed by a
+                 fresh trainer to step 10 within 1e-2 relative of the
+                 uninterrupted run's losses; last, Falcon-Mamba's and
+                 RecurrentGemma's SMOKE models trained on the kernel path
+                 and decode_attention given an input that needs a gradient
+                 must raise.
 
 The last three lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``--out DIR`` also
 writes the nvcc/ptxas build log and every phase's record there.
 ``--only`` runs the named phases alone (``device`` and ``build`` always
-run; ``gate_cell_bwd`` is that kernel row alone, to time two checkouts'
-kernels in turns): a partial run, not the smoke.
+run; ``gate_cell_bwd`` and ``flash_attention_bwd`` are those kernel rows
+alone, to time two checkouts' kernels in turns): a partial run, not the
+smoke.
 """
 from __future__ import annotations
 
@@ -3754,9 +3782,372 @@ def trace_round(torch, sess, stream, untraced_s: float,
     }
 
 
-PHASES = ("kernels", "gate_cell_bwd", "main_path", "solve_ccg", "policies",
-          "decide", "finetune", "scenarios", "sharded", "dispatch",
-          "dispatch_recurrent", "dispatch_moe", "front_end")
+# flash_attention_bwd: |kernel - plain| / max(1, max |plain|) of each of dq,
+# dk and dv (bf16: Δ = rowsum(dO∘O) reads the bf16-rounded output)
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+
+
+def flash_bwd_work(b: int, h: int, kv: int, sq: int, sk: int, d: int,
+                   pairs: float):
+    """(bytes, operations) of the attention's bf16 backward: q, o, dO read and
+    dq written (B·H·Sq·D each), k, v read and dk, dv written (B·KV·Sk·D
+    each), once; five products over the visible (query, key) pairs of
+    every head (S = Q·Kᵀ again, dP = dO·Vᵀ, dV = Pᵀ·dO, dQ = dS·K,
+    dK = dSᵀ·Q), 2·D operations a pair each.  ``pairs``: visible pairs
+    summed over the batch rows, per head."""
+    nbytes = 2 * 4 * d * (b * h * sq + b * kv * sk)
+    return float(nbytes), float(5 * 2 * d * h * pairs)
+
+
+def flash_bwd_row(torch, dev):
+    """flash_attention_bwd against attention_vjp_ref on the card: the
+    training shape of Qwen1.5-0.5B (B 8, S 512, H = KV 16, D 64), Qwen3-8B's
+    GQA (H 32 / KV 8, D 128), RecurrentGemma's D = 256 with a window of 128
+    at S = 512, Qwen2-VL's runtime positions and a non-causal case, each in
+    bf16 and float32, every gradient within BWD_TOL of max(1, its largest
+    |entry|) and two launches bit-equal; timed at the training shape (the
+    profiler's device time of both kernels, CUDA events around the call,
+    the plain version, and autograd through SDPA as the yardstick)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_vjp_ref
+    from repro_torch.models.layers import mrope_positions
+
+    gen = torch.Generator(dev).manual_seed(12)
+
+    def case(cfg, b, s, dtype, **kw):
+        """(q, k, v, o, dO) as (B, S, heads, D) projections read through
+        permuted views, o the forward kernel's output."""
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        n = lambda heads: torch.randn((b, s, heads, d), generator=gen,
+                                      device=dev).to(dtype).transpose(1, 2)
+        q, k, v, do = n(h), n(kv), n(kv), n(h)
+        return (q, k, v, flash_attention(q, k, v, force="kernel", **kw),
+                do), kw
+
+    tiers = {name: get_config(name) for name in (
+        "qwen1.5-0.5b", "qwen3-8b", "recurrentgemma-9b", "qwen2-vl-2b")}
+    vl = mrope_positions(16, (2, 4, 4), 32, 8, dev)[:, 0]       # S = 80
+    shapes = {
+        "qwen1.5-0.5b train": ("qwen1.5-0.5b", 8, 512, {}),
+        "qwen3-8b gqa": ("qwen3-8b", 2, 512, {}),
+        "recurrentgemma d256 window 128": ("recurrentgemma-9b", 2, 512,
+                                           {"window": 128}),
+        "qwen2-vl positions": ("qwen2-vl-2b", 8, 80, {"positions": vl}),
+        "non-causal": ("qwen3-8b", 2, 80, {"causal": False}),
+    }
+    rel = {"bfloat16": 0.0, "float32": 0.0}
+    abs_err = dict(rel)
+    for name, (tier, b, s, kw) in shapes.items():
+        for dt in (torch.bfloat16, torch.float32):
+            args, kw = case(tiers[tier], b, s, dt, **kw)
+            got = flash_attention_bwd(*args, force="kernel", **kw)
+            again = flash_attention_bwd(*args, force="kernel", **kw)
+            q, k, v, _, do = args
+            want = attention_vjp_ref(q, k, v, do, **kw)
+            torch.cuda.synchronize()
+            key = str(dt)[6:]
+            for g, a, w, what in zip(got, again, want, "qkv"):
+                if not torch.equal(g, a):
+                    raise AssertionError(f"flash_attention_bwd ({name}, "
+                                         f"{key}): two launches differ in "
+                                         f"d{what}")
+                err = float((g.double() - w.double()).abs().max())
+                r = err / max(1.0, float(w.abs().max()))
+                if not r <= BWD_TOL[key]:
+                    raise AssertionError(
+                        f"flash_attention_bwd ({name}, {key}): d{what} "
+                        f"kernel vs plain {r} of max(1, max |plain|) > "
+                        f"{BWD_TOL[key]}")
+                rel[key], abs_err[key] = max(rel[key], r), max(abs_err[key],
+                                                               err)
+    del got, again, want
+
+    def timed(tier, b, s):
+        cfg = tiers[tier]
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        args, _ = case(cfg, b, s, torch.bfloat16)
+        q, k, v, _, do = args
+        call = lambda: flash_attention_bwd(*args, force="kernel")
+
+        def library():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                 enable_gqa=True)
+            return torch.autograd.grad(out, leaves, do)
+
+        events = event_ms_turns(torch, {"call": call, "library": library},
+                                reps=20)
+        ms_dev = device_ms(torch, call)
+        nbytes, flops = flash_bwd_work(b, h, kv, s, s, d, b * s * (s + 1) / 2)
+        t_bound, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        return {"ms": ms_dev if ms_dev is not None else events["call"],
+                "ms_from": "profiler (both kernels of a call)"
+                if ms_dev is not None else "cuda_events",
+                "ms_by_kernel": {k: device_ms(torch, call, k) for k in (
+                    "fa_bwd_dq_kernel", "fa_bwd_dkv_kernel")},
+                "call_ms": events["call"],
+                "plain_ms": event_ms(torch, lambda: attention_vjp_ref(
+                    q, k, v, do), reps=5, warmup=1),
+                "library_ms": events["library"],
+                "library_device_ms": device_ms(torch, library),
+                "forward_ms": device_ms(torch, lambda: flash_attention(
+                    q, k, v, force="kernel"), "flash_attention_kernel"),
+                "bytes": nbytes, "flops": flops, "bound_ms": t_bound,
+                "bound_by": by,
+                "shape": f"B={b} Sq=Sk={s} H={h} KV={kv} D={d} causal bf16"}
+
+    row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "none: port-only, the backward of "
+                    "src/repro/kernels/flash_attention/kernel.py:92, whose "
+                    "gradient the reference takes of its jnp "
+                    "chunked_attention (src/repro/models/attention.py:"
+                    "285-291)",
+        "max_abs_err": abs_err["bfloat16"],
+        "max_abs_err_float32": abs_err["float32"],
+        "max_err_of_largest": rel["bfloat16"],
+        "max_err_of_largest_float32": rel["float32"],
+        "tolerance": "|kernel - plain| <= 2e-2 (bf16) / 1e-5 (float32) of "
+                     "max(1, each gradient's largest |entry|)",
+        "cases_compared": 2 * len(shapes), "cases": list(shapes),
+        "two_launches_bitequal": True,
+        **timed("qwen1.5-0.5b", 8, 512),
+        "library_call": "torch.autograd.grad through torch.nn.functional."
+                        "scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True), its forward included",
+    }
+    row["qwen3-8b"] = timed("qwen3-8b", 2, 512)
+    return row
+
+
+TRAIN_TOL = {"loss": 1e-2, "grad_norm": 5e-2}   # kernels vs plain, relative
+RESUME_TOL = 1e-2         # resumed losses vs the uninterrupted run, relative
+
+
+def train_phase(torch, dev, counts_reset, counts_read, steps: int = 10):
+    """Training Qwen1.5-0.5B at full width and depth (24 layers, bf16
+    compute over float32 masters, remat) on ``TokenPipeline`` batches of
+    8 × 512 through ``Trainer``: step 1's loss and gradient norm on the
+    kernels and on the plain versions (the same parameters and batch);
+    ``steps`` steps of ``Trainer.run``, launch counters zeroed just before
+    and read just after (flash_attention twice a layer and step, the
+    forward and its recomputation, flash_attention_bwd once), each step's
+    wall time, the peak device memory; one profiled step; a run that
+    fails at step 7 (``FailureInjector``) after its checkpoint at step 5,
+    resumed by a fresh trainer from that checkpoint to step ``steps``, its
+    losses against the uninterrupted run's; last, a recurrent SMOKE model
+    trained on the kernel path and a wrapper without a backward given an
+    input that needs a gradient must raise."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.model import loss_fn, model_specs
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.runtime.cluster import FailureInjector
+    from repro_torch.train.optimizer import AdamWConfig, global_norm
+    from repro_torch.train.trainer import (
+        NodeFailure,
+        TrainConfig,
+        Trainer,
+        grads_of,
+    )
+
+    cfg = get_config("qwen1.5-0.5b")
+    b, s = 8, 512
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    free_device_memory(torch)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
+
+    def trainer(name, ckpt_every, injector=None):
+        return Trainer(cfg, TrainConfig(
+            steps=steps, ckpt_every=ckpt_every, ckpt_dir=str(root / name),
+            ckpt_keep=1, log_every=1, opt=opt), device=dev,
+            failure_injector=injector)
+
+    def data(skip=0):
+        it = iter(TokenPipeline(cfg.vocab_size, s, b, seed=0))
+        for _ in range(skip):
+            next(it)
+        return it
+
+    def init(tr):
+        return tr.init_state(torch.Generator(dev).manual_seed(0))
+
+    # step 1: loss and gradient norm, kernels against plain on the card
+    tr = trainer("a", ckpt_every=steps + 1)
+    state = init(tr)
+    batch = tr._device_batch(next(data()))
+    first = {}
+    for path, force in (("kernels", "auto"), ("plain", "ref")):
+        loss, _, grads = grads_of(Ctx(cfg=cfg, mode="train", force=force),
+                                  state[0], batch)
+        first[path] = {"loss": float(loss),
+                       "grad_norm": float(global_norm(grads))}
+        del grads
+    gaps = {k: abs(first["kernels"][k] - first["plain"][k])
+            / abs(first["plain"][k]) for k in TRAIN_TOL}
+    for k, tol in TRAIN_TOL.items():
+        if not (math.isfinite(first["kernels"][k]) and gaps[k] <= tol):
+            raise AssertionError(f"train: step 1 {k} kernels "
+                                 f"{first['kernels'][k]} vs plain "
+                                 f"{first['plain'][k]} (relative {gaps[k]} "
+                                 f"> {tol})")
+
+    # the uninterrupted run: each step's wall time is the time between the
+    # trainer's batch requests (it reads each step's loss back to log it)
+    stamps = []
+
+    def stamped(it):
+        for item in it:
+            stamps.append(time.perf_counter())
+            yield item
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts_reset()
+    state, hist = tr.run(stamped(data()), state=state)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    launches = counts_read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention": 2 * cfg.num_layers * steps,
+            "flash_attention_bwd": cfg.num_layers * steps}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, want {want}")
+    losses = [h["loss"] for h in hist]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train: losses {losses}")
+    step_ms = [(t1 - t0) * 1e3 for t0, t1 in zip(stamps, stamps[1:])]
+    median_ms = statistics.median(step_ms[1:])
+
+    # one profiled step (the run's state, the next batch)
+    params, opt_state, err = state
+    nxt = tr._device_batch(next(data(steps)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt_state, err, _ = tr._step(params, opt_state, err, nxt)
+        torch.cuda.synchronize()
+    acts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in acts) / 1e3
+    group = lambda *keys: sum(e.self_device_time_total for e in acts
+                              if any(k in e.key for k in keys)) / 1e3
+    profiled = {
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / median_ms,
+        "device_activities": sum(e.count for e in acts),
+        "flash_attention_bwd_ms": group("fa_bwd_dq_kernel",
+                                        "fa_bwd_dkv_kernel"),
+        "flash_attention_ms": group("flash_attention_kernel"),
+        "top_device_time": [
+            {"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+             "count": e.count}
+            for e in sorted(acts, key=lambda e: -e.self_device_time_total)[:8]],
+    }
+    del state, params, opt_state, err, nxt
+    free_device_memory(torch)
+
+    # a failure at step 7 after the checkpoint at step 5; a fresh trainer
+    # resumes from it and runs to the end
+    tb = trainer("b", ckpt_every=5,
+                 injector=FailureInjector(schedule={7: "node lost"}))
+    t0 = time.perf_counter()
+    try:
+        tb.run(data(), state=init(tb))
+        raise AssertionError("train: the injected failure did not fire")
+    except NodeFailure:
+        pass
+    failed_s = time.perf_counter() - t0
+    if tb.step != 7 or tb.ckpt.latest_step() != 5:
+        raise AssertionError(f"train: failed at {tb.step}, checkpoint "
+                             f"{tb.ckpt.latest_step()}")
+    ckpt_gb = sum(f.stat().st_size for f in (root / "b").rglob("*")
+                  if f.is_file()) / 1e9
+    free_device_memory(torch)
+    tc = trainer("b", ckpt_every=steps + 1)
+    t0 = time.perf_counter()
+    resumed_state = tc.maybe_restore(init(tc))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if tc.step != 5:
+        raise AssertionError(f"train: resumed at step {tc.step}, not 5")
+    _, resumed = tc.run(data(5), n_steps=steps - 5, state=resumed_state)
+    del resumed_state
+    resumed_losses = [h["loss"] for h in resumed]
+    resume_gap = max(abs(a - b_) / abs(b_) for a, b_ in
+                     zip(resumed_losses, losses[5:]))
+    if [h["step"] for h in resumed] != list(range(6, steps + 1)) \
+            or not resume_gap <= RESUME_TOL:
+        raise AssertionError(f"train: resumed losses {resumed_losses} vs "
+                             f"{losses[5:]} (relative {resume_gap})")
+    shutil.rmtree(root, ignore_errors=True)
+    free_device_memory(torch)
+
+    # training a recurrent block on the kernel path, and a kernel without a
+    # backward under autograd, raise
+    raised = {}
+    for arch in ("falcon-mamba-7b", "recurrentgemma-9b"):
+        rcfg = get_smoke_config(arch)
+        rparams = init_params(model_specs(rcfg),
+                              torch.Generator(dev).manual_seed(0), dev)
+        rbatch = {k: torch.as_tensor(v).to(dev) for k, v in next(
+            TokenPipeline(rcfg.vocab_size, 32, 2)).items()}
+        try:
+            loss_fn(Ctx(cfg=rcfg, mode="train"), rparams, rbatch)
+            raise AssertionError(f"train: {arch} trained on the kernel path")
+        except NotImplementedError as e:
+            raised[arch] = str(e)
+    q = torch.zeros((2, 8, 64), device=dev, requires_grad=True)
+    kv = torch.zeros((2, 2, 16, 64), device=dev)
+    try:
+        decode_attention(q, kv, kv, torch.full((2,), 4, device=dev))
+        raise AssertionError("train: decode_attention took a grad input")
+    except NotImplementedError as e:
+        raised["decode_attention"] = str(e)
+
+    n_params = count_params(model_specs(cfg))
+    tokens = b * s
+    pairs = b * s * (s + 1) / 2
+    model_flops = (6 * (n_params - cfg.vocab_size * cfg.d_model) * tokens
+                   + 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim
+                   * pairs)
+    return launches, {
+        "phase": "train", "arch": cfg.name, "batch": b, "seq": s,
+        "compute_dtype": cfg.compute_dtype, "params": n_params,
+        "steps": steps, "losses": losses, "step_ms": step_ms,
+        "step_ms_median": median_ms, "tokens_per_s": tokens / median_ms * 1e3,
+        "model_flops_per_step": model_flops,
+        "model_flop_share": model_flops / (median_ms / 1e3)
+        / BF16_FLOP_PER_S,
+        "peak_memory_gb": peak_gb, "launches": launches,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+        "step1": first, "step1_relative_gaps": gaps,
+        "step1_tolerance": TRAIN_TOL, "profiled_step": profiled,
+        "resume": {"failed_at": 7, "checkpoint_step": 5,
+                   "checkpoint_gb": ckpt_gb, "run_to_failure_s": failed_s,
+                   "restore_s": restore_s, "losses": resumed_losses,
+                   "max_relative_gap": resume_gap,
+                   "tolerance": RESUME_TOL},
+        "raised": raised,
+    }
+
+
+PHASES = ("kernels", "gate_cell_bwd", "flash_attention_bwd", "main_path",
+          "solve_ccg", "policies", "decide", "finetune", "scenarios", "sharded", "dispatch",
+          "dispatch_recurrent", "dispatch_moe", "front_end", "train")
 
 
 def main() -> int:
@@ -3765,8 +4156,9 @@ def main() -> int:
                     help="directory for the build log and phase records")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run, of " + ", ".join(
-                        PHASES) + " (default: all; gate_cell_bwd is that "
-                        "kernel row alone, which kernels includes; scenarios "
+                        PHASES) + " (default: all; gate_cell_bwd and "
+                        "flash_attention_bwd are those kernel rows alone, "
+                        "which kernels includes; scenarios "
                         "needs kernels); the kernels line then lists only "
                         "the rows made")
     args = ap.parse_args()
@@ -3834,6 +4226,8 @@ def main() -> int:
             torch, stream, dev, *counted)
         rows.update(attention_rows(torch, dev))
         rows.update(scan_rows(torch, dev))
+    if only & {"kernels", "flash_attention_bwd"}:
+        rows["flash_attention_bwd"] = flash_bwd_row(torch, dev)
     if rows:
         record({"phase": "kernels", "compared": [
             {k: rows[n][k] for k in ("name", "max_abs_err", "tolerance")}
@@ -3903,6 +4297,9 @@ def main() -> int:
                 "flash_attention"],
             ("decode_attention", "decode"): phases["front_end"][
                 "decode_attention"]})
+    if "train" in only:
+        phases["train"], train_rec = train_phase(torch, dev, *counted)
+        record(train_rec)
     for name, row in rows.items():
         by_phase = {ph: c[name] for ph, c in phases.items() if c.get(name)}
         row["launches"] = sum(by_phase.values())

@@ -4,9 +4,10 @@ The reference's gate parameters are a dict of arrays (its
 ``init_params(gate_specs(cfg), key)``), its per-stream gate state a
 ``GateState``, its router carry a ``RouterState``
 with a ``GateBatchState``, its baselines' and τ-proxy carries the named
-tuples ``RDAPState``, ``SniperState`` and ``HistoryState``, and its model
+tuples ``RDAPState``, ``SniperState`` and ``HistoryState``, its model
 parameters and caches (K/V, convolution and recurrent states) nested dicts
-and lists of arrays; ``np.asarray`` of either side's leaves is all these
+and lists of arrays, and its optimizer state an ``AdamWState`` of such
+trees; ``np.asarray`` of either side's leaves is all these
 functions need, so nothing here imports JAX.  Indices become int64 in the
 port; bfloat16 leaves cross as float32 (exact both ways).
 """
@@ -22,6 +23,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import cache_specs, model_specs
 from repro_torch.models.params import leaf_dtype, tree_map
 from repro_torch.serving.policy import HistoryState, RDAPState, SniperState
+from repro_torch.train.optimizer import AdamWState
 
 _GATE_FIELDS = ("h", "var_buf", "var_idx", "var_sum", "var_sumsq")
 
@@ -124,6 +126,25 @@ def model_params_from_numpy(params, cfg: ModelConfig, device="cuda",
         lambda spec, x: torch.from_numpy(_f32(x)).to(
             device=dev, dtype=leaf_dtype(spec, dt)),
         model_specs(cfg, serve=serve), params)
+
+
+def opt_state_from_numpy(state, device="cuda") -> AdamWState:
+    """A reference ``AdamWState`` (or anything with ``step``, ``mu`` and
+    ``nu``) -> the port's on ``device``: the step int32, the moments
+    float32 in the parameters' tree."""
+    dev = resolve_device(device)
+    moments = lambda tree: tree_map(lambda x: torch.from_numpy(_f32(x)).to(
+        dev), tree)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        mu=moments(state.mu), nu=moments(state.nu))
+
+
+def opt_state_to_numpy(state: AdamWState) -> dict:
+    """{"step": int, "mu": tree, "nu": tree} of numpy float32 copies."""
+    return {"step": int(state.step), "mu": tree_to_numpy(state.mu),
+            "nu": tree_to_numpy(state.nu)}
 
 
 def cache_from_numpy(cache, cfg: ModelConfig, device="cuda") -> dict:

@@ -1,1 +1,2 @@
-"""Synthetic inputs of the gate: the moving-blob video streams."""
+"""Synthetic inputs: the gate's moving-blob video streams and the language
+models' token pipeline."""

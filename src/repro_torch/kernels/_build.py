@@ -31,8 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("temporal_gate.cu", "temporal_gate_bwd.cu", "ccg_solve.cu",
            "c6_tail.cu", "lpt_queue.cu", "ccg_encode.cu", "ccg_master.cu",
-           "decode_attention.cu", "flash_attention.cu", "mamba_scan.cu",
-           "rglru_scan.cu")
+           "decode_attention.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu", "mamba_scan.cu", "rglru_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -78,6 +78,11 @@ _SIGNATURES = {
     # q, k, v, positions (int32 (B, S), or null), out, q/k/v strides (b, h,
     # s), B, H, KV, Sq, Sk, D, BQ, window, causal, scale, dtype, stream
     "flash_attention_launch": [_P] * 5 + [_L] * 9 + [_I] * 9 + [_F, _I, _P],
+    # q, k, v, o, dout, positions (or null), dq, dk, dv, stats, q/k/v/o/dout
+    # strides (b, h, s), B, H, KV, Sq, Sk, D, BQ, window, causal, scale,
+    # dtype, stream
+    "flash_attention_bwd_launch": [_P] * 10 + [_L] * 15 + [_I] * 9
+    + [_F, _I, _P],
     # x, dt, B, C, A, D, h0, h_out, y, x/dt/B/C strides (b, s), B, S, Di,
     # N, dtype, stream
     "mamba_scan_launch": [_P] * 9 + [_L] * 8 + [_I] * 5 + [_P],
@@ -237,6 +242,20 @@ def dispatch(name: str, force: str, device) -> bool:
         raise ValueError(f"{name}: force='kernel' needs CUDA tensors, "
                          f"got {device}")
     return False
+
+
+def refuse_grad(name: str, *tensors, hint: str = "") -> None:
+    """Raise where autograd would need a backward that the kernel lacks
+    (grad enabled and an operand that requires it): its output would carry
+    no gradient.  Kernels with a backward run through their autograd
+    functions, whose forward runs with grad disabled."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the kernel has no backward, so its output would carry "
+            "no gradient; call it under torch.no_grad() or take the plain "
+            "version (force='ref')" + (f"; {hint}" if hint else ""))
 
 
 def pad_rows(t, rows: int, value=0):

@@ -28,6 +28,7 @@ def c6_tail(bw_panel, r, p, v, route, z, acc_thr, rn, pn, *, n_fps: int,
     if not _build.dispatch("c6_tail", force, bw_panel.device):
         return c6_tail_ref(bw_panel, r, p, v, route, z, acc_thr, rn, pn,
                            n_fps)
+    _build.refuse_grad("c6_tail", bw_panel, z, acc_thr, rn, pn)
     m, nz_flat = bw_panel.shape
     n, zn = rn.shape[0], pn.shape[0]
     if nz_flat != n * n_fps or zn != n_fps \
@@ -82,6 +83,7 @@ def c6_repair(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget, *,
     if not _build.dispatch("c6_repair", force, bw_panel.device):
         return c6_repair_ref(bw_panel, r, p, v, route, z, acc_thr, rn, pn,
                              budget, n_fps, rounds, task_mask)
+    _build.refuse_grad("c6_repair", bw_panel, z, acc_thr, rn, pn, budget)
     m, nz_flat = bw_panel.shape
     n = rn.shape[0]
     if nz_flat != n * n_fps or pn.shape[0] != n_fps or rounds < 0 \

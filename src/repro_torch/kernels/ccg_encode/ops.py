@@ -25,6 +25,8 @@ def ccg_encode(z, aq, rn_flat, pn_flat, tier_flat, b2_scaled, rec_table, *,
     if not _build.dispatch("ccg_encode", force, z.device):
         return ccg_encode_ref(z, aq, rn_flat, pn_flat, tier_flat, rec_table,
                               margin, num_versions, y_ok=y_ok)
+    _build.refuse_grad("ccg_encode", z, aq, rn_flat, pn_flat, tier_flat,
+                       b2_scaled, rec_table, y_ok)
     m, f = z.shape[0], rn_flat.shape[0]
     p, f2, k = b2_scaled.shape
     if f2 != f or k != num_versions or aq.shape != (m,) \

@@ -17,6 +17,7 @@ def ccg_master(rec_all, scen_mask, fs_ok, c1, *, force: str = "auto"):
     """
     if not _build.dispatch("ccg_master", force, rec_all.device):
         return ccg_master_ref(rec_all, scen_mask, fs_ok, c1)
+    _build.refuse_grad("ccg_master", rec_all, c1)
     m, p, f = rec_all.shape
     if scen_mask.shape != (m, p) or fs_ok.shape != (m, f) \
             or c1.shape != (f,) or p > 64:

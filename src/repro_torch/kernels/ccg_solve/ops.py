@@ -26,6 +26,8 @@ def ccg_solve(z, aq, rn_flat, pn_flat, tier_flat, b2_flat, u_all, c1_flat,
         return ccg_solve_ref(z, aq, rn_flat, pn_flat, tier_flat, b2_flat,
                              u_all, c1_flat, warm_y, margin, num_versions,
                              max_iters, theta, y_ok=y_ok)
+    _build.refuse_grad("ccg_solve", z, aq, rn_flat, pn_flat, tier_flat,
+                       b2_flat, u_all, c1_flat, y_ok)
     m = z.shape[0]
     f = rn_flat.shape[0]
     k, p = num_versions, u_all.shape[0]

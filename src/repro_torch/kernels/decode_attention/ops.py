@@ -48,6 +48,7 @@ def decode_attention(q, k_cache, v_cache, length, *, force: str = "auto"):
     """
     if not _build.dispatch("decode_attention", force, q.device):
         return decode_attention_ref(q, k_cache, v_cache, length)
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     b, h, d = q.shape
     kb, kv, s, kd = k_cache.shape
     if (kb, kd) != (b, d) or tuple(v_cache.shape) != tuple(k_cache.shape) \

@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the flash-attention kernel (GQA, causal,
+"""Plain PyTorch versions of the flash-attention kernel (GQA, causal,
 optionally sliding-window): port of ``repro/kernels/flash_attention/ref.py``
-— float32 scores and softmax, output in the input dtype."""
+— float32 scores and softmax, output in the input dtype — and of its
+backward kernel, the vector-Jacobian product of that function."""
 from __future__ import annotations
 
 from typing import Optional
@@ -42,3 +43,15 @@ def attention_ref(q, k, v, *, window: Optional[int] = None,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def attention_vjp_ref(q, k, v, do, *, window: Optional[int] = None,
+                      causal: bool = True, positions=None):
+    """(dq, dk, dv) of :func:`attention_ref` at (q, k, v) for the output
+    gradient ``do`` (B, H, Sq, D), by ``torch.autograd.grad``: float32
+    arithmetic, each gradient rounded once to its input's dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_ref(*leaves, window=window, causal=causal,
+                            positions=positions)
+        return torch.autograd.grad(out, leaves, do)

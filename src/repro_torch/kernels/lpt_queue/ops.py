@@ -49,6 +49,7 @@ def lpt_queue(t_comp, route, n_edge: int, n_cloud: int, *, avail=None,
     if not _build.dispatch("lpt_queue", force, t_comp.device):
         out = lpt_queue_ref(t_comp, route, order, n_edge, n_cloud, init)
         return out[0] if one else out
+    _build.refuse_grad("lpt_queue", t_comp)
     n_rounds, m = t_comp.shape
     if route.shape != t_comp.shape or n_edge < 1 or n_cloud < 1 \
             or max(n_edge, n_cloud) > MAX_TIER_SERVERS or m > MAX_TASKS \

@@ -29,6 +29,7 @@ def selective_scan(x, dt, B, C, A, D, h0=None, *, h_out=None,
         if h_out is not None:
             h = h_out.copy_(h)
         return y, h
+    _build.refuse_grad("mamba_scan", x, dt, B, C, A, D, h0)
     b, s, di = x.shape
     n = A.shape[-1]
     if tuple(dt.shape) != (b, s, di) or tuple(A.shape) != (di, n) \

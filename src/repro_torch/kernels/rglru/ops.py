@@ -24,6 +24,7 @@ def rglru_scan(x, rgate, igate, log_a_base, h0=None, *, h_out=None,
         if h_out is not None:
             h = h_out.copy_(h)
         return y, h
+    _build.refuse_grad("rglru_scan", x, rgate, igate, log_a_base, h0)
     b, s, w = x.shape
     if tuple(rgate.shape) != (b, s, w) or tuple(igate.shape) != (b, s, w) \
             or tuple(log_a_base.shape) != (w,) or any(

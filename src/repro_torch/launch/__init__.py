@@ -1,1 +1,3 @@
-"""Command-line entry points of the port (``python -m repro_torch.launch.serve``)."""
+"""Command-line entry points of the port (``python -m
+repro_torch.launch.serve``, ``python -m repro_torch.launch.train``) and the
+step builders."""

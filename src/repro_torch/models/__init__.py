@@ -1,3 +1,4 @@
-"""Decoder models of the tier pools: a port of the dense-attention path of
-``repro/models`` (configs, parameter specs, layers, GQA attention on the
-two attention kernels, gated MLP, blocks and the prefill/decode model)."""
+"""Decoder models of the tier pools: a port of ``repro/models`` (configs,
+parameter specs, layers, GQA attention on the two attention kernels, gated
+MLP and MoE, SSM and RG-LRU mixers, blocks, the prefill/decode model and
+the training loss)."""

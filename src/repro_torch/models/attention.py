@@ -1,8 +1,10 @@
 """GQA attention: port of ``repro/models/attention.py`` (specs, the per-head
 qk-norm, ``attn_forward``) on the two attention kernels.
 
-On the kernel path the prefill runs ``kernels/flash_attention`` and each
-decode step ``kernels/decode_attention``.  The plain path runs
+On the kernel path the prefill runs ``kernels/flash_attention`` (in
+``train`` mode, or wherever a gradient is needed, through its autograd
+function ``FlashAttentionFn``, whose backward is the backward kernel) and
+each decode step ``kernels/decode_attention``.  The plain path runs
 :func:`chunked_attention` and :func:`decode_attention`, ports of the
 reference model's jnp code with its roundings (in a bf16 model the score
 product is rounded to bf16 before the float32 softmax; the kernels keep
@@ -195,11 +197,17 @@ def _prefill_attention(ctx: Ctx, q, k, v, positions, positions_given):
     cfg = ctx.cfg
     if _build.dispatch("flash_attention", ctx.force, q.device):
         # positions that forward built are arange(S): causality by index;
-        # the caller's positions go to the kernel, which masks by them
-        out = flash_ops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            window=cfg.attn_window, causal=True,
-            positions=positions if positions_given else None, force="kernel")
+        # the caller's positions go to the kernel, which masks by them.
+        # Training (or any caller that needs a gradient) goes through the
+        # autograd function, whose backward is the backward kernel
+        train = ctx.mode == "train" or torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v))
+        fn = flash_ops.flash_attention_autograd if train \
+            else flash_ops.flash_attention
+        out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 window=cfg.attn_window, causal=True,
+                 positions=positions if positions_given else None,
+                 force="kernel")
         return out.transpose(1, 2)
     return chunked_attention(q, k, v, positions, window=cfg.attn_window,
                              q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)

@@ -66,12 +66,13 @@ def block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
 def block_apply(ctx: Ctx, kind: str, p: dict, x, *, positions, length=None,
                 cache: Optional[dict] = None, emit_cache: bool = False,
                 positions_given: bool = False):
-    """Returns (x, new_cache or None); the reference's third output, the
-    MoE auxiliary loss, is not carried (``moe_forward`` computes it; the
-    training loss that reads it is ROADMAP queue A.16).  The block kind was
-    checked when the specs were built.  ``positions_given``: the caller
+    """Returns (x, new_cache or None, aux): ``aux`` is the MoE block's
+    load-balancing loss (a float32 0-d tensor), the Python float 0.0 for
+    every other block (no tensor made on the serving path).  The block kind
+    was checked when the specs were built.  ``positions_given``: the caller
     passed ``positions`` (the prefill kernel masks by them)."""
     cfg = ctx.cfg
+    aux = 0.0
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind == "attn":
         c = dict(cache, length=length) if cache is not None else None
@@ -89,8 +90,8 @@ def block_apply(ctx: Ctx, kind: str, p: dict, x, *, positions, length=None,
     if kind != "ssm":
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
         if cfg.moe is not None:
-            y2, _ = moe_forward(ctx, p["mlp"], h2)
+            y2, aux = moe_forward(ctx, p["mlp"], h2)
         else:
             y2 = mlp_forward(ctx, p["mlp"], h2, activation=cfg.mlp_activation)
         x = x + y2
-    return x, new_cache
+    return x, new_cache, aux

@@ -6,17 +6,20 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
 
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Forward context: the config, the mode (prefill | decode) and the
-    attention kernels' pin (``force``: auto | ref | kernel, as on every
-    kernel wrapper)."""
+    """Forward context: the config, the mode (train | prefill | decode;
+    ``train``, the reference's default, runs a prefill-shaped forward with
+    each layer under activation checkpointing where ``cfg.remat``, and the
+    attention kernel through its autograd function) and the kernels' pin
+    (``force``: auto | ref | kernel, as on every kernel wrapper)."""
     cfg: ModelConfig
-    mode: str = "prefill"
+    mode: str = "train"
     force: str = "auto"
 
     @property
@@ -85,6 +88,19 @@ def softplus(x):
     """``jax.nn.softplus``: ``logaddexp(x, 0)`` (torch's softplus returns x
     above its threshold instead)."""
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def refuse_scan_training(ctx: Ctx, kernel: str, device) -> None:
+    """A recurrent block trained on its scan kernel (``train`` mode, grad
+    enabled, the kernel path chosen) raises: ``selective_scan`` and
+    ``rglru_scan`` have no backward kernel yet (ROADMAP queue A.16b).
+    ``force="ref"`` trains the block on the plain scan."""
+    if ctx.mode == "train" and torch.is_grad_enabled() \
+            and _build.dispatch(kernel, ctx.force, device):
+        raise NotImplementedError(
+            f"{ctx.cfg.name}: training the {kernel} kernel needs its "
+            "backward kernel (ROADMAP queue A.16b); train with "
+            "force='ref' for the plain scan")
 
 
 def causal_conv(x, w, b, state=None):

@@ -1,13 +1,15 @@
-"""Top-level decoder: port of the serving half of ``repro/models/model.py``
-(segments, spec trees, ``forward``, ``logits_last``, ``prefill``,
+"""Top-level decoder: port of ``repro/models/model.py`` (segments, spec
+trees, ``forward``, the training loss ``loss_fn`` with its fused lm-head
+cross-entropy ``chunked_ce_loss``, ``logits_last``, ``prefill``,
 ``decode_step``).
 
 Layers are grouped into segments as in the reference (the repeating
 ``layer_pattern`` unit stacked ``n`` times, leaves with a leading layer
 axis); where the reference scans a segment with ``lax.scan``, the port runs
-a Python loop over the stacked layers, indexing each leaf (a view, no
-copy).  The training loss (``loss_fn``, ``chunked_ce_loss``) is ROADMAP
-queue A.16.
+a Python loop over the stacked layers, each leaf split into its layers by
+``unbind`` (views, no copy).  In ``train`` mode with ``cfg.remat`` each unit runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
+in the backward, the reference's ``jax.checkpoint(nothing_saveable)``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import block_apply, block_cache_specs, block_specs
 from repro_torch.models.config import ModelConfig
@@ -26,7 +29,12 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_specs,
 )
-from repro_torch.models.params import ParamSpec, tree_map
+from repro_torch.models.params import (
+    ParamSpec,
+    leaf_dtype,
+    tree_leaves,
+    tree_map,
+)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -80,6 +88,18 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, one ``unbind`` a leaf:
+    views, whose backward is one ``stack`` a leaf (``n`` indexings would
+    each scatter their gradient into a zero tensor of the stacked size)."""
+    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    layers = []
+    for i in range(n):
+        it = iter([p[i] for p in parts])
+        layers.append(tree_map(lambda _: next(it), tree))
+    return layers
+
+
 def _default_positions(cfg: ModelConfig, mode: str, length, b: int, s: int,
                        device):
     """The reference's positions when the caller passes none: the slab's
@@ -97,11 +117,29 @@ def _default_positions(cfg: ModelConfig, mode: str, length, b: int, s: int,
     return positions
 
 
+def _unit(ctx: Ctx, pattern, layer_p, x, positions, length, layer_c,
+          emit_cache: bool, given: bool):
+    """One repeat of the layer pattern -> (x, its new caches, summed aux)."""
+    new_c, aux = {}, 0.0
+    for j, kind in enumerate(pattern):
+        key = f"pos{j}"
+        x, nc, a = block_apply(
+            ctx, kind, layer_p[key], x, positions=positions, length=length,
+            cache=layer_c[key] if layer_c is not None else None,
+            emit_cache=emit_cache, positions_given=given)
+        if nc is not None:
+            new_c[key] = nc
+        aux = aux + a
+    return x, new_c, aux
+
+
 def forward(ctx: Ctx, params: dict, inputs: dict, *,
             cache: Optional[dict] = None, emit_cache: bool = False):
     """inputs: {"tokens": (B, S)} or {"embeddings": (B, S, d)} (configs
     with ``embed_inputs=False``); optional {"positions": (B, S), or
-    (B, 3, S) for M-RoPE}.  Returns (hidden (B, S, d), new_cache).
+    (B, 3, S) for M-RoPE}.  Returns (hidden (B, S, d), new_cache, aux):
+    ``aux`` the MoE load-balancing losses summed over the layers (a float32
+    0-d tensor; the Python float 0.0 for a model without MoE).
 
     Decode (``cache`` given): the cache's leaves (K/V, convolution and
     recurrent states) are updated in place and returned under the new
@@ -120,25 +158,20 @@ def forward(ctx: Ctx, params: dict, inputs: dict, *,
     given = "positions" in inputs
     positions = inputs["positions"] if given else _default_positions(
         cfg, ctx.mode, length, b, s, x.device)
+    remat = cfg.remat and ctx.mode == "train"
 
-    new_segments = []
+    new_segments, aux_total = [], 0.0
     for seg_idx, (pattern, n) in enumerate(build_segments(cfg)):
         seg_params = params["segments"][seg_idx]
         seg_cache = cache["segments"][seg_idx] if cache is not None else None
         emitted = []
-        for i in range(n):
-            layer_p = _layer(seg_params, i)
-            layer_c = _layer(seg_cache, i) if seg_cache is not None else None
-            new_c = {}
-            for j, kind in enumerate(pattern):
-                key = f"pos{j}"
-                x, nc = block_apply(
-                    ctx, kind, layer_p[key], x, positions=positions,
-                    length=length,
-                    cache=layer_c[key] if layer_c is not None else None,
-                    emit_cache=emit_cache, positions_given=given)
-                if nc is not None:
-                    new_c[key] = nc
+        for i, layer_p in enumerate(_unstack(seg_params, n)):
+            args = (ctx, pattern, layer_p, x, positions,
+                    length, _layer(seg_cache, i) if seg_cache is not None
+                    else None, emit_cache, given)
+            x, new_c, aux = (checkpoint(_unit, *args, use_reentrant=False)
+                             if remat else _unit(*args))
+            aux_total = aux_total + aux
             emitted.append(new_c)
         if seg_cache is not None:
             new_segments.append(seg_cache)       # written in place
@@ -154,7 +187,40 @@ def forward(ctx: Ctx, params: dict, inputs: dict, *,
         new_len = length + s if length is not None else torch.tensor(
             s, dtype=torch.int32, device=x.device)
         new_cache = {"length": new_len, "segments": new_segments}
-    return x, new_cache
+    return x, new_cache, aux_total
+
+
+def _ce_chunk(x_blk, w, l_blk, m_blk):
+    """Summed masked negative log-likelihood of one sequence chunk."""
+    logits = (x_blk @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, l_blk[..., None].long())[..., 0]
+    return ((lse - tgt) * m_blk).sum()
+
+
+def chunked_ce_loss(ctx: Ctx, x, w_out, labels, mask=None):
+    """Fused lm-head + cross-entropy over sequence chunks of
+    ``cfg.loss_chunk`` (the reference's scan): each chunk's logits (B,
+    chunk, V), the product in the compute dtype then float32, live only
+    inside its chunk and are recomputed in the backward
+    (``torch.utils.checkpoint``), never saved.  Returns the masked mean
+    over the tokens (float32 0-d)."""
+    b, s, _ = x.shape
+    chunk = min(ctx.cfg.loss_chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunked_ce_loss: sequence {s} is not a multiple "
+                         f"of the loss chunk {chunk}")
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    w = w_out.to(ctx.compute_dtype)
+    total = denom = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        m_blk = mask[:, sl].float()
+        total = total + checkpoint(_ce_chunk, x[:, sl], w, labels[:, sl],
+                                   m_blk, use_reentrant=False)
+        denom = denom + m_blk.sum()
+    return total / torch.clamp_min(denom, 1.0)
 
 
 def logits_last(ctx: Ctx, x_last, w_out):
@@ -163,15 +229,39 @@ def logits_last(ctx: Ctx, x_last, w_out):
     return (x_last @ w_out)[:, 0].float()
 
 
+def compute_params(cfg: ModelConfig, params):
+    """Each leaf in the dtype the forward reads it in: its spec's own dtype
+    (float32 norm scales and SSM/RG-LRU gates), else the compute dtype.
+    Differentiable: float32 master weights of a bf16 model cast here, once
+    a step, as the reference casts each weight inside its products
+    (``.astype(dt)``); leaves already in their dtype are not copied."""
+    dt = getattr(torch, cfg.compute_dtype)
+    return tree_map(lambda spec, t: t.to(leaf_dtype(spec, dt)),
+                    model_specs(cfg), params)
+
+
+def loss_fn(ctx: Ctx, params, batch, aux_weight: float = 0.01):
+    """Training loss -> (ce + aux_weight · aux, {"ce", "aux"}): ``batch``
+    holds the model inputs of :func:`forward`, ``labels`` (B, S) and an
+    optional float ``mask`` (B, S); ``params`` in any float dtype (float32
+    masters train a bf16 model: :func:`compute_params`)."""
+    params = compute_params(ctx.cfg, params)
+    x, _, aux = forward(ctx, params, batch)
+    w_out = output_weights(ctx.cfg, params["embed"])
+    ce = chunked_ce_loss(ctx, x, w_out, batch["labels"], batch.get("mask"))
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
 def prefill(ctx: Ctx, params, batch):
     ctx = dataclasses.replace(ctx, mode="prefill")
-    x, cache = forward(ctx, params, batch, emit_cache=True)
+    x, cache, _ = forward(ctx, params, batch, emit_cache=True)
     w_out = output_weights(ctx.cfg, params["embed"])
     return logits_last(ctx, x[:, -1:], w_out), cache
 
 
 def decode_step(ctx: Ctx, params, cache, batch):
     ctx = dataclasses.replace(ctx, mode="decode")
-    x, new_cache = forward(ctx, params, batch, cache=cache)
+    x, new_cache, _ = forward(ctx, params, batch, cache=cache)
     w_out = output_weights(ctx.cfg, params["embed"])
     return logits_last(ctx, x, w_out), new_cache

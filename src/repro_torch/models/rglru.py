@@ -20,7 +20,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru import ops as scan_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Ctx, causal_conv, softplus
+from repro_torch.models.layers import (
+    Ctx,
+    causal_conv,
+    refuse_scan_training,
+    softplus,
+)
 from repro_torch.models.params import ParamSpec
 
 _C = 8.0  # RG-LRU decay temperature (Griffin)
@@ -49,6 +54,7 @@ def rglru_forward(ctx: Ctx, p, x, *, cache=None, emit_cache: bool = False):
     """x: (B, S, d) -> (out (B, S, d), cache or None).  Decode: ``cache`` =
     {conv: (B, K-1, W), h: (B, W) float32}, both written in place and
     returned; prefill with ``emit_cache``: a fresh {conv, h}."""
+    refuse_scan_training(ctx, "rglru_scan", x.device)
     rec = x @ p["w_rec_in"]
     # jax.nn.gelu's default is the tanh approximation
     gate = F.gelu(x @ p["w_gate_in"], approximate="tanh")

@@ -17,7 +17,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Ctx, causal_conv, softplus
+from repro_torch.models.layers import (
+    Ctx,
+    causal_conv,
+    refuse_scan_training,
+    softplus,
+)
 from repro_torch.models.params import ParamSpec
 
 
@@ -44,6 +49,7 @@ def ssm_forward(ctx: Ctx, p, x, *, cache=None, emit_cache: bool = False):
     """x: (B, S, d) -> (out (B, S, d), cache or None).  Decode: ``cache`` =
     {conv: (B, K-1, Di), h: (B, Di, N) float32}, both written in place and
     returned; prefill with ``emit_cache``: a fresh {conv, h}."""
+    refuse_scan_training(ctx, "mamba_scan", x.device)
     cfg = ctx.cfg
     di, r, n = cfg.d_inner, cfg.dt_rank, cfg.ssm.d_state
 

@@ -1,21 +1,37 @@
-"""Cluster runtime for elastic serving — port of
-``repro/runtime/cluster.py``'s ``ClusterSim`` (:69) and ``elastic_remesh``
-(:32): node liveness from heartbeats, and the largest (data, model) mesh
-over the surviving ranks.
+"""Cluster runtime for elastic serving and training — port of
+``repro/runtime/cluster.py``'s ``ClusterSim`` (:69), ``elastic_remesh``
+(:32) and ``FailureInjector`` (:22): node liveness from heartbeats, the
+largest (data, model) mesh over the surviving ranks, and scheduled node
+failures for the trainer.
 
 The survivor mesh takes ranks ``0..n-1`` of the running process group, as
 the reference takes ``jax.devices()[:n]``.  Building it is a collective
 call: every rank of the world makes it, those outside the mesh included
 (``DeviceMesh`` makes its groups with ``new_group``).  ``FailureInjector``
-raises the trainer's ``NodeFailure`` and comes with the trainer (ROADMAP
-queue A.16).
+raises the trainer's ``NodeFailure`` at scheduled steps.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.launch.mesh import mesh_device_type
+from repro_torch.train.trainer import NodeFailure
+
+
+@dataclasses.dataclass
+class FailureInjector:
+    """Raise NodeFailure when the trainer reaches a scheduled step (each
+    scheduled step once)."""
+    schedule: dict[int, str]    # step -> failure description
+    fired: set = dataclasses.field(default_factory=set)
+
+    def __call__(self, step: int) -> None:
+        if step in self.schedule and step not in self.fired:
+            self.fired.add(step)
+            raise NodeFailure(f"step {step}: {self.schedule[step]}")
 
 
 def elastic_remesh(n_devices: int | None = None, *, min_model: int = 1,

@@ -33,6 +33,11 @@ and sums y in another order than torch's einsum, so both are held to
 1e-5 + 1e-5·|plain| (their outputs are float32 whatever the input dtype).
 With runtime positions (``positions=``), ``flash_attention`` masks by
 them (same tolerances), and positions 0..S-1 give the index launch's bits.
+``flash_attention_bwd`` (dq, dk, dv) is held to ``attention_vjp_ref`` within
+1e-5 (float32) and 2e-2 (bfloat16: its Δ = rowsum(dO∘O) reads the rounded
+output; measured 8e-3) of each gradient's largest |entry|, and two of its
+launches give the same bits.  Kernels without a backward refuse inputs
+that need a gradient.
 The bf16 flash kernel copies 16-byte row chunks: misaligned rows raise.
 The decode kernel splits each cache over a cluster of blocks and combines
 the splits in a fixed order (two calls are bit-equal); bf16 rows on 16-byte
@@ -60,7 +65,12 @@ from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_attention_autograd,
+    flash_attention_bwd,
+)
+from repro_torch.kernels.flash_attention.ref import attention_vjp_ref
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.kernels.rglru.ops import rglru_scan
@@ -72,8 +82,11 @@ from repro_torch.kernels.temporal_gate.ops import (
 from repro_torch.kernels.temporal_gate.ref import gate_cell_vjp_ref
 from repro_torch.configs import get_smoke_config
 from repro_torch.models.layers import Ctx, mrope_positions
-from repro_torch.models.model import model_specs, prefill
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.models.model import loss_fn, model_specs, prefill
 from repro_torch.models.params import init_params
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.trainer import TrainConfig, Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -1182,3 +1195,122 @@ def test_lpt_queue_kernel_dead_lanes_and_servers(dev, dead):
     got = lpt_queue(*args, avail=_t(avail, dev), force="kernel")
     want = lpt_queue(*args, avail=_t(avail, dev), force="ref")
     assert torch.equal(got, want)
+
+
+_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,window,causal,layout", [
+    (8, 16, 16, 128, 128, 64, None, True, None),   # Qwen1.5-0.5B's heads
+    (2, 32, 8, 70, 70, 128, None, True, None),     # Qwen3-8B's GQA
+    (2, 16, 1, 100, 100, 256, 16, True, None),     # D = 256, window
+    (1, 4, 2, 5, 70, 64, None, False, None),       # non-causal, Sq < Sk
+    (2, 12, 4, 70, 45, 32, 30, False, None),       # non-causal window
+    (2, 4, 4, 48, 48, 16, None, True, None),       # SMOKE head dims
+    (2, 8, 2, 40, 40, 8, 16, True, None),
+    (2, 12, 2, 80, 80, 128, None, True, "qwen2vl"),  # runtime positions
+    (2, 8, 2, 70, 70, 64, 24, True, "shuffled"),
+])
+def test_flash_attention_bwd_kernel(dev, dtype, b, h, kv, sq, sk, d, window,
+                                    causal, layout):
+    rng = _gen(b * sq + sk + d)
+    q = _normal(rng, (b, sq, h, d), dtype, dev).transpose(1, 2)
+    k = _normal(rng, (b, sk, kv, d), dtype, dev).transpose(1, 2)
+    v = _normal(rng, (b, sk, kv, d), dtype, dev).transpose(1, 2)
+    do = _normal(rng, (b, sq, h, d), dtype, dev).transpose(1, 2)
+    kw = dict(window=window, causal=causal)
+    if layout is not None:
+        kw["positions"] = _positions(layout, b, sq, dev, seed=sq)
+    o = flash_attention(q, k, v, force="kernel", **kw)
+    reset_launch_counts()
+    got = flash_attention_bwd(q, k, v, o, do, force="kernel", **kw)
+    again = flash_attention_bwd(q, k, v, o, do, force="kernel", **kw)
+    assert launch_counts() == {"flash_attention_bwd": 2}
+    want = attention_vjp_ref(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape and torch.equal(g, a)
+        err = float((g.double() - w.double()).abs().max())
+        assert err <= _BWD_TOL[dtype] * max(1.0, float(w.abs().max())), err
+
+
+def test_flash_attention_autograd_runs_the_backward_kernel(dev):
+    rng = _gen(3)
+    q, k, v = (_normal(rng, (2, 64, 8, 64), torch.bfloat16, dev)
+               .transpose(1, 2).requires_grad_(True) for _ in range(3))
+    reset_launch_counts()
+    out = flash_attention_autograd(q, k, v, window=24)
+    out.float().square().sum().backward()
+    assert launch_counts() == {"flash_attention": 1,
+                               "flash_attention_bwd": 1}
+    want = attention_vjp_ref(q.detach(), k.detach(), v.detach(),
+                             2 * out.detach(), window=24)
+    for x, w in zip((q, k, v), want):
+        err = float((x.grad.double() - w.double()).abs().max())
+        assert err <= 2e-2 * max(1.0, float(w.abs().max()))
+
+
+def test_kernels_without_a_backward_refuse_autograd(dev):
+    """A wrapper whose kernel has no backward raises on an input that
+    needs a gradient (its output would carry none) and launches nothing;
+    under no_grad it runs and counts as before."""
+    g = torch.Generator(dev).manual_seed(0)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    calls = {
+        "decode_attention": lambda x: decode_attention(
+            x(2, 8, 64), n(2, 2, 20, 64), n(2, 2, 20, 64),
+            torch.full((2,), 5, device=dev)),
+        "flash_attention": lambda x: flash_attention(
+            x(1, 4, 16, 64), n(1, 2, 16, 64), n(1, 2, 16, 64)),
+        "mamba_scan": lambda x: selective_scan(
+            x(2, 3, 16), n(2, 3, 16).abs(), n(2, 3, 4), n(2, 3, 4),
+            -n(16, 4).abs(), n(16)),
+        "rglru_scan": lambda x: rglru_scan(
+            x(2, 3, 16), torch.sigmoid(n(2, 3, 16)),
+            torch.sigmoid(n(2, 3, 16)), -n(16).abs()),
+        "lpt_queue": lambda x: lpt_queue(
+            x(64).abs(), torch.zeros(64, dtype=torch.int32, device=dev),
+            4, 1),
+    }
+    for name, call in calls.items():
+        needs_grad = lambda *s: n(*s).requires_grad_(True)
+        reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="no backward"):
+            call(needs_grad)
+        assert launch_counts() == {}, name
+        with torch.no_grad():
+            call(needs_grad)
+        call(n)
+        assert launch_counts() == {name: 2}, name
+
+
+def test_recurrent_training_on_the_kernel_path_raises(dev):
+    for arch in ("falcon-mamba-7b", "recurrentgemma-9b"):
+        cfg = get_smoke_config(arch)
+        params = init_params(model_specs(cfg),
+                             torch.Generator(dev).manual_seed(0), dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+            TokenPipeline(cfg.vocab_size, 32, 2)).items()}
+        with pytest.raises(NotImplementedError, match="A.16b"):
+            loss_fn(Ctx(cfg=cfg, mode="train"), params, batch)
+        loss, _ = loss_fn(Ctx(cfg=cfg, mode="train", force="ref"), params,
+                          batch)
+        assert torch.isfinite(loss)
+
+
+def test_train_step_launches_the_attention_kernels(dev, tmp_path):
+    """One ``Trainer`` step of the SMOKE Qwen model on the card: the
+    forward kernel twice a layer (the forward and its recomputation under
+    remat) and the backward kernel once a layer."""
+    cfg = get_smoke_config("qwen1.5-0.5b")
+    tr = Trainer(cfg, TrainConfig(ckpt_dir=str(tmp_path),
+                                  opt=AdamWConfig(warmup_steps=1)),
+                 device=dev)
+    state = tr.init_state()
+    batch = tr._device_batch(next(TokenPipeline(cfg.vocab_size, 64, 4)))
+    reset_launch_counts()
+    *_, metrics = tr._step(*state, batch)
+    assert launch_counts() == {"flash_attention": 2 * cfg.num_layers,
+                               "flash_attention_bwd": cfg.num_layers}
+    assert torch.isfinite(metrics["loss"])

@@ -28,12 +28,16 @@ from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_attention_bwd,
+)
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.temporal_gate.ops import gate_cell, gate_cell_vjp
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_launcher
 from repro_torch.launch.mesh import host_mesh, run_ranks, single_rank_group
 from repro_torch.models.config import MoEConfig, RGLRUConfig, SSMConfig
 from repro_torch.models.model import model_specs
@@ -42,6 +46,7 @@ from repro_torch.serving.policy import Observation, make_policy
 from repro_torch.serving.pools import ModelPool, make_tier_pools
 from repro_torch.serving.session import FinetuneConfig, ServeSession
 from repro_torch.serving.simulator import Simulator, SimConfig
+from repro_torch.train.trainer import TrainConfig, Trainer
 
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 GCFG = GateConfig(d_feature=35)
@@ -114,7 +119,7 @@ def _no_cuda():
     "make_policy", "lattice", "robust_problem", "router_state", "gate_state",
     "gate_params", "simulator", "baseline_policy", "model_pool",
     "tier_pools", "model_params", "gate_stream_state", "offline_warmup",
-    "serve_launcher", "nccl_ranks"])
+    "serve_launcher", "nccl_ranks", "trainer", "train_launcher"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     _no_cuda()
     calls = {
@@ -138,6 +143,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
             GCFG, iter([]), CurriculumConfig(), torch.Generator()),
         "serve_launcher": lambda: serve.main(["--rounds", "1"]),
         "nccl_ranks": lambda: run_ranks(print, 2, backend="nccl"),
+        "trainer": lambda: Trainer(get_smoke_config("qwen1.5-0.5b"),
+                                   TrainConfig()),
+        "train_launcher": lambda: train_launcher.main(["--smoke",
+                                                       "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -193,6 +202,10 @@ def _kernel_calls():
         "flash_attention": lambda f: flash_attention(
             torch.zeros(1, 8, 12, 64), torch.zeros(1, 2, 12, 64),
             torch.zeros(1, 2, 12, 64), force=f),
+        "flash_attention_bwd": lambda f: flash_attention_bwd(
+            torch.zeros(1, 8, 12, 64), torch.zeros(1, 2, 12, 64),
+            torch.zeros(1, 2, 12, 64), torch.zeros(1, 8, 12, 64),
+            torch.ones(1, 8, 12, 64), force=f),
         "mamba_scan": lambda f: selective_scan(
             torch.zeros(2, 3, 16), torch.zeros(2, 3, 16),
             torch.zeros(2, 3, 4), torch.zeros(2, 3, 4), -torch.ones(16, 4),
@@ -208,6 +221,7 @@ def _kernel_calls():
                                   "c6_repair", "lpt_queue", "ccg_encode",
                                   "ccg_master", "decode_attention",
                                   "flash_attention",
+                                  "flash_attention_bwd",
                                   "mamba_scan", "rglru_scan"])
 def test_force_kernel_on_cpu_tensor_raises(name):
     call = _kernel_calls()[name]
@@ -220,6 +234,48 @@ def test_force_kernel_on_cpu_tensor_raises(name):
     call("auto")
     call("ref")
     assert launch_counts() == {}
+
+
+def _launching_wrappers():
+    """{(module, function): source} of every function of the kernel
+    wrappers' modules that launches a kernel (counts a launch)."""
+    out = {}
+    for path in sorted((PKG / "kernels").glob("*/ops.py")):
+        src = path.read_text()
+        for node in ast.walk(ast.parse(src)):
+            if isinstance(node, ast.FunctionDef):
+                body = ast.get_source_segment(src, node)
+                if "_build.LAUNCHES[" in body:
+                    out[(path.parent.name, node.name)] = body
+    return out
+
+
+def test_kernel_wrappers_without_a_backward_refuse_grad():
+    """A kernel's output carries no gradient, so every wrapper that
+    launches one refuses operands that need a gradient
+    (``_build.refuse_grad``), except the two kernels that autograd reaches
+    through their own ``torch.autograd.Function`` (``GateCellFn``,
+    ``FlashAttentionFn``: their backward is a kernel too) and those two
+    backward kernels.  The refusal raises only where grad is enabled and
+    an operand requires it."""
+    wrappers = _launching_wrappers()
+    assert len(wrappers) >= 13
+    free = {name for name, body in wrappers.items()
+            if "_build.refuse_grad(" not in body}
+    assert free == {("temporal_gate", "gate_cell"),
+                    ("temporal_gate", "gate_cell_vjp"),
+                    ("flash_attention", "flash_attention_bwd")}
+    assert ("flash_attention", "flash_attention") not in free
+    for mod, fn in (("temporal_gate", "GateCellFn"),
+                    ("flash_attention", "FlashAttentionFn")):
+        assert f"class {fn}(torch.autograd.Function)" in (
+            PKG / "kernels" / mod / "ops.py").read_text()
+    x = torch.zeros(3, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        _build.refuse_grad("k", torch.zeros(2), x, None, 1.0)
+    with torch.no_grad():
+        _build.refuse_grad("k", x)
+    _build.refuse_grad("k", x.detach(), None, 2.0)
 
 
 def test_unported_branches_raise():
