@@ -48,8 +48,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  window, Qwen2-VL's positions and a non-causal case, bf16
                  and float32, dq, dk and dv within 2e-2 (bf16) and 1e-5
                  (float32) of max(1, each gradient's largest |entry|) of
-                 attention_vjp_ref, two launches bit-equal, timed beside
-                 autograd through SDPA; kernel, plain and library times (CUDA
+                 attention_vjp_ref, two launches bit-equal, the given LSE
+                 and the wrapper's own bit-equal, the forward's training
+                 launch's output bit-equal to the serving launch's, each
+                 case's design (tensor cores or CUDA cores) named; timed
+                 beside autograd through SDPA and beside its first design
+                 (bf16 on the CUDA cores, built from the same source beside
+                 the library), the forward kernel's time plus the
+                 backward's beside SDPA's; kernel, plain and library times (CUDA
                  events or the profiler, median after warm-up; SDPA's
                  device time beside its event time) and each kernel's
                  bound: the larger of its bytes and its compute, where
@@ -284,6 +290,7 @@ smoke.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import dataclasses
 import gc
@@ -3799,19 +3806,77 @@ def flash_bwd_work(b: int, h: int, kv: int, sq: int, sk: int, d: int,
     return float(nbytes), float(5 * 2 * d * h * pairs)
 
 
-def flash_bwd_row(torch, dev):
+def variants_tool():
+    """``tools/kernel_variants.py``, loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_variants", ROOT / "tools" / "kernel_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def start_first_design_build():
+    """nvcc of flash_attention_bwd's first design (bf16 on the CUDA cores at
+    every D: ``tools/kernel_variants.py``'s ``first_design`` edit of the
+    committed source) into ``build/first_design/``, started beside the
+    library's build -> (shared library path, the running nvcc)."""
+    from repro_torch.kernels import _build
+
+    tool = variants_tool()
+    out = ROOT / "build" / "first_design"
+    out.mkdir(parents=True, exist_ok=True)
+    cu = out / "flash_attention_bwd_first_design.cu"
+    cu.write_text(tool.variants("flash_attention_bwd", (
+        _build.CSRC / "flash_attention_bwd.cu").read_text())["first_design"])
+    so = cu.with_suffix(".so")
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+         "-shared", "-o", str(so), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(proc.kill)      # a failed run leaves no nvcc behind
+    return so, proc
+
+
+def first_design_library(first_design):
+    """The kernel library with flash_attention_bwd's entry point taken from
+    the first design's build (waited for here)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    so, proc = first_design
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the first design:\n{log}")
+    entry = "flash_attention_bwd_launch"
+    fn = getattr(ctypes.CDLL(str(so)), entry)
+    fn.argtypes = _build._SIGNATURES[entry]
+    fn.restype = ctypes.c_int
+    return variants_tool().Library(_build.library(), entry, fn,
+                                   "first_design")
+
+
+def flash_bwd_row(torch, dev, first_design):
     """flash_attention_bwd against attention_vjp_ref on the card: the
     training shape of Qwen1.5-0.5B (B 8, S 512, H = KV 16, D 64), Qwen3-8B's
     GQA (H 32 / KV 8, D 128), RecurrentGemma's D = 256 with a window of 128
     at S = 512, Qwen2-VL's runtime positions and a non-causal case, each in
     bf16 and float32, every gradient within BWD_TOL of max(1, its largest
-    |entry|) and two launches bit-equal; timed at the training shape (the
-    profiler's device time of both kernels, CUDA events around the call,
-    the plain version, and autograd through SDPA as the yardstick)."""
+    |entry|), two launches bit-equal, the LSE of the forward's training
+    launch (whose output must equal the serving launch's bit for bit)
+    given and the wrapper's own bit-equal; timed at the training shape and
+    at Qwen3-8B's with that LSE given (the profiler's device time of both
+    kernels, CUDA events around the call, the plain version, autograd
+    through SDPA as the yardstick, and the first design, built from the
+    same source by ``start_first_design_build``, in turns)."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.ops import (
+        bwd_design,
         flash_attention,
         flash_attention_bwd,
     )
@@ -3822,13 +3887,18 @@ def flash_bwd_row(torch, dev):
 
     def case(cfg, b, s, dtype, **kw):
         """(q, k, v, o, dO) as (B, S, heads, D) projections read through
-        permuted views, o the forward kernel's output."""
+        permuted views, o the forward kernel's training launch (checked
+        against its serving launch), and its LSE."""
         h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         n = lambda heads: torch.randn((b, s, heads, d), generator=gen,
                                       device=dev).to(dtype).transpose(1, 2)
         q, k, v, do = n(h), n(kv), n(kv), n(h)
-        return (q, k, v, flash_attention(q, k, v, force="kernel", **kw),
-                do), kw
+        o, lse = flash_attention(q, k, v, force="kernel", return_lse=True,
+                                 **kw)
+        if not torch.equal(o, flash_attention(q, k, v, force="kernel", **kw)):
+            raise AssertionError("flash_attention: the training launch's "
+                                 "output differs from the serving launch's")
+        return (q, k, v, o, do), kw, lse
 
     tiers = {name: get_config(name) for name in (
         "qwen1.5-0.5b", "qwen3-8b", "recurrentgemma-9b", "qwen2-vl-2b")}
@@ -3843,19 +3913,23 @@ def flash_bwd_row(torch, dev):
     }
     rel = {"bfloat16": 0.0, "float32": 0.0}
     abs_err = dict(rel)
+    designs = {}
     for name, (tier, b, s, kw) in shapes.items():
         for dt in (torch.bfloat16, torch.float32):
-            args, kw = case(tiers[tier], b, s, dt, **kw)
-            got = flash_attention_bwd(*args, force="kernel", **kw)
-            again = flash_attention_bwd(*args, force="kernel", **kw)
+            args, kw, lse = case(tiers[tier], b, s, dt, **kw)
+            key = str(dt)[6:]
+            designs[f"{name} {key}"] = bwd_design(dt, tiers[tier].head_dim)
+            got = flash_attention_bwd(*args, force="kernel", lse=lse, **kw)
+            again = flash_attention_bwd(*args, force="kernel", lse=lse, **kw)
+            own = flash_attention_bwd(*args, force="kernel", **kw)
             q, k, v, _, do = args
             want = attention_vjp_ref(q, k, v, do, **kw)
             torch.cuda.synchronize()
-            key = str(dt)[6:]
-            for g, a, w, what in zip(got, again, want, "qkv"):
-                if not torch.equal(g, a):
+            for g, a, c, w, what in zip(got, again, own, want, "qkv"):
+                if not (torch.equal(g, a) and torch.equal(g, c)):
                     raise AssertionError(f"flash_attention_bwd ({name}, "
-                                         f"{key}): two launches differ in "
+                                         f"{key}): two launches (the LSE "
+                                         f"given or its own) differ in "
                                          f"d{what}")
                 err = float((g.double() - w.double()).abs().max())
                 r = err / max(1.0, float(w.abs().max()))
@@ -3866,14 +3940,23 @@ def flash_bwd_row(torch, dev):
                         f"{BWD_TOL[key]}")
                 rel[key], abs_err[key] = max(rel[key], r), max(abs_err[key],
                                                                err)
-    del got, again, want
+    del got, again, own, want
+    earlier = first_design_library(first_design)
 
     def timed(tier, b, s):
         cfg = tiers[tier]
         h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        args, _ = case(cfg, b, s, torch.bfloat16)
+        args, _, lse = case(cfg, b, s, torch.bfloat16)
         q, k, v, _, do = args
-        call = lambda: flash_attention_bwd(*args, force="kernel")
+        call = lambda: flash_attention_bwd(*args, force="kernel", lse=lse)
+        library_fn = _build.library
+
+        def first():
+            _build.library = lambda: earlier
+            try:
+                return call()
+            finally:
+                _build.library = library_fn
 
         def library():
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -3881,9 +3964,13 @@ def flash_bwd_row(torch, dev):
                                                  enable_gqa=True)
             return torch.autograd.grad(out, leaves, do)
 
-        events = event_ms_turns(torch, {"call": call, "library": library},
-                                reps=20)
+        events = event_ms_turns(torch, {"call": call, "library": library,
+                                        "first_design": first}, reps=20)
         ms_dev = device_ms(torch, call)
+        forward_ms = device_ms(torch, lambda: flash_attention(
+            q, k, v, force="kernel", return_lse=True),
+            "flash_attention_kernel")
+        library_dev = device_ms(torch, library)
         nbytes, flops = flash_bwd_work(b, h, kv, s, s, d, b * s * (s + 1) / 2)
         t_bound, by = bound(nbytes, flops, BF16_FLOP_PER_S)
         return {"ms": ms_dev if ms_dev is not None else events["call"],
@@ -3891,13 +3978,19 @@ def flash_bwd_row(torch, dev):
                 if ms_dev is not None else "cuda_events",
                 "ms_by_kernel": {k: device_ms(torch, call, k) for k in (
                     "fa_bwd_dq_kernel", "fa_bwd_dkv_kernel")},
+                "design": bwd_design(q.dtype, d),
                 "call_ms": events["call"],
+                "earlier_ms": device_ms(torch, first),
+                "earlier_call_ms": events["first_design"],
+                "earlier_design": "cuda_cores (the first design: float32 "
+                                  "multiply-adds, statistics recomputed)",
                 "plain_ms": event_ms(torch, lambda: attention_vjp_ref(
                     q, k, v, do), reps=5, warmup=1),
                 "library_ms": events["library"],
-                "library_device_ms": device_ms(torch, library),
-                "forward_ms": device_ms(torch, lambda: flash_attention(
-                    q, k, v, force="kernel"), "flash_attention_kernel"),
+                "library_device_ms": library_dev,
+                "forward_ms": forward_ms,
+                "forward_plus_backward_ms": forward_ms + ms_dev
+                if None not in (forward_ms, ms_dev) else None,
                 "bytes": nbytes, "flops": flops, "bound_ms": t_bound,
                 "bound_by": by,
                 "shape": f"B={b} Sq=Sk={s} H={h} KV={kv} D={d} causal bf16"}
@@ -3917,7 +4010,9 @@ def flash_bwd_row(torch, dev):
         "tolerance": "|kernel - plain| <= 2e-2 (bf16) / 1e-5 (float32) of "
                      "max(1, each gradient's largest |entry|)",
         "cases_compared": 2 * len(shapes), "cases": list(shapes),
+        "design_by_case": designs,
         "two_launches_bitequal": True,
+        "training_launch_output_bitequal": True,
         **timed("qwen1.5-0.5b", 8, 512),
         "library_call": "torch.autograd.grad through torch.nn.functional."
                         "scaled_dot_product_attention(is_causal=True, "
@@ -4049,8 +4144,12 @@ def train_phase(torch, dev, counts_reset, counts_read, steps: int = 10):
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / median_ms,
         "device_activities": sum(e.count for e in acts),
+        # the symbols' prefixes name both designs' kernels (the tensor-core
+        # fa_bwd_dq_kernel_mma / fa_bwd_dkv_kernel_mma at bf16 D 64)
         "flash_attention_bwd_ms": group("fa_bwd_dq_kernel",
                                         "fa_bwd_dkv_kernel"),
+        "flash_attention_bwd_ms_by_kernel": {
+            k: group(k) for k in ("fa_bwd_dq_kernel", "fa_bwd_dkv_kernel")},
         "flash_attention_ms": group("flash_attention_kernel"),
         "top_device_time": [
             {"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
@@ -4196,6 +4295,10 @@ def main() -> int:
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    # the backward kernel's first design builds beside the library, for its
+    # row's earlier_ms
+    first_design = (start_first_design_build()
+                    if only & {"kernels", "flash_attention_bwd"} else None)
     _build.library()
     record({"phase": "build",
             "library": str(_build.library_path().relative_to(ROOT))})
@@ -4227,7 +4330,7 @@ def main() -> int:
         rows.update(attention_rows(torch, dev))
         rows.update(scan_rows(torch, dev))
     if only & {"kernels", "flash_attention_bwd"}:
-        rows["flash_attention_bwd"] = flash_bwd_row(torch, dev)
+        rows["flash_attention_bwd"] = flash_bwd_row(torch, dev, first_design)
     if rows:
         record({"phase": "kernels", "compared": [
             {k: rows[n][k] for k in ("name", "max_abs_err", "tolerance")}

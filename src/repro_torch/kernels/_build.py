@@ -75,13 +75,14 @@ _SIGNATURES = {
     # q, k, v, length, out, q strides (b, h), k and v strides (b, h, s),
     # B, H, KV, S, D, splits, scale, dtype, stream
     "decode_attention_launch": [_P] * 5 + [_L] * 8 + [_I] * 6 + [_F, _I, _P],
-    # q, k, v, positions (int32 (B, S), or null), out, q/k/v strides (b, h,
-    # s), B, H, KV, Sq, Sk, D, BQ, window, causal, scale, dtype, stream
-    "flash_attention_launch": [_P] * 5 + [_L] * 9 + [_I] * 9 + [_F, _I, _P],
-    # q, k, v, o, dout, positions (or null), dq, dk, dv, stats, q/k/v/o/dout
+    # q, k, v, positions (int32 (B, S), or null), out, lse (or null), q/k/v
     # strides (b, h, s), B, H, KV, Sq, Sk, D, BQ, window, causal, scale,
     # dtype, stream
-    "flash_attention_bwd_launch": [_P] * 10 + [_L] * 15 + [_I] * 9
+    "flash_attention_launch": [_P] * 6 + [_L] * 9 + [_I] * 9 + [_F, _I, _P],
+    # q, k, v, o, dout, positions (or null), dq, dk, dv, stats, lse (or
+    # null), q/k/v/o/dout strides (b, h, s), B, H, KV, Sq, Sk, D, BQ,
+    # window, causal, scale, dtype, stream
+    "flash_attention_bwd_launch": [_P] * 11 + [_L] * 15 + [_I] * 9
     + [_F, _I, _P],
     # x, dt, B, C, A, D, h0, h_out, y, x/dt/B/C strides (b, s), B, S, Di,
     # N, dtype, stream

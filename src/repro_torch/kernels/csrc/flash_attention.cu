@@ -53,7 +53,14 @@
 // output offsets are computed once into shared memory, so that neither
 // the softmax nor the copies spend instructions on masks, exp2f's range
 // handling or divisions by BQ: at these shapes the kernel is bound by its
-// instructions' latency, not by the tensor cores.
+// instructions' latency, not by the tensor cores.  The training launch
+// (a non-null lse) also stores each live row's log-sum-exp once, after the
+// key loop, as m + log2(max(l, 1e-30)): in log2 units of the scaled scores,
+// the base that ex2.approx here and the backward kernels
+// (flash_attention_bwd.cu) exponentiate in, so P = 2^(s·D^-0.5·log2 e −
+// lse).  A row that sees no key stores about -1e30 (its gradients are
+// masked to zero).  The output's arithmetic is the serving launch's, so its
+// bits are too.  The tensor-core helpers live in mma_bf16.cuh.
 //
 // float32, flash_attention_kernel_simt<float, D>: float32 multiply-adds on
 // the CUDA cores (the tensor cores have no float32 product of full
@@ -63,7 +70,9 @@
 // depth and width (D = 8 and 16, the SMOKE tier models of the serve
 // launcher): operands widened to float32 as they are staged, each
 // probability rounded to bf16 before P·V (l summed from the float32
-// ones), the output rounded to bf16.
+// ones), the output rounded to bf16.  This kernel writes no LSE (its
+// backward, the CUDA-core kernels, recomputes the row statistics): the
+// launch refuses a non-null lse.
 //
 // Runtime positions (kPos, both paths): with an int32 (B, S) positions
 // tensor (self-attention, Sq = Sk), query i sees key j iff pos[i] >= pos[j]
@@ -87,6 +96,7 @@
 #include <type_traits>
 
 #include "attention.cuh"
+#include "mma_bf16.cuh"
 #include "sfu.cuh"
 
 namespace {
@@ -262,62 +272,6 @@ constexpr int smem_bytes_bf16() {
   return (kRows + 4 * kKeys) * (D + kPad) * (int)sizeof(__nv_bfloat16);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared; with in == false the 16 bytes are zero-filled
-// (src-size 0) and src is not read
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c (16 × 8, float32) += a (16 × 16, bf16, row) · b (16 × 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16 (round to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // registers capped for 4 blocks an SM (2 at D = 256), as many as the shared
 // memory admits
 template <int D, bool kPos>
@@ -326,7 +280,7 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 4 : 2)
         const __nv_bfloat16* __restrict__ q,
         const __nv_bfloat16* __restrict__ k,
         const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
-        __nv_bfloat16* __restrict__ out,
+        __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
         long long q_sb, long long q_sh, long long q_ss, long long k_sb,
         long long k_sh, long long k_ss, long long v_sb, long long v_sh,
         long long v_ss, int H, int KV, int Sq, int Sk, int BQ, int window,
@@ -527,6 +481,15 @@ __global__ void __launch_bounds__(kThreads, D <= 128 ? 4 : 2)
   cp_async_wait<0>();
   __syncthreads();
   const float inv[2] = {1.0f / fmaxf(l[0], 1e-30f), 1.0f / fmaxf(l[1], 1e-30f)};
+  // the training launch: each live row's LSE in log2 units of the scaled
+  // scores (the base of ex2 above and of the backward kernels), once
+  if (lse != nullptr && tq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long off = o_off[warp * kWarpRows + gq + 8 * h];
+      if (off >= 0) lse[off / D] = m[h] + log2f(fmaxf(l[h], 1e-30f));
+    }
+  }
   __nv_bfloat16* o_s = q_s + (warp * kWarpRows + gq) * LD + 2 * tq;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -562,12 +525,13 @@ cudaError_t allow_smem(F* fn, int bytes, std::atomic<unsigned>& done) {
 
 template <typename T, int D, bool kPos>
 int launch(const void* q, const void* k, const void* v, const int* pos,
-           void* out, const long long* st, int B, int H, int KV, int Sq,
-           int Sk, int BQ, int window, int causal, float scale,
+           void* out, float* lse, const long long* st, int B, int H, int KV,
+           int Sq, int Sk, int BQ, int window, int causal, float scale,
            cudaStream_t stream) {
   static std::atomic<unsigned> done{0};
   const dim3 grid((Sq + BQ - 1) / BQ, B * KV);
   if constexpr (std::is_same<T, float>::value || D < 32) {
+    if (lse != nullptr) return (int)cudaErrorInvalidValue;   // writes none
     constexpr int smem = smem_bytes_f32<D>();
     cudaError_t e =
         allow_smem(flash_attention_kernel_simt<T, D, kPos>, smem, done);
@@ -584,51 +548,44 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
     const float log2e = 1.4426950408889634f;
     flash_attention_kernel_bf16<D, kPos><<<grid, kThreads, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, pos, (__nv_bfloat16*)out, st[0], st[1],
-        st[2], st[3], st[4], st[5], st[6], st[7], st[8], H, KV, Sq, Sk, BQ,
-        window, causal, scale * log2e);
+        (const __nv_bfloat16*)v, pos, (__nv_bfloat16*)out, lse, st[0],
+        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], H, KV, Sq,
+        Sk, BQ, window, causal, scale * log2e);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_p(const void* q, const void* k, const void* v, const int* pos,
-             void* out, const long long* st, int B, int H, int KV, int Sq,
-             int Sk, int BQ, int window, int causal, float scale,
-             cudaStream_t stream) {
-  return pos ? launch<T, D, true>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
-                                  window, causal, scale, stream)
-             : launch<T, D, false>(q, k, v, pos, out, st, B, H, KV, Sq, Sk,
-                                   BQ, window, causal, scale, stream);
+             void* out, float* lse, const long long* st, int B, int H,
+             int KV, int Sq, int Sk, int BQ, int window, int causal,
+             float scale, cudaStream_t stream) {
+  return pos ? launch<T, D, true>(q, k, v, pos, out, lse, st, B, H, KV, Sq,
+                                  Sk, BQ, window, causal, scale, stream)
+             : launch<T, D, false>(q, k, v, pos, out, lse, st, B, H, KV, Sq,
+                                   Sk, BQ, window, causal, scale, stream);
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, const int* pos,
-             void* out, const long long* st, int B, int H, int KV, int Sq,
-             int Sk, int D, int BQ, int window, int causal, float scale,
-             cudaStream_t stream) {
+             void* out, float* lse, const long long* st, int B, int H,
+             int KV, int Sq, int Sk, int D, int BQ, int window, int causal,
+             float scale, cudaStream_t stream) {
+#define FA_CASE(DD)                                                       \
+  case DD:                                                               \
+    return launch_p<T, DD>(q, k, v, pos, out, lse, st, B, H, KV, Sq, Sk, \
+                           BQ, window, causal, scale, stream);
   switch (D) {
-    case 8:
-      return launch_p<T, 8>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
-                            window, causal, scale, stream);
-    case 16:
-      return launch_p<T, 16>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
-                             window, causal, scale, stream);
-    case 32:
-      return launch_p<T, 32>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
-                             window, causal, scale, stream);
-    case 64:
-      return launch_p<T, 64>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
-                             window, causal, scale, stream);
-    case 128:
-      return launch_p<T, 128>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
-                              window, causal, scale, stream);
-    case 256:
-      return launch_p<T, 256>(q, k, v, pos, out, st, B, H, KV, Sq, Sk, BQ,
-                              window, causal, scale, stream);
+    FA_CASE(8)
+    FA_CASE(16)
+    FA_CASE(32)
+    FA_CASE(64)
+    FA_CASE(128)
+    FA_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FA_CASE
 }
 
 }  // namespace
@@ -639,22 +596,25 @@ int launch_d(const void* q, const void* k, const void* v, const int* pos,
 // BQ query positions per block with G·BQ <= 64; window 0 means none; scale
 // is D^-0.5 as the caller rounds it to float.  pos: null, or int32 (B, S)
 // contiguous positions of causal self-attention (Sq = Sk, causal = 1).
+// lse: null (the serving launch), or float32 (B·H·Sq) for each row's
+// log2-sum-exp of the scaled scores (the training launch; bf16 at D >= 32
+// only, the tensor-core kernel), written without changing out's bits.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, const void* pos, void* out,
-    long long q_sb,
-    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-    long long k_ss, long long v_sb, long long v_sh, long long v_ss, int B,
-    int H, int KV, int Sq, int Sk, int D, int BQ, int window, int causal,
-    float scale, int dtype, void* stream) {
+    void* lse, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, int B, int H, int KV, int Sq, int Sk, int D, int BQ,
+    int window, int causal, float scale, int dtype, void* stream) {
   if (B < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Sk < 1 || BQ < 1 ||
       (H / KV) * BQ > kRows || window < 0 ||
       (pos && (Sq != Sk || !causal)))
     return (int)cudaErrorInvalidValue;
   const int* p = (const int*)pos;
+  float* l = (float*)lse;
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_d<float>(q, k, v, p, out, st, B, H, KV, Sq, Sk, D, BQ,
+    return launch_d<float>(q, k, v, p, out, l, st, B, H, KV, Sq, Sk, D, BQ,
                            window, causal, scale, s);
   if (dtype == 1) {
     const uintptr_t base = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
@@ -662,8 +622,8 @@ extern "C" int flash_attention_launch(
     for (int i = 0; i < 9; ++i)
       if (st[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
     if (base % 16 != 0) return (int)cudaErrorMisalignedAddress;
-    return launch_d<__nv_bfloat16>(q, k, v, p, out, st, B, H, KV, Sq, Sk, D,
-                                   BQ, window, causal, scale, s);
+    return launch_d<__nv_bfloat16>(q, k, v, p, out, l, st, B, H, KV, Sq, Sk,
+                                   D, BQ, window, causal, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -24,7 +24,7 @@ def tool():
                                     "flash_attention", "decode_attention",
                                     "lpt_queue", "rglru_scan", "ccg_solve",
                                     "gate_cell", "gate_cell_bwd",
-                                    "c6_repair"])
+                                    "c6_repair", "flash_attention_bwd"])
 @pytest.mark.parametrize("make", ["variants", "diagnostics"])
 def test_every_variant_edits_the_committed_source(tool, kernel, make):
     src = (CSRC / tool.source_file(kernel)).read_text()
@@ -64,6 +64,10 @@ def test_with_constant_sets_the_declared_value(tool):
     ("ccg_encode", "stores_bulk", "cp.async.bulk.global.shared::cta"),
     ("ccg_master", "warp_per_task", "warp_argmin(best, arg);"),
     ("ccg_master", "two_per_warp", "constexpr int kLanes = 16;"),
+    ("flash_attention_bwd", "first_design",
+     "constexpr bool kTensorCores = false;"),
+    ("flash_attention_bwd", "d256_one_pass",
+     "constexpr bool kSplitDkv = false;"),
 ])
 def test_named_variants_make_their_change(tool, kernel, variant, text):
     src = (CSRC / tool.source_file(kernel)).read_text()
@@ -94,3 +98,29 @@ def test_shared_layout_puts_each_subset_at_its_row(tool):
     for pole, opt, code in [(0, 0, 0), (1, 49, 3), (2, 17, 1)]:
         assert flat[pole * ps + code * fs + opt] == rec[pole, opt, code]
     assert float(table.sum()) == float(rec.sum())
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "flash_attention_bwd"])
+def test_tensor_core_cuts_inline_the_shared_header(tool, kernel):
+    """The attention sources take their mma/cp.async helpers from
+    mma_bf16.cuh: a cut of a helper inlines the header and edits its copy,
+    so the committed header and the other source stay as they are."""
+    src = (CSRC / tool.source_file(kernel)).read_text()
+    out = tool.diagnostics(kernel, src)
+    for name in ("no_mma", "no_loads"):
+        assert '#include "mma_bf16.cuh"' not in out[name]
+        assert "static __device__ __forceinline__ void mma_bf16(" in out[name]
+    assert tool.NO_MMA in out["no_mma"] and tool.MMA not in out["no_mma"]
+
+
+def test_ptxas_report_reads_registers_and_spills(tool):
+    log = """ptxas info    : Compiling entry function '_ZN1a9fa_bwd_dkvE' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a9fa_bwd_dkvE
+    8 bytes stack frame, 16 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Function properties for _ZN1a5otherE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 384 bytes cmem[0]
+"""
+    assert tool.ptxas_report(log, "fa_bwd") == {"_ZN1a9fa_bwd_dkvE": {
+        "stack": 8, "spill_stores": 16, "spill_loads": 24, "registers": 255}}

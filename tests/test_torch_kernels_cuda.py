@@ -35,8 +35,10 @@ With runtime positions (``positions=``), ``flash_attention`` masks by
 them (same tolerances), and positions 0..S-1 give the index launch's bits.
 ``flash_attention_bwd`` (dq, dk, dv) is held to ``attention_vjp_ref`` within
 1e-5 (float32) and 2e-2 (bfloat16: its Δ = rowsum(dO∘O) reads the rounded
-output; measured 8e-3) of each gradient's largest |entry|, and two of its
-launches give the same bits.  Kernels without a backward refuse inputs
+output, and the tensor-core kernels round P and dS to bf16 before their
+products) of each gradient's largest |entry|, and two of its launches give
+the same bits.  The forward's training launch (``return_lse``) gives the
+serving launch's bits and each row's LSE within 1e-5 of the plain one.  Kernels without a backward refuse inputs
 that need a gradient.
 The bf16 flash kernel copies 16-byte row chunks: misaligned rows raise.
 The decode kernel splits each cache over a cluster of blocks and combines
@@ -66,11 +68,15 @@ from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import (
+    LOG2E,
     flash_attention,
     flash_attention_autograd,
     flash_attention_bwd,
 )
-from repro_torch.kernels.flash_attention.ref import attention_vjp_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_lse_ref,
+    attention_vjp_ref,
+)
 from repro_torch.kernels.lpt_queue.ops import lpt_queue
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.kernels.rglru.ops import rglru_scan
@@ -913,6 +919,9 @@ def test_flash_attention_rejects_misaligned_rows(dev, layout):
         flash_attention(q, k, v, force="kernel")
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(q, k, v)
+    o = torch.zeros((b, h, s, d), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(q, k, v, o, o, force="kernel")
     assert launch_counts() == {}
 
 
@@ -1211,6 +1220,14 @@ _BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     (2, 8, 2, 40, 40, 8, 16, True, None),
     (2, 12, 2, 80, 80, 128, None, True, "qwen2vl"),  # runtime positions
     (2, 8, 2, 70, 70, 64, 24, True, "shuffled"),
+    # the tensor-core kernels (bf16, D 32-128): ragged lengths, GQA with
+    # G = 4, a window, both position layouts, Sq < Sk non-causal
+    (2, 16, 4, 100, 100, 64, None, True, None),
+    (2, 32, 8, 100, 100, 128, 40, True, None),
+    (2, 16, 4, 70, 70, 32, 24, True, "qwen2vl"),
+    (2, 16, 4, 100, 100, 128, None, True, "shuffled"),
+    (1, 8, 8, 40, 100, 128, None, False, None),
+    (1, 16, 1, 65, 65, 256, 20, True, "shuffled"),   # D 256: split dK/dV
 ])
 def test_flash_attention_bwd_kernel(dev, dtype, b, h, kv, sq, sk, d, window,
                                     causal, layout):
@@ -1233,6 +1250,66 @@ def test_flash_attention_bwd_kernel(dev, dtype, b, h, kv, sq, sk, d, window,
         assert g.dtype == dtype and g.shape == w.shape and torch.equal(g, a)
         err = float((g.double() - w.double()).abs().max())
         assert err <= _BWD_TOL[dtype] * max(1.0, float(w.abs().max())), err
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,window,causal,layout", [
+    (8, 16, 16, 128, 128, 64, None, True, None),
+    (2, 32, 8, 70, 70, 128, 24, True, None),
+    (2, 16, 4, 100, 100, 32, None, True, "qwen2vl"),
+    (2, 8, 2, 70, 70, 64, 24, True, "shuffled"),
+    (1, 4, 2, 5, 70, 64, None, False, None),
+])
+def test_flash_attention_training_launch(dev, b, h, kv, sq, sk, d, window,
+                                         causal, layout):
+    """The training launch (``return_lse``) gives the serving launch's
+    output bit for bit and each row's LSE, in log2 units, within 1e-5 of
+    the plain one's (times log2 e); in float32 it stores none (its
+    backward recomputes the statistics)."""
+    rng = _gen(b * sq + sk + d + 1)
+    q = _normal(rng, (b, sq, h, d), torch.bfloat16, dev).transpose(1, 2)
+    k = _normal(rng, (b, sk, kv, d), torch.bfloat16, dev).transpose(1, 2)
+    v = _normal(rng, (b, sk, kv, d), torch.bfloat16, dev).transpose(1, 2)
+    kw = dict(window=window, causal=causal)
+    if layout is not None:
+        kw["positions"] = _positions(layout, b, sq, dev, seed=sq)
+    reset_launch_counts()
+    serve = flash_attention(q, k, v, force="kernel", **kw)
+    o, lse = flash_attention(q, k, v, force="kernel", return_lse=True, **kw)
+    assert launch_counts() == {"flash_attention": 2}
+    assert torch.equal(o, serve)
+    want = attention_lse_ref(q, k, **kw).double()
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    err = (lse.double() / LOG2E - want).abs()
+    assert bool((err <= 1e-5 * want.abs().clamp_min(1.0)).all()), \
+        float(err.max())
+    f32 = [x.float() for x in (q, k, v)]
+    o32, lse32 = flash_attention(*f32, force="kernel", return_lse=True, **kw)
+    assert lse32 is None
+    assert torch.equal(o32, flash_attention(*f32, force="kernel", **kw))
+
+
+@pytest.mark.parametrize("grad", ["sum", "transposed"])
+def test_flash_attention_autograd_takes_any_gradient_layout(dev, grad):
+    """FlashAttentionFn's backward gets the output's gradient in the layout
+    autograd gives it: stride 0 from ``out.sum()`` (copied contiguous) or a
+    transposed view (read by its strides); both run the kernels."""
+    rng = _gen(7)
+    q, k, v = (_normal(rng, (2, 64, 8, 64), torch.bfloat16, dev)
+               .transpose(1, 2).requires_grad_(True) for _ in range(3))
+    reset_launch_counts()
+    out = flash_attention_autograd(q, k, v)
+    if grad == "sum":
+        out.sum().backward()
+        do = torch.ones_like(out)
+    else:
+        do = _normal(rng, (2, 64, 8, 64), torch.bfloat16, dev).transpose(1, 2)
+        out.backward(do)
+    assert launch_counts() == {"flash_attention": 1,
+                               "flash_attention_bwd": 1}
+    want = attention_vjp_ref(q.detach(), k.detach(), v.detach(), do)
+    for x, w in zip((q, k, v), want):
+        err = float((x.grad.double() - w.double()).abs().max())
+        assert err <= _BWD_TOL[torch.bfloat16] * max(1.0, float(w.abs().max()))
 
 
 def test_flash_attention_autograd_runs_the_backward_kernel(dev):

@@ -91,6 +91,12 @@ def test_kernel_sources_present():
         src = (_build.CSRC / name).read_text()
         assert '#include "accuracy.cuh"' in src, name
         assert "expf" not in src, name
+    # one set of tensor-core helpers, included by the forward and backward
+    # attention kernels
+    for name in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        src = (_build.CSRC / name).read_text()
+        assert '#include "mma_bf16.cuh"' in src, name
+        assert "mma.sync.aligned" not in src, name   # no copy of its asm
 
 
 def test_editing_a_header_changes_the_library_path(tmp_path, monkeypatch):
@@ -106,6 +112,10 @@ def test_editing_a_header_changes_the_library_path(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "// edited\n")
     after_header = _build.library_path()
     assert after_header != before
+    header = csrc / "mma_bf16.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert _build.library_path() not in (before, after_header)
+    after_header = _build.library_path()
     (csrc / "new_helper.cuh").write_text("#pragma once\n")
     assert _build.library_path() not in (before, after_header)
 

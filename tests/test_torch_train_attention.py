@@ -9,7 +9,11 @@ takes: causal, a window (the reference model's windowed block path and
 its full one), non-causal cross-attention, and runtime positions (shuffled,
 with and without a window).  GQA with G = 3; float32 inputs from seeded
 numpy; every gradient within 1e-5 of max(1, its largest |entry|) (sums in
-another order: measured ~1e-7).
+another order: measured ~1e-7).  The plain row log-sum-exp
+(``attention_lse_ref``, what the forward's training launch stores for the
+backward) against ``jax.nn.logsumexp`` of the same scores built in jnp, for
+the same mask modes, within 1e-5 of max(1, |entry|); ``FlashAttentionFn``
+on the plain path saves it in log2 units, as the kernel path does.
 """
 import numpy as np
 import pytest
@@ -22,11 +26,15 @@ from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.models.attention import chunked_attention as j_chunked
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention.ops import (
+    LOG2E,
     FlashAttentionFn,
     flash_attention_autograd,
     flash_attention_bwd,
 )
-from repro_torch.kernels.flash_attention.ref import attention_vjp_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_lse_ref,
+    attention_vjp_ref,
+)
 
 TOL = 1e-5
 B, H, KV, D = 2, 6, 2, 16
@@ -117,3 +125,54 @@ def test_autograd_on_the_cpu_runs_the_plain_versions_uncounted():
     assert launch_counts() == {}
     with pytest.raises(ValueError, match="force='kernel'"):
         flash_attention_autograd(*leaves, force="kernel")
+
+
+LSE_CASES = {
+    "causal": dict(sq=16, sk=16, window=None, causal=True, shuffled=False),
+    "window": dict(sq=16, sk=16, window=5, causal=True, shuffled=False),
+    "non_causal": dict(sq=5, sk=12, window=None, causal=False,
+                       shuffled=False),
+    "non_causal_window": dict(sq=12, sk=12, window=3, causal=False,
+                              shuffled=False),
+    "positions": dict(sq=20, sk=20, window=None, causal=True, shuffled=True),
+    "positions_window": dict(sq=16, sk=16, window=8, causal=True,
+                             shuffled=True),
+}
+
+
+@pytest.mark.parametrize("case", LSE_CASES)
+def test_lse_matches_jax_logsumexp(case):
+    c = LSE_CASES[case]
+    sq, sk, window, causal = c["sq"], c["sk"], c["window"], c["causal"]
+    q, k, v, _ = _inputs(sq, sk, seed=4)
+    # the scores in jnp, heads grouped as the port groups them
+    qj = jnp.asarray(q).transpose(0, 2, 1, 3).reshape(B, KV, H // KV, sq, D)
+    kj = jnp.asarray(k).transpose(0, 2, 1, 3)
+    s = jnp.einsum("bkgqd,bksd->bkgqs", qj, kj) * D ** -0.5
+    kw = {"window": window, "causal": causal}
+    if c["shuffled"]:
+        rng = np.random.default_rng(5)
+        pos = np.stack([rng.permutation(sq) for _ in range(B)]).astype(
+            np.int32)
+        kw["positions"] = torch.from_numpy(pos)
+        q_pos, k_pos = pos[:, None, None, :, None], pos[:, None, None, None, :]
+    else:
+        q_pos, k_pos = np.arange(sq)[:, None], np.arange(sk)[None, :]
+    mask = np.ones(np.broadcast_shapes(q_pos.shape, k_pos.shape), bool)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= q_pos - k_pos < window
+    want = np.asarray(jax.nn.logsumexp(
+        jnp.where(jnp.asarray(mask), s, -1e30), axis=-1)).reshape(B, H, sq)
+    t = lambda x: torch.from_numpy(x).transpose(1, 2)
+    got = attention_lse_ref(t(q), t(k), **kw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, H, sq)
+    err = np.abs(got.numpy() - want)
+    assert (err <= TOL * np.maximum(1.0, np.abs(want))).all(), err.max()
+    # the plain path's training launch saves it in the kernels' log2 units
+    leaves = [t(x).requires_grad_(True) for x in (q, k, v)]
+    out = FlashAttentionFn.apply(*leaves, kw.get("positions"), window,
+                                 causal, "ref")
+    saved = out.grad_fn.saved_tensors[5]
+    assert torch.equal(saved, got * LOG2E)

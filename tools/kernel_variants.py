@@ -6,7 +6,8 @@ NVIDIA GPU.
                                       mamba_scan|flash_attention|
                                       decode_attention|lpt_queue|
                                       rglru_scan|ccg_solve|gate_cell|
-                                      gate_cell_bwd|c6_repair]
+                                      gate_cell_bwd|c6_repair|
+                                      flash_attention_bwd]
                                      [--rounds 2] [--diagnose] [--reps 200]
 
 Builds each kernel as committed (``src/repro_torch/kernels/csrc/``) and
@@ -111,7 +112,31 @@ timed.
                    shared_network every sort stage through shared memory
                                   (this kernel's first sort), not the
                                   stages within 64 keys in registers
+  flash_attention_bwd committed   bf16 at D 32-256 on the tensor cores,
+                                  reading the forward's LSE (D 256: the
+                                  dk/dv blocks split into dV and dK
+                                  halves), tiles of 32 keys (dq) and 64
+                                  queries (dk/dv); float32 and bf16 at D
+                                  8, 16 on the CUDA cores
+                   first_design   bf16 on the CUDA cores at every D (the
+                                  kernel's first design: float32
+                                  multiply-adds, the row statistics
+                                  recomputed by a pass over the key tiles)
+                   d256_one_pass  D = 256 in one dk/dv pass (dK and dV in
+                                  one block: spills)
+                   dq_tile64      tiles of 64 keys in the dq kernel
+                   dkv_tile32     tiles of 32 queries in the dk/dv kernel
+                                  (this design's first tiles)
 
+``flash_attention_bwd`` runs in bf16 at Qwen1.5-0.5B's training shape
+(B 8, S 512, H = KV 16, D 64, causal), Qwen3-8B's GQA (B 2, S 512, H 32 /
+KV 8, D 128) and RecurrentGemma's D = 256 with a window of 128 (B 2, S
+512, H 16 / KV 1), through its wrapper with the variant's library and the
+LSE of the committed forward kernel's training launch: dq, dk and dv
+within ``chip_smoke.BWD_TOL`` of the plain version's largest |entry|, two
+launches bit-equal; timed by the profiler's device time of a call (both
+kernels), CUDA events beside it; the ptxas report (registers, spills) of
+each variant's backward kernels is printed once.
 ``gate_cell`` runs at M = 4096, d = 35 on the stream's round-0 features
 and ``c6_repair`` on ``chip_smoke.py``'s ``c6_repair_cases`` at M = 4096
 (the main path's inputs and the demoting case), both through their
@@ -164,6 +189,8 @@ kernel's time goes:
   flash_attention  no_mma         no tensor-core product
                    no_loads       no copy into shared memory
                    no_stores      no output store
+  flash_attention_bwd no_mma      no tensor-core product
+                   no_loads       no copy into shared memory
   decode_attention no_combine     each split's own partial out: no cluster
                                   sync, no distributed shared memory
                    no_cluster     the same, launched without clusters
@@ -212,12 +239,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 M = 4096                          # ccg_encode's tasks, as chip_smoke.py
 
 # ccg_encode.cu: the generic path (the first design) ...
@@ -431,6 +460,19 @@ MMA = '''  asm(
 CP_ASYNC = ('asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" '
             '::"r"(dst),')
 STORE_SKIP = "    if (off < 0) continue;\n    *reinterpret_cast<uint4*>(out"
+# the tensor-core helpers of both attention sources (MMA and CP_ASYNC live
+# there: a variant that edits them gets the header inlined)
+MMA_HEADER = '#include "mma_bf16.cuh"\n'
+NO_MMA = ("  c[0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1) & "
+          "0x3f800000u) * 1e-30f;")
+NO_LOADS = ('if (dst == 1u) asm volatile("cp.async.cg.shared.global [%0], '
+            '[%1], 16, %2;\\n" ::"r"(dst),')
+# flash_attention_bwd.cu
+BWD_DESIGN = ("constexpr bool kTensorCores = std::is_same<T, bf16>::value "
+              "&& D >= 32;")
+BWD_SPLIT = "constexpr bool kSplitDkv = D > 128;"
+BWD_KEY_TILE = "constexpr int kKeyTile = 32;"
+BWD_QUERY_TILE = "constexpr int kQueryTile = 64;"
 # decode_attention.cu
 LAUNCH_STREAM = "cudaStream_t st = (cudaStream_t)stream;"
 PEER_M = "      if (r < splits) {\n        m_i[r] = *peer(m_s + g, r);"
@@ -586,6 +628,14 @@ def source_file(kernel: str) -> str:
     return f"{SOURCE_OF.get(kernel, kernel)}.cu"
 
 
+def with_header(src: str) -> str:
+    """``src`` with ``mma_bf16.cuh`` inlined, so that an edit of its
+    helpers reaches this source alone."""
+    header = (CSRC / "mma_bf16.cuh").read_text().replace("#pragma once\n",
+                                                          "")
+    return edit(src, (MMA_HEADER, header))
+
+
 def gate_shape(warps: int, streams: int):
     return tuple((old, old.replace(old.split("= ")[1][:-1], str(n)))
                  for old, n in zip(GATE_SHAPE, (warps, streams)))
@@ -690,6 +740,14 @@ def variants(kernel: str, src: str) -> dict:
                                          REPAIR_THREADS.replace("1024",
                                                                 "512"))),
                 "shared_network": edit(src, *REPAIR_NETWORK)}
+    if kernel == "flash_attention_bwd":
+        return {"committed": src,
+                "first_design": edit(src, (BWD_DESIGN, "constexpr bool "
+                                           "kTensorCores = false;")),
+                "d256_one_pass": edit(src, (BWD_SPLIT, BWD_SPLIT.replace(
+                    "D > 128", "false"))),
+                "dq_tile64": with_constant(src, BWD_KEY_TILE, 64),
+                "dkv_tile32": with_constant(src, BWD_QUERY_TILE, 32)}
     if kernel == "ccg_solve":
         return {"committed": src,
                 "warps16": edit(src, (CCG_WARPS, CCG_WARPS.replace("32",
@@ -831,13 +889,13 @@ def diagnostics(kernel: str, src: str) -> dict:
                     for k in range(4)))),
                 "no_walk": edit(src, *((w, "(tid < 0)") for w in WALKERS[:2]),
                                 (WALKERS[2], "} else if (tid < 0) {"))}
+    cuts = {"committed": src,
+            "no_mma": edit(with_header(src), (MMA, NO_MMA)),
+            "no_loads": edit(with_header(src), (CP_ASYNC, NO_LOADS))}
+    if kernel == "flash_attention_bwd":
+        return cuts
     return {
-        "committed": src,
-        "no_mma": edit(src, (MMA, "  c[0] += __uint_as_float((a[0] ^ a[1] ^ "
-                             "a[2] ^ a[3] ^ b0 ^ b1) & 0x3f800000u) * 1e-30f;")),
-        "no_loads": edit(src, (CP_ASYNC, "if (dst == 1u) asm volatile("
-                               "\"cp.async.cg.shared.global [%0], [%1], 16, "
-                               "%2;\\n\" ::\"r\"(dst),")),
+        **cuts,
         "no_stores": edit(src, (STORE_SKIP, STORE_SKIP.replace(
             "off < 0", "off < 0 || l[0] != -1.0f"))),
     }
@@ -879,6 +937,7 @@ def build(kernels, diagnose: bool) -> dict:
     libs = {}
     for (kernel, name), (so, proc) in procs.items():
         log, _ = proc.communicate()
+        so.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {kernel} {name}:\n{log}")
         entry = f"{kernel}_launch"
@@ -887,6 +946,24 @@ def build(kernels, diagnose: bool) -> dict:
         fn.restype = ctypes.c_int
         libs.setdefault(kernel, {})[name] = Library(base, entry, fn, name)
     return libs
+
+
+def ptxas_report(log: str, symbol: str) -> dict:
+    """Registers and stack/spill bytes of each kernel whose (mangled) name
+    holds ``symbol``, from the ``-Xptxas -v`` lines of an nvcc log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif name and "spill stores" in line:
+            stack, stores, loads = map(int, re.findall(r"(\d+) bytes", line))
+            out[name] = {"stack": stack, "spill_stores": stores,
+                         "spill_loads": loads}
+        elif name and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+            name = None
+    return {k: v for k, v in out.items() if symbol in k}
 
 
 def _event_ms(torch, launch, reps: int) -> float:
@@ -1288,6 +1365,62 @@ class C6Repair:
         return rec
 
 
+class FlashAttentionBwd:
+    """``flash_attention_bwd`` in bf16 at the training shape, Qwen3-8B's
+    GQA and D = 256 with a window, through its wrapper with the variant's
+    library and the committed forward's LSE (given, so a call launches the
+    backward kernels alone); timed by the profiler's device time of a
+    call, events beside it."""
+
+    CASES = {"qwen1.5-0.5b train": (8, 16, 16, 512, 64, None),
+             "qwen3-8b gqa": (2, 32, 8, 512, 128, None),
+             "d256 window 128": (2, 16, 1, 512, 256, 128)}
+
+    def __init__(self, torch, reps: int, chip_smoke):
+        from repro_torch.kernels.flash_attention import ops
+
+        self.torch, self.reps, self.smoke = torch, reps, chip_smoke
+        self.fn = ops.flash_attention_bwd
+        dev = torch.device("cuda")
+        gen = torch.Generator(dev).manual_seed(12)
+        self.cases = {}
+        for name, (b, h, kv, s, d, window) in self.CASES.items():
+            n = lambda heads: torch.randn(
+                (b, s, heads, d), generator=gen, device=dev).to(
+                torch.bfloat16).transpose(1, 2)
+            q, k, v, do = n(h), n(kv), n(kv), n(h)
+            # the training launch's LSE at every D (the wrapper asks for it
+            # only where the committed backward reads it)
+            lse = ops._lse_buffer(q)
+            o = ops._forward_launch(q, k, v, None, window, True, 1, lse)
+            want = ops.attention_vjp_ref(q, k, v, do, window=window)
+            self.cases[name] = ((q, k, v, o, do), dict(window=window,
+                                                       lse=lse), want)
+
+    def __call__(self, lib, exact_required: bool) -> dict:
+        from repro_torch.kernels import _build
+
+        torch, rec = self.torch, {}
+        _build.library = lambda: lib
+        for name, (args, kw, want) in self.cases.items():
+            call = lambda: self.fn(*args, force="kernel", **kw)
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            err = max(float((g.double() - w.double()).abs().max())
+                      / max(1.0, float(w.abs().max()))
+                      for g, w in zip(got, want))
+            if exact_required and not (
+                    err <= self.smoke.BWD_TOL["bfloat16"]
+                    and all(map(torch.equal, got, again))):
+                return {"outside_tolerance": f"{name}: {err} of the largest "
+                                             f"entry, or two launches differ"}
+            rec[name] = {"ms": self.smoke.device_ms(torch, call, None,
+                                                    self.reps),
+                         "events_ms": _event_ms(torch, call, self.reps),
+                         "max_err_of_largest": err}
+        return rec
+
+
 class SmokeRows:
     """``mamba_scan``, ``rglru_scan``, ``flash_attention`` or
     ``decode_attention`` through ``chip_smoke.py``'s checks and timings
@@ -1383,7 +1516,7 @@ class SmokeRows:
 
 KERNELS = ("ccg_encode", "ccg_master", "mamba_scan", "flash_attention",
            "decode_attention", "lpt_queue", "rglru_scan", "ccg_solve",
-           "gate_cell", "gate_cell_bwd", "c6_repair")
+           "gate_cell", "gate_cell_bwd", "c6_repair", "flash_attention_bwd")
 EVENT_TIMED = {"lpt_queue": LptQueue}
 
 
@@ -1409,6 +1542,12 @@ def main() -> int:
     kernels = args.kernel or list(KERNELS)
     libs = build(kernels, args.diagnose)
     library = _build.library
+    if "flash_attention_bwd" in libs:
+        out = ROOT / "build" / "kernel_variants"
+        print(json.dumps({"ptxas": {
+            name: ptxas_report((out / f"flash_attention_bwd_{name}.log")
+                               .read_text(), "fa_bwd")
+            for name in libs["flash_attention_bwd"]}}), flush=True)
     profiled = {"ccg_encode": lambda: CcgEncode(torch, args.reps,
                                                 chip_smoke.device_ms),
                 "ccg_master": lambda: CcgMaster(torch, args.reps, chip_smoke),
@@ -1418,7 +1557,9 @@ def main() -> int:
                                               chip_smoke.device_ms),
                 "gate_cell_bwd": lambda: GateCellBwd(torch, args.reps,
                                                      chip_smoke),
-                "c6_repair": lambda: C6Repair(torch, args.reps, chip_smoke)}
+                "c6_repair": lambda: C6Repair(torch, args.reps, chip_smoke),
+                "flash_attention_bwd": lambda: FlashAttentionBwd(
+                    torch, 20, chip_smoke)}
     runs = {k: profiled[k]() if k in profiled
             else EVENT_TIMED[k](torch, args.reps)
             if k in EVENT_TIMED else SmokeRows(torch, chip_smoke, k)
