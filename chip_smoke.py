@@ -18,7 +18,9 @@ Phases, one JSON line each; any failure exits non-zero:
                  ccg_solve, c6_tail, lpt_queue (on
                  all-edge routes, the main path's, and also on all-cloud
                  and mixed routes and with a server down; timed on the
-                 main path's routes and on mixed ones),
+                 main path's routes and on mixed ones, and at M = 65,536,
+                 past one block's shared memory, where the walk reads its
+                 tasks in chunks, exact on both routes),
                  ccg_encode (also with a real availability mask) and
                  ccg_master (also on slabs with ties, empty scenario rows
                  and all-infeasible rows) exact, ccg_master timed at the
@@ -68,8 +70,16 @@ Phases, one JSON line each; any failure exits non-zero:
                  case that demotes in >= 2 rounds, held to its plain
                  version (r, p equal outside the boundary exemption, the
                  draw history within 1e-6), and above its one-block cap
-                 (M = 16385), where it takes the per-round path: one
-                 c6_tail launch a round, counted.
+                 on the demoting case tiled to M = 53,248 and 262,144,
+                 where one launch of the cluster kernel runs every round
+                 (held to the plain version the same way, two launches
+                 bit-equal), and to 262,145, past the cluster's cap, where
+                 it takes the per-round path: one c6_tail launch a round,
+                 counted, equal to the plain version; the cluster kernel
+                 and the per-round path timed in turns at 53,248 and
+                 262,144 on that case and on the main path's round tiled
+                 (no feasible demotion: one round runs) — the c6_tail
+                 row's ``earlier_ms`` and ``cluster_repair``.
 4. ``main_path`` ``make_policy("r2evid") → ServeSession.run`` on M = 4096
                  streams for R = 16 rounds of a seeded ``sample_stream``, with
                  random seeded gate weights, launch counters zeroed just
@@ -200,9 +210,12 @@ Phases, one JSON line each; any failure exits non-zero:
                  the hierarchical run at M = 65,536, R = 4 (16,384 streams
                  a rank, a budget of 2.5 Mbps a stream, C6 held every
                  round; its exchanges beside the gathered mode's at
-                 M = 53,248, the most its one-block LPT walk holds, and the
-                 gathered mode refused at 65,536 by that limit); each
-                 rank's peak memory.  With two cards or more, also one rank
+                 M = 53,248 and at 65,536, each with C6 held every round;
+                 the gathered run at 65,536, whose realization walks past
+                 one block's LPT tasks and whose repair is one cluster
+                 launch a round, equal in its decisions to the dense
+                 ``ServeSession.run`` of the same cell); each rank's peak
+                 memory.  With two cards or more, also one rank
                  a card on NCCL.  Also ``lpt_queue`` at the whole and the
                  per-shard pools (16 + 8, 8 + 4, 4 + 2) against its plain
                  version, bit for bit.
@@ -458,23 +471,27 @@ def ccg_chain_ms(iters: int, n_opts: int, n_poles: int,
 
 
 REPAIR_THREADS = 1024             # c6_repair's one block
+CLUSTER_M = 53248                 # the gathered sharded run's M: a cluster
 
 
-def c6_repair_chain_ms(m: int, rounds_run: int, sorted_counts) -> float:
-    """The least time (ms) of the one-block C6 repair's serial chain.  The
-    rounds depend on each other.  A round run is one pass of ⌈M/1024⌉
-    dependent adds per thread, then the block sum's two 5-level
-    butterflies; a round that demotes (``sorted_counts``: the keys it
-    sorts, n each) adds the bitonic network over the next power of two
-    (s(s + 1)/2 compare-exchange levels for 2^s keys), the chunk sums of
-    ⌈n/1024⌉ adds, the scan's two 5-level Kogge–Stone passes and the
-    running sum down the chunk again; ``CHAIN_CLOCKS`` clocks a level at
-    ``SM_CLOCK_HZ``."""
-    ops = rounds_run * (math.ceil(m / REPAIR_THREADS) + 10)
+def c6_repair_chain_ms(m: int, rounds_run: int, sorted_counts,
+                       blocks: int = 1) -> float:
+    """The least time (ms) of the C6 repair's serial chain, ``m`` tasks a
+    block.  The rounds depend on each other.  A round run is one pass of
+    ⌈m/1024⌉ dependent adds per thread, then the block sum's two 5-level
+    butterflies (and on a cluster of ``blocks`` the B − 1 adds of the
+    blocks' sums); a round that demotes (``sorted_counts``: the keys a
+    block sorts, n each) adds the bitonic network over the next power of
+    two (s(s + 1)/2 compare-exchange levels for 2^s keys), the chunk sums
+    of ⌈n/1024⌉ adds, the scan's two 5-level Kogge–Stone passes and the
+    running sum down the chunk again (and on a cluster, per key the B − 1
+    adds of the other blocks' prefixes, whose ranks take at least one
+    read); ``CHAIN_CLOCKS`` clocks a level at ``SM_CLOCK_HZ``."""
+    ops = rounds_run * (math.ceil(m / REPAIR_THREADS) + 10 + blocks - 1)
     for n in sorted_counts:
         s = math.ceil(math.log2(n)) if n > 1 else 0
         per = math.ceil(n / REPAIR_THREADS)
-        ops += s * (s + 1) // 2 + 2 * per + 10
+        ops += s * (s + 1) // 2 + 2 * per + 10 + per * (blocks - 1)
     return ops * CHAIN_CLOCKS / SM_CLOCK_HZ * 1e3
 
 
@@ -796,6 +813,7 @@ def kernel_phase(torch, stream, dev):
     rows["lpt_queue"]["mixed_ms"] = device_ms(torch, mixed, symbol["lpt_queue"])
     rows["lpt_queue"]["mixed_chain_ms"] = lpt_chain_ms(mixed_args[1], n_edge,
                                                        n_cloud)
+    rows["lpt_queue"]["past_one_block"] = lpt_past_one_block(torch, dev, gen)
     rows["ccg_solve"]["ccg_steps_in_run"] = steps
     rows["ccg_solve"]["max_iters_in_run"] = max_iters
     rows["ccg_solve"]["chain_ms"] = ccg_chain
@@ -843,6 +861,37 @@ def kernel_phase(torch, stream, dev):
     return rows
 
 
+LPT_BIG_M = 65536                # a round past one block's 54,656 tasks
+
+
+def lpt_past_one_block(torch, dev, gen) -> dict:
+    """``lpt_queue`` at LPT_BIG_M tasks, on the main path's all-edge routes
+    and on mixed ones: the chunked walk against the plain version, exact,
+    and its device time beside its bound (the chain; bytes as the row's)."""
+    from repro_torch.kernels.lpt_queue.ops import lpt_queue
+
+    t = (torch.rand(LPT_BIG_M, generator=gen) * 0.499 + 0.001).to(dev)
+    out = {"tasks": LPT_BIG_M}
+    for routes in ("all_edge", "mixed"):
+        route = (torch.zeros(LPT_BIG_M, dtype=torch.int32) if
+                 routes == "all_edge" else torch.randint(
+                     0, 2, (LPT_BIG_M,), generator=gen,
+                     dtype=torch.int32)).to(dev)
+        got = lpt_queue(t, route, 4, 1, force="kernel")
+        if not torch.equal(got, lpt_queue(t, route, 4, 1, force="ref")):
+            raise AssertionError(f"lpt_queue at {LPT_BIG_M} tasks "
+                                 f"({routes}) differs from plain")
+        chain = lpt_chain_ms(route, 4, 1)
+        nbytes = LPT_BIG_M * (4 + 4 + 8 + 4)
+        t_bound, by = bound(nbytes, 0.0, chain_ms=chain)
+        out[routes] = {
+            "ms": device_ms(torch, lambda: lpt_queue(t, route, 4, 1),
+                            "lpt_queue_chunked_kernel", reps=5),
+            "bound_ms": t_bound, "bound_by": by, "chain_ms": chain,
+            "exact_vs_plain": True}
+    return out
+
+
 def c6_repair_cases(torch, stream, dev):
     """c6_repair's operands (bw_panel, r, p, v, route, z, acc_thr, rn, pn)
     and budget at M and M_RAGGED: {(m, "main_path"): the gate-mode
@@ -881,6 +930,20 @@ def c6_repair_cases(torch, stream, dev):
     return cases
 
 
+def c6_repair_tiled(cases, what: str, m: int):
+    """``c6_repair_cases``' case ``what`` at M tiled to ``m`` tasks, and
+    its budget: the demoting case at half the tiled draw (every task at the
+    highest resolution and frame rate), the main path's round at its budget
+    scaled with M (no feasible demotion: the repair stops after round 0)."""
+    args, budget = cases[M, what]
+    reps = -(-m // M)
+    big = (args[0].repeat(reps, 1)[:m].contiguous(),
+           *(t.repeat(reps)[:m].contiguous() for t in args[1:7]), *args[7:])
+    if what == "demoting":
+        return big, float(np.float32(0.5 * float(big[0][:, -1].sum())))
+    return big, float(np.float32(float(budget) * m / M))
+
+
 def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
     """c6_repair against its plain version on the card on
     ``c6_repair_cases``, timed at the main path's inputs and at the
@@ -891,7 +954,15 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
     the plain version's.  Returns (row, those launches)."""
     from repro_torch.core.cost_model import SystemConfig
     from repro_torch.core.router import RouterConfig
-    from repro_torch.kernels.c6_tail.ops import REPAIR_CAP, c6_repair, c6_tail
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.c6_tail.ops import (
+        CLUSTER_BLOCKS,
+        CLUSTER_CAP,
+        REPAIR_CAP,
+        c6_repair,
+        c6_tail,
+        repair_path,
+    )
     from repro_torch.kernels.c6_tail.ref import (
         c6_tail_ref,
         compare_repairs,
@@ -950,23 +1021,69 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
                              f"{timing['demoting']['rounds_demoting']} "
                              f"demoting rounds, want >= 2")
 
-    # above the cap: the demoting case tiled to REPAIR_CAP + 1 tasks
-    big = REPAIR_CAP + 1
-    args, _ = cases[M, "demoting"]
-    reps = -(-big // M)
-    big_args = (args[0].repeat(reps, 1)[:big].contiguous(),
-                *(t.repeat(reps)[:big].contiguous() for t in args[1:7]),
-                *args[7:])
-    big_budget = float(np.float32(0.5 * float(big_args[0][:, -1].sum())))
-    counts_reset()
-    got = kernel(big_args, big_budget)
-    torch.cuda.synchronize()
-    above = counts_read()
-    if above != {"c6_tail": rounds}:
-        raise AssertionError(f"c6_repair above the cap launched {above}")
-    want = plain(big_args, big_budget)
-    if not all(torch.equal(g, w) for g, w in zip(got[:2], want[:2])):
-        raise AssertionError("c6_repair above the cap differs from plain")
+    # above the one-block cap: the cases tiled to the cluster's sizes, one
+    # cluster launch each, and past the cluster's cap (the per-round path:
+    # a c6_tail a round)
+    above, cluster = collections.Counter(), {}
+    for m in (CLUSTER_M, CLUSTER_CAP, CLUSTER_CAP + 1):
+        big_args, big_budget = c6_repair_tiled(cases, "demoting", m)
+        counts_reset()
+        got = kernel(big_args, big_budget)
+        torch.cuda.synchronize()
+        launched = counts_read()
+        above.update(launched)
+        path = repair_path(m)
+        want = ({"c6_repair": 1} if path == "cluster"
+                else {"c6_tail": rounds})
+        if launched != want:
+            raise AssertionError(f"c6_repair at M={m} launched {launched}, "
+                                 f"want {want}")
+        if path == "per_round":
+            if not all(torch.equal(g, w) for g, w in
+                       zip(got[:2], plain(big_args, big_budget)[:2])):
+                raise AssertionError(f"c6_repair at M={m} (per round) "
+                                     f"differs from plain")
+            continue
+        out = compare_repairs(lambda k: kernel(big_args, big_budget, k),
+                              lambda k: plain(big_args, big_budget, k),
+                              rounds, big_args, big_budget, nz)
+        again = kernel(big_args, big_budget)
+        if not out["within"] or not all(torch.equal(g, a) for g, a in
+                                        zip(got, again)):
+            raise AssertionError(f"c6_repair at M={m} (cluster): {out}, "
+                                 f"two launches bit-equal: "
+                                 f"{all(map(torch.equal, got, again))}")
+        rec = {"tasks": m, "max_abs_err": max_abs(torch, got[:2], plain(
+            big_args, big_budget)[:2]), "hist_max_rel_err":
+            out["hist_max_rel"], "two_launches_bitequal": True}
+        for what in ("demoting", "main_path"):
+            a_, b_ = c6_repair_tiled(cases, what, m)
+            nbytes, flops, rounds_run, sorted_counts = c6_repair_work(
+                torch, a_, b_, rounds, nz)
+            blocks = max(CLUSTER_BLOCKS, -(-m // REPAIR_CAP))
+            chain = c6_repair_chain_ms(-(-m // blocks), rounds_run,
+                                       [-(-n // blocks) for n in
+                                        sorted_counts], blocks)
+            t_bound, by = bound(nbytes, flops, chain_ms=chain)
+            turns = {"cluster": lambda: kernel(a_, b_),
+                     "per_round": lambda: per_round(a_, b_)}
+            events = event_ms_turns(torch, turns, reps=10)
+            rec[what] = {
+                "ms": device_ms(torch, turns["cluster"],
+                                "c6_repair_cluster_kernel", reps=10),
+                # every device activity of a repair on the per-round path
+                "earlier_ms": device_ms(torch, turns["per_round"], reps=10),
+                "call_ms": events["cluster"],
+                "earlier_call_ms": events["per_round"],
+                "bytes": nbytes, "flops": flops, "chain_ms": chain,
+                "bound_ms": t_bound, "bound_by": by, "blocks": blocks,
+                "rounds_run": rounds_run,
+                "rounds_demoting": len(sorted_counts),
+                "sorted_keys_per_round": sorted_counts, "budget": b_}
+        if rec["demoting"]["rounds_demoting"] < 2:
+            raise AssertionError(f"c6_repair at M={m}: the tiled demoting "
+                                 f"case demotes in < 2 rounds")
+        cluster[m] = rec
 
     row = {
         "name": "c6_repair", "route": "cuda",
@@ -977,7 +1094,7 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
         "tolerance": "r, p equal outside the boundary exemption "
                      "(c6_tail/ref.py repair_boundary); bw_history within "
                      "1e-6 relative",
-        "cases_compared": len(cases) + 1,
+        "cases_compared": len(cases) + 3,
         **{k: v for k, v in timing["main_path"].items()
            if k not in ("rounds_demoting", "feasible_demotions")},
         "inputs": "the main path's round 0: the gate-mode policy's decisions "
@@ -990,9 +1107,14 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
         "library_ms": None,
         "library_call": "none: no PyTorch call computes the repair",
         "tasks_cap_one_block": REPAIR_CAP,
-        "above_cap": {"tasks": big, "launches": above, "equal_to_plain": True},
+        "tasks_cap_cluster": CLUSTER_CAP,
+        "max_active_clusters": {
+            blocks: _build.library().c6_repair_max_clusters(blocks)
+            for blocks in (8, CLUSTER_CAP // REPAIR_CAP)},
+        "above_cap": {"tasks": [CLUSTER_M, CLUSTER_CAP, CLUSTER_CAP + 1],
+                      "launches": dict(above), "within_plain": True},
     }
-    return row, above
+    return row, dict(above), cluster
 
 
 def attention_rows(torch, dev):
@@ -3148,9 +3270,9 @@ SHARD_SCALE_M, SHARD_SCALE_R = 65536, 4    # 16,384 streams a rank
 # 0.073 Mbps a stream.  The demotions at 16,384 a rank are the skewed
 # repair case's (``inflated_case``).
 SHARD_SCALE_BW = 2.5
-# the gathered mode realizes every stream in one lpt_queue block, whose
-# shared memory holds 54,656 tasks: its scale run takes the largest
-# multiple of 4096 within that
+# the gathered mode realizes and repairs every stream on every rank: its
+# scale runs at the largest multiple of 4096 that one lpt_queue block holds
+# (54,656 tasks) and at the hierarchical run's M, past it
 SHARD_GATHER_M = 53248
 ELASTIC_FAILURES = {6: [3], 11: [2]}       # 4 → 3 → 2 ranks
 SHARD_TOL = 1e-5                   # relative, metrics against the reference
@@ -3403,10 +3525,9 @@ def sharded_rank(device: str, force: str, parts: tuple, sizes: tuple) -> dict:
                           "seconds": time.perf_counter() - t0,
                           "launches": launches}
     if "scale" in parts:
-        from repro_torch.kernels.lpt_queue.ops import MAX_TASKS
-
         pol = shard_policy(torch, "r2evid", dev, force)
-        for hier, mm in ((True, scale_m), (False, gather_m)):
+        for hier, mm in ((True, scale_m), (False, gather_m),
+                         (False, scale_m)):
             bw_scale = SHARD_SCALE_BW * mm / sys_.total_bw_mbps
             big = sharded_cell(torch, dev, mm, scale_r, bw_scale)
             sess = ServeSession(pol, mm, device=dev, **SHARD_POOLS)
@@ -3422,23 +3543,13 @@ def sharded_rank(device: str, force: str, parts: tuple, sizes: tuple) -> dict:
             if not all(d <= budget for d in draws):
                 raise AssertionError(f"scale (hierarchical={hier}): C6 "
                                      f"draws {draws} over {budget}")
-            res["runs"]["scale", hier] = {
+            run_rec = res["runs"]["scale", hier, mm] = {
                 "streams": mm, "launches": launches, "exchanges": ex,
                 "rounds_per_s": scale_r / secs, "budget": budget,
                 "draw_per_stream": [d / mm for d in draws]}
-        # the gathered mode at the hierarchical run's M: refused, since the
-        # realization's one-block LPT walk cannot hold the batch
-        big = sharded_cell(torch, dev, scale_m, scale_r)
-        sess = ServeSession(pol, scale_m, device=dev, **SHARD_POOLS)
-        try:
-            sess.run_sharded(mesh, big, hierarchical=False)
-        except ValueError as e:
-            if f"M <= {MAX_TASKS}" not in str(e):
-                raise
-            res["gathered_at_scale"] = f"refused: {e}"
-        else:
-            raise AssertionError(f"the gathered mode ran {scale_m} streams "
-                                 f"past lpt_queue's {MAX_TASKS} tasks")
+            if not hier and mm == scale_m:       # held to the dense run
+                run_rec["out"] = keep({k: out[k] for k in
+                                       ("route", "r", "p", "v")})
     if dev.type == "cuda":
         res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     return res
@@ -3675,20 +3786,32 @@ def sharded_phase(torch, dev, counts_reset, counts_read):
             raise AssertionError(f"run_elastic: rank {res['rank']} returned "
                                  f"other outputs")
 
-    # scale: 16,384 streams a rank
-    scale = {hier: r0["runs"]["scale", hier] for hier in (True, False)}
-    if scale[True]["exchanges"]["max_elements"] > 4:
+    # scale: 16,384 streams a rank; the gathered run at that M held to the
+    # dense run of the same cell on this process's card
+    scale = {label: r0["runs"][("scale",) + key] for label, key in (
+        ("hierarchical", (True, SHARD_SCALE_M)),
+        ("gathered", (False, SHARD_GATHER_M)),
+        ("gathered_at_hierarchical_m", (False, SHARD_SCALE_M)))}
+    if scale["hierarchical"]["exchanges"]["max_elements"] > 4:
         raise AssertionError(f"scale: hierarchical exchanges "
-                             f"{scale[True]['exchanges']}")
+                             f"{scale['hierarchical']['exchanges']}")
+    bw_scale = SHARD_SCALE_BW * SHARD_SCALE_M / SystemConfig().total_bw_mbps
+    dense_big = ServeSession(shard_policy(torch, "r2evid", dev), SHARD_SCALE_M,
+                             device=dev, **SHARD_POOLS).run(sharded_cell(
+                                 torch, dev, SHARD_SCALE_M, SHARD_SCALE_R,
+                                 bw_scale))
+    compare_to(torch, t(scale["gathered_at_hierarchical_m"].pop("out")),
+               {k: dense_big[k].cpu() for k in dec}, dec, (),
+               f"gathered at {SHARD_SCALE_M} vs dense")
+    del dense_big
     rec["scale"] = {"streams": SHARD_SCALE_M, "rounds": SHARD_SCALE_R,
                     "bw_mbps_per_stream": SHARD_SCALE_BW,
                     "c6_held_rounds": SHARD_SCALE_R,
-                    "gathered_at_hierarchical_m": r0["gathered_at_scale"],
-                    **{("hierarchical" if h else "gathered"): {
-                        k: scale[h][k] for k in (
-                            "streams", "rounds_per_s", "exchanges",
-                            "launches", "budget", "draw_per_stream")}
-                       for h in (True, False)}}
+                    "gathered_at_hierarchical_m_equal_to_dense": list(dec),
+                    **{label: {k: run[k] for k in (
+                        "streams", "rounds_per_s", "exchanges", "launches",
+                        "budget", "draw_per_stream")}
+                       for label, run in scale.items()}}
     rec["peak_memory_bytes_by_rank"] = [res.get("peak_memory_bytes")
                                         for res in ranks]
     n_cards = torch.cuda.device_count()
@@ -3749,17 +3872,26 @@ def trace_round(torch, sess, stream, untraced_s: float,
     acts = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in acts) / 1e3
-    ours = ("gate_cell_kernel", "gate_cell_bwd_kernel", "ccg_solve_kernel",
-            "c6_tail_kernel", "c6_repair_kernel", "lpt_queue_kernel")
+    # each ported kernel's symbol and the wrapper that launches it
+    ours = {"gate_cell_kernel": "gate_cell",
+            "gate_cell_bwd_kernel": "gate_cell_bwd",
+            "ccg_solve_kernel": "ccg_solve", "c6_tail_kernel": "c6_tail",
+            "c6_repair_kernel": "c6_repair",
+            "c6_repair_cluster_kernel": "c6_repair",
+            "lpt_queue_kernel": "lpt_queue",
+            "lpt_queue_chunked_kernel": "lpt_queue"}
     # gate_cell_bwd's second kernel (its ordered sum over tiles) counts in
     # the time, not in the launches (one a wrapper call, as the wrappers')
     ours_ms = sum(e.self_device_time_total for e in acts
                   if any(k in e.key for k in
-                         ours + ("gate_cell_bwd_reduce_kernel",))) / 1e3
+                         (*ours, "gate_cell_bwd_reduce_kernel"))) / 1e3
     top = sorted(acts, key=lambda e: -e.self_device_time_total)[:8]
-    launches = {k[:-len("_kernel")]: sum(e.count for e in acts
-                                         if k in e.key)
-                for k in ours if any(k in e.key for e in acts)}
+    launches = collections.Counter()
+    for k, name in ours.items():
+        n = sum(e.count for e in acts if k in e.key)
+        if n:
+            launches[name] += n
+    launches = dict(launches)
     return {
         "phase": "trace", "rounds": rounds,
         "device_busy_ms_per_round": busy_ms / rounds,
@@ -4315,7 +4447,7 @@ def main() -> int:
     # the router's kernels (c6_repair among them), the finetune run and the
     # warm-up for gate_cell_bwd, the serve launcher for the attention
     # kernels on its SMOKE pools, the per-round repair above the one-block
-    # cap for c6_tail, the cold and the warm solve for ccg_encode and
+    # cluster's cap for c6_tail, the cold and the warm solve for ccg_encode and
     # ccg_master, the kernel-path request sets of the two dispatch phases
     # for the attention kernels and the scans (the dispatch phases' counts,
     # checked against layers × calls, split by the call that launched
@@ -4325,8 +4457,13 @@ def main() -> int:
     if only & {"kernels", "gate_cell_bwd"}:
         rows["gate_cell_bwd"] = gate_bwd_row(torch, stream, dev)
     if "kernels" in only:
-        rows["c6_repair"], phases["c6_repair_above_cap"] = c6_repair_row(
-            torch, stream, dev, *counted)
+        (rows["c6_repair"], phases["c6_repair_above_cap"],
+         cluster) = c6_repair_row(torch, stream, dev, *counted)
+        # the redesign of c6_tail's only caller above the one-block cap:
+        # one cluster launch a repair, beside the per-round path it replaced
+        rows["c6_tail"]["earlier_ms"] = cluster[CLUSTER_M]["demoting"][
+            "earlier_ms"]
+        rows["c6_tail"]["cluster_repair"] = cluster
         rows.update(attention_rows(torch, dev))
         rows.update(scan_rows(torch, dev))
     if only & {"kernels", "flash_attention_bwd"}:

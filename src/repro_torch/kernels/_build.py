@@ -64,9 +64,14 @@ _SIGNATURES = {
     # (bool, or null), r_out, p_out, hist, M, N, Z, rounds, budget value,
     # stream
     "c6_repair_launch": [_P] * 14 + [_I] * 4 + [_F, _P],
+    # blocks of a cluster -> clusters the device holds at once (or -error)
+    "c6_repair_max_clusters": [_I],
     # t_comp, route, order, init (or null), start, R, M, n_edge, n_cloud,
     # stream
     "lpt_queue_launch": [_P] * 5 + [_I] * 4 + [_P],
+    # t_comp, route, order, init (or null), start, scratch, R, M, n_edge,
+    # n_cloud, stream
+    "lpt_queue_chunked_launch": [_P] * 6 + [_I] * 4 + [_P],
     # z, aq, rn, pn, tier, y_ok, b2s, code, rec_all, best, M, F, K, P,
     # margin, stream
     "ccg_encode_launch": [_P] * 10 + [_I] * 4 + [_F, _P],

@@ -14,6 +14,18 @@ from repro_torch.kernels.c6_tail.ref import (
 
 BLOCK_M = 256     # tasks per CUDA block (one thread each)
 REPAIR_CAP = 16384  # tasks the one-block repair holds in shared memory
+CLUSTER_BLOCKS = 16  # the largest cluster the repair launches (non-portable)
+CLUSTER_CAP = REPAIR_CAP * CLUSTER_BLOCKS  # tasks the cluster repair holds
+
+
+def repair_path(m: int) -> str:
+    """Which launch ``c6_repair`` makes on CUDA for M tasks: ``"block"``
+    (one block, every round), ``"cluster"`` (one thread block cluster of
+    16 blocks, every round) or ``"per_round"`` (a
+    ``c6_tail`` launch a round and the selection in torch)."""
+    if m <= REPAIR_CAP:
+        return "block"
+    return "cluster" if m <= CLUSTER_CAP else "per_round"
 
 
 def c6_tail(bw_panel, r, p, v, route, z, acc_thr, rn, pn, *, n_fps: int,
@@ -71,12 +83,15 @@ def c6_repair(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget, *,
     (M,) integer decisions; z/acc_thr: (M,) float32; rn/pn: (N,)/(Z,);
     budget: a float or a 0-d float32 tensor on the panel's device (read
     there, never copied to the host).  (r, p) come back in the given r's and
-    p's dtype.  On CUDA, M <= ``REPAIR_CAP`` takes one launch of the
-    one-block kernel for every round; a larger M takes the per-round path,
-    the ``c6_tail`` kernel for each round's tail and the selection in torch.
-    The kernel sums the draw and the prefix gains in its own order, not
-    torch's: a task whose cumulative gain lies within that rounding of the
-    excess may be demoted on one side only.  ``task_mask``: optional (M,)
+    p's dtype.  On CUDA the path is chosen by M (``repair_path``): up to
+    ``REPAIR_CAP`` (16,384) one launch of the one-block kernel for every
+    round; up to ``CLUSTER_CAP`` (262,144) one launch of the cluster
+    kernel (16 blocks that read each other's shared memory); above it
+    the per-round path, the ``c6_tail`` kernel for each round's tail and
+    the selection in torch.  A refused cluster launch raises.  The kernels
+    sum the draw and the prefix gains in their own order, not torch's: a
+    task whose cumulative gain lies within that rounding of the excess may
+    be demoted on one side only.  ``task_mask``: optional (M,)
     bool alive mask (slot-pool churn): a dead lane adds 0 to the draw and
     is never demoted, on both paths; None is every lane alive.
     """
@@ -92,7 +107,7 @@ def c6_repair(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget, *,
         raise ValueError("c6_repair kernel: inconsistent shapes")
     if task_mask is not None:
         _build.check_dtype("c6_repair", torch.bool, task_mask=task_mask)
-    if m > REPAIR_CAP:
+    if repair_path(m) == "per_round":
         return repair_rounds(_tail_kernel, bw_panel, r, p, v, route, z,
                              acc_thr, rn, pn, budget, n_fps, rounds,
                              task_mask)

@@ -1,7 +1,8 @@
 """The whole C6 repair (``c6_repair``) on the CPU: its plain version, through
-``enforce_bandwidth``, against the live JAX ``enforce_bandwidth``, and the
-one-block CUDA kernel's order of work (``torch_kernel_orders``) against the
-plain version.
+``enforce_bandwidth``, against the live JAX ``enforce_bandwidth`` (also
+above the one-block kernel's 16,384 tasks), the orders of work of the
+one-block and the cluster CUDA kernels (``torch_kernel_orders``) against
+the plain version, and the wrapper's choice of kernel by M.
 
 Decisions are compared exactly, with two exemptions.  (1) Lanes whose
 feasibility margin is under 1e-6 (torch's and XLA's float32 ``exp`` differ
@@ -25,7 +26,9 @@ import pytest
 import torch
 from torch_kernel_orders import (
     block_sum,
+    c6_repair_cluster_emulated,
     c6_repair_emulated,
+    cluster_shape,
     compare_runs,
     exclusive_prefix,
 )
@@ -36,7 +39,13 @@ from repro.core.router import enforce_bandwidth as j_enforce
 from repro_torch.core import cost_model as tcm
 from repro_torch.core.lattice import DecisionLattice as TLat
 from repro_torch.core.router import enforce_bandwidth
-from repro_torch.kernels.c6_tail.ops import REPAIR_CAP, c6_repair
+from repro_torch.kernels.c6_tail.ops import (
+    CLUSTER_BLOCKS,
+    CLUSTER_CAP,
+    REPAIR_CAP,
+    c6_repair,
+    repair_path,
+)
 from repro_torch.kernels.c6_tail.ref import EPS, c6_repair_ref, c6_tail_ref
 
 JSYS, TSYS = jcm.SystemConfig(), tcm.SystemConfig()
@@ -199,3 +208,108 @@ def test_c6_repair_wrapper_on_cpu_is_the_plain_version():
         assert got[0].dtype == torch.int32 and got[1].dtype == torch.int32
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m,frac,rounds", [(16385, 0.5, 4), (40000, 0.7, 4)])
+def test_c6_repair_plain_matches_reference_above_cap(m, frac, rounds):
+    """Above the one-block kernel's cap (where the card runs the cluster
+    kernel): ``enforce_bandwidth`` against the live JAX repair on the same
+    numpy inputs, decisions exact outside the exemptions, the draw within
+    1e-6 relative."""
+    z, aq, d = _decisions(m, seed=m + rounds)
+    budget = float(np.float32(frac * _draw(d)))
+    jsol = {k: jnp.asarray(v, jnp.int32) for k, v in d.items()}
+    tsol = {k: torch.from_numpy(v) for k, v in d.items()}
+
+    def run_j(k):
+        fix, hist = j_enforce(JSYS, jsol, jnp.asarray(z), jnp.asarray(aq),
+                              total_budget=budget, rounds=k, force="ref")
+        return (torch.from_numpy(np.asarray(fix["r"]).astype(np.int64)),
+                torch.from_numpy(np.asarray(fix["p"]).astype(np.int64)),
+                torch.from_numpy(np.array(hist)))
+
+    def run_t(k):
+        fix, hist = enforce_bandwidth(TL, tsol, torch.from_numpy(z),
+                                      torch.from_numpy(aq),
+                                      total_budget=budget, rounds=k)
+        return fix["r"], fix["p"], hist
+
+    exempt = np.nonzero(feasibility_margin(z, aq) < MARGIN_EXEMPT)[0]
+    demoting = compare_runs(run_t, run_j, rounds, _inputs(z, aq, d), budget,
+                            exempt.tolist())
+    assert demoting >= 1
+
+
+# M, budget as a fraction of the alive draw, rounds, blocks, threads a block:
+# several small blocks at a few thousand tasks, then the kernel's own shape
+# (16 blocks of 1024 threads) just above the one-block cap and at 40,000
+CLUSTER_CASES = [(3000, 0.6, 8, 4, 64), (2500, 0.4, 8, 3, 128),
+                 (4096, 0.8, 4, 8, 32), (16385, 0.5, 8, None, 1024),
+                 (40000, 0.6, 8, None, 1024)]
+
+
+@pytest.mark.parametrize("budget_kind", ["float", "tensor"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("m,frac,rounds,blocks,threads", CLUSTER_CASES)
+def test_cluster_order_matches_plain(m, frac, rounds, blocks, threads,
+                                     masked, budget_kind):
+    """The cluster kernel's order of work (per-block passes and sorts, the
+    blocks' sums in block order, each key's gain before it from every
+    block's prefix at its rank, the early stop) equals ``c6_repair_ref``
+    outside the boundary exemption, the history within 1e-6; the tasks it
+    demotes come in the stable descending order, ties by index, and a dead
+    lane never moves."""
+    z, aq, d = _decisions(m, seed=m + 11 * rounds)
+    args = _inputs(z, aq, d)
+    mask = None
+    bw = c6_tail_ref(*args, 5)[0]
+    if masked:
+        mask = torch.from_numpy(np.random.default_rng(m).random(m) < 0.7)
+        bw = torch.where(mask, bw, 0.0)
+    budget = float(np.float32(frac * float(bw.double().sum())))
+    b = budget if budget_kind == "float" else torch.tensor(budget)
+    n_blocks, tasks = cluster_shape(m, blocks)
+    assert n_blocks >= 2 and (n_blocks - 1) * tasks < m <= n_blocks * tasks
+
+    def run_e(k, trace=None):
+        return c6_repair_cluster_emulated(*args, b, n_fps=5, rounds=k,
+                                          blocks=blocks, threads=threads,
+                                          trace=trace, task_mask=mask)
+
+    run_r = lambda k: c6_repair_ref(*args, b, n_fps=5, rounds=k,
+                                    task_mask=mask)
+    assert compare_runs(run_e, run_r, rounds, args, budget, (), mask) >= 1
+    trace = []
+    got = run_e(rounds, trace)
+    if mask is not None:
+        assert torch.equal(got[0][~mask], args[1][~mask])
+        assert torch.equal(got[1][~mask], args[2][~mask])
+    assert len(trace) >= 1
+    r, p = args[1], args[2]
+    for excess, g, order, before in trace:
+        _, gain, can_p = c6_tail_ref(*args[:1], r, p, *args[3:], 5)
+        if mask is not None:
+            gain = torch.where(mask, gain, 0.0)
+        ref_order = torch.argsort(-gain, stable=True)[:len(order)].numpy()
+        np.testing.assert_array_equal(order, ref_order)
+        i = torch.from_numpy(order[(before < excess).numpy()])
+        cp = can_p[i]
+        p, r = p.clone(), r.clone()
+        p[i[cp]] -= 1
+        r[i[~cp]] -= 1
+
+
+@pytest.mark.parametrize("m,path,blocks,tasks", [
+    (1, "block", None, None), (REPAIR_CAP, "block", None, None),
+    (REPAIR_CAP + 1, "cluster", 16, 1056), (40000, "cluster", 16, 2528),
+    (53248, "cluster", 16, 3328), (131072, "cluster", 16, 8192),
+    (CLUSTER_CAP, "cluster", CLUSTER_BLOCKS, REPAIR_CAP),
+    (CLUSTER_CAP + 1, "per_round", None, None)])
+def test_c6_repair_path_by_task_count(m, path, blocks, tasks):
+    """The wrapper's launch by M alone, and the cluster kernel's shape
+    (blocks, tasks a block) where it launches: every block holds tasks and
+    none more than the one-block kernel."""
+    assert repair_path(m) == path
+    if path == "cluster":
+        assert cluster_shape(m) == (blocks, tasks)
+        assert (blocks - 1) * tasks < m <= blocks * tasks

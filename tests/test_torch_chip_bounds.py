@@ -206,6 +206,21 @@ def test_c6_repair_chain_counts_its_levels(smoke, m, rounds_run,
     assert chain == pytest.approx(levels * 4 / 1.98e9 * 1e3)
 
 
+@pytest.mark.parametrize("m,rounds_run,sorted_counts,levels", [
+    (3328, 1, [], 4 + 10 + 15),                     # 53,248 on 16 blocks
+    (3328, 4, [3328, 3327], 4 * 29 + 2 * (78 + 8 + 10 + 4 * 15)),
+    (16384, 2, [16384], 2 * 41 + (105 + 32 + 10 + 16 * 15)),
+])
+def test_c6_cluster_chain_adds_the_blocks_links(smoke, m, rounds_run,
+                                                sorted_counts, levels):
+    """On a cluster of 16 blocks (``m`` tasks and ``sorted_counts`` keys a
+    block): per round run the 15 adds of the blocks' draws beside the
+    one-block chain, and per demoting round 15 adds of the other blocks'
+    prefixes for each of a thread's ⌈n/1024⌉ keys."""
+    chain = smoke.c6_repair_chain_ms(m, rounds_run, sorted_counts, 16)
+    assert chain == pytest.approx(levels * 4 / 1.98e9 * 1e3)
+
+
 def _repair_args(m, lo, seed):
     from repro_torch.core.cost_model import SystemConfig, fps_norm, res_norm
     from repro_torch.core.lattice import DecisionLattice

@@ -10,7 +10,8 @@ tests/test_torch_graphs_cuda.py``.  The replay runs the same kernels on the
 same inputs in the same order as the uncaptured run, so nothing may differ:
 the main path, a baseline, ``straggler_tail`` (the hedge's quantile inside
 the graph) and ``flash_churn`` (admission and the alive mask), the
-decide-only paths, and ``reset`` before a replay.  A host synchronisation
+decide-only paths, a round above the one-block repair's cap (its repair
+one cluster launch), and ``reset`` before a replay.  A host synchronisation
 forced into the round makes the capture raise (no fallback); launches
 after a replay are the capture's counts times the rounds; one uncaptured
 round of every policy and scenario makes no synchronising call
@@ -161,6 +162,24 @@ def test_launches_of_a_replay_are_the_captured_counts(dev):
     reset_launch_counts()
     sess.run(stream)
     assert launch_counts() == {k: R * n for k, n in graph.launches.items()}
+
+
+def test_cluster_repair_round_replay_equals_eager(dev):
+    """Above the one-block repair's 16,384 tasks the round's C6 repair is
+    one launch of the cluster kernel: the replayed round equals its
+    uncaptured twin bit for bit, one c6_repair launch a round, no
+    c6_tail."""
+    m, rounds = 20000, 3
+    pol = _policy("gate", dev)
+    stream = _stream(dev, rounds=rounds, m=m)
+    graphed = ServeSession(pol, m, device=dev, capture=None)
+    eager = ServeSession(pol, m, device=dev, capture=False)
+    reset_launch_counts()
+    _assert_bits(graphed.run(stream), eager.run(stream))
+    counts = launch_counts()
+    assert counts["c6_repair"] == 2 * rounds and "c6_tail" not in counts
+    (graph,) = graphed.graphs.values()
+    assert graph.graph is not None
 
 
 def test_reset_then_replay_equals_a_fresh_session(dev):

@@ -13,9 +13,11 @@ then the tiles: 4.5e-7 of the largest entry in float32 on the CPU at
 B = 4096; a gradient that cancels, as alpha, is held to its terms' size)
 and dh to 1e-5 of max(1, its largest |entry|), and two of its launches
 give the same bits; ``c6_repair`` must give
-the bits of its emulated order and equal the plain version's r and p
+the bits of its emulated order (one block up to 16,384 tasks, one thread
+block cluster up to 262,144) and equal the plain version's r and p
 outside the boundary exemption of ``test_torch_c6_repair.py`` (the draw and
-the prefix gains sum in another order than torch's); ``ccg_solve``,
+the prefix gains sum in another order than torch's); two cluster launches,
+and a captured one, give the same bits; ``ccg_solve``,
 ``c6_tail``, ``lpt_queue``,
 ``ccg_encode`` and ``ccg_master`` run the plain versions' float32 operations
 in the same order with ``-fmad=false`` (or only exact ones: min, max,
@@ -45,12 +47,14 @@ The decode kernel splits each cache over a cluster of blocks and combines
 the splits in a fixed order (two calls are bit-equal); bf16 rows on 16-byte
 boundaries at D = 64/128/256 take its tensor-core instantiation, other
 rows its CUDA-core ones.  ``lpt_queue`` walks sorted loads for times >= 0
-and a live cloud tier, else a tree argmin: both are exact.
+and a live cloud tier, else a tree argmin: both are exact, in one block's
+shared memory up to 54,656 tasks and in chunks past it.
 """
 import numpy as np
 import pytest
 import torch
 from torch_kernel_orders import (
+    c6_repair_cluster_emulated,
     c6_repair_emulated,
     compare_runs,
     gate_cell_tiled,
@@ -61,7 +65,13 @@ from repro_torch.core.gating import GateConfig, init_gate_params
 from repro_torch.core.lattice import BIG
 from repro_torch.core.robust import RobustProblem
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts
-from repro_torch.kernels.c6_tail.ops import REPAIR_CAP, c6_repair, c6_tail
+from repro_torch.kernels.c6_tail.ops import (
+    CLUSTER_CAP,
+    REPAIR_CAP,
+    c6_repair,
+    c6_tail,
+    repair_path,
+)
 from repro_torch.kernels.c6_tail.ref import c6_repair_ref
 from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
@@ -77,7 +87,7 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_lse_ref,
     attention_vjp_ref,
 )
-from repro_torch.kernels.lpt_queue.ops import lpt_queue
+from repro_torch.kernels.lpt_queue.ops import BLOCK_TASKS, MAX_TASKS, lpt_queue
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.temporal_gate.ops import (
@@ -383,29 +393,48 @@ def _repair_case(dev, m, demoting, seed):
     return args, float(np.float32((0.5 if demoting else 2.0) * draw))
 
 
+def _repair_launches(m, rounds):
+    """One c6_repair launch up to the cluster's cap, else a c6_tail a
+    round."""
+    return ({"c6_tail": rounds} if repair_path(m) == "per_round"
+            else {"c6_repair": 1})
+
+
+def _repair_emulated(m, *args, **kw):
+    """The emulated order of the kernel that runs M tasks (None on the
+    per-round path, which runs torch's own selection)."""
+    path = repair_path(m)
+    if path == "per_round":
+        return None
+    emulate = (c6_repair_emulated if path == "block"
+               else c6_repair_cluster_emulated)
+    return emulate(*args, **kw)
+
+
 @pytest.mark.parametrize("rounds", [1, 8])
 @pytest.mark.parametrize("budget_kind", ["float", "tensor"])
 @pytest.mark.parametrize("demoting", [True, False])
-@pytest.mark.parametrize("m", [60, 256, 4095, 4096, REPAIR_CAP + 1])
+@pytest.mark.parametrize("m", [60, 256, 4095, 4096, REPAIR_CAP + 1, 53248,
+                               CLUSTER_CAP, CLUSTER_CAP + 1])
 def test_c6_repair_kernel(dev, m, demoting, budget_kind, rounds):
-    """One launch of the one-block kernel up to the cap, its bits those of
-    its order of work emulated on the card; above the cap the per-round
-    path (a c6_tail launch a round); both against the plain version:
-    r and p equal outside the boundary exemption, the history within
-    1e-6."""
+    """One launch of the one-block kernel up to its cap and of the cluster
+    kernel up to the cluster's, its bits those of its order of work
+    emulated on the card and two launches bit-equal; above that the
+    per-round path (a c6_tail launch a round); all against the plain
+    version: r and p equal outside the boundary exemption, the history
+    within 1e-6."""
     args, budget = _repair_case(dev, m, demoting, seed=m + rounds)
     b = budget if budget_kind == "float" else torch.tensor(budget,
                                                            device=dev)
     reset_launch_counts()
     got = c6_repair(*args, b, n_fps=5, rounds=rounds, force="kernel")
-    want_launches = ({"c6_repair": 1} if m <= REPAIR_CAP
-                     else {"c6_tail": rounds})
-    assert launch_counts() == want_launches
+    assert launch_counts() == _repair_launches(m, rounds)
     assert got[2].shape == (rounds,) and got[0].dtype == torch.int64
-    if m <= REPAIR_CAP:
-        emulated = c6_repair_emulated(*args, b, n_fps=5, rounds=rounds)
-        for g, e in zip(got, emulated):
-            assert torch.equal(g, e)
+    emulated = _repair_emulated(m, *args, b, n_fps=5, rounds=rounds)
+    if emulated is not None:
+        again = c6_repair(*args, b, n_fps=5, rounds=rounds, force="kernel")
+        for g, e, a in zip(got, emulated, again):
+            assert torch.equal(g, e) and torch.equal(g, a)
     run_k = lambda k: c6_repair(*args, b, n_fps=5, rounds=k, force="kernel")
     run_r = lambda k: c6_repair_ref(*args, b, n_fps=5, rounds=k)
     demoted = compare_runs(run_k, run_r, rounds, args, budget)
@@ -415,16 +444,45 @@ def test_c6_repair_kernel(dev, m, demoting, budget_kind, rounds):
         assert demoted >= 2
 
 
-def test_c6_repair_kernel_reads_the_budget_on_the_card(dev):
+@pytest.mark.parametrize("m", [4096, 53248])
+def test_c6_repair_kernel_reads_the_budget_on_the_card(dev, m):
     """A budget tensor written by an earlier kernel on the stream is read
     where it lies: the same result as the value passed as a float."""
-    args, budget = _repair_case(dev, 4096, True, seed=3)
+    args, budget = _repair_case(dev, m, True, seed=3)
     b = torch.zeros((), device=dev)
     b.add_(budget)
     got = c6_repair(*args, b, n_fps=5, rounds=8, force="kernel")
     want = c6_repair(*args, budget, n_fps=5, rounds=8, force="kernel")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m", [4096, 53248])
+def test_c6_repair_kernel_captured(dev, m):
+    """The repair captured in a CUDA graph and replayed (its budget a
+    tensor written before each replay) gives the bits of its uncaptured
+    launch: no float atomics, no read back to the host."""
+    args, budget = _repair_case(dev, m, True, seed=5)
+    b = torch.tensor(budget, device=dev)
+    want = c6_repair(*args, b, n_fps=5, rounds=8, force="kernel")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = c6_repair(*args, b, n_fps=5, rounds=8, force="kernel")
+    for _ in range(2):
+        b.fill_(budget)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_c6_repair_cluster_fits_the_card(dev):
+    """The cluster kernel's largest cluster (16 full blocks, non-portable)
+    and the portable 8 are schedulable: at least one active cluster each."""
+    lib = _build.library()
+    for blocks in (8, CLUSTER_CAP // REPAIR_CAP):
+        assert lib.c6_repair_max_clusters(blocks) >= 1
 
 
 @pytest.mark.parametrize("shape", [(1, 4096), (3, 257)])
@@ -470,28 +528,56 @@ def test_lpt_queue_kernel_server_splits(dev, n_edge, n_cloud, routes):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("m", [4096, 4093, "max"])
-def test_lpt_queue_kernel_task_counts(dev, m):
-    """M a multiple of the walk's 32-task batches, ragged, and the
-    wrapper's largest."""
-    from repro_torch.kernels.lpt_queue.ops import MAX_TASKS
-
-    m = MAX_TASKS if m == "max" else m
+@pytest.mark.parametrize("with_avail", [False, True])
+@pytest.mark.parametrize("m", [4096, 4093, "block", "block+1", 65536,
+                               262144])
+def test_lpt_queue_kernel_task_counts(dev, m, with_avail):
+    """M a multiple of the walk's 32-task batches, ragged, the one-block
+    kernel's largest, one past it and two sizes of the chunked walk, with
+    all servers up and one edge server down: one launch, equal to the
+    plain version bit for bit; the wrapper refuses M past its limit."""
+    m = {"block": BLOCK_TASKS, "block+1": BLOCK_TASKS + 1}.get(m, m)
     t, route = _lpt_case(m, (m,), "mixed", ties=False)
-    got = lpt_queue(_t(t, dev), _t(route, dev), 4, 1, force="kernel")
-    want = lpt_queue(_t(t, dev), _t(route, dev), 4, 1, force="ref")
+    avail = None
+    if with_avail:
+        avail = torch.ones(5, device=dev)
+        avail[2] = 0.0
+    reset_launch_counts()
+    got = lpt_queue(_t(t, dev), _t(route, dev), 4, 1, avail=avail,
+                    force="kernel")
+    assert launch_counts() == {"lpt_queue": 1}
+    want = lpt_queue(_t(t, dev), _t(route, dev), 4, 1, avail=avail,
+                     force="ref")
     assert torch.equal(got, want)
-    with pytest.raises(ValueError):
-        lpt_queue(torch.zeros(MAX_TASKS + 1, device=dev),
-                  torch.zeros(MAX_TASKS + 1, dtype=torch.int32, device=dev),
-                  4, 1, force="kernel")
+    # stride-0 views: the wrapper refuses the shape before any allocation
+    over = [torch.zeros(1, dtype=dt, device=dev).expand(MAX_TASKS + 1)
+            for dt in (torch.float32, torch.int32)]
+    with pytest.raises(ValueError, match=f"M <= {MAX_TASKS}"):
+        lpt_queue(*over, 4, 1, force="kernel")
 
 
+@pytest.mark.parametrize("routes", ["all_edge", "all_cloud", "mixed"])
+@pytest.mark.parametrize("n_edge,n_cloud", [(4, 1), (16, 8)])
+def test_lpt_queue_kernel_past_one_block_routes(dev, n_edge, n_cloud,
+                                                routes):
+    """The chunked walk at 65,536 tasks on tie-heavy times, every route
+    mix, the port's pools and the sharded phase's wide ones: exact."""
+    t, route = _lpt_case(n_edge + routes.count("_"), (65536,), routes,
+                         ties=True)
+    got = lpt_queue(_t(t, dev), _t(route, dev), n_edge, n_cloud,
+                    force="kernel")
+    want = lpt_queue(_t(t, dev), _t(route, dev), n_edge, n_cloud,
+                     force="ref")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [4093, 65536])
 @pytest.mark.parametrize("n_edge,n_cloud", [(4, 1), (3, 5), (16, 8)])
-def test_lpt_queue_kernel_tree_walk(dev, n_edge, n_cloud):
+def test_lpt_queue_kernel_tree_walk(dev, n_edge, n_cloud, m):
     """Times below zero (and a -0.0) send the kernel down its tree walk,
-    whose picks must equal the plain version's too."""
-    t, route = _lpt_case(n_cloud, (2, 4093), "mixed", ties=True)
+    whose picks must equal the plain version's too, in one block and in
+    chunks."""
+    t, route = _lpt_case(n_cloud, (2, m), "mixed", ties=True)
     t[:, ::7] *= -1.0
     t[1, 5] = -0.0
     got = lpt_queue(_t(t, dev), _t(route, dev), n_edge, n_cloud,
@@ -1137,12 +1223,14 @@ def _alive(kind, m, seed):
 
 @pytest.mark.parametrize("alive", ["all", "none", "half"])
 @pytest.mark.parametrize("demoting", [True, False])
-@pytest.mark.parametrize("m", [60, 256, 4096, REPAIR_CAP + 1])
+@pytest.mark.parametrize("m", [60, 256, 4096, REPAIR_CAP + 1, 53248,
+                               CLUSTER_CAP + 1])
 def test_c6_repair_kernel_alive_mask(dev, m, demoting, alive):
-    """The alive mask on the one-block kernel (its bits those of its order
-    emulated with the mask) and above the cap on the per-round path, held to
-    the plain version with the same mask: r and p equal outside the
-    boundary exemption, the history within 1e-6; dead lanes never move."""
+    """The alive mask on the one-block and the cluster kernels (their bits
+    those of their orders emulated with the mask) and above the cluster's
+    cap on the per-round path, held to the plain version with the same
+    mask: r and p equal outside the boundary exemption, the history within
+    1e-6; dead lanes never move."""
     args, budget = _repair_case(dev, m, demoting, seed=m + 7)
     mask = torch.from_numpy(_alive(alive, m, m)).to(dev)
     if alive == "half":         # the budget against the alive lanes' draw
@@ -1150,11 +1238,10 @@ def test_c6_repair_kernel_alive_mask(dev, m, demoting, alive):
     reset_launch_counts()
     got = c6_repair(*args, budget, n_fps=5, rounds=8, force="kernel",
                     task_mask=mask)
-    assert launch_counts() == ({"c6_repair": 1} if m <= REPAIR_CAP
-                               else {"c6_tail": 8})
-    if m <= REPAIR_CAP:
-        emulated = c6_repair_emulated(*args, budget, n_fps=5, rounds=8,
-                                      task_mask=mask)
+    assert launch_counts() == _repair_launches(m, 8)
+    emulated = _repair_emulated(m, *args, budget, n_fps=5, rounds=8,
+                                task_mask=mask)
+    if emulated is not None:
         for g, e in zip(got, emulated):
             assert torch.equal(g, e)
     run_k = lambda k: c6_repair(*args, budget, n_fps=5, rounds=k,
@@ -1171,7 +1258,7 @@ def test_c6_repair_kernel_alive_mask(dev, m, demoting, alive):
 
 
 @pytest.mark.parametrize("demoting", [True, False])
-@pytest.mark.parametrize("m", [60, 4096, REPAIR_CAP + 1])
+@pytest.mark.parametrize("m", [60, 4096, REPAIR_CAP + 1, CLUSTER_CAP + 1])
 def test_c6_repair_kernel_all_alive_is_no_mask(dev, m, demoting):
     """An all-true mask gives the bits of no mask, on both paths."""
     args, budget = _repair_case(dev, m, demoting, seed=m + 9)

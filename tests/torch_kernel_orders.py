@@ -1,6 +1,7 @@
-"""Emulations, in torch float32 operations, of the orders of work of two
-CUDA kernels: ``gate_cell`` (``csrc/temporal_gate.cu``) and ``c6_repair``
-(``csrc/c6_tail.cu``).  They import no JAX, so the CPU tests and the card's
+"""Emulations, in torch float32 operations, of the orders of work of
+CUDA kernels: ``gate_cell`` (``csrc/temporal_gate.cu``) and the two
+``c6_repair`` kernels (``csrc/c6_tail.cu``: one block, and one thread
+block cluster).  They import no JAX, so the CPU tests and the card's
 tests (``test_torch_kernels_cuda.py``, run with ``--noconftest``) share
 them.  Run on the card, an emulation gives the kernel's bits: each float32
 operation is one torch elementwise operation, rounded alone (torch does not
@@ -157,7 +158,9 @@ def block_sum(x, threads=THREADS):
     part = torch.zeros(threads, device=x.device)
     for row in xs.reshape(k, threads):
         part = part + row
-    return _butterfly(_butterfly(part.reshape(-1, 32))[None])[0]
+    warps = _butterfly(part.reshape(-1, 32))    # lanes past the warps: 0
+    warps = torch.cat([warps, warps.new_zeros(32 - warps.shape[0])])
+    return _butterfly(warps[None])[0]
 
 
 def exclusive_prefix(g, threads=THREADS):
@@ -181,16 +184,61 @@ def exclusive_prefix(g, threads=THREADS):
     return torch.stack(out, dim=1).reshape(-1)[:n]
 
 
-def c6_repair_emulated(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
-                       n_fps: int, rounds: int, trace=None, task_mask=None):
-    """The one-block repair kernel's order of work -> (r, p, bw_history).
-    ``trace``, a list, receives per round run (excess, gains of the sorted
-    tasks in key order, their indices, their exclusive prefix sums).
-    ``task_mask``: the alive mask; a dead lane draws 0 and gains 0."""
+def c6_repair_emulated(*args, trace=None, task_mask=None, **kw):
+    """The one-block repair kernel's order of work -> (r, p, bw_history):
+    the cluster kernel's (``c6_repair_cluster_emulated``) on one block, whose
+    draw is one ``block_sum`` and whose keys' gains before them are their
+    block's exclusive prefix.  ``trace`` and ``task_mask`` as there."""
+    return c6_repair_cluster_emulated(*args, blocks=1, trace=trace,
+                                      task_mask=task_mask, **kw)
+
+
+# ------------------------------------------------------- c6_repair, cluster
+
+CLUSTER_TASKS = 16384     # tasks a block of the cluster kernel holds
+CLUSTER_BLOCKS = 16       # blocks a cluster launch takes
+
+
+def cluster_shape(m: int, blocks=None):
+    """The cluster kernel's (blocks, tasks a block) for M tasks: 16 blocks
+    (more where ⌈M / 16,384⌉ is more) unless ``blocks`` is given, ⌈M /
+    blocks⌉ tasks rounded up to 32; block b owns tasks [b·T, (b+1)·T)."""
+    if blocks is None:
+        blocks = max(CLUSTER_BLOCKS, -(-m // CLUSTER_TASKS))
+    return blocks, -(-(-(-m // blocks)) // 32) * 32
+
+
+def _keys(gain, idx, can_p):
+    """The kernel's 64-bit keys (numpy uint64) of tasks ``idx``: the
+    gain's float bits inverted above, index·2 + can_p below."""
+    bits = gain.cpu().numpy().view(np.uint32).astype(np.uint64)
+    low = (idx.astype(np.uint64) << np.uint64(1)) | can_p.astype(np.uint64)
+    return ((~bits & np.uint64(0xffffffff)) << np.uint64(32)) | low
+
+
+def c6_repair_cluster_emulated(bw_panel, r, p, v, route, z, acc_thr, rn, pn,
+                               budget, n_fps: int, rounds: int, blocks=None,
+                               threads=THREADS, trace=None, task_mask=None):
+    """The cluster repair kernel's order of work -> (r, p, bw_history), on
+    ``blocks`` blocks of ``threads`` threads (``cluster_shape``).  Per
+    round: each block's draw summed as ``block_sum`` over its own tasks,
+    the blocks' sums added in block order; the early stop on that total
+    and the key count; each block's positive-gain keys sorted and their
+    exclusive prefix taken as ``exclusive_prefix`` over the block's sorted
+    gains, its total after the last key; then each key's gain before it in
+    the cluster's order, summed in block order: its own block's prefix,
+    and for every other block that block's prefix at the key's rank among
+    its keys (its total when all sort before).  ``trace``, a list,
+    receives per round run (excess, the sorted gains, their indices and
+    their gains before, all in the cluster's key order).  ``task_mask``:
+    the alive mask; a dead lane draws 0 and gains 0."""
     dev = bw_panel.device
     budget = torch.as_tensor(budget, dtype=torch.float32, device=dev)
     r, p = r.long().clone(), p.long().clone()
     v32, route32 = v.to(torch.int32), route.to(torch.int32)
+    n_blocks, tasks = cluster_shape(r.shape[0], blocks)
+    spans = [(b * tasks, min(r.shape[0], (b + 1) * tasks))
+             for b in range(n_blocks)]
     hist = []
     for _ in range(rounds):
         bw, gain, can_p = c6_tail_ref(bw_panel, r, p, v32, route32, z,
@@ -198,21 +246,49 @@ def c6_repair_emulated(bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
         if task_mask is not None:
             bw = torch.where(task_mask, bw, 0.0)
             gain = torch.where(task_mask, gain, 0.0)
-        excess = block_sum(bw) - budget
+        total = None
+        for lo, hi in spans:
+            d = block_sum(bw[lo:hi], threads)
+            total = d if total is None else total + d
+        excess = total - budget
         drawn = excess + budget
         hist.append(drawn)
-        order, cp = _order_keys(gain, can_p)
-        if not bool(excess > 0) or order.size == 0:
+        blk = []                  # per block: indices, keys, gains, prefix
+        for lo, hi in spans:
+            order, cp = _order_keys(gain[lo:hi], can_p[lo:hi])
+            order = order + lo
+            g = gain[torch.from_numpy(order).to(dev)]
+            if order.size:
+                excl = exclusive_prefix(g, threads)
+                pre = torch.cat([excl, excl[-1:] + g[-1:]])
+            else:
+                pre = torch.zeros(1, device=dev)
+            blk.append((order, _keys(g, order, cp), g, pre, cp))
+        if not bool(excess > 0) or sum(b[0].size for b in blk) == 0:
             hist += [drawn] * (rounds - len(hist))
             break
-        g = gain[torch.from_numpy(order).to(dev)]
-        cum = exclusive_prefix(g)
+        demoted, rows = [], []
+        for b, (order, keys, g, pre, cp) in enumerate(blk):
+            before = None
+            for c, (_, keys_c, _, pre_c, _) in enumerate(blk):
+                at = np.searchsorted(keys_c, keys) if c != b \
+                    else np.arange(order.size)
+                term = pre_c[torch.from_numpy(at).to(dev)]
+                before = term if before is None else before + term
+            demote = (before < excess).cpu().numpy()
+            demoted.append((order[demote], cp[demote]))
+            rows.append((keys, g, order, before))
         if trace is not None:
-            trace.append((excess, g, order, cum))
-        demote = (cum < excess).cpu().numpy()
-        i_p = torch.from_numpy(order[demote & cp]).to(dev)
-        i_r = torch.from_numpy(order[demote & ~cp]).to(dev)
-        p[i_p] = torch.clamp_min(p[i_p] - 1, 0)
-        r[i_r] = torch.clamp_min(r[i_r] - 1, 0)
+            keys = np.concatenate([row[0] for row in rows])
+            at = torch.from_numpy(np.argsort(keys)).to(dev)
+            trace.append((excess, torch.cat([row[1] for row in rows])[at],
+                          np.concatenate([row[2] for row in rows])[
+                              at.cpu().numpy()],
+                          torch.cat([row[3] for row in rows])[at]))
+        for order, cp in demoted:
+            i_p = torch.from_numpy(order[cp]).to(dev)
+            i_r = torch.from_numpy(order[~cp]).to(dev)
+            p[i_p] = torch.clamp_min(p[i_p] - 1, 0)
+            r[i_r] = torch.clamp_min(r[i_r] - 1, 0)
     hist = torch.stack(hist) if hist else torch.zeros((0,), device=dev)
     return r, p, hist

@@ -9,6 +9,7 @@ NVIDIA GPU.
                                       gate_cell_bwd|c6_repair|
                                       flash_attention_bwd]
                                      [--rounds 2] [--diagnose] [--reps 200]
+                                     [--baseline TREE]
 
 Builds each kernel as committed (``src/repro_torch/kernels/csrc/``) and
 variants made by editing its source, each into its own library under
@@ -105,13 +106,23 @@ timed.
                                   blocks
                    warps32_streams1  32 warps × 1 stream a tile
                    reduce64       the sum over tiles in 64-thread blocks
-  c6_repair        committed      one block of 1024 threads (source
-                                  c6_tail.cu)
-                   threads512     one block of 512 threads (another order
+  c6_repair        committed      one block of 1024 threads up to 16,384
+                                  tasks, a thread block cluster of 16 such
+                                  blocks above (source c6_tail.cu)
+                   threads512     blocks of 512 threads (another order
                                   of the sums: held to the tolerance)
                    shared_network every sort stage through shared memory
                                   (this kernel's first sort), not the
                                   stages within 64 keys in registers
+                   cluster8       clusters of 8 blocks (the portable
+                                  size; 16 above 131,072 tasks), not 16:
+                                  the first cluster of this design, 16,384
+                                  tasks a block at 131,072 (another order
+                                  of the sums)
+                   per_round      no cluster: above 16,384 tasks the
+                                  per-round path (a c6_tail launch a round
+                                  and the selection in torch), the first
+                                  design there
   flash_attention_bwd committed   bf16 at D 32-256 on the tensor cores,
                                   reading the forward's LSE (D 256: the
                                   dk/dv blocks split into dV and dK
@@ -139,7 +150,8 @@ kernels), CUDA events beside it; the ptxas report (registers, spills) of
 each variant's backward kernels is printed once.
 ``gate_cell`` runs at M = 4096, d = 35 on the stream's round-0 features
 and ``c6_repair`` on ``chip_smoke.py``'s ``c6_repair_cases`` at M = 4096
-(the main path's inputs and the demoting case), both through their
+(the main path's inputs and the demoting case) and on both tiled to
+M = 16,385, 53,248 and 131,072 (the cluster's sizes), both through their
 wrappers with the variant's library in place of ``_build.library()`` and
 timed by the profiler's device time (their launches are shorter than the
 host's call), events beside it: ``gate_cell`` within 1e-5 of the plain
@@ -162,6 +174,12 @@ own checks and timings with the variant's library in place of
 ``_build.library()``: every case of the kernel-vs-plain comparison within
 its tolerance, the device time (profiler) and the call time (CUDA events)
 at the serving shapes.
+
+``--baseline TREE`` adds a variant ``baseline``: the kernel's source as it
+stands in another checkout (``TREE/src/repro_torch/kernels/csrc/``, e.g. an
+earlier commit unpacked by ``git archive``), built and timed in turns
+beside the others; its entry point must take the committed one's
+arguments, and a case its library refuses is reported as refused.
 
 With ``--diagnose`` it builds instead variants that drop one part of the
 work, compute wrong results on purpose and are only timed, to show where a
@@ -589,6 +607,8 @@ REPAIR_NETWORK = (
      "  __syncthreads();\n}"))
 REPAIR_SORT = "    bitonic_sort(keys, n);\n"
 REPAIR_STOP = "if (!(excess > 0.0f) || count == 0) {"
+CLUSTER_BLOCKS = "constexpr int kClusterBlocks = 16;"
+CLUSTER_LIMIT = "M > kClusterTasks * kMaxClusterBlocks"
 # lpt_queue.cu
 TREE = """  for (int w = 1; w < N; w *= 2) {
 #pragma unroll
@@ -739,7 +759,9 @@ def variants(kernel: str, src: str) -> dict:
                 "threads512": edit(src, (REPAIR_THREADS,
                                          REPAIR_THREADS.replace("1024",
                                                                 "512"))),
-                "shared_network": edit(src, *REPAIR_NETWORK)}
+                "shared_network": edit(src, *REPAIR_NETWORK),
+                "cluster8": with_constant(src, CLUSTER_BLOCKS, 8),
+                "per_round": edit(src, (CLUSTER_LIMIT, "M > kRepairCap"))}
     if kernel == "flash_attention_bwd":
         return {"committed": src,
                 "first_design": edit(src, (BWD_DESIGN, "constexpr bool "
@@ -913,9 +935,10 @@ class Library:
         return self._fn if attr == self._name else getattr(self._base, attr)
 
 
-def build(kernels, diagnose: bool) -> dict:
+def build(kernels, diagnose: bool, baseline=None) -> dict:
     """Every variant of ``kernels`` built and loaded: {kernel: {variant:
-    Library}}."""
+    Library}}; with ``baseline`` (a checkout's root) also that checkout's
+    source of each kernel, as the variant ``baseline``."""
     from repro_torch.kernels import _build
 
     base = _build.library()
@@ -926,8 +949,12 @@ def build(kernels, diagnose: bool) -> dict:
     make = diagnostics if diagnose else variants
     procs = {}
     for kernel in kernels:
-        for name, src in make(kernel, (csrc / source_file(kernel))
-                              .read_text()).items():
+        sources = make(kernel, (csrc / source_file(kernel)).read_text())
+        if baseline is not None:
+            sources["baseline"] = (Path(baseline) / "src" / "repro_torch" /
+                                   "kernels" / "csrc" /
+                                   source_file(kernel)).read_text()
+        for name, src in sources.items():
             cu = out / f"{kernel}_{name}.cu"
             cu.write_text(src)
             so = out / f"{kernel}_{name}.so"
@@ -1324,9 +1351,15 @@ class GateCellBwd:
 
 
 class C6Repair:
-    """``c6_repair`` at M = 4096 on ``chip_smoke.c6_repair_cases`` (the
-    main path's inputs and the demoting case), through its wrapper with the
-    variant's library; timed by the profiler's device time."""
+    """``c6_repair`` on ``chip_smoke.c6_repair_cases`` at M = 4096 (the
+    main path's inputs and the demoting case) and on both tiled to
+    ``BIG`` tasks (``chip_smoke.c6_repair_tiled``), through its wrapper with
+    the variant's library; the ``per_round`` variant above 16,384 tasks
+    through the per-round path (``repair_rounds`` on the variant's
+    ``c6_tail``).  Timed by the profiler's device time of the kernel a
+    launch (every activity of a call on the per-round path)."""
+
+    BIG = (16385, 53248, 131072)
 
     def __init__(self, torch, reps: int, chip_smoke):
         from repro_torch.core.cost_model import SystemConfig
@@ -1339,29 +1372,54 @@ class C6Repair:
         stream = Simulator(SystemConfig(), SimConfig(n_tasks=M, seed=0),
                            device=dev).sample_stream(n_rounds=1,
                                                      feature_seed=1)
-        self.cases = {what: case for (m, what), case in
-                      chip_smoke.c6_repair_cases(torch, stream, dev).items()
-                      if m == M}
+        cases = chip_smoke.c6_repair_cases(torch, stream, dev)
+        self.cases = {(what, m): cases[M, what] if m == M
+                      else chip_smoke.c6_repair_tiled(cases, what, m)
+                      for what in ("main_path", "demoting")
+                      for m in (M, *self.BIG)}
 
     def __call__(self, lib, exact_required: bool) -> dict:
         from repro_torch.kernels import _build
-        from repro_torch.kernels.c6_tail.ref import compare_repairs
+        from repro_torch.kernels.c6_tail.ops import REPAIR_CAP, c6_tail
+        from repro_torch.kernels.c6_tail.ref import (
+            compare_repairs,
+            repair_rounds,
+        )
 
         torch, rec = self.torch, {}
         _build.library = lambda: lib
-        for what, (args, budget) in self.cases.items():
-            run = lambda k, force: self.fn(*args, budget, n_fps=5, rounds=k,
-                                           force=force)
+        per_round = getattr(lib, "variant", None) == "per_round"
+
+        def tail(*a, n_fps):
+            return c6_tail(*a, n_fps=n_fps, force="kernel")
+
+        for (what, m), (args, budget) in self.cases.items():
+            def run(k, force, args=args, budget=budget, m=m):
+                if force == "kernel" and per_round and m > REPAIR_CAP:
+                    return repair_rounds(tail, *args, budget, 5, k)
+                return self.fn(*args, budget, n_fps=5, rounds=k,
+                               force=force)
+
+            key = f"{what}@{m}"
+            try:
+                run(8, "kernel")
+            except RuntimeError as e:        # a baseline's refused launch
+                rec[key] = {"refused": str(e)}
+                continue
             if exact_required:
                 out = compare_repairs(lambda k: run(k, "kernel"),
                                       lambda k: run(k, "ref"), 8, args,
                                       budget, 5)
                 if not out["within"]:
-                    return {"outside_tolerance": f"{what}: {out}"}
+                    return {"outside_tolerance": f"{key}: {out}"}
             call = lambda: run(8, "kernel")
-            rec[what] = {"ms": self.smoke.device_ms(
-                torch, call, "c6_repair_kernel", self.reps),
-                "events_ms": _event_ms(torch, call, self.reps)}
+            # per launch of the kernel, counted in the trace; every
+            # activity of a call on the per-round path
+            symbol = ("c6_repair_kernel" if m <= REPAIR_CAP else None
+                      if per_round else "c6_repair_cluster_kernel")
+            rec[key] = {"ms": self.smoke.device_ms(torch, call, symbol,
+                                                   self.reps),
+                        "events_ms": _event_ms(torch, call, self.reps)}
         return rec
 
 
@@ -1526,6 +1584,9 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--diagnose", action="store_true",
                     help="time the variants that drop one part of the work")
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="a checkout whose source of each kernel is built "
+                         "and timed as the variant 'baseline'")
     ap.add_argument("--reps", type=int, default=200,
                     help="ccg_encode / ccg_master / ccg_solve / lpt_queue / "
                          "gate_cell / c6_repair launches per timing")
@@ -1540,7 +1601,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     kernels = args.kernel or list(KERNELS)
-    libs = build(kernels, args.diagnose)
+    libs = build(kernels, args.diagnose, args.baseline)
     library = _build.library
     if "flash_attention_bwd" in libs:
         out = ROOT / "build" / "kernel_variants"
