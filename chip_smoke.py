@@ -57,7 +57,17 @@ Phases, one JSON line each; any failure exits non-zero:
                  beside autograd through SDPA and beside its first design
                  (bf16 on the CUDA cores, built from the same source beside
                  the library), the forward kernel's time plus the
-                 backward's beside SDPA's; kernel, plain and library times (CUDA
+                 backward's beside SDPA's; mamba_scan_bwd and
+                 rglru_scan_bwd (the scans' backward kernels of training)
+                 at Falcon-Mamba-7B's and RecurrentGemma-9B's training
+                 shapes (8 × 512, bf16 x, no h0, as the models call them)
+                 and at ragged shapes with h0 and a final-state cotangent
+                 in both dtypes (RG-LRU with lanes where its clamp holds),
+                 every gradient within 1e-5 of its largest |entry| of the
+                 plain VJP (bf16 ones also within one bf16 rounding), two
+                 launches bit-equal, the selective scan's training launch
+                 bit-equal to its serving launch and the backward's
+                 recomputed final state to its h; kernel, plain and library times (CUDA
                  events or the profiler, median after warm-up; SDPA's
                  device time beside its event time) and each kernel's
                  bound: the larger of its bytes and its compute, where
@@ -287,17 +297,29 @@ Phases, one JSON line each; any failure exits non-zero:
                  (``FailureInjector``) after its checkpoint at step 5
                  (under ``build/train_ckpt``, removed after), resumed by a
                  fresh trainer to step 10 within 1e-2 relative of the
-                 uninterrupted run's losses; last, Falcon-Mamba's and
-                 RecurrentGemma's SMOKE models trained on the kernel path
-                 and decode_attention given an input that needs a gradient
-                 must raise.
+                 uninterrupted run's losses; last, decode_attention given
+                 an input that needs a gradient must raise.
+17. ``train_recurrent`` training the recurrent families at full width on a
+                 cut of their layers: Falcon-Mamba-7B at 8 of 64 layers
+                 (1.38 B parameters) and RecurrentGemma-9B at 3 of 38, one
+                 (rglru, rglru, attn) pattern (1.71 B), bf16 over float32
+                 masters, remat, 8 × 512 batches through ``Trainer``: step
+                 1's loss and gradient norm on the kernels against the
+                 plain scans and VJPs (within 1e-2 and 5e-2 relative); 6
+                 steps of ``Trainer.run`` with the launch counters zeroed
+                 just before and read just after (a recurrent layer's scan
+                 exactly twice a step, its backward kernel once; the
+                 attention layer's flash_attention twice and
+                 flash_attention_bwd once), finite losses, step ms,
+                 tokens/s, peak memory, one profiled step with each
+                 kernel's device time.
 
 The last three lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``--out DIR`` also
 writes the nvcc/ptxas build log and every phase's record there.
 ``--only`` runs the named phases alone (``device`` and ``build`` always
-run; ``gate_cell_bwd`` and ``flash_attention_bwd`` are those kernel rows
-alone, to time two checkouts' kernels in turns): a partial run, not the
+run; ``gate_cell_bwd``, ``flash_attention_bwd``, ``mamba_scan_bwd`` and
+``rglru_scan_bwd`` are those kernel rows alone, to time two checkouts' kernels in turns): a partial run, not the
 smoke.
 """
 from __future__ import annotations
@@ -341,7 +363,12 @@ LOGIT_MARGIN = 0.125             # bf16 greedy-id comparison margin
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # atol = rtol
 SCAN_TOL = 1e-5                  # atol = rtol, the scans (float32 outputs)
 PORTED_MODEL_KERNELS = ("flash_attention_kernel", "decode_attention_kernel",
-                        "mamba_scan_kernel", "rglru_scan_kernel")
+                        "mamba_scan_kernel", "rglru_scan_kernel",
+                        # the backward kernels of training (the scans'
+                        # second pass is fixed_sum.cuh's sum_leading_kernel)
+                        "fa_bwd_dq_kernel", "fa_bwd_dkv_kernel",
+                        "mamba_scan_bwd_kernel", "rglru_scan_bwd_kernel",
+                        "sum_leading_kernel")
 
 
 def emit(obj) -> None:
@@ -385,27 +412,38 @@ def device_ms(torch, fn, symbol=None, reps: int = 20):
     """Mean device time of the kernel named ``symbol`` per launch or, with
     no symbol, of every device activity of ``fn`` per call (a library call
     that runs several kernels), from the profiler's CUPTI trace; None when
-    the trace shows no device time."""
+    the trace shows no device time.  A call's time is the sum, over the
+    activities, of each one's mean per event times its events per call
+    (its count over ``reps``, rounded): a trace that drops events (it now
+    and then does) then leaves the mean as it is and does not shrink it.
+    Without a symbol, a trace whose counts are not whole multiples of
+    ``reps`` is taken again, up to three times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    found = None
     for _ in range(3):   # a trace now and then comes back without them
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total, count = 0.0, 0
+        total, count, whole = 0.0, 0, True
         for evt in prof.key_averages():
             if symbol is None and evt.device_type == DeviceType.CUDA \
                     or symbol is not None and symbol in evt.key:
-                total += getattr(evt, "self_device_time_total", 0.0)
+                t = getattr(evt, "self_device_time_total", 0.0)
+                if symbol is None and evt.count:
+                    whole &= evt.count % reps == 0
+                    t *= max(1, round(evt.count / reps)) / evt.count
+                total += t
                 count += evt.count
-        count = reps if symbol is None else count
         if count and total > 0:
-            return total / 1e3 / count
-    return None
+            found = total / 1e3 / (count if symbol is not None else 1)
+            if whole:
+                return found
+    return found
 
 
 def compute_ms(flops: float, flop_per_s: float = FP32_FLOP_PER_S,
@@ -1486,6 +1524,212 @@ def scan_work(name, args):
               + 4 * b * w * (2 if h0 is not None else 1) + 4 * b * s * w)
     # la·r, a·a, 1 −, max, i·x, a·h, ·, + and one exp and one sqrt
     return float(nbytes), float(8 * b * s * w), float(2 * b * s * w)
+
+
+SCAN_BWD_TOL = 1e-5   # of each gradient's largest |entry| (the backward
+                      # kernels sum over channels, steps and rows in another
+                      # order than torch; the selective scan's dA is
+                      # 2^(dt·A·log2 e) on the SFU); a bf16 gradient also
+                      # within one bf16 rounding (2^-7) of each entry
+
+
+def scan_bwd_rows(torch, dev, names=("mamba_scan_bwd", "rglru_scan_bwd")):
+    """mamba_scan_bwd and rglru_scan_bwd (or those of ``names``) against
+    their plain VJPs on the card: at the training shapes of Falcon-Mamba-7B
+    (b 8, S 512, Di 8192, N 16; x and B, C, column slices of the x_proj
+    output, in bf16) and RecurrentGemma-9B (B 8, S 512, W 4096, x in bf16)
+    with no h0 and no final-state cotangent, as the models call them, and
+    at ragged shapes in float32 and bf16 with both; RG-LRU with lanes where
+    the clamp of sqrt(max(1 − a², 1e-12)) holds (r = 0).  Every gradient
+    within SCAN_BWD_TOL of its largest |entry|; two launches bit-equal;
+    the selective scan's training launch bit-equal to its serving launch
+    and the backward's recomputed final state to its h; RG-LRU's
+    elementwise gradients (all but dla) compared bit for bit (reported).
+    Timed at the training shapes: the profiler's device time of a call
+    (every kernel of it: the main kernel and its fixed-order sums), CUDA
+    events around the wrapper, the plain VJP beside them."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan.ops import (
+        selective_scan,
+        selective_scan_bwd,
+    )
+    from repro_torch.kernels.rglru.ops import rglru_scan, rglru_scan_bwd
+
+    gen = torch.Generator(dev).manual_seed(13)
+    fm, rg = get_config("falcon-mamba-7b"), get_config("recurrentgemma-9b")
+    r = fm.dt_rank
+    softplus = torch.nn.functional.softplus
+
+    def normal(shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    def mamba_case(b, s, di, n, dtype, states):
+        proj = normal((b, s, r + 2 * n), dtype)
+        args = (normal((b, s, di), dtype), softplus(normal((b, s, di),
+                                                           scale=0.5)),
+                proj[..., r:r + n], proj[..., r + n:],
+                -torch.exp(normal((di, n), scale=0.2)), normal((di,)),
+                normal((b, di, n)) if states else None)
+        return args, normal((b, s, di)), (normal((b, di, n)) if states
+                                          else None)
+
+    def rglru_case(b, s, w, dtype, states):
+        rr = torch.sigmoid(normal((b, s, w)))
+        rr[..., ::7] = 0.0          # a = 1: the clamp holds
+        args = (normal((b, s, w), dtype), rr, torch.sigmoid(normal((b, s, w))),
+                -8.0 * softplus(normal((w,))),
+                normal((b, w)) if states else None)
+        return args, normal((b, s, w)), normal((b, w)) if states else None
+
+    def mamba_calls(args, dy, dh):
+        """(kernel call, plain call, the checks of the forward launches)."""
+        y, h, tiles = selective_scan(*args, force="kernel",
+                                     return_tiles=True)
+        serve_y, serve_h = selective_scan(*args, force="kernel")
+        h_last = torch.full_like(h, float("nan"))
+        selective_scan_bwd(*args, dy, dh, h_tiles=tiles, h_last=h_last,
+                           force="kernel")
+        torch.cuda.synchronize()
+        if not (torch.equal(y, serve_y) and torch.equal(h, serve_h)
+                and torch.equal(h_last, h)):
+            raise AssertionError("mamba_scan: the training launch's y/h or "
+                                 "the backward's recomputed state differ")
+        return (lambda: selective_scan_bwd(*args, dy, dh, h_tiles=tiles,
+                                           force="kernel"),
+                lambda: selective_scan_bwd(*args, dy, dh, h_tiles=tiles,
+                                           force="ref"))
+
+    def rglru_calls(args, dy, dh):
+        y, _ = rglru_scan(*args, force="kernel")
+        return (lambda: rglru_scan_bwd(*args, y, dy, dh, force="kernel"),
+                lambda: rglru_scan_bwd(*args, y, dy, dh, force="ref"))
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    kernels = {
+        "mamba_scan_bwd": (mamba_case, mamba_calls,
+                           (8, 512, fm.d_inner, fm.ssm.d_state),
+                           [(3, 37, 200, 16), (2, 65, 203, 5)],
+                           ("dx", "ddt", "dB", "dC", "dA", "dD", "dh0"),
+                           "src/repro/kernels/mamba_scan/kernel.py:55",
+                           "src/repro/models/ssm.py:57"),
+        "rglru_scan_bwd": (rglru_case, rglru_calls, (8, 512, rg.lru_width),
+                           [(3, 37, 200), (2, 129, 203)],
+                           ("dx", "dr", "di", "dla", "dh0"),
+                           "src/repro/kernels/rglru/kernel.py:45",
+                           "src/repro/models/rglru.py:49"),
+    }
+    rows = {}
+    for name in names:
+        make, calls, train, ragged, grads, tpu, jnp_scan = kernels[name]
+        errs = {"float32": 0.0, "bfloat16": 0.0}
+        by_grad = {g: 0.0 for g in grads}
+        elementwise_bits, n_cases = True, 0
+        cases = [(train, bf16, False)] + [(shape, dt, True) for shape in ragged
+                                          for dt in (f32, bf16)]
+        for shape, dt, states in cases:
+            args, dy, dh = make(*shape, dt, states)
+            kernel, plain = calls(args, dy, dh)
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            for g_name, g, a, w in zip(grads, got, again, want):
+                if not torch.equal(g, a):
+                    raise AssertionError(f"{name} {shape}: two launches "
+                                         f"differ in {g_name}")
+                scale = max(float(w.double().abs().max()), 1e-30)
+                diff = (g.double() - w.double()).abs()
+                tol = SCAN_BWD_TOL * scale + (
+                    2.0 ** -7 * w.double().abs() if g.dtype == bf16 else 0)
+                if not bool((diff <= tol).all()):
+                    raise AssertionError(
+                        f"{name} {shape} ({dt}): {g_name} kernel vs plain "
+                        f"max |diff| {float(diff.max())} (largest entry "
+                        f"{scale})")
+                rel = float(diff.max()) / scale
+                key = str(g.dtype)[6:]
+                errs[key] = max(errs[key], rel)
+                by_grad[g_name] = max(by_grad[g_name], rel)
+                if name == "rglru_scan_bwd" and g_name != "dla":
+                    elementwise_bits &= bool(torch.equal(g, w))
+            n_cases += 1
+        args, dy, dh = make(*train, bf16, False)
+        kernel, plain = calls(args, dy, dh)
+        ms = device_ms(torch, kernel)
+        nbytes, flops, sfu = scan_bwd_work(name, args, dy)
+        t_bound, by = bound(nbytes, flops, sfu_ops=sfu)
+        row = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"none: port-only, the backward of {tpu}, whose VJP "
+                        f"the reference takes of its jnp scan ({jnp_scan}) "
+                        "by autodiff",
+            "max_abs_err": errs["float32"],
+            "max_err_relative_to": "each gradient's largest |entry|",
+            "max_err_bf16_gradients": errs["bfloat16"],
+            "max_err_by_gradient": by_grad,
+            "tolerance": f"{SCAN_BWD_TOL} of each gradient's largest "
+                         "|entry|; bf16 gradients also 2^-7·|plain|",
+            "cases_compared": n_cases, "two_launches_bitequal": True,
+            "ms": ms, "ms_from": "profiler (every kernel of a call)",
+            "ms_by_kernel": {k: device_ms(torch, kernel, k) for k in (
+                f"{name}_kernel", "sum_leading_kernel")},
+            "call_ms": event_ms(torch, kernel, reps=20),
+            "plain_ms": event_ms(torch, plain, reps=2, warmup=1),
+            "bytes": nbytes, "flops": flops, "sfu_ops": sfu,
+            "bound_ms": t_bound, "bound_by": by,
+            "shape": f"x (B, S, C) = {tuple(train[:3])} bf16"
+                     + (f", N={train[3]}" if len(train) > 3 else "")
+                     + ", no h0, no final-state cotangent",
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes the scan's VJP"}
+        if name == "rglru_scan_bwd":
+            row["elementwise_bit_equal_to_plain"] = elementwise_bits
+        else:
+            serve = lambda: selective_scan(*args[:6], force="kernel")
+            train_launch = lambda: selective_scan(*args[:6], force="kernel",
+                                                  return_tiles=True)
+            # the forward's training launch (it also stores the states)
+            row["forward_ms"] = {
+                "serving": device_ms(torch, serve, "mamba_scan_kernel"),
+                "training": device_ms(torch, train_launch,
+                                      "mamba_scan_kernel")}
+        rows[name] = row
+    return rows
+
+
+def scan_bwd_work(name, args, dy):
+    """Bytes each input read once and each output written once, float32
+    operations and special-function operations of one backward call at
+    the models' call (no h0, no final-state cotangent; dh0 written)."""
+    if name == "mamba_scan_bwd":
+        x, dt, bm, cm, a, d, _ = args
+        b, s, di = x.shape
+        n = a.shape[1]
+        xb, cb = x.element_size(), bm.element_size()
+        tiles = -(-s // 32)
+        # x, dt, dy, the stored states, B, C, A, D in; dx, ddt, dB, dC, dA,
+        # dD, dh0 out
+        nbytes = (b * s * di * (xb + 4 + 4) + 4 * b * tiles * di * n
+                  + 2 * b * s * n * cb + 4 * (di * n + di)
+                  + b * s * di * (xb + 4) + 2 * b * s * n * cb
+                  + 4 * (di * n + di) + 4 * b * di * n)
+        # per state value: the state again (dt·A, dt·B, ·x, dA·h, +), then
+        # dy·C, + (g); dy·h (dC); g·h, ·dA (z); g·x, ·dt (dB); z·A, gx·B,
+        # +, + (ddt); g·B, + (dx); z·dt, + (dA); dA·g (the carry); and an
+        # add each into dB and dC over the channels: 22; per channel:
+        # dt·Σ, D·dy, + (dx) and dy·x, + (dD): 5; one exponential
+        return (float(nbytes), float(b * s * di * (22 * n + 5)),
+                float(b * s * di * n))
+    x = args[0]
+    b, s, w = x.shape
+    xb = x.element_size()
+    # x, r, i, y, dy, la in; dx, dr, di, dla, dh0 out
+    nbytes = (b * s * w * (xb + 16) + 4 * w + b * s * w * (xb + 8)
+              + 4 * w + 4 * b * w)
+    # la·r; dy + carry, a·g (the chain); a·a, 1 −, max; g·s, ·i, ·x;
+    # −a; i·x, g·u, ·dsa, g·h, +; da·a, ·la, ·r, + (dla): 19; exp, sqrt
+    # and the division
+    return float(nbytes), float(19 * b * s * w), float(3 * b * s * w)
 
 
 def main_path_phase(torch, dev, stream, counts_reset, counts_read):
@@ -4169,18 +4413,18 @@ def train_phase(torch, dev, counts_reset, counts_read, steps: int = 10):
     wall time, the peak device memory; one profiled step; a run that
     fails at step 7 (``FailureInjector``) after its checkpoint at step 5,
     resumed by a fresh trainer from that checkpoint to step ``steps``, its
-    losses against the uninterrupted run's; last, a recurrent SMOKE model
-    trained on the kernel path and a wrapper without a backward given an
-    input that needs a gradient must raise."""
+    losses against the uninterrupted run's; last, a wrapper without a
+    backward (decode_attention) given an input that needs a gradient must
+    raise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.models.layers import Ctx
-    from repro_torch.models.model import loss_fn, model_specs
-    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import count_params
     from repro_torch.runtime.cluster import FailureInjector
     from repro_torch.train.optimizer import AdamWConfig, global_norm
     from repro_torch.train.trainer import (
@@ -4327,20 +4571,8 @@ def train_phase(torch, dev, counts_reset, counts_read, steps: int = 10):
     shutil.rmtree(root, ignore_errors=True)
     free_device_memory(torch)
 
-    # training a recurrent block on the kernel path, and a kernel without a
-    # backward under autograd, raise
+    # a kernel without a backward under autograd raises
     raised = {}
-    for arch in ("falcon-mamba-7b", "recurrentgemma-9b"):
-        rcfg = get_smoke_config(arch)
-        rparams = init_params(model_specs(rcfg),
-                              torch.Generator(dev).manual_seed(0), dev)
-        rbatch = {k: torch.as_tensor(v).to(dev) for k, v in next(
-            TokenPipeline(rcfg.vocab_size, 32, 2)).items()}
-        try:
-            loss_fn(Ctx(cfg=rcfg, mode="train"), rparams, rbatch)
-            raise AssertionError(f"train: {arch} trained on the kernel path")
-        except NotImplementedError as e:
-            raised[arch] = str(e)
     q = torch.zeros((2, 8, 64), device=dev, requires_grad=True)
     kv = torch.zeros((2, 2, 16, 64), device=dev)
     try:
@@ -4376,9 +4608,153 @@ def train_phase(torch, dev, counts_reset, counts_read, steps: int = 10):
     }
 
 
+# the recurrent models trained at full width: (arch, layers kept)
+RECURRENT_TRAIN = (("falcon-mamba-7b", 8), ("recurrentgemma-9b", 3))
+SCAN_KERNELS = {"ssm": "mamba_scan", "rglru": "rglru_scan"}
+
+
+def train_recurrent_phase(torch, dev, counts_reset, counts_read,
+                          steps: int = 6):
+    """Training the recurrent families at full width on a cut of their
+    layers (``RECURRENT_TRAIN``: Falcon-Mamba-7B at 8 of its 64 Mamba
+    layers, RecurrentGemma-9B at 3 of its 38, one whole (rglru, rglru,
+    attn) pattern), bf16 compute over float32 masters and AdamW state,
+    remat, through ``Trainer`` on ``TokenPipeline`` batches of 8 × 512:
+    step 1's loss and gradient norm on the kernels (the scans' training
+    launches and backward kernels, the attention's) against the plain
+    versions (plain scans and plain VJPs) within TRAIN_TOL; ``steps``
+    steps of ``Trainer.run`` with the launch counters zeroed just before
+    and read just after (each recurrent layer's scan twice a step, the
+    forward and its recomputation, its backward kernel once; each
+    attention layer's flash_attention twice and flash_attention_bwd once),
+    finite losses, each step's wall time, tokens/s, the peak device
+    memory; one profiled step with each kernel's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import count_params
+    from repro_torch.train.optimizer import AdamWConfig, global_norm
+    from repro_torch.train.trainer import TrainConfig, Trainer, grads_of
+
+    b, s = 8, 512
+    root = ROOT / "build" / "train_recurrent_ckpt"
+    total = collections.Counter()
+    models = {}
+    for arch, layers in RECURRENT_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        free_device_memory(torch)
+        tr = Trainer(cfg, TrainConfig(
+            steps=steps, ckpt_every=steps + 1, ckpt_dir=str(root / arch),
+            log_every=1, opt=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                         total_steps=steps)), device=dev)
+        state = tr.init_state(torch.Generator(dev).manual_seed(0))
+        data = lambda: iter(TokenPipeline(cfg.vocab_size, s, b, seed=0))
+        batch = tr._device_batch(next(data()))
+        first = {}
+        for path, force in (("kernels", "auto"), ("plain", "ref")):
+            t0 = time.perf_counter()
+            loss, _, grads = grads_of(Ctx(cfg=cfg, mode="train", force=force),
+                                      state[0], batch)
+            first[path] = {"loss": float(loss),
+                           "grad_norm": float(global_norm(grads)),
+                           "seconds": time.perf_counter() - t0}
+            del grads
+        gaps = {k: abs(first["kernels"][k] - first["plain"][k])
+                / abs(first["plain"][k]) for k in TRAIN_TOL}
+        for k, tol in TRAIN_TOL.items():
+            if not (math.isfinite(first["kernels"][k]) and gaps[k] <= tol):
+                raise AssertionError(
+                    f"train_recurrent: {arch} step 1 {k} kernels "
+                    f"{first['kernels'][k]} vs plain {first['plain'][k]} "
+                    f"(relative {gaps[k]} > {tol})")
+
+        stamps = []
+
+        def stamped(it):
+            for item in it:
+                stamps.append(time.perf_counter())
+                yield item
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts_reset()
+        state, hist = tr.run(stamped(data()), state=state)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        launches = counts_read()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        kinds = collections.Counter(cfg.layer_kinds())
+        want = collections.Counter()
+        for kind, scan in SCAN_KERNELS.items():
+            if kinds[kind]:
+                want[scan] = 2 * kinds[kind] * steps
+                want[f"{scan}_bwd"] = kinds[kind] * steps
+        if kinds["attn"]:
+            want["flash_attention"] = 2 * kinds["attn"] * steps
+            want["flash_attention_bwd"] = kinds["attn"] * steps
+        if launches != dict(want):
+            raise AssertionError(f"train_recurrent: {arch} launches "
+                                 f"{launches}, want {dict(want)}")
+        total.update(launches)
+        losses = [h["loss"] for h in hist]
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train_recurrent: {arch} losses {losses}")
+        step_ms = [(t1 - t0) * 1e3 for t0, t1 in zip(stamps, stamps[1:])]
+        median_ms = statistics.median(step_ms[1:])
+
+        params, opt_state, err = state
+        nxt = tr._device_batch(next(iter(TokenPipeline(
+            cfg.vocab_size, s, b, seed=1))))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, opt_state, err, _ = tr._step(params, opt_state, err, nxt)
+            torch.cuda.synchronize()
+        acts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in acts) / 1e3
+        group = lambda key: sum(e.self_device_time_total for e in acts
+                                if key in e.key) / 1e3
+        models[arch] = {
+            "layers": layers, "layers_of_config": get_config(arch).num_layers,
+            "layer_kinds": dict(kinds), "params": count_params(
+                model_specs(cfg)), "batch": b, "seq": s,
+            "compute_dtype": cfg.compute_dtype, "steps": steps,
+            "losses": losses, "step_ms": step_ms, "step_ms_median": median_ms,
+            "tokens_per_s": b * s / median_ms * 1e3,
+            "peak_memory_gb": peak_gb, "launches": launches,
+            "launches_per_step": {k: n / steps for k, n in launches.items()},
+            "step1": first, "step1_relative_gaps": gaps,
+            "step1_tolerance": TRAIN_TOL,
+            "profiled_step": {
+                "device_busy_ms": busy_ms,
+                "device_idle_share": 1.0 - busy_ms / median_ms,
+                "device_activities": sum(e.count for e in acts),
+                "ported_kernels_ms": sum(group(k)
+                                         for k in PORTED_MODEL_KERNELS),
+                "kernel_ms": {k: group(k) for k in PORTED_MODEL_KERNELS
+                              if group(k) > 0},
+                "top_device_time": [
+                    {"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                     "count": e.count}
+                    for e in sorted(acts, key=lambda e:
+                                    -e.self_device_time_total)[:8]]},
+        }
+        del state, params, opt_state, err, nxt, batch, tr
+        shutil.rmtree(root, ignore_errors=True)
+    free_device_memory(torch)
+    return dict(total), {"phase": "train_recurrent", "models": models,
+                         "launches": dict(total)}
+
+
 PHASES = ("kernels", "gate_cell_bwd", "flash_attention_bwd", "main_path",
           "solve_ccg", "policies", "decide", "finetune", "scenarios", "sharded", "dispatch",
-          "dispatch_recurrent", "dispatch_moe", "front_end", "train")
+          "dispatch_recurrent", "dispatch_moe", "front_end", "train",
+          "train_recurrent", "mamba_scan_bwd", "rglru_scan_bwd")
 
 
 def main() -> int:
@@ -4387,8 +4763,9 @@ def main() -> int:
                     help="directory for the build log and phase records")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run, of " + ", ".join(
-                        PHASES) + " (default: all; gate_cell_bwd and "
-                        "flash_attention_bwd are those kernel rows alone, "
+                        PHASES) + " (default: all; gate_cell_bwd, "
+                        "flash_attention_bwd, mamba_scan_bwd and "
+                        "rglru_scan_bwd are those kernel rows alone, "
                         "which kernels includes; scenarios "
                         "needs kernels); the kernels line then lists only "
                         "the rows made")
@@ -4468,6 +4845,10 @@ def main() -> int:
         rows.update(scan_rows(torch, dev))
     if only & {"kernels", "flash_attention_bwd"}:
         rows["flash_attention_bwd"] = flash_bwd_row(torch, dev, first_design)
+    bwd_rows = [n for n in ("mamba_scan_bwd", "rglru_scan_bwd")
+                if only & {"kernels", n}]
+    if bwd_rows:
+        rows.update(scan_bwd_rows(torch, dev, bwd_rows))
     if rows:
         record({"phase": "kernels", "compared": [
             {k: rows[n][k] for k in ("name", "max_abs_err", "tolerance")}
@@ -4540,6 +4921,10 @@ def main() -> int:
     if "train" in only:
         phases["train"], train_rec = train_phase(torch, dev, *counted)
         record(train_rec)
+    if "train_recurrent" in only:
+        phases["train_recurrent"], rec = train_recurrent_phase(torch, dev,
+                                                               *counted)
+        record(rec)
     for name, row in rows.items():
         by_phase = {ph: c[name] for ph, c in phases.items() if c.get(name)}
         row["launches"] = sum(by_phase.values())

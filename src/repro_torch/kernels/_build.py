@@ -32,7 +32,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("temporal_gate.cu", "temporal_gate_bwd.cu", "ccg_solve.cu",
            "c6_tail.cu", "lpt_queue.cu", "ccg_encode.cu", "ccg_master.cu",
            "decode_attention.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "mamba_scan.cu", "rglru_scan.cu")
+           "flash_attention_bwd.cu", "mamba_scan.cu", "mamba_scan_bwd.cu",
+           "rglru_scan.cu", "rglru_scan_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,11 +90,18 @@ _SIGNATURES = {
     # window, causal, scale, dtype, stream
     "flash_attention_bwd_launch": [_P] * 11 + [_L] * 15 + [_I] * 9
     + [_F, _I, _P],
-    # x, dt, B, C, A, D, h0, h_out, y, x/dt/B/C strides (b, s), B, S, Di,
-    # N, dtype, stream
-    "mamba_scan_launch": [_P] * 9 + [_L] * 8 + [_I] * 5 + [_P],
+    # x, dt, B, C, A, D, h0, h_out, y, h_tiles (or null), x/dt/B/C strides
+    # (b, s), B, S, Di, N, dtype, stream
+    "mamba_scan_launch": [_P] * 10 + [_L] * 8 + [_I] * 5 + [_P],
+    # x, dt, B, C, A, D, h_tiles, dy, dh (or null), dx, ddt, dB, dC,
+    # part_bc, part_ad, dAD, dh0 (or null), h_last (or null), x/dt/B/C
+    # strides (b, s), B, S, Di, N, dtype, stream
+    "mamba_scan_bwd_launch": [_P] * 18 + [_L] * 8 + [_I] * 5 + [_P],
     # x, r, i, la, h0, h_out, y, B, S, W, dtype, stream
     "rglru_scan_launch": [_P] * 7 + [_I] * 4 + [_P],
+    # x, r, i, la, h0 (or null), y, dy, dh (or null), dx, dr, di, part,
+    # dla, dh0 (or null), B, S, W, dtype, stream
+    "rglru_scan_bwd_launch": [_P] * 14 + [_I] * 4 + [_P],
 }
 
 

@@ -50,6 +50,13 @@
 // with the repository's -fmad=false: the state update keeps the plain
 // version's separate multiplies and adds, in its order; it and the y sum,
 // which torch takes in another order, are held to a stated tolerance.
+//
+// One entry point, two launches: with h_tiles null it serves (the pools'
+// prefills and decode steps, kernels/mamba_scan/ops.py selective_scan);
+// with h_tiles it trains (SelectiveScanFn's forward, once a step and again
+// under remat): it also stores the state entering each 32-step tile, which
+// mamba_scan_bwd.cu recomputes from, and gives the serving launch's y and
+// h bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +84,7 @@ __global__ void __launch_bounds__(kThreads)
                       const T* __restrict__ bm, const T* __restrict__ cm,
                       const float* __restrict__ A, const float* __restrict__ D,
                       const float* h0, float* h_out, float* __restrict__ y,
+                      float* __restrict__ h_tiles,
                       long long x_sb, long long x_ss, long long dt_sb,
                       long long dt_ss, long long b_sb, long long b_ss,
                       long long c_sb, long long c_ss, int S, int Di, int N) {
@@ -118,6 +126,18 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int t0 = 0; t0 < S; t0 += kTileT) {
     const int nt = min(kTileT, S - t0);
+    if (h_tiles != nullptr && live) {   // the training launch: h entering
+      float* ht = h_tiles +             // the tile, for the backward
+                  (((long long)row * ((S + kTileT - 1) / kTileT) +
+                    t0 / kTileT) * Di + d) * N + n0;
+      if (kVec) {
+        *reinterpret_cast<float4*>(ht) = make_float4(h[0], h[1], h[2], h[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i)
+          if (n0 + i < N) ht[i] = h[i];
+      }
+    }
     __syncthreads();   // the previous tile is consumed
     for (int i = threadIdx.x; i < nt * N; i += kThreads) {
       const int tt = i / N, n = i % N;
@@ -179,13 +199,13 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, bool kVec>
 int launch(const void* x, const void* dt, const void* bm, const void* cm,
            const void* A, const void* D, const void* h0, void* h_out, void* y,
-           const long long* st, int B, int S, int Di, int N,
+           void* h_tiles, const long long* st, int B, int S, int Di, int N,
            cudaStream_t stream) {
   const dim3 grid(B, (Di + kChannels - 1) / kChannels);
   mamba_scan_kernel<T, kVec><<<grid, kThreads, 0, stream>>>(
       (const T*)x, (const float*)dt, (const T*)bm, (const T*)cm,
       (const float*)A, (const float*)D, (const float*)h0, (float*)h_out,
-      (float*)y, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], S,
+      (float*)y, (float*)h_tiles, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], S,
       Di, N);
   return (int)cudaGetLastError();
 }
@@ -193,14 +213,30 @@ int launch(const void* x, const void* dt, const void* bm, const void* cm,
 template <typename T>
 int launch_n(const void* x, const void* dt, const void* bm, const void* cm,
              const void* A, const void* D, const void* h0, void* h_out,
-             void* y, const long long* st, int B, int S, int Di, int N,
-             cudaStream_t stream) {
-  const uintptr_t base = (uintptr_t)A | (uintptr_t)h0 | (uintptr_t)h_out;
+             void* y, void* h_tiles, const long long* st, int B, int S,
+             int Di, int N, cudaStream_t stream) {
+  const uintptr_t base = (uintptr_t)A | (uintptr_t)h0 | (uintptr_t)h_out |
+                         (uintptr_t)h_tiles;
   if (N == kMaxN && base % 16 == 0)
-    return launch<T, true>(x, dt, bm, cm, A, D, h0, h_out, y, st, B, S, Di,
-                           N, stream);
-  return launch<T, false>(x, dt, bm, cm, A, D, h0, h_out, y, st, B, S, Di, N,
-                          stream);
+    return launch<T, true>(x, dt, bm, cm, A, D, h0, h_out, y, h_tiles, st, B,
+                           S, Di, N, stream);
+  return launch<T, false>(x, dt, bm, cm, A, D, h0, h_out, y, h_tiles, st, B,
+                          S, Di, N, stream);
+}
+
+int launch_dtype(const void* x, const void* dt, const void* bm,
+                 const void* cm, const void* A, const void* D, const void* h0,
+                 void* h_out, void* y, void* h_tiles, const long long* st,
+                 int B, int S, int Di, int N, int dtype, cudaStream_t s) {
+  if (B < 1 || S < 1 || Di < 1 || N < 1 || N > kMaxN)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_n<float>(x, dt, bm, cm, A, D, h0, h_out, y, h_tiles, st, B,
+                           S, Di, N, s);
+  if (dtype == 1)
+    return launch_n<__nv_bfloat16>(x, dt, bm, cm, A, D, h0, h_out, y,
+                                   h_tiles, st, B, S, Di, N, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -208,24 +244,19 @@ int launch_n(const void* x, const void* dt, const void* bm, const void* cm,
 // dtype (of x, B and C): 0 float32, 1 bfloat16.  Strides in elements (batch,
 // step) of x, dt, B and C, whose last dimension is contiguous; A (Di, N),
 // D (Di,), h0 and h_out (B, Di, N) contiguous float32, h0 null for zeros
-// and allowed to alias h_out; y (B, S, Di) contiguous float32.
+// and allowed to alias h_out; y (B, S, Di) contiguous float32; h_tiles null
+// (serving) or (B, ⌈S/32⌉, Di, N) contiguous float32 (training), which
+// receives the state entering each tile of kTileT = 32 steps (h0 or zeros
+// first) and leaves y and h_out the serving launch's bits.
 extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* bm,
                                  const void* cm, const void* A, const void* D,
                                  const void* h0, void* h_out, void* y,
-                                 long long x_sb, long long x_ss,
+                                 void* h_tiles, long long x_sb, long long x_ss,
                                  long long dt_sb, long long dt_ss,
                                  long long b_sb, long long b_ss,
                                  long long c_sb, long long c_ss, int B, int S,
                                  int Di, int N, int dtype, void* stream) {
-  if (B < 1 || S < 1 || Di < 1 || N < 1 || N > kMaxN)
-    return (int)cudaErrorInvalidValue;
   const long long st[8] = {x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_n<float>(x, dt, bm, cm, A, D, h0, h_out, y, st, B, S, Di,
-                           N, s);
-  if (dtype == 1)
-    return launch_n<__nv_bfloat16>(x, dt, bm, cm, A, D, h0, h_out, y, st, B,
-                                   S, Di, N, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype(x, dt, bm, cm, A, D, h0, h_out, y, h_tiles, st, B, S,
+                      Di, N, dtype, (cudaStream_t)stream);
 }

@@ -39,6 +39,10 @@
 // its order (b is the product it adds to a·h); expf and the IEEE sqrtf are
 // the functions torch calls, so both kernels equal the plain version bit
 // for bit.
+//
+// One launch serves and trains: the pools' prefills and decode steps
+// (kernels/rglru/ops.py rglru_scan), and RGLRUScanFn's forward in training,
+// which saves its y (the states h_t) for rglru_scan_bwd.cu.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

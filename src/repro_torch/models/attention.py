@@ -35,7 +35,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Ctx, apply_mrope, apply_rope
+from repro_torch.models.layers import Ctx, apply_mrope, apply_rope, needs_grad
 from repro_torch.models.params import ParamSpec
 
 NEG_INF = -1e30
@@ -200,9 +200,7 @@ def _prefill_attention(ctx: Ctx, q, k, v, positions, positions_given):
         # the caller's positions go to the kernel, which masks by them.
         # Training (or any caller that needs a gradient) goes through the
         # autograd function, whose backward is the backward kernel
-        train = ctx.mode == "train" or torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v))
-        fn = flash_ops.flash_attention_autograd if train \
+        fn = flash_ops.flash_attention_autograd if needs_grad(ctx, q, k, v) \
             else flash_ops.flash_attention
         out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                  window=cfg.attn_window, causal=True,

@@ -6,7 +6,6 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import _build
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
 
@@ -90,17 +89,13 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def refuse_scan_training(ctx: Ctx, kernel: str, device) -> None:
-    """A recurrent block trained on its scan kernel (``train`` mode, grad
-    enabled, the kernel path chosen) raises: ``selective_scan`` and
-    ``rglru_scan`` have no backward kernel yet (ROADMAP queue A.16b).
-    ``force="ref"`` trains the block on the plain scan."""
-    if ctx.mode == "train" and torch.is_grad_enabled() \
-            and _build.dispatch(kernel, ctx.force, device):
-        raise NotImplementedError(
-            f"{ctx.cfg.name}: training the {kernel} kernel needs its "
-            "backward kernel (ROADMAP queue A.16b); train with "
-            "force='ref' for the plain scan")
+def needs_grad(ctx: Ctx, *tensors) -> bool:
+    """A recurrent mixer's scan goes through its autograd function (whose
+    backward is the backward kernel on the card) in ``train`` mode, or
+    wherever grad is enabled and an operand requires it, as the
+    attention's training path does."""
+    return ctx.mode == "train" or torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors)
 
 
 def causal_conv(x, w, b, state=None):

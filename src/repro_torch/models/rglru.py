@@ -8,8 +8,10 @@ of ``repro/models/rglru.py`` (specs and ``rglru_forward``) on the
 
 The scan runs ``kernels/rglru`` (the CUDA kernel for CUDA tensors, its
 plain version — the reference model's jnp scan — for CPU tensors;
-``ctx.force`` pins either).  A decode step writes its new convolution
-state and recurrent state into the cache's layer views in place.
+``ctx.force`` pins either).  Training goes through ``RGLRUScanFn``: the
+kernel and the backward kernel on the card, the plain scan and its plain
+VJP elsewhere.  A decode step writes its new convolution state and
+recurrent state into the cache's layer views in place.
 """
 from __future__ import annotations
 
@@ -20,12 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru import ops as scan_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (
-    Ctx,
-    causal_conv,
-    refuse_scan_training,
-    softplus,
-)
+from repro_torch.models.layers import Ctx, causal_conv, needs_grad, softplus
 from repro_torch.models.params import ParamSpec
 
 _C = 8.0  # RG-LRU decay temperature (Griffin)
@@ -53,8 +50,11 @@ def rglru_specs(cfg: ModelConfig) -> dict:
 def rglru_forward(ctx: Ctx, p, x, *, cache=None, emit_cache: bool = False):
     """x: (B, S, d) -> (out (B, S, d), cache or None).  Decode: ``cache`` =
     {conv: (B, K-1, W), h: (B, W) float32}, both written in place and
-    returned; prefill with ``emit_cache``: a fresh {conv, h}."""
-    refuse_scan_training(ctx, "rglru_scan", x.device)
+    returned; prefill with ``emit_cache``: a fresh {conv, h}.
+
+    The scan takes the kernel's launch, or, in ``train`` mode or wherever an
+    operand needs a gradient, ``RGLRUScanFn`` on every device (on the card
+    the same launch, then the backward kernel)."""
     rec = x @ p["w_rec_in"]
     # jax.nn.gelu's default is the tanh approximation
     gate = F.gelu(x @ p["w_gate_in"], approximate="tanh")
@@ -63,9 +63,13 @@ def rglru_forward(ctx: Ctx, p, x, *, cache=None, emit_cache: bool = False):
     rgate = torch.sigmoid((rec @ p["w_a"]).float() + p["b_a"])
     igate = torch.sigmoid((rec @ p["w_x"]).float() + p["b_x"])
     log_a_base = -_C * softplus(p["lambda_p"])
-    h0 = cache["h"] if cache is not None else None    # updated in place
-    y, h = scan_ops.rglru_scan(rec, rgate, igate, log_a_base, h0, h_out=h0,
-                               force=ctx.force)
+    if cache is None and needs_grad(ctx, rec, rgate, igate, log_a_base):
+        y, h = scan_ops.rglru_scan_autograd(rec, rgate, igate, log_a_base,
+                                            force=ctx.force)
+    else:
+        h0 = cache["h"] if cache is not None else None    # updated in place
+        y, h = scan_ops.rglru_scan(rec, rgate, igate, log_a_base, h0,
+                                   h_out=h0, force=ctx.force)
     y = y.to(rec.dtype) * gate
     out = y @ p["w_out"]
 

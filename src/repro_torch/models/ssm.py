@@ -4,9 +4,12 @@ kernel.
 
 The scan runs ``kernels/mamba_scan`` (the CUDA kernel for CUDA tensors, its
 plain version — the reference model's jnp scan — for CPU tensors;
-``ctx.force`` pins either).  A decode step writes its new convolution
-state and SSM state into the cache's layer views in place (the reference
-returns them); the slab is the caller's and every later step reads it.
+``ctx.force`` pins either).  Training goes through ``SelectiveScanFn``:
+the kernel's training launch and the backward kernel on the card, the
+plain scan and its plain VJP elsewhere.  A decode step writes its new
+convolution state and SSM state into the cache's layer views in place (the
+reference returns them); the slab is the caller's and every later step
+reads it.
 """
 from __future__ import annotations
 
@@ -17,12 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (
-    Ctx,
-    causal_conv,
-    refuse_scan_training,
-    softplus,
-)
+from repro_torch.models.layers import Ctx, causal_conv, needs_grad, softplus
 from repro_torch.models.params import ParamSpec
 
 
@@ -48,8 +46,12 @@ def ssm_specs(cfg: ModelConfig) -> dict:
 def ssm_forward(ctx: Ctx, p, x, *, cache=None, emit_cache: bool = False):
     """x: (B, S, d) -> (out (B, S, d), cache or None).  Decode: ``cache`` =
     {conv: (B, K-1, Di), h: (B, Di, N) float32}, both written in place and
-    returned; prefill with ``emit_cache``: a fresh {conv, h}."""
-    refuse_scan_training(ctx, "mamba_scan", x.device)
+    returned; prefill with ``emit_cache``: a fresh {conv, h}.
+
+    The scan takes the serving launch, or, in ``train`` mode or wherever an
+    operand needs a gradient, ``SelectiveScanFn`` on every device (on the
+    card the training launch, which keeps the states that the backward
+    kernel recomputes from)."""
     cfg = ctx.cfg
     di, r, n = cfg.d_inner, cfg.dt_rank, cfg.ssm.d_state
 
@@ -61,10 +63,14 @@ def ssm_forward(ctx: Ctx, p, x, *, cache=None, emit_cache: bool = False):
     proj = xs @ p["x_proj"]
     dt_full = softplus((proj[..., :r] @ p["dt_proj"]).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    h0 = cache["h"] if cache is not None else None    # updated in place
-    y, h = scan_ops.selective_scan(
-        xs, dt_full, proj[..., r:r + n], proj[..., r + n:], A, p["D"], h0,
-        h_out=h0, force=ctx.force)
+    operands = (xs, dt_full, proj[..., r:r + n], proj[..., r + n:], A,
+                p["D"])
+    if cache is None and needs_grad(ctx, *operands):
+        y, h = scan_ops.selective_scan_autograd(*operands, force=ctx.force)
+    else:
+        h0 = cache["h"] if cache is not None else None    # updated in place
+        y, h = scan_ops.selective_scan(*operands, h0, h_out=h0,
+                                       force=ctx.force)
     y = y.to(xs.dtype) * F.silu(z)
     out = y @ p["out_proj"]
 

@@ -40,8 +40,17 @@ them (same tolerances), and positions 0..S-1 give the index launch's bits.
 output, and the tensor-core kernels round P and dS to bf16 before their
 products) of each gradient's largest |entry|, and two of its launches give
 the same bits.  The forward's training launch (``return_lse``) gives the
-serving launch's bits and each row's LSE within 1e-5 of the plain one.  Kernels without a backward refuse inputs
-that need a gradient.
+serving launch's bits and each row's LSE within 1e-5 of the plain one.
+``mamba_scan_bwd`` and ``rglru_scan_bwd`` are held to their plain VJPs
+within 1e-5 of each gradient's largest |entry| (they sum over channels,
+steps and rows in another order, and the selective scan's dA is taken on
+the SFU), a bf16 gradient also within one bf16 rounding of each entry;
+``rglru_scan_bwd``'s dx, dr, di and dh0 repeat the plain float32
+operations in order and must match bit for bit; two launches of each give
+the same bits; the selective scan's training launch gives the serving
+launch's bits, and its backward recomputes the forward's final state bit
+for bit.  The recurrent SMOKE models train on the kernel path.  Kernels
+without a backward refuse inputs that need a gradient.
 The bf16 flash kernel copies 16-byte row chunks: misaligned rows raise.
 The decode kernel splits each cache over a cluster of blocks and combines
 the splits in a fixed order (two calls are bit-equal); bf16 rows on 16-byte
@@ -50,6 +59,9 @@ rows its CUDA-core ones.  ``lpt_queue`` walks sorted loads for times >= 0
 and a live cloud tier, else a tree argmin: both are exact, in one block's
 shared memory up to 54,656 tasks and in chunks past it.
 """
+import collections
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -88,8 +100,11 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_vjp_ref,
 )
 from repro_torch.kernels.lpt_queue.ops import BLOCK_TASKS, MAX_TASKS, lpt_queue
-from repro_torch.kernels.mamba_scan.ops import selective_scan
-from repro_torch.kernels.rglru.ops import rglru_scan
+from repro_torch.kernels.mamba_scan.ops import (
+    selective_scan,
+    selective_scan_bwd,
+)
+from repro_torch.kernels.rglru.ops import rglru_scan, rglru_scan_bwd
 from repro_torch.kernels.temporal_gate.ops import (
     gate_cell,
     gate_cell_autograd,
@@ -99,10 +114,10 @@ from repro_torch.kernels.temporal_gate.ref import gate_cell_vjp_ref
 from repro_torch.configs import get_smoke_config
 from repro_torch.models.layers import Ctx, mrope_positions
 from repro_torch.data.tokens import TokenPipeline
-from repro_torch.models.model import loss_fn, model_specs, prefill
-from repro_torch.models.params import init_params
+from repro_torch.models.model import model_specs, prefill
+from repro_torch.models.params import init_params, tree_leaves
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.trainer import TrainConfig, Trainer
+from repro_torch.train.trainer import TrainConfig, Trainer, grads_of
 
 pytestmark = pytest.mark.cuda
 
@@ -1165,6 +1180,131 @@ def test_rglru_scan_kernel_unaligned_operands(dev, dtype):
     assert torch.equal(got_y, want_y) and torch.equal(got_h, want_h)
 
 
+def _bwd_close(got, want, what):
+    """A scan's backward kernel against its plain VJP: each gradient within
+    1e-5 of its largest |entry| (the kernels sum over the channels, the
+    steps and the rows in another order than torch, and the selective scan
+    takes exp(dt·A) on the SFU, relative error ~2^-22, in g's recurrence
+    too); a bf16 gradient also within one bf16 rounding of each entry (the
+    two round float32 values that may differ in their last bits)."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    g, w = got.double(), want.double()
+    tol = 1e-5 * float(w.abs().max())
+    if got.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * w.abs()
+    diff = (g - w).abs()
+    assert bool((diff <= tol).all()), f"{what}: max |diff| {float(diff.max())}"
+
+
+def _mamba_bwd_args(rng, b, s, di, n, dtype, with_states, dev):
+    x = _normal(rng, (b, s, di), dtype, dev)
+    dt = torch.nn.functional.softplus(
+        0.5 * _normal(rng, (b, s, di), torch.float32, dev))
+    proj = _normal(rng, (b, s, 3 + 2 * n), dtype, dev)
+    A = -torch.exp(0.2 * _normal(rng, (di, n), torch.float32, dev))
+    D = _normal(rng, (di,), torch.float32, dev)
+    h0 = _normal(rng, (b, di, n), torch.float32, dev) if with_states else None
+    dy = _normal(rng, (b, s, di), torch.float32, dev)
+    dh = _normal(rng, (b, di, n), torch.float32, dev) if with_states else None
+    return (x, dt, proj[..., 3:3 + n], proj[..., 3 + n:], A, D, h0), dy, dh
+
+
+_MAMBA_BWD_CASES = [
+    # Falcon-Mamba-7B's training shape, as the model calls it
+    (8, 512, 8192, 16, torch.bfloat16, False),
+    *((*shape, dtype, states)
+      for shape in ((3, 37, 200, 16),     # ragged S and Di
+                    (2, 1, 130, 4),       # one step, the SMOKE state size
+                    (2, 65, 203, 16),     # three tiles, the last of one step
+                    (3, 37, 136, 5),      # N not a multiple of a lane's 4
+                    (2, 33, 61, 16))      # channels below a block's 64
+      for dtype in (torch.float32, torch.bfloat16)
+      for states in (False, True)),
+]
+
+
+@pytest.mark.parametrize("b,s,di,n,dtype,with_states", _MAMBA_BWD_CASES)
+def test_mamba_scan_bwd_kernel(dev, b, s, di, n, dtype, with_states):
+    """The training launch gives the serving launch's y and h bits and the
+    states entering each 32-step tile; the backward kernel recomputes the
+    forward's final state bit for bit from them, equals the plain VJP
+    within ``_bwd_close``, and two launches give the same bits."""
+    args, dy, dh = _mamba_bwd_args(_gen(b + s + di + n), b, s, di, n, dtype,
+                                   with_states, dev)
+    reset_launch_counts()
+    y, h, tiles = selective_scan(*args, force="kernel", return_tiles=True)
+    serve_y, serve_h = selective_scan(*args, force="kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(y, serve_y) and torch.equal(h, serve_h)
+    assert torch.equal(tiles[:, 0], torch.zeros_like(h) if args[-1] is None
+                       else args[-1])
+    h_last = torch.full_like(h, float("nan"))
+    got = selective_scan_bwd(*args, dy, dh, h_tiles=tiles, h_last=h_last,
+                             force="kernel")
+    again = selective_scan_bwd(*args, dy, dh, h_tiles=tiles, force="kernel")
+    assert launch_counts() == {"mamba_scan": 2, "mamba_scan_bwd": 2}
+    want = selective_scan_bwd(*args, dy, dh, h_tiles=tiles, force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(h_last, h)
+    names = ("dx", "ddt", "dB", "dC", "dA", "dD", "dh0")
+    for name, g, a, w in zip(names, got, again, want):
+        assert torch.equal(g, a), name
+        _bwd_close(g, w, name)
+
+
+def test_mamba_scan_bwd_kernel_copies_dy_and_needs_the_states(dev):
+    """A stride-0 ``dy`` (from ``y.sum()``) is copied; the kernel path
+    refuses to run without the training launch's ``h_tiles`` (it makes no
+    forward launch of its own)."""
+    args, _, _ = _mamba_bwd_args(_gen(5), 2, 40, 130, 16, torch.bfloat16,
+                                 False, dev)
+    dy = torch.ones((), device=dev).expand(2, 40, 130)
+    _, _, tiles = selective_scan(*args, force="kernel", return_tiles=True)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="h_tiles"):
+        selective_scan_bwd(*args, dy, h_tiles=None, force="kernel")
+    got = selective_scan_bwd(*args, dy, h_tiles=tiles, force="kernel")
+    assert launch_counts() == {"mamba_scan_bwd": 1}
+    want = selective_scan_bwd(*args, dy, h_tiles=tiles, force="ref")
+    for g, w in zip(got, want):
+        _bwd_close(g, w, "stride-0 dy")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_states", [False, True])
+@pytest.mark.parametrize("b,s,w", [
+    (8, 512, 4096),        # RecurrentGemma-9B's training shape
+    (3, 37, 200),          # two tiles, a partial channel block
+    (2, 1, 45),            # one step
+    (2, 129, 203),         # five tiles, the last of one step
+])
+def test_rglru_scan_bwd_kernel(dev, dtype, with_states, b, s, w):
+    """dx, dr, di and dh0 equal the plain VJP bit for bit (the same float32
+    operations in the same order, IEEE expf, sqrtf and division); dla,
+    summed over the steps and then the rows in another order, within
+    ``_bwd_close``; lanes where the clamp holds (r = 0) included; two
+    launches give the same bits."""
+    rng = _gen(3 * b + s + w)
+    x, r, i, la, h0 = _rglru_args(rng, b, s, w, dtype, with_states, dev)
+    r[..., ::7] = 0.0
+    dy = _normal(rng, (b, s, w), torch.float32, dev)
+    dh = _normal(rng, (b, w), torch.float32, dev) if with_states else None
+    y, _ = rglru_scan(x, r, i, la, h0, force="kernel")
+    reset_launch_counts()
+    got = rglru_scan_bwd(x, r, i, la, h0, y, dy, dh, force="kernel")
+    again = rglru_scan_bwd(x, r, i, la, h0, y, dy, dh, force="kernel")
+    assert launch_counts() == {"rglru_scan_bwd": 2}
+    want = rglru_scan_bwd(x, r, i, la, h0, y, dy, dh, force="ref")
+    torch.cuda.synchronize()
+    for name, g, a, wt in zip(("dx", "dr", "di", "dla", "dh0"), got, again,
+                              want):
+        assert torch.equal(g, a), name
+        if name == "dla":
+            _bwd_close(g, wt, name)
+        else:
+            assert torch.equal(g, wt), name
+
+
 # ------------------------------------------------- the scenario path's masks
 
 def _tier_mask(tier_flat, tier_ok):
@@ -1449,18 +1589,53 @@ def test_kernels_without_a_backward_refuse_autograd(dev):
         assert launch_counts() == {name: 2}, name
 
 
-def test_recurrent_training_on_the_kernel_path_raises(dev):
-    for arch in ("falcon-mamba-7b", "recurrentgemma-9b"):
-        cfg = get_smoke_config(arch)
-        params = init_params(model_specs(cfg),
-                             torch.Generator(dev).manual_seed(0), dev)
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
-            TokenPipeline(cfg.vocab_size, 32, 2)).items()}
-        with pytest.raises(NotImplementedError, match="A.16b"):
-            loss_fn(Ctx(cfg=cfg, mode="train"), params, batch)
-        loss, _ = loss_fn(Ctx(cfg=cfg, mode="train", force="ref"), params,
-                          batch)
-        assert torch.isfinite(loss)
+# a recurrent SMOKE model in float32: each gradient leaf, kernels against
+# plain, within 1e-4 of the leaf's largest |entry| (the scans' and the
+# attention's kernels sum in other orders and the selective scan takes
+# exp(dt·A) on the SFU; the differences grow through the layers)
+TRAIN_GRAD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_recurrent_models_train_on_the_kernel_path(dev, arch, tmp_path):
+    """The SMOKE Falcon-Mamba and RecurrentGemma models train on the card
+    through the scans' autograd functions: the loss and every gradient leaf
+    (float32 compute) against ``force="ref"`` (the plain scans and plain
+    VJPs), then one ``Trainer`` step (bf16 compute, remat) that launches
+    each recurrent layer's scan twice (the forward and its recomputation)
+    and its backward kernel once, and each attention layer's kernels as
+    the dense models' step does."""
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    params = init_params(model_specs(cfg),
+                         torch.Generator(dev).manual_seed(0), dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+        TokenPipeline(cfg.vocab_size, 64, 4)).items()}
+    out = {force: grads_of(Ctx(cfg=cfg, mode="train", force=force), params,
+                           batch) for force in ("auto", "ref")}
+    (loss, _, grads), (want_loss, _, want_grads) = out["auto"], out["ref"]
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    for g, w in zip(tree_leaves(grads), tree_leaves(want_grads)):
+        assert bool(torch.isfinite(g).all())
+        err = float((g - w).abs().max())
+        assert err <= TRAIN_GRAD_TOL * float(w.abs().max()), (arch, err)
+
+    cfg = get_smoke_config(arch)
+    tr = Trainer(cfg, TrainConfig(ckpt_dir=str(tmp_path),
+                                  opt=AdamWConfig(warmup_steps=1)),
+                 device=dev)
+    state = tr.init_state()
+    batch = tr._device_batch(next(TokenPipeline(cfg.vocab_size, 64, 4)))
+    reset_launch_counts()
+    *_, metrics = tr._step(*state, batch)
+    kinds = collections.Counter(cfg.layer_kinds())
+    scan = "mamba_scan" if arch == "falcon-mamba-7b" else "rglru_scan"
+    recurrent = kinds["ssm"] + kinds["rglru"]
+    want = {scan: 2 * recurrent, f"{scan}_bwd": recurrent}
+    if kinds["attn"]:
+        want.update(flash_attention=2 * kinds["attn"],
+                    flash_attention_bwd=kinds["attn"])
+    assert launch_counts() == want
+    assert torch.isfinite(metrics["loss"])
 
 
 def test_train_step_launches_the_attention_kernels(dev, tmp_path):

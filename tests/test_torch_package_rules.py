@@ -263,21 +263,30 @@ def _launching_wrappers():
 def test_kernel_wrappers_without_a_backward_refuse_grad():
     """A kernel's output carries no gradient, so every wrapper that
     launches one refuses operands that need a gradient
-    (``_build.refuse_grad``), except the two kernels that autograd reaches
+    (``_build.refuse_grad``), except the kernels that autograd reaches
     through their own ``torch.autograd.Function`` (``GateCellFn``,
-    ``FlashAttentionFn``: their backward is a kernel too) and those two
-    backward kernels.  The refusal raises only where grad is enabled and
-    an operand requires it."""
+    ``FlashAttentionFn``, ``SelectiveScanFn``, ``RGLRUScanFn``: their
+    backward is a kernel too) and those backward kernels.  The forward
+    wrappers of the last three refuse, as their functions call them with
+    grad disabled.  The refusal raises only where grad is enabled and an
+    operand requires it."""
     wrappers = _launching_wrappers()
     assert len(wrappers) >= 13
     free = {name for name, body in wrappers.items()
             if "_build.refuse_grad(" not in body}
     assert free == {("temporal_gate", "gate_cell"),
                     ("temporal_gate", "gate_cell_vjp"),
-                    ("flash_attention", "flash_attention_bwd")}
-    assert ("flash_attention", "flash_attention") not in free
+                    ("flash_attention", "flash_attention_bwd"),
+                    ("mamba_scan", "selective_scan_bwd"),
+                    ("rglru", "rglru_scan_bwd")}
+    for forward in (("flash_attention", "flash_attention"),
+                    ("mamba_scan", "selective_scan"),
+                    ("rglru", "rglru_scan")):
+        assert forward in wrappers and forward not in free
     for mod, fn in (("temporal_gate", "GateCellFn"),
-                    ("flash_attention", "FlashAttentionFn")):
+                    ("flash_attention", "FlashAttentionFn"),
+                    ("mamba_scan", "SelectiveScanFn"),
+                    ("rglru", "RGLRUScanFn")):
         assert f"class {fn}(torch.autograd.Function)" in (
             PKG / "kernels" / mod / "ops.py").read_text()
     x = torch.zeros(3, requires_grad=True)
