@@ -313,6 +313,28 @@ Phases, one JSON line each; any failure exits non-zero:
                  flash_attention_bwd once), finite losses, step ms,
                  tokens/s, peak memory, one profiled step with each
                  kernel's device time.
+18. ``train_ranks`` training across ranks: Qwen1.5-0.5B at full size (bf16
+                 over float32 masters, remat, 8 × 512 global batches) on
+                 a ("data", "model") mesh.  (a) An NCCL world of 1 at
+                 mesh (1, 1), in this process, against the one-device
+                 ``Trainer`` in turns for 4 steps: losses, every master and
+                 moment bit-equal; each step's ms.  (b) Two gloo ranks
+                 sharing the card (``run_ranks``) at mesh (2, 1), 4 steps
+                 of 4 rows a rank: step 1's loss within 1e-3 relative of
+                 (a)'s one-device step, the gaps of steps 2-4; per rank the
+                 step ms, tokens/s, peak memory, seconds in collectives and
+                 bytes through the host a step, the collectives by kind;
+                 each rank writes its blocks at step 2 (under
+                 ``build/train_ranks_ckpt``, removed after).  (c) A world
+                 of 1 restores that checkpoint: every block of (b)'s step
+                 2 bit-equal (digests), then steps 3-4 within 1e-4 of
+                 (b)'s losses.  (d) In (b)'s world, ``compressed_allreduce``
+                 of a (151936, 1024) leaf bit-equal to the sum of both
+                 ranks' codes in rank order, and a 2-stage GPipe pipeline
+                 at width 1024, 8 microbatches, within 1e-5 of the
+                 sequential loop.  The launch counters are zeroed before
+                 each counted run and read after: 48 flash_attention and
+                 24 flash_attention_bwd launches a step on every trainer.
 
 The last three lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``--out DIR`` also
@@ -4751,10 +4773,338 @@ def train_recurrent_phase(torch, dev, counts_reset, counts_read,
                          "launches": dict(total)}
 
 
+# training across ranks: Qwen1.5-0.5B at full size, 8 × 512 global batches
+RANKS_STEPS = 4
+RANKS_TOL = 1e-3          # a bf16 loss on another mesh, relative
+# (c)'s losses against (b)'s, relative: the CPU tests hold float32 runs to
+# 1e-5, but in bf16 one rank's weight gradients over 8 rows round otherwise
+# than two ranks' over 4 rows each, summed in float32 (2.0e-5 measured on
+# an H100 at step 4); 5 times that reading
+SURVIVOR_TOL = 1e-4
+PIPE = {"stages": 2, "layers": 8, "width": 1024, "microbatches": 8,
+        "rows": 64, "tol": 1e-5}
+
+
+def ranks_setup():
+    """The config, optimizer and batches of the ``train_ranks`` phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config("qwen1.5-0.5b")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=RANKS_STEPS)
+    it = iter(TokenPipeline(cfg.vocab_size, 512, 8, seed=0))
+    return cfg, opt, [next(it) for _ in range(RANKS_STEPS)]
+
+
+def state_leaves(state) -> dict:
+    """{"params/..." / "mu/..." / "nu/...": tensor} of a trainer state."""
+    from repro_torch.checkpoint.manager import _flatten
+
+    params, opt_state, _ = state
+    return {f"{name}{path}": t
+            for name, tree in (("params", params), ("mu", opt_state.mu),
+                               ("nu", opt_state.nu))
+            for path, t in _flatten(tree)}
+
+
+def tensor_digest(torch, t) -> str:
+    import hashlib
+
+    raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+    return hashlib.blake2b(raw.numpy(), digest_size=16).hexdigest()
+
+
+def block_digests(torch, tr, state) -> dict:
+    """{state leaf path: (start, shape, digest of the bytes)} of this
+    rank's blocks of the parameters and moments."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.models.params import block_start
+
+    starts = {path: block_start(pl, tr.mesh)
+              for path, pl in _flatten(tr.placements)}
+    return {key: (starts[key[key.index("/"):]], tuple(t.shape),
+                  tensor_digest(torch, t))
+            for key, t in state_leaves(state).items()}
+
+
+def region_digest(torch, t, start, shape) -> str:
+    """The digest of the region [start, start + shape) of a whole leaf."""
+    return tensor_digest(torch, t[tuple(slice(a, a + n)
+                                        for a, n in zip(start, shape))])
+
+
+def train_ranks_rank(device: str, ckpt_dir: str) -> dict:
+    """One of two gloo ranks sharing the card (``run_ranks``): Qwen1.5-0.5B
+    at mesh (2, 1), 4 steps of the phase's batches (4 of the 8 rows a
+    rank), its blocks written at step 2 (and their digests); then
+    ``compressed_allreduce`` on a Qwen-sized leaf against its arithmetic on
+    the codes of both ranks, and a 2-stage pipeline against the sequential
+    loop."""
+    import collections
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh, mesh_device_type
+    from repro_torch.sharding.collectives import COLLECTIVES, TRAFFIC, \
+        shard_index
+    from repro_torch.sharding.pipeline import bubble_fraction, pipeline, \
+        split_stages
+    from repro_torch.train.compression import compress, compressed_allreduce
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    dev = torch.device(device)
+    cfg, opt, batches = ranks_setup()
+    mesh = make_host_mesh((2, 1))
+    tr = Trainer(cfg, TrainConfig(steps=RANKS_STEPS,
+                                  ckpt_every=RANKS_STEPS + 1,
+                                  ckpt_dir=ckpt_dir, log_every=1, opt=opt),
+                 mesh=mesh, device=dev)
+    state = tr.init_state(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    start, traffic0 = len(COLLECTIVES), dict(TRAFFIC)
+    losses, step_ms, digests = [], [], None
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        state, hist = tr.run(iter([b]), n_steps=1, state=state)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(hist[-1]["loss"])
+        if tr.step == 2:        # each rank writes its blocks
+            t0 = time.perf_counter()
+            tr.save(state)
+            save_s = time.perf_counter() - t0
+            digests = block_digests(torch, tr, state)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ops = collections.Counter(op for op, _, _ in COLLECTIVES[start:])
+    del state
+    torch.cuda.empty_cache()
+
+    # compressed_allreduce on a Qwen-sized leaf (the token table's shape)
+    me = shard_index(mesh, "data")
+    shape = (cfg.vocab_size, cfg.d_model)
+    gs = [torch.randn(shape, generator=torch.Generator(dev).manual_seed(
+        100 + i), device=dev) * (i + 1) for i in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = compressed_allreduce(gs[me], mesh)
+    torch.cuda.synchronize()
+    car_ms = (time.perf_counter() - t0) * 1e3
+    want = None
+    for g in gs:
+        q, s = compress(g)
+        part = s * q.float()
+        want = part if want is None else want + part
+    car = {"shape": list(shape), "ms": car_ms,
+           "bit_equal": bool(torch.equal(got, want)),
+           "max_abs_err": float((got - want).abs().max())}
+    del gs, got, want
+
+    # a 2-stage pipeline on the two ranks
+    p = PIPE
+    smesh = DeviceMesh(mesh_device_type(), list(range(p["stages"])),
+                       mesh_dim_names=("stage",))
+    gen = torch.Generator(dev).manual_seed(5)
+    w = torch.randn((p["layers"], p["width"], p["width"]), generator=gen,
+                    device=dev) * p["width"] ** -0.5
+    bias = torch.randn((p["layers"], p["width"]), generator=gen,
+                       device=dev) * 0.1
+    xs = torch.randn((p["microbatches"], p["rows"], p["width"]),
+                     generator=gen, device=dev)
+
+    def stage_fn(params, x):
+        for wi, bi in zip(*params):
+            x = torch.tanh(x @ wi + bi)
+        return x
+
+    ws, bs = split_stages([w, bias], p["stages"])
+    s = shard_index(smesh, "stage")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipeline(stage_fn, smesh, axis="stage")((ws[s], bs[s]), xs)
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    seq = xs
+    for i in range(p["layers"]):
+        seq = torch.tanh(seq @ w[i] + bias[i])
+    pipe = {**p, "ms": pipe_ms,
+            "max_abs_err": float((out - seq).abs().max()),
+            "bubble_fraction": bubble_fraction(p["microbatches"],
+                                               p["stages"])}
+    steps = len(batches)
+    return {"rank": me, "losses": losses, "step_ms": step_ms,
+            "checkpoint_s": save_s,
+            "tokens_per_s": [4 * 512 / ms * 1e3 for ms in step_ms],
+            "peak_gb": peak_gb, "launches": launches,
+            "collective_s_per_step": (TRAFFIC["seconds"]
+                                      - traffic0["seconds"]) / steps,
+            "host_bytes_per_step": (TRAFFIC["host_bytes"]
+                                    - traffic0["host_bytes"]) / steps,
+            "collectives": dict(ops), "digests": digests,
+            "compressed_allreduce": car, "pipeline": pipe}
+
+
+def train_ranks_phase(torch, dev, counts_reset, counts_read):
+    """Training across ranks (see the module doc): (a) an NCCL world of 1
+    at mesh (1, 1) against the one-device ``Trainer`` in turns, bit for
+    bit; (b) two gloo ranks sharing the card at mesh (2, 1); (c) a world
+    of 1 restoring (b)'s step-2 checkpoint and running steps 3-4; (d) in
+    (b)'s world, ``compressed_allreduce`` and a 2-stage pipeline.  Returns
+    (the launches of the mesh trainers, the phase's record)."""
+    from repro_torch.launch.mesh import make_host_mesh, run_ranks, \
+        single_rank_group
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg, opt, batches = ranks_setup()
+    root = ROOT / "build" / "train_ranks_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    free_device_memory(torch)
+    want = {"flash_attention": 2 * cfg.num_layers * RANKS_STEPS,
+            "flash_attention_bwd": cfg.num_layers * RANKS_STEPS}
+    total = collections.Counter()
+
+    def tcfg(name):
+        return TrainConfig(steps=RANKS_STEPS, ckpt_every=RANKS_STEPS + 1,
+                           ckpt_dir=str(root / name), log_every=1, opt=opt)
+
+    # (a) a world of one on NCCL against the one-device trainer, in turns
+    with single_rank_group("nccl"):
+        trs = {"one_device": Trainer(cfg, tcfg("one"), device=dev),
+               "world1": Trainer(cfg, tcfg("w1"), mesh=make_host_mesh(
+                   (1, 1)), device=dev)}
+        states = {k: tr.init_state(torch.Generator(dev).manual_seed(0))
+                  for k, tr in trs.items()}
+        a = {k: {"losses": [], "step_ms": [],
+                 "launches": collections.Counter()} for k in trs}
+        for b in batches:
+            for k, tr in trs.items():
+                batch = tr._device_batch(b)
+                torch.cuda.synchronize()
+                counts_reset()
+                t0 = time.perf_counter()
+                *states[k], m = tr._step(*states[k], batch)
+                a[k]["losses"].append(float(m["loss"]))
+                torch.cuda.synchronize()
+                a[k]["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                a[k]["launches"].update(counts_read())
+        leaves = {k: state_leaves(s) for k, s in states.items()}
+        unequal = sum(not torch.equal(t, leaves["one_device"][key])
+                      for key, t in leaves["world1"].items())
+        n_leaves = len(leaves["world1"])
+        del trs, states, leaves
+    free_device_memory(torch)
+    for k in ("one_device", "world1"):
+        if dict(a[k]["launches"]) != want:
+            raise AssertionError(f"train_ranks (a) {k}: launches "
+                                 f"{dict(a[k]['launches'])}, want {want}")
+        a[k]["launches"] = dict(a[k]["launches"])
+    total.update(a["world1"]["launches"])
+    if a["world1"]["losses"] != a["one_device"]["losses"] or unequal:
+        raise AssertionError(f"train_ranks (a): world 1 "
+                             f"{a['world1']['losses']} vs one device "
+                             f"{a['one_device']['losses']}, {unequal} "
+                             f"leaves differ")
+    a["bit_equal_leaves"] = n_leaves
+
+    # (b) two gloo ranks sharing the card, their checks (d) in their world
+    t0 = time.perf_counter()
+    ranks = run_ranks(train_ranks_rank, 2, backend="gloo", timeout=600,
+                      threads=None, args=(str(dev), str(root / "ranks")))
+    ranks_s = time.perf_counter() - t0
+    one = a["one_device"]["losses"]
+    for r in ranks:
+        if dict(r["launches"]) != want:
+            raise AssertionError(f"train_ranks (b) rank {r['rank']}: "
+                                 f"launches {r['launches']}, want {want}")
+        total.update(r["launches"])
+        if r["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"train_ranks (b): ranks' losses differ "
+                                 f"{r['losses']} {ranks[0]['losses']}")
+        car, pipe = r["compressed_allreduce"], r["pipeline"]
+        if not car["bit_equal"]:
+            raise AssertionError(f"train_ranks (d): compressed_allreduce "
+                                 f"{car}")
+        if not pipe["max_abs_err"] <= PIPE["tol"]:
+            raise AssertionError(f"train_ranks (d): pipeline {pipe}")
+    gaps = [abs(x - y) / abs(y) for x, y in zip(ranks[0]["losses"], one)]
+    if not gaps[0] <= RANKS_TOL:
+        raise AssertionError(f"train_ranks (b): step 1 loss "
+                             f"{ranks[0]['losses'][0]} vs one device "
+                             f"{one[0]} (relative {gaps[0]} > {RANKS_TOL})")
+
+    # (c) a world of one restores (b)'s step-2 blocks and runs steps 3-4
+    with single_rank_group("nccl"):
+        tr = Trainer(cfg, TrainConfig(
+            steps=RANKS_STEPS, ckpt_every=RANKS_STEPS + 1,
+            ckpt_dir=str(root / "ranks"), log_every=1, opt=opt),
+            mesh=make_host_mesh((1, 1)), device=dev)
+        t0 = time.perf_counter()
+        state = tr.maybe_restore(tr.init_state(
+            torch.Generator(dev).manual_seed(1)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if tr.step != 2:
+            raise AssertionError(f"train_ranks (c): restored step {tr.step}")
+        whole = state_leaves(state)
+        compared = mismatched = 0
+        for r in ranks:
+            for key, (start, shape, want_digest) in r["digests"].items():
+                compared += 1
+                mismatched += region_digest(torch, whole[key], start,
+                                            shape) != want_digest
+        del whole
+        if mismatched:
+            raise AssertionError(f"train_ranks (c): {mismatched} of "
+                                 f"{compared} restored blocks differ from "
+                                 f"(b)'s step 2")
+        counts_reset()
+        _, hist = tr.run(iter(batches[2:]), n_steps=RANKS_STEPS - 2,
+                         state=state)
+        c_launches = counts_read()
+        del state, tr
+    want_c = {k: n * (RANKS_STEPS - 2) // RANKS_STEPS for k, n in want.items()}
+    if c_launches != want_c:
+        raise AssertionError(f"train_ranks (c): launches {c_launches}, "
+                             f"want {want_c}")
+    total.update(c_launches)
+    c_losses = [h["loss"] for h in hist]
+    c_gaps = [abs(x - y) / abs(y) for x, y in zip(c_losses,
+                                                   ranks[0]["losses"][2:])]
+    if not max(c_gaps) <= SURVIVOR_TOL:
+        raise AssertionError(f"train_ranks (c): losses {c_losses} vs (b)'s "
+                             f"{ranks[0]['losses'][2:]} (relative {c_gaps} "
+                             f"> {SURVIVOR_TOL})")
+    ckpt_gb = sum(f.stat().st_size for f in (root / "ranks").rglob("*")
+                  if f.is_file()) / 1e9
+    shutil.rmtree(root, ignore_errors=True)
+    free_device_memory(torch)
+    for r in ranks:
+        del r["digests"]
+    return dict(total), {
+        "phase": "train_ranks", "arch": cfg.name, "batch": 8, "seq": 512,
+        "steps": RANKS_STEPS, "tolerance": RANKS_TOL,
+        "a_world1_nccl": a,
+        "b_gloo_ranks": {"mesh": [2, 1], "ranks": ranks, "seconds": ranks_s,
+                         "gaps_vs_one_device": gaps},
+        "c_survivor": {"mesh": [1, 1], "restored_step": 2,
+                       "restore_s": restore_s, "checkpoint_gb": ckpt_gb,
+                       "blocks_bit_equal": compared,
+                       "losses": c_losses, "gaps_vs_b": c_gaps,
+                       "tolerance": SURVIVOR_TOL,
+                       "launches": c_launches},
+        "launches": dict(total)}
+
+
 PHASES = ("kernels", "gate_cell_bwd", "flash_attention_bwd", "main_path",
           "solve_ccg", "policies", "decide", "finetune", "scenarios", "sharded", "dispatch",
           "dispatch_recurrent", "dispatch_moe", "front_end", "train",
-          "train_recurrent", "mamba_scan_bwd", "rglru_scan_bwd")
+          "train_recurrent", "train_ranks", "mamba_scan_bwd",
+          "rglru_scan_bwd")
 
 
 def main() -> int:
@@ -4924,6 +5274,9 @@ def main() -> int:
     if "train_recurrent" in only:
         phases["train_recurrent"], rec = train_recurrent_phase(torch, dev,
                                                                *counted)
+        record(rec)
+    if "train_ranks" in only:
+        phases["train_ranks"], rec = train_ranks_phase(torch, dev, *counted)
         record(rec)
     for name, row in rows.items():
         by_phase = {ph: c[name] for ph, c in phases.items() if c.get(name)}

@@ -2,10 +2,9 @@
 
 56L d_model=6144 48H (GQA kv=8) d_expert=16384 vocab=32768 [arXiv:2401.04088].
 
-The reference's config also carries ``sharding_overrides`` (TP within each
-expert: 8 experts do not divide its 16-way model axis); the port's
-``ModelConfig`` has no sharding fields yet (ROADMAP queue A.15), so the
-copy drops that field and keeps every other.
+Sharding note: 8 experts do not divide a 16-way model axis, so Mixtral
+splits each expert's MLP dim over "model" instead of the experts
+(``sharding_overrides``, the reference's).
 """
 from repro_torch.models.config import ModelConfig, MoEConfig
 
@@ -21,6 +20,10 @@ CONFIG = ModelConfig(
     vocab_size=32768,
     attn_window=4096,
     moe=MoEConfig(num_experts=8, top_k=2, d_expert=16384),
+    sharding_overrides={
+        "train": {"experts": None, "expert_mlp": "model"},
+        "serve": {"experts": None, "expert_mlp": "model"},
+    },
     # int8 expert weights in the serve-time specs (model_specs(serve=True))
     quant_experts_serve=True,
 )

@@ -1,16 +1,24 @@
 """Meshes over the ranks of a ``torch.distributed`` process group, and the
-starter of ranks that the tests and ``chip_smoke.py`` use.
+starter of ranks that the tests, the training launcher and
+``chip_smoke.py`` use.
 
-:func:`host_mesh` is the counterpart of ``repro/launch/mesh.py``'s
-``make_host_mesh`` (:17): a mesh over whatever ranks the running process
+:func:`host_mesh` is a 1-D mesh over whatever ranks the running process
 group has, its one dim named ``"data"`` (the stream axis the serving path
-shards).  ``make_production_mesh`` (TPU pod shapes) is ROADMAP queue A.17.
+shards).  :func:`make_host_mesh` is the counterpart of
+``repro/launch/mesh.py``'s (:17): a 2-D ``("data", "model")`` mesh over
+those ranks, shape (1, n) by default as the reference's, or any shape
+whose product is n (the trainer's).  ``make_production_mesh`` (the
+256/512-device TPU pod shapes) is ROADMAP queue A.17: it raises.
 
 The backend is the caller's explicit choice and follows the device: NCCL
 for CUDA, one rank a card; gloo for the CPU.  Several ranks on one card
 take gloo, asked for by name: their collectives then stage each tensor
 through the host (``sharding/collectives.py``).  Nothing picks gloo
 quietly.
+
+A process group cannot shrink: after a ``NodeFailure`` the world ends and
+the survivors start a new one of their count, whose ranks build the
+``runtime.cluster.elastic_remesh`` mesh and restore the checkpoint onto it.
 
 :func:`run_ranks` starts D ranks as spawned processes that meet through a
 ``FileStore`` in a fresh temporary directory (no ports), runs one function
@@ -57,13 +65,40 @@ def host_mesh(axis: str = "data") -> DeviceMesh:
                       mesh_dim_names=(axis,))
 
 
-def _check_backend(backend: str) -> None:
+def make_host_mesh(shape: tuple | None = None) -> DeviceMesh:
+    """A ``("data", "model")`` mesh over every rank of the running default
+    process group, rank ``d·M + m`` at (d, m): shape (1, n) by default, or
+    ``shape`` (its product must be n).  A collective call."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_host_mesh needs a running process group "
+                           "(run_ranks / single_rank_group start one)")
+    n = dist.get_world_size()
+    shape = (1, n) if shape is None else tuple(shape)
+    if len(shape) != 2 or shape[0] * shape[1] != n:
+        raise ValueError(f"mesh shape {shape} for {n} ranks")
+    ranks = torch.arange(n).reshape(shape).tolist()
+    return DeviceMesh(mesh_device_type(), ranks,
+                      mesh_dim_names=("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    raise NotImplementedError(
+        "make_production_mesh: the reference's 16 × 16 and 2 × 16 × 16 "
+        "TPU pod meshes (256 / 512 devices) are ROADMAP queue A.17; train "
+        "across ranks on make_host_mesh")
+
+
+def _check_backend(backend: str, world: int = 1) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
     if backend == "nccl" and not torch.cuda.is_available():
         raise RuntimeError("backend='nccl' needs CUDA, which is not "
                            "available")
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise ValueError(f"backend='nccl' takes one rank a card: {world} "
+                         f"ranks on {torch.cuda.device_count()} cards (ranks "
+                         f"sharing a card take gloo, asked for by name)")
 
 
 def _init(backend: str, store_path: str, rank: int, world: int,
@@ -123,7 +158,7 @@ def run_ranks(fn, world: int, *, backend: str, args=(),
     fresh temporary directory.  A rank that raises, dies, or a world that
     has not finished within ``timeout`` seconds stops every rank and
     raises (``RuntimeError`` / ``TimeoutError``)."""
-    _check_backend(backend)
+    _check_backend(backend, world)
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
     ctx = multiprocessing.get_context("spawn")

@@ -2,9 +2,13 @@
 ``repro/launch/steps.py`` (``SHAPES``, ``make_train_step``,
 ``make_prefill_step``, ``make_serve_step``, ``applicable_shapes``).
 
-The reference's builders return functions to jit under sharding ``rules``;
-the port's run eagerly on one device, so ``rules`` must be None (training
-and serving across ranks with rules: ROADMAP A.16c).  The shape-spec half
+The reference's builders return functions to jit under sharding ``rules``,
+which GSPMD splits over a mesh; the port's run eagerly on one device, so
+``rules`` must be None.  Training across ranks is the ``Trainer``'s
+(``Trainer(cfg, tcfg, mesh=, rules=)``: data-parallel compute, storage
+split by the rules); tensor-parallel compute under the rules, and so a
+prefill or serve step split over a mesh, is ROADMAP queue A.16d, and the
+production meshes A.17.  The shape-spec half
 (``rules_for``, ``batch_specs``, ``params_specs``, ``cache_input_specs``,
 ``opt_state_specs``, ``input_specs``, ``step_for``) serves the dry-run
 launchers and comes with them (ROADMAP A.17).
@@ -29,8 +33,11 @@ SHAPES = {
 
 def _no_rules(rules) -> None:
     if rules is not None:
-        raise NotImplementedError("sharding rules: the port's steps run on "
-                                  "one device (ROADMAP queue A.16c)")
+        raise NotImplementedError(
+            "sharding rules: the port's step builders run on one device; "
+            "train across ranks with Trainer(mesh=, rules=); steps split "
+            "by the rules over a mesh are ROADMAP queue A.16d "
+            "(tensor-parallel compute), the production meshes A.17")
 
 
 def make_train_step(cfg: ModelConfig, rules, opt_cfg: AdamWConfig, *,

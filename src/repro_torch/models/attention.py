@@ -46,18 +46,26 @@ def attn_specs(cfg: ModelConfig) -> dict:
     s_in = d ** -0.5
     s_out = (h * hd) ** -0.5 / math.sqrt(2 * cfg.num_layers)
     specs = {
-        "wq": ParamSpec((d, h * hd), stddev=s_in),
-        "wk": ParamSpec((d, kv * hd), stddev=s_in),
-        "wv": ParamSpec((d, kv * hd), stddev=s_in),
-        "wo": ParamSpec((h * hd, d), stddev=s_out),
+        "wq": ParamSpec((d, h * hd), axes=("embed", "heads_flat"),
+                        stddev=s_in),
+        "wk": ParamSpec((d, kv * hd), axes=("embed", "heads_flat"),
+                        stddev=s_in),
+        "wv": ParamSpec((d, kv * hd), axes=("embed", "heads_flat"),
+                        stddev=s_in),
+        "wo": ParamSpec((h * hd, d), axes=("heads_flat", "embed"),
+                        stddev=s_out),
     }
     if cfg.qkv_bias:
-        specs["bq"] = ParamSpec((h * hd,), init="zeros")
-        specs["bk"] = ParamSpec((kv * hd,), init="zeros")
-        specs["bv"] = ParamSpec((kv * hd,), init="zeros")
+        specs["bq"] = ParamSpec((h * hd,), axes=("heads_flat",), init="zeros")
+        specs["bk"] = ParamSpec((kv * hd,), axes=("heads_flat",),
+                                 init="zeros")
+        specs["bv"] = ParamSpec((kv * hd,), axes=("heads_flat",),
+                                 init="zeros")
     if cfg.qk_norm:
-        specs["q_norm"] = ParamSpec((hd,), dtype="float32", init="ones")
-        specs["k_norm"] = ParamSpec((hd,), dtype="float32", init="ones")
+        specs["q_norm"] = ParamSpec((hd,), axes=("head_dim",),
+                                     dtype="float32", init="ones")
+        specs["k_norm"] = ParamSpec((hd,), axes=("head_dim",),
+                                     dtype="float32", init="ones")
     return specs
 
 

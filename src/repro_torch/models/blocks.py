@@ -51,16 +51,21 @@ def block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
     if kind == "attn":
         shape = (batch, attn_cache_len(cfg, seq_len), cfg.num_kv_heads,
                  cfg.head_dim)
-        return {"k": ParamSpec(shape, dtype=dt, init="zeros"),
-                "v": ParamSpec(shape, dtype=dt, init="zeros")}
+        axes = ("cache_batch", "cache_seq", "cache_kv", "cache_dim")
+        return {"k": ParamSpec(shape, axes=axes, dtype=dt, init="zeros"),
+                "v": ParamSpec(shape, axes=axes, dtype=dt, init="zeros")}
     if kind == "ssm":
-        width, cw = cfg.d_inner, cfg.ssm.d_conv
+        width, cw, wax = cfg.d_inner, cfg.ssm.d_conv, "inner"
         h = (batch, width, cfg.ssm.d_state)
+        h_axes = ("cache_batch", wax, "state")
     else:
-        width, cw = cfg.lru_width, cfg.rglru.conv_width
+        width, cw, wax = cfg.lru_width, cfg.rglru.conv_width, "rglru_width"
         h = (batch, width)
-    return {"conv": ParamSpec((batch, cw - 1, width), dtype=dt, init="zeros"),
-            "h": ParamSpec(h, dtype="float32", init="zeros")}
+        h_axes = ("cache_batch", wax)
+    return {"conv": ParamSpec((batch, cw - 1, width),
+                              axes=("cache_batch", None, wax), dtype=dt,
+                              init="zeros"),
+            "h": ParamSpec(h, axes=h_axes, dtype="float32", init="zeros")}
 
 
 def block_apply(ctx: Ctx, kind: str, p: dict, x, *, positions, length=None,

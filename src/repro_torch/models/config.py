@@ -1,14 +1,15 @@
 """Model configuration dataclasses: a copy of ``repro/models/config.py``.
 
 The port reads the attention (RoPE and M-RoPE), MLP, MoE, SSM, RG-LRU,
-embedding, cache and numerics fields.  The reference's sharding overrides
-and Pallas switch have no counterpart here: the port has no sharding rules
-yet (ROADMAP queue A.15), and its kernels are pinned per call with
+embedding, cache and numerics fields, and the per-mode sharding rule
+overrides (``sharding_overrides``, read by ``sharding.rules.make_rules``
+through the trainer and the training launcher).  The reference's Pallas
+switch has no counterpart: the port's kernels are pinned per call with
 ``force=``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Mapping, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +78,10 @@ class ModelConfig:
     remat: bool = True
     attn_chunk: int = 1024                 # kv-chunk for memory-efficient attention
     loss_chunk: int = 512                  # seq-chunk for the fused lm-head/CE loss
+    # per-mode sharding rule overrides: {"train": {...}, "serve": {...}}
+    sharding_overrides: Mapping[str, Mapping[str, object]] = dataclasses.field(
+        default_factory=dict
+    )
     # int8 expert weights at serve time (mixtral-class models whose bf16
     # experts alone exceed 16 GB/chip under 16-way TP; also halves the
     # weight-streaming memory term of MoE decode)

@@ -1,5 +1,7 @@
 """Shared layers: port of ``repro/models/layers.py`` (norms, embeddings,
-RoPE, the forward context) without sharding constraints."""
+RoPE, the forward context).  The reference's ``Ctx.constrain`` (a GSPMD
+placement hint that leaves the numbers as they are) has no counterpart:
+the port places each tensor explicitly (``models/params.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,11 +17,19 @@ class Ctx:
     """Forward context: the config, the mode (train | prefill | decode;
     ``train``, the reference's default, runs a prefill-shaped forward with
     each layer under activation checkpointing where ``cfg.remat``, and the
-    attention kernel through its autograd function) and the kernels' pin
-    (``force``: auto | ref | kernel, as on every kernel wrapper)."""
+    attention kernel through its autograd function), the kernels' pin
+    (``force``: auto | ref | kernel, as on every kernel wrapper) and what
+    the loss needs to know about the ranks: ``mesh``, a ``DeviceMesh``
+    whose ``"data"`` dim splits the batch, or None (the whole batch is
+    here).  With a mesh, :func:`~repro_torch.models.model.loss_fn` returns
+    this rank's share of the loss over the global batch (the mask count
+    and the MoE load statistics summed over ``"data"``), so the shares and
+    their gradients sum over ``"data"`` to the global loss and its
+    gradient."""
     cfg: ModelConfig
     mode: str = "train"
     force: str = "auto"
+    mesh: object = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -27,7 +37,8 @@ class Ctx:
 
 
 def rmsnorm_specs(d: int) -> dict:
-    return {"scale": ParamSpec((d,), dtype="float32", init="ones")}
+    return {"scale": ParamSpec((d,), axes=("act_embed",), dtype="float32",
+                               init="ones")}
 
 
 def rmsnorm(p, x, eps: float):
@@ -42,9 +53,11 @@ def embed_specs(cfg: ModelConfig) -> dict:
     ``cfg.embed_inputs=False``) and the output head unless tied."""
     out = {}
     if cfg.embed_inputs:
-        out["tok"] = ParamSpec((cfg.vocab_size, cfg.d_model), stddev=1.0)
+        out["tok"] = ParamSpec((cfg.vocab_size, cfg.d_model),
+                               axes=("vocab", "embed"), stddev=1.0)
     if not cfg.tie_embeddings:
         out["out"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                               axes=("embed", "vocab"),
                                stddev=cfg.d_model ** -0.5)
     return out
 

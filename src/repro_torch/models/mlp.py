@@ -15,9 +15,9 @@ def mlp_specs(cfg: ModelConfig) -> dict:
     s_in = d ** -0.5
     s_out = f ** -0.5 / math.sqrt(2 * cfg.num_layers)
     return {
-        "w_gate": ParamSpec((d, f), stddev=s_in),
-        "w_up": ParamSpec((d, f), stddev=s_in),
-        "w_down": ParamSpec((f, d), stddev=s_out),
+        "w_gate": ParamSpec((d, f), axes=("embed", "mlp"), stddev=s_in),
+        "w_up": ParamSpec((d, f), axes=("embed", "mlp"), stddev=s_in),
+        "w_down": ParamSpec((f, d), axes=("mlp", "embed"), stddev=s_out),
     }
 
 

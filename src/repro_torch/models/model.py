@@ -35,6 +35,7 @@ from repro_torch.models.params import (
     tree_leaves,
     tree_map,
 )
+from repro_torch.sharding.collectives import psum_ordered
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -58,8 +59,9 @@ def build_segments(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
 
 
 def _stack_specs(specs: dict, n: int) -> dict:
-    return tree_map(lambda s: dataclasses.replace(s, shape=(n,) + s.shape),
-                    specs)
+    return tree_map(lambda s: dataclasses.replace(
+        s, shape=(n,) + s.shape,
+        axes=("layers",) + s.axes if s.axes else ()), specs)
 
 
 def model_specs(cfg: ModelConfig, serve: bool = False) -> dict:
@@ -204,7 +206,9 @@ def chunked_ce_loss(ctx: Ctx, x, w_out, labels, mask=None):
     chunk, V), the product in the compute dtype then float32, live only
     inside its chunk and are recomputed in the backward
     (``torch.utils.checkpoint``), never saved.  Returns the masked mean
-    over the tokens (float32 0-d)."""
+    over the tokens (float32 0-d); with ``ctx.mesh``, this rank's masked
+    sum over the mask count summed over ``"data"`` (its share of the
+    global mean)."""
     b, s, _ = x.shape
     chunk = min(ctx.cfg.loss_chunk, s)
     if s % chunk:
@@ -220,6 +224,8 @@ def chunked_ce_loss(ctx: Ctx, x, w_out, labels, mask=None):
         total = total + checkpoint(_ce_chunk, x[:, sl], w, labels[:, sl],
                                    m_blk, use_reentrant=False)
         denom = denom + m_blk.sum()
+    if ctx.mesh is not None:
+        denom = psum_ordered(denom, ctx.mesh, "data")
     return total / torch.clamp_min(denom, 1.0)
 
 
@@ -244,7 +250,9 @@ def loss_fn(ctx: Ctx, params, batch, aux_weight: float = 0.01):
     """Training loss -> (ce + aux_weight · aux, {"ce", "aux"}): ``batch``
     holds the model inputs of :func:`forward`, ``labels`` (B, S) and an
     optional float ``mask`` (B, S); ``params`` in any float dtype (float32
-    masters train a bf16 model: :func:`compute_params`)."""
+    masters train a bf16 model: :func:`compute_params`).  With
+    ``ctx.mesh``, the three are this rank's shares: their sums over
+    ``"data"`` are the global batch's values."""
     params = compute_params(ctx.cfg, params)
     x, _, aux = forward(ctx, params, batch)
     w_out = output_weights(ctx.cfg, params["embed"])

@@ -18,6 +18,15 @@ included).  The grouped products are batched matrix products
 (``torch.bmm``), which the reference leaves to XLA outside any Pallas
 kernel; routing and dispatch are tensor ops with no host sync.
 
+Across ranks (``ctx.mesh``, training): each rank holding its rows of the
+batch is one of the reference's dispatch groups (its groups are the
+data-shard count of contiguous batch rows, capacity per group), so the
+dispatch above runs on the rank's tokens alone.  The load-balancing loss is
+the reference's over every group's tokens: the first-choice counts are
+summed over ``"data"`` and the rank returns its share
+E · Σ_e density_e · (Σ of its tokens' router probabilities of e) / T, T
+the global token count, whose sum over ``"data"`` is the global loss.
+
 Top-k ties: ``jax.lax.top_k`` returns the lower expert index first among
 equal logits, which fixes the capacity order and the order of the sum over
 k; ``torch.topk`` promises no order among ties, so the port takes the first
@@ -33,8 +42,11 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Ctx
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding.collectives import psum_ordered, shard_count
 
 _EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+_IN = ("experts", "expert_in", "expert_mlp")     # (E, d, f)
+_OUT = ("experts", "expert_mlp", "expert_in")    # (E, f, d)
 
 
 def moe_specs(cfg: ModelConfig, quantized: bool = False) -> dict:
@@ -47,15 +59,20 @@ def moe_specs(cfg: ModelConfig, quantized: bool = False) -> dict:
     s_out = f ** -0.5 / math.sqrt(2 * cfg.num_layers)
     wdt = "int8" if quantized else None
     specs = {
-        "router": ParamSpec((d, e.num_experts), stddev=s_in),
-        "w_gate": ParamSpec((e.num_experts, d, f), dtype=wdt, stddev=s_in),
-        "w_up": ParamSpec((e.num_experts, d, f), dtype=wdt, stddev=s_in),
-        "w_down": ParamSpec((e.num_experts, f, d), dtype=wdt, stddev=s_out),
+        "router": ParamSpec((d, e.num_experts), axes=("embed", None),
+                            stddev=s_in),
+        "w_gate": ParamSpec((e.num_experts, d, f), axes=_IN,
+                            dtype=wdt, stddev=s_in),
+        "w_up": ParamSpec((e.num_experts, d, f), axes=_IN,
+                          dtype=wdt, stddev=s_in),
+        "w_down": ParamSpec((e.num_experts, f, d), axes=_OUT,
+                            dtype=wdt, stddev=s_out),
     }
     if quantized:
         for name in _EXPERT_WEIGHTS:
-            specs[name + "_scale"] = ParamSpec((e.num_experts, 1, 1),
-                                               dtype="float32", init="ones")
+            specs[name + "_scale"] = ParamSpec(
+                (e.num_experts, 1, 1), axes=("experts", None, None),
+                dtype="float32", init="ones")
     return specs
 
 
@@ -140,12 +157,19 @@ def moe_forward(ctx: Ctx, p, x):
                     torch.clamp(pos, 0, cap - 1)]               # (t·k, d)
     y_slots = torch.where(keep[:, None], y_slots, 0)
     y = (y_slots * flat_w[:, None].to(dt)).reshape(t, k, d).sum(dim=1)
-    return y.reshape(b, s, d), _load_balance_loss(logits, ids, n_exp)
+    return y.reshape(b, s, d), _load_balance_loss(logits, ids, n_exp,
+                                                  ctx.mesh)
 
 
-def _load_balance_loss(logits, ids, num_experts: int):
+def _load_balance_loss(logits, ids, num_experts: int, mesh=None):
     """Switch-style auxiliary loss: E · Σ_e (share of tokens whose first
-    choice is e) · (mean router probability of e)."""
+    choice is e) · (mean router probability of e), over the tokens of every
+    rank along ``mesh``'s ``"data"`` dim; with a mesh, this rank's share
+    (its own tokens' probabilities over the global count)."""
     probs = torch.softmax(logits, dim=-1)
-    density = F.one_hot(ids[:, 0], num_experts).float().mean(dim=0)
-    return num_experts * torch.sum(density * probs.mean(dim=0))
+    counts = F.one_hot(ids[:, 0], num_experts).float().sum(dim=0)
+    n = probs.shape[0]
+    if mesh is not None:
+        counts = psum_ordered(counts, mesh, "data")
+        n *= shard_count(mesh, "data")
+    return num_experts * torch.sum(counts / n * (probs.sum(dim=0) / n))

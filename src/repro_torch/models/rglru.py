@@ -33,16 +33,25 @@ def rglru_specs(cfg: ModelConfig) -> dict:
     float32."""
     d, w, cw = cfg.d_model, cfg.lru_width, cfg.rglru.conv_width
     return {
-        "w_rec_in": ParamSpec((d, w), stddev=d ** -0.5),
-        "w_gate_in": ParamSpec((d, w), stddev=d ** -0.5),
-        "conv_w": ParamSpec((cw, w), stddev=cw ** -0.5),
-        "conv_b": ParamSpec((w,), init="zeros"),
-        "w_a": ParamSpec((w, w), stddev=w ** -0.5),
-        "b_a": ParamSpec((w,), dtype="float32", init="zeros"),
-        "w_x": ParamSpec((w, w), stddev=w ** -0.5),
-        "b_x": ParamSpec((w,), dtype="float32", init="zeros"),
-        "lambda_p": ParamSpec((w,), dtype="float32", init="ones"),
-        "w_out": ParamSpec((w, d), stddev=w ** -0.5
+        "w_rec_in": ParamSpec((d, w), axes=("embed", "rglru_width"),
+                              stddev=d ** -0.5),
+        "w_gate_in": ParamSpec((d, w), axes=("embed", "rglru_width"),
+                               stddev=d ** -0.5),
+        "conv_w": ParamSpec((cw, w), axes=("conv", "rglru_width"),
+                            stddev=cw ** -0.5),
+        "conv_b": ParamSpec((w,), axes=("rglru_width",), init="zeros"),
+        "w_a": ParamSpec((w, w), axes=("rglru_width", None),
+                         stddev=w ** -0.5),
+        "b_a": ParamSpec((w,), axes=("rglru_width",), dtype="float32",
+                         init="zeros"),
+        "w_x": ParamSpec((w, w), axes=("rglru_width", None),
+                         stddev=w ** -0.5),
+        "b_x": ParamSpec((w,), axes=("rglru_width",), dtype="float32",
+                         init="zeros"),
+        "lambda_p": ParamSpec((w,), axes=("rglru_width",),
+                              dtype="float32", init="ones"),
+        "w_out": ParamSpec((w, d), axes=("rglru_width", "embed"),
+                           stddev=w ** -0.5
                            / math.sqrt(2 * cfg.num_layers)),
     }
 

@@ -30,15 +30,22 @@ def ssm_specs(cfg: ModelConfig) -> dict:
     d, di, r = cfg.d_model, cfg.d_inner, cfg.dt_rank
     st, cw = cfg.ssm.d_state, cfg.ssm.d_conv
     return {
-        "in_proj": ParamSpec((d, 2 * di), stddev=d ** -0.5),
-        "conv_w": ParamSpec((cw, di), stddev=cw ** -0.5),
-        "conv_b": ParamSpec((di,), init="zeros"),
-        "x_proj": ParamSpec((di, r + 2 * st), stddev=di ** -0.5),
-        "dt_proj": ParamSpec((r, di), stddev=r ** -0.5),
-        "dt_bias": ParamSpec((di,), dtype="float32", init="zeros"),
-        "A_log": ParamSpec((di, st), dtype="float32", init="zeros"),
-        "D": ParamSpec((di,), dtype="float32", init="ones"),
-        "out_proj": ParamSpec((di, d), stddev=di ** -0.5
+        "in_proj": ParamSpec((d, 2 * di), axes=("embed", "inner"),
+                             stddev=d ** -0.5),
+        "conv_w": ParamSpec((cw, di), axes=("conv", "inner"),
+                            stddev=cw ** -0.5),
+        "conv_b": ParamSpec((di,), axes=("inner",), init="zeros"),
+        "x_proj": ParamSpec((di, r + 2 * st), axes=("inner", None),
+                            stddev=di ** -0.5),
+        "dt_proj": ParamSpec((r, di), axes=("dt_rank", "inner"),
+                             stddev=r ** -0.5),
+        "dt_bias": ParamSpec((di,), axes=("inner",), dtype="float32",
+                             init="zeros"),
+        "A_log": ParamSpec((di, st), axes=("inner", "state"),
+                           dtype="float32", init="zeros"),
+        "D": ParamSpec((di,), axes=("inner",), dtype="float32", init="ones"),
+        "out_proj": ParamSpec((di, d), axes=("inner", "embed"),
+                              stddev=di ** -0.5
                               / math.sqrt(2 * cfg.num_layers)),
     }
 

@@ -1,5 +1,5 @@
-"""Stream sharding of the serving path over a ``torch.distributed``
-``DeviceMesh`` (port of ``repro/sharding``'s serving half): the batch
-padding of ``compat``, the in-round collectives over the mesh's ``"data"``
-group (``collectives``) and the audit that reads their record
-(``audit``)."""
+"""Sharding over a ``torch.distributed`` ``DeviceMesh`` (port of
+``repro/sharding``): the logical-axis rules (``rules``), the batch padding
+of ``compat``, the collectives over a mesh dim (``collectives``), the
+audit that reads their record (``audit``) and the GPipe pipeline
+(``pipeline``)."""

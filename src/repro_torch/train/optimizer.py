@@ -18,6 +18,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.sharding.collectives import psum_ordered
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,23 +62,42 @@ def init(params) -> AdamWState:
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
-def global_norm(tree):
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tree_leaves(tree)))
+def global_norm(tree, placements=None, mesh=None):
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+    With ``placements`` and ``mesh`` the leaves are this rank's blocks:
+    each block's sum is summed over the mesh dims that split its leaf, in
+    rank order (one ``psum_ordered`` for all the leaves split by the same
+    dims), so every element counts once, and a leaf held whole on several
+    ranks once."""
+    sums = [torch.sum(torch.square(t.float())) for t in tree_leaves(tree)]
+    if placements is not None:
+        split = [p.split_axes for p in tree_leaves(placements)]
+        for axes in sorted(set(split)):
+            if not axes:
+                continue
+            idx = [i for i, a in enumerate(split) if a == axes]
+            part = torch.stack([sums[i] for i in idx])
+            for axis in axes:
+                part = psum_ordered(part, mesh, axis)
+            for i, v in zip(idx, part.unbind(0)):
+                sums[i] = v
+    return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
-           inplace: bool = False):
+           inplace: bool = False, placements=None, mesh=None):
     """One AdamW step -> (new params, new state, {"grad_norm", "lr"}).
+    With ``placements`` and ``mesh`` every tree holds this rank's blocks:
+    the clip reads the whole gradient's norm (:func:`global_norm`), and the
+    update is elementwise.
 
     ``inplace``: write the new parameters and moments into ``params`` and
     ``state``'s tensors (returned as the new ones) instead of new tensors,
     so a step holds one copy of the optimizer's state (the reference
     donates its buffers to the jitted step to the same end); the numbers
     are the same."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, placements, mesh)
     scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
                             1.0)
     step = state.step + 1

@@ -257,8 +257,8 @@ def test_kernel_branch_wiring(monkeypatch, arch):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_registry_copies_or_names_the_roadmap_item(arch):
     """Every id of the reference's registry is copied: the config and its
-    SMOKE equal the reference's field for field (sub-configs included) but
-    for the reference's sharding overrides and Pallas switch, which the
+    SMOKE equal the reference's field for field (sub-configs and sharding
+    overrides included) but for the reference's Pallas switch, which the
     port has no counterpart of, and the spec tree counts the config's
     parameters.  A SMOKE pool of each config with a token table serves a
     segment on the CPU (the MoE ones included); one whose front end feeds
@@ -270,8 +270,7 @@ def test_registry_copies_or_names_the_roadmap_item(arch):
     for full, jc in ((cfg, j_get_config(arch)),
                      (get_smoke_config(arch), j_smoke(arch))):
         assert {f.name for f in dataclasses.fields(jc)} - {
-            f.name for f in dataclasses.fields(full)} == {
-            "sharding_overrides", "kernels"}
+            f.name for f in dataclasses.fields(full)} == {"kernels"}
         for f in dataclasses.fields(full):
             got, want = getattr(full, f.name), getattr(jc, f.name)
             if dataclasses.is_dataclass(got):      # MoE / SSM / RG-LRU

@@ -68,7 +68,8 @@ def test_package_imports_no_jax_and_no_reference():
     assert len(files) >= 16
     # the stream-sharding modules are held to the rule like the rest
     for mod in ("sharding/compat.py", "sharding/collectives.py",
-                "sharding/audit.py", "runtime/cluster.py", "launch/mesh.py"):
+                "sharding/audit.py", "runtime/cluster.py", "launch/mesh.py",
+                "sharding/rules.py", "sharding/pipeline.py"):
         assert PKG / mod in files, mod
     for path in files:
         for name, top in _imports(ast.parse(path.read_text())):

@@ -12,7 +12,9 @@ live JAX package, on the SMOKE Qwen1.5-0.5B config.
 * ``make_train_step`` gives ``Trainer._step``'s numbers bit for bit (the
   same operations, out of place); the prefill and serve step builders are
   ``prefill`` and ``decode_step``; ``applicable_shapes`` is the
-  reference's for every registry config; sharding rules and a mesh raise.
+  reference's for every registry config; the step builders refuse
+  sharding rules (A.16d), the ``Trainer`` a mesh that is not a
+  ``DeviceMesh``.
 * ``python -m repro_torch.launch.train --smoke --device cpu --steps 4``.
 """
 import dataclasses
@@ -156,11 +158,11 @@ def test_serve_step_builders_are_prefill_and_decode(tmp_path):
         assert steps.applicable_shapes(get_config(arch)) == \
             j_applicable_shapes(j_get_config(arch))
     for make in (steps.make_prefill_step, steps.make_serve_step):
-        with pytest.raises(NotImplementedError, match="A.16c"):
+        with pytest.raises(NotImplementedError, match="A.16d"):
             make(cfg, object())
-    with pytest.raises(NotImplementedError, match="A.16c"):
+    with pytest.raises(NotImplementedError, match="A.16d"):
         steps.make_train_step(cfg, object(), AdamWConfig())
-    with pytest.raises(NotImplementedError, match="A.16c"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(cfg, TrainConfig(ckpt_dir=str(tmp_path / "m")),
                 mesh=object(), device="cpu")
 
