@@ -244,8 +244,10 @@ Phases, one JSON line each; any failure exits non-zero:
                  0.125, the max |Δ| of first-token logits.  Then
                  ``apply_feedback`` and one more routed round on the
                  fed-back observation; last, a decode step and a prefill
-                 per tier, timed on both paths in turns and profiled
-                 (device busy time, idle share, top device and host costs).
+                 per tier, timed on both paths in turns (5 calls a window)
+                 and profiled, one call each (device busy time, idle share,
+                 top device and host costs); ``part_seconds``, where the
+                 phase's time went.
 13. ``dispatch_recurrent``  the same phase on the sub-quadratic tier pools,
                  after the dense pools are freed: Falcon-Mamba-7B (64 Mamba
                  layers) as the edge tier and RecurrentGemma-9B (26 RG-LRU
@@ -255,16 +257,17 @@ Phases, one JSON line each; any failure exits non-zero:
                  flash_attention and decode_attention = attention layers ×
                  prefills and × decode steps (each kernel's row splits its
                  launches by the call: ``launches_by_call``).  Its routed
-                 round takes the first 64 streams, not 256, and its
-                 profiled windows 2 calls, not 5: the plain selective scan
-                 is a Python loop over the steps of every layer (~1 s for
-                 an 8 × 80 prefill), and every id flip is replayed on it.
+                 round takes the first 64 streams, not 256, and its timed
+                 windows 2 calls, not 5: the plain selective scan is a
+                 Python loop over the steps of every layer (~1 s for an
+                 8 × 80 prefill, ~50 s profiled), and every id flip is
+                 replayed on it.
 14. ``dispatch_moe`` the same phase with the MoE cloud tier, after the
                  earlier pools are freed: Qwen1.5-0.5B edge, Moonshot-v1-
                  16B-A3B cloud at full width and depth (48 layers, 64
                  experts, top-6, bf16: 56.1 GB of weights, its stacked
                  expert leaves drawn a layer at a time), 64 routed streams,
-                 profiled windows of 2 calls, its peak device memory; then,
+                 timed windows of 2 calls, its peak device memory; then,
                  Moonshot freed, Mixtral-8x22B at full width and 4 of its 56
                  layers (5.0 GB a layer): one 8 × 80 prefill into the slab
                  and 8 slab decode steps, greedy on the kernels and plain
@@ -335,6 +338,22 @@ Phases, one JSON line each; any failure exits non-zero:
                  sequential loop.  The launch counters are zeroed before
                  each counted run and read after: 48 flash_attention and
                  24 flash_attention_bwd launches a step on every trainer.
+                 (e) Two gloo ranks sharing the card at mesh (1, 2),
+                 tensor-parallel over "model": Qwen1.5-0.5B as in (b), 4
+                 steps of all 8 rows: exactly 48 flash_attention and 24
+                 flash_attention_bwd launches a step a rank, every
+                 attention call of the path on 8 of the 16 heads, the
+                 losses of all 4 steps within 1e-3 relative of (a)'s
+                 one-device steps (steps 2-4 hold the split backward);
+                 per rank the step ms, peak memory,
+                 seconds in collectives and bytes through the host a step,
+                 the collectives by kind, the modes the layers ran and the
+                 most layers with a gathered copy alive at once (at most
+                 one).  (f) The same for Falcon-Mamba-7B at full width, 2
+                 of 64 layers, 2 steps: mamba_scan (training launch) 4 and
+                 mamba_scan_bwd 2 launches a step a rank, every scan on
+                 4096 of the 8192 channels, both steps' losses within 1e-3
+                 of the one-device steps on the same cut (run here first).
 
 The last three lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``--out DIR`` also
@@ -3057,9 +3076,13 @@ def trace_pools(torch, pools: dict, reps: int = 5) -> dict:
     80 entries) and a prefill of 8 × 80 tokens.  Wall time per call (host
     clock to a synchronize, mean of ``reps``) is taken in the order
     kernels, plain, plain, kernels, so that a drift of the host's speed
-    shows as a spread; then one profiled window per path: device busy time,
-    idle share, the attention kernels' device time, device activities per
-    call, the costliest device activities and host operations."""
+    shows as a spread; then one profiled call per path: device busy time,
+    idle share, the attention kernels' device time, device activities, the
+    costliest device activities and host operations.  One call, because
+    the profiler costs ~1.5 s a call of a few thousand device activities
+    and ~50 s a plain Falcon-Mamba-7B prefill (the selective scan a Python
+    loop over the steps of every layer) on an H100's host, against 0.05
+    and ~1 s unprofiled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3093,32 +3116,34 @@ def trace_pools(torch, pools: dict, reps: int = 5) -> dict:
         for path in ("kernels", "plain", "plain", "kernels"):
             walls[path].append(wall_ms(calls[path][what]))
         for path in pools:
+            t0 = time.perf_counter()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    calls[path][what]()
+                calls[path][what]()
                 torch.cuda.synchronize()
             events = prof.key_averages()
+            profiled_s = time.perf_counter() - t0
             dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
             host_ev = [e for e in events if e.device_type == DeviceType.CPU]
-            busy = sum(e.self_device_time_total for e in dev_ev) / 1e3 / reps
+            busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
             wall = statistics.mean(walls[path])
             out[f"{path}_{what}"] = {
-                "wall_ms": walls[path], "device_busy_ms": busy,
+                "wall_ms": walls[path], "profiled_window_s": profiled_s,
+                "device_busy_ms": busy,
                 "device_idle_share": 1.0 - busy / wall,
                 "ported_kernels_ms": sum(
                     e.self_device_time_total for e in dev_ev
                     if any(k in e.key for k in PORTED_MODEL_KERNELS))
-                / 1e3 / reps,
-                "device_activities": sum(e.count for e in dev_ev) / reps,
+                / 1e3,
+                "device_activities": sum(e.count for e in dev_ev),
                 "top_device_time": [
                     {"name": e.key[:80],
-                     "ms": e.self_device_time_total / 1e3 / reps}
+                     "ms": e.self_device_time_total / 1e3}
                     for e in sorted(dev_ev, key=lambda e:
                                     -e.self_device_time_total)[:5]],
                 "top_host_time": [
-                    {"name": e.key[:60], "per_call": e.count / reps,
-                     "ms": e.self_cpu_time_total / 1e3 / reps}
+                    {"name": e.key[:60], "per_call": e.count,
+                     "ms": e.self_cpu_time_total / 1e3}
                     for e in sorted(host_ev, key=lambda e:
                                     -e.self_cpu_time_total)[:5]]}
     return out
@@ -3157,7 +3182,8 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
     """The tier pools (``archs``: edge, cloud) on the kernels and on the
     plain versions: a routed round of the first ``m`` streams through
     ``ServeSession.dispatch`` and a fixed mixed request set, then the
-    feedback loop and ``trace_pools`` with ``trace_reps`` calls a window."""
+    feedback loop and ``trace_pools`` with ``trace_reps`` calls a timed
+    window."""
     from repro_torch.configs import get_config
     from repro_torch.core.cost_model import SystemConfig
     from repro_torch.core.gating import GateConfig
@@ -3230,12 +3256,22 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
                for c in ex.execs[t].completions}
         return ids, stats, launches, calls, wall
 
-    # warm-up, untimed and uncounted: every prefill and decode shape of the
-    # mixed set on both tiers and both paths (cuBLAS and module loading)
+    # where the phase's seconds go, by part (host clock)
+    parts, t_part = {}, time.perf_counter()
+
+    def part_done(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+
+    # warm-up, uncounted: every prefill and decode shape of the mixed set on
+    # both tiers and both paths (cuBLAS and module loading)
     for ps in (pools, ref_pools):
         DispatchExecutor(ps, max_prefill_len=PROMPTS[-1]).serve(
             [dataclasses.replace(r) for r in mixed])
     torch.cuda.synchronize()
+    part_done("warm_up")
 
     rec = {"phase": phase, "edge": cfgs[0].name, "cloud": cfgs[1].name,
            "layers": layers, "depth_cut": None, "dtype": "bfloat16",
@@ -3265,6 +3301,7 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
             raise AssertionError("force='ref' pools launched a kernel")
         if set(ids_k) != {r.stream for r in reqs} or set(ids_p) != set(ids_k):
             raise AssertionError(f"{phase} ({which}): streams missing")
+        part_done(f"{which}_serve")
         tier_of = {r.stream: r.tier for r in reqs}
         for ids in (ids_k, ids_p):
             if any(v.shape != (8,) or not (
@@ -3278,6 +3315,7 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
             "kernels": stats_k, "plain": stats_p,
             "ids_vs_plain": _compare_ids(torch, ids_k, ids_p, reqs,
                                          ref_pools)}
+        part_done(f"{which}_flips_replayed")
 
     # first-token logits on both paths, one prefill per tier and length,
     # beside the largest |logit| (bf16 rounds it to 2^-8 of its magnitude)
@@ -3299,6 +3337,7 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
         dlog[t] = worst
     rec["first_token_logits_max_abs_diff"] = dlog
     rec["first_token_logits_max_abs"] = top
+    part_done("first_token_logits")
 
     # the router <-> serving loop: the measured feedback into the next round
     fb = sess.feedback()
@@ -3315,9 +3354,12 @@ def dispatch_phase(torch, dev, stream, counts_reset, counts_read, *,
         "mean_r_round0": float(routed["r"].double().mean()),
         "mean_r_fed_back_round": float(nxt["r"].double().mean())}
     rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    part_done("feedback")
     rec["trace"] = {pools[t].name: trace_pools(
         torch, {"kernels": pools[t], "plain": ref_pools[t]}, trace_reps)
         for t in pools}
+    part_done("trace")
+    rec["part_seconds"] = parts
     return totals, rec
 
 
@@ -4949,6 +4991,189 @@ def train_ranks_rank(device: str, ckpt_dir: str) -> dict:
             "compressed_allreduce": car, "pipeline": pipe}
 
 
+# tensor-parallel training on two gloo ranks sharing the card at mesh (1, 2):
+# (e) Qwen1.5-0.5B whole (the phase's model, batches and steps), (f)
+# Falcon-Mamba-7B at full width, TP_MAMBA[1] of its 64 layers
+TP_MESH = (1, 2)
+TP_MAMBA = ("falcon-mamba-7b", 2, 2)       # arch, layers kept, steps
+
+
+def tp_setup(arch, layers, steps):
+    """The config (cut to ``layers``), optimizer and 8 × 512 batches of a
+    tensor-parallel case."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
+    it = iter(TokenPipeline(cfg.vocab_size, 512, 8, seed=0))
+    return cfg, opt, [next(it) for _ in range(steps)]
+
+
+def tp_cases():
+    from repro_torch.configs import get_config
+
+    qwen = get_config("qwen1.5-0.5b")
+    return {"e": ("qwen1.5-0.5b", qwen.num_layers, RANKS_STEPS),
+            "f": TP_MAMBA}
+
+
+def train_tp_rank(device: str, ckpt_dir: str) -> dict:
+    """One of two gloo ranks sharing the card at mesh ``TP_MESH``: each
+    case of :func:`tp_cases` trained from the seeded init, split over
+    ``"model"``; its launches (counted from zero just before the run),
+    the heads or channels every attention and scan call of the training
+    path was given, the modes its layers ran, losses, step ms, peak
+    memory, seconds in collectives and bytes through the host a step, the
+    collectives by kind."""
+    import collections
+
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import GATHERED
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding.collectives import COLLECTIVES, TRAFFIC
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    dev = torch.device(device)
+    seen = collections.Counter()
+    flash, scan = (flash_ops.flash_attention_autograd,
+                   scan_ops.selective_scan_autograd)
+
+    def flash_seen(q, *a, **kw):        # q: (B, heads, S, D)
+        seen[f"flash_attention heads {q.shape[1]}"] += 1
+        return flash(q, *a, **kw)
+
+    def scan_seen(x, *a, **kw):         # x: (B, S, channels)
+        seen[f"mamba_scan channels {x.shape[-1]}"] += 1
+        return scan(x, *a, **kw)
+
+    flash_ops.flash_attention_autograd = flash_seen
+    scan_ops.selective_scan_autograd = scan_seen
+    mesh = make_host_mesh(TP_MESH)
+    out = {"rank": torch.distributed.get_rank()}
+    for name, (arch, layers, steps) in tp_cases().items():
+        cfg, opt, batches = tp_setup(arch, layers, steps)
+        tr = Trainer(cfg, TrainConfig(steps=steps, ckpt_every=steps + 1,
+                                      ckpt_dir=f"{ckpt_dir}/{name}",
+                                      log_every=1, opt=opt),
+                     mesh=mesh, device=dev)
+        state = tr.init_state(torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seen.clear()
+        tp.MODES.clear()
+        GATHERED.reset()
+        start, traffic0 = len(COLLECTIVES), dict(TRAFFIC)
+        reset_launch_counts()
+        losses, step_ms = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, hist = tr.run(iter([b]), n_steps=1, state=state)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(hist[-1]["loss"])
+        launches = launch_counts()
+        out[name] = {
+            "arch": arch, "layers": layers, "steps": steps,
+            "losses": losses, "step_ms": step_ms,
+            "tokens_per_s": [8 * 512 / ms * 1e3 for ms in step_ms],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "seen": dict(seen),
+            "modes": {f"{k} {m}": n for (k, m), n in tp.MODES.items()},
+            "gathered_units_peak": GATHERED.peak,
+            "collective_s_per_step": (TRAFFIC["seconds"]
+                                      - traffic0["seconds"]) / steps,
+            "host_bytes_per_step": (TRAFFIC["host_bytes"]
+                                    - traffic0["host_bytes"]) / steps,
+            "collectives": dict(collections.Counter(
+                op for op, _, _ in COLLECTIVES[start:]))}
+        del state, tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_tp_parts(torch, dev, one_losses, root):
+    """(e) and (f) of ``train_ranks``: the one-device steps of (f)'s cut
+    in this process, then both cases on two gloo ranks sharing the card
+    -> (the ranks' launches, the record).  Fails unless every rank
+    launched exactly the path's kernels on its half of the heads or
+    channels, the ranks' losses agree, and every step's loss is within
+    RANKS_TOL of one device's (from step 2 on, the split backward's
+    gradients have moved the weights)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t_start = time.perf_counter()
+    arch, layers, steps = TP_MAMBA
+    cfg, opt, batches = tp_setup(arch, layers, steps)
+    one = Trainer(cfg, TrainConfig(steps=steps, ckpt_dir=str(root / "f1"),
+                                   opt=opt), device=dev)
+    state = one.init_state(torch.Generator(dev).manual_seed(0))
+    f_losses = []
+    for b in batches:
+        *state, m = one._step(*state, one._device_batch(b))
+        f_losses.append(float(m["loss"]))
+    want_loss = {"e": one_losses, "f": f_losses}
+    del state, one, m
+    free_device_memory(torch)
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(train_tp_rank, 2, backend="gloo", timeout=600,
+                      threads=None, args=(str(dev), str(root / "tp")))
+    ranks_s = time.perf_counter() - t0
+    total = collections.Counter()
+    rec = {"mesh": list(TP_MESH), "ranks_s": ranks_s}
+    for name, (arch, layers, steps) in tp_cases().items():
+        cfg = tp_setup(arch, layers, 1)[0]
+        kinds = collections.Counter(cfg.layer_kinds())
+        t = TP_MESH[1]
+        if kinds["attn"]:
+            want = {"flash_attention": 2 * kinds["attn"] * steps,
+                    "flash_attention_bwd": kinds["attn"] * steps}
+            want_seen = {f"flash_attention heads {cfg.num_heads // t}":
+                         2 * kinds["attn"] * steps}
+        else:
+            want = {"mamba_scan": 2 * kinds["ssm"] * steps,
+                    "mamba_scan_bwd": kinds["ssm"] * steps}
+            want_seen = {f"mamba_scan channels {cfg.d_inner // t}":
+                         2 * kinds["ssm"] * steps}
+        got = [r[name] for r in ranks]
+        for r in got:
+            if r["launches"] != want or r["seen"] != want_seen:
+                raise AssertionError(
+                    f"train_ranks ({name}): launches {r['launches']} on "
+                    f"{r['seen']}, want {want} on {want_seen}")
+            if r["losses"] != got[0]["losses"] or not all(
+                    map(math.isfinite, r["losses"])):
+                raise AssertionError(f"train_ranks ({name}): losses "
+                                     f"{[x['losses'] for x in got]}")
+            if r["gathered_units_peak"] > 1:
+                raise AssertionError(f"train_ranks ({name}): gathered copies "
+                                     f"of {r['gathered_units_peak']} units "
+                                     f"alive at once")
+            total.update(r["launches"])
+        gaps = [abs(x - y) / abs(y) for x, y in zip(got[0]["losses"],
+                                                   want_loss[name])]
+        if len(gaps) != steps or not max(gaps) <= RANKS_TOL:
+            raise AssertionError(f"train_ranks ({name}): losses "
+                                 f"{got[0]['losses']} vs one device "
+                                 f"{want_loss[name]} (relative {gaps} > "
+                                 f"{RANKS_TOL})")
+        rec[name] = {"arch": arch, "layers": layers,
+                     "layers_of_config": get_config(arch).num_layers,
+                     "steps": steps, "gaps_vs_one_device": gaps,
+                     "one_device_losses": want_loss[name], "ranks": got}
+    rec["seconds"] = time.perf_counter() - t_start
+    return dict(total), rec
+
+
 def train_ranks_phase(torch, dev, counts_reset, counts_read):
     """Training across ranks (see the module doc): (a) an NCCL world of 1
     at mesh (1, 1) against the one-device ``Trainer`` in turns, bit for
@@ -5081,6 +5306,12 @@ def train_ranks_phase(torch, dev, counts_reset, counts_read):
                              f"> {SURVIVOR_TOL})")
     ckpt_gb = sum(f.stat().st_size for f in (root / "ranks").rglob("*")
                   if f.is_file()) / 1e9
+    free_device_memory(torch)
+
+    # (e), (f): split over "model" on two gloo ranks sharing the card
+    tp_launches, tp_rec = train_tp_parts(torch, dev,
+                                         a["one_device"]["losses"], root)
+    total.update(tp_launches)
     shutil.rmtree(root, ignore_errors=True)
     free_device_memory(torch)
     for r in ranks:
@@ -5097,6 +5328,7 @@ def train_ranks_phase(torch, dev, counts_reset, counts_read):
                        "losses": c_losses, "gaps_vs_b": c_gaps,
                        "tolerance": SURVIVOR_TOL,
                        "launches": c_launches},
+        "e_f_tensor_parallel": tp_rec,
         "launches": dict(total)}
 
 
@@ -5125,6 +5357,7 @@ def main() -> int:
         ap.error(f"--only {args.only}: phases are {', '.join(PHASES)}, and "
                  "scenarios needs kernels")
 
+    t_smoke = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5287,6 +5520,7 @@ def main() -> int:
         if any(by_call.values()):
             row["launches_by_call"] = by_call
     kernels = {"kernels": list(rows.values())}
+    record({"phase": "total", "total_seconds": time.perf_counter() - t_smoke})
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(
             json.dumps({"records": records, **kernels}, indent=1))

@@ -5,9 +5,10 @@
 The reference's builders return functions to jit under sharding ``rules``,
 which GSPMD splits over a mesh; the port's run eagerly on one device, so
 ``rules`` must be None.  Training across ranks is the ``Trainer``'s
-(``Trainer(cfg, tcfg, mesh=, rules=)``: data-parallel compute, storage
-split by the rules); tensor-parallel compute under the rules, and so a
-prefill or serve step split over a mesh, is ROADMAP queue A.16d, and the
+(``Trainer(cfg, tcfg, mesh=, rules=)``: storage split by the rules,
+compute data-parallel over ``"data"`` and tensor-parallel over
+``"model"``); a prefill or serve step under the serve rules (the decode
+cache split by sequence over ``"model"``) is ROADMAP queue A.16e, and the
 production meshes A.17.  The shape-spec half
 (``rules_for``, ``batch_specs``, ``params_specs``, ``cache_input_specs``,
 ``opt_state_specs``, ``input_specs``, ``step_for``) serves the dry-run
@@ -35,9 +36,10 @@ def _no_rules(rules) -> None:
     if rules is not None:
         raise NotImplementedError(
             "sharding rules: the port's step builders run on one device; "
-            "train across ranks with Trainer(mesh=, rules=); steps split "
-            "by the rules over a mesh are ROADMAP queue A.16d "
-            "(tensor-parallel compute), the production meshes A.17")
+            "train across ranks with Trainer(mesh=, rules=), tensor-"
+            "parallel over \"model\" (ROADMAP A.16d); prefill and serve "
+            "steps under the serve rules are ROADMAP queue A.16e, the "
+            "production meshes A.17")
 
 
 def make_train_step(cfg: ModelConfig, rules, opt_cfg: AdamWConfig, *,

@@ -15,7 +15,11 @@ there.  Without ``--mesh`` it trains on one ``--device`` (default
 rank a card; ``gloo``: on ``--device``, several ranks sharing a card
 included, asked for by name), over the ``("data", "model")`` mesh of
 ``--mesh-shape`` (default (1, ranks), the reference's host mesh) under the
-train rules with the config's overrides.  ``--mesh single|multi`` (the
+train rules with the config's overrides: data-parallel over ``"data"`` and
+tensor-parallel over ``"model"`` (each layer's heads, MLP columns, experts,
+SSM or RG-LRU channels and the vocab split over the ``"model"`` ranks, its
+weights gathered over ``"data"`` one layer at a time), so the default
+shape trains tensor-parallel.  ``--mesh single|multi`` (the
 reference's 256/512-device TPU pod meshes) is ROADMAP queue A.17 and
 raises.
 """

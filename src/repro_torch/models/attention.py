@@ -23,6 +23,16 @@ Prefill positions: the kernel takes the caller's runtime positions (the
 M-RoPE temporal stream, or any (B, S) positions the caller passed) and
 masks by them; positions that ``forward`` built itself as ``arange(S)``
 keep the index-causal launch.
+
+Split over ``"model"`` (training on a mesh, :func:`attn_tp`): ``wq``,
+``wk``, ``wv`` and their biases are column-parallel by heads and ``wo``
+row-parallel, its product summed over ``"model"``; the attention (the
+kernel and its backward on the card) runs on the rank's ``H/T`` query
+heads and the KV heads they read.  Where ``kv_heads`` does not split
+evenly (the placement leaves ``wk``/``wv`` whole or cuts them mid-head)
+they are read whole and each rank takes the KV head its query heads read
+(``"kv_whole"``); where the query heads do not split, the layer runs whole
+on every rank.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Ctx, apply_mrope, apply_rope, needs_grad
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding import tensor_parallel as tp
 
 NEG_INF = -1e30
 
@@ -67,6 +78,36 @@ def attn_specs(cfg: ModelConfig) -> dict:
         specs["k_norm"] = ParamSpec((hd,), axes=("head_dim",),
                                      dtype="float32", init="ones")
     return specs
+
+
+def attn_tp(cfg: ModelConfig, rules) -> tp.Plan:
+    """The layer's mode over ``"model"`` under ``rules``: ``"split"`` (the
+    query and KV projections by heads), ``"kv_whole"`` (the query heads
+    split; ``wk``/``wv`` whole, each rank reading the one KV head of its
+    query heads, their gradients partial) or ``"whole"``.  The per-head
+    norms are read whole on a rank's heads: partial gradients."""
+    specs = attn_specs(cfg)
+    t = tp.rules_size(rules)
+    if t == 1:
+        return tp.whole_plan(specs)
+    dims = tp.split_dims(specs, rules)
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    # the heads dim of each: the weights' columns, the biases', wo's rows
+    heads_dim = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
+                 "wo": 0}
+    q_names = [n for n in ("wq", "bq", "wo") if n in specs]
+    kv_names = [n for n in ("wk", "wv", "bk", "bv") if n in specs]
+    norms = [n for n in ("q_norm", "k_norm") if n in specs]
+    by_heads = lambda names: all(dims[n] == heads_dim[n] for n in names)
+    if h % t or not by_heads(q_names):
+        return tp.whole_plan(specs)
+    if kv % t == 0 and by_heads(kv_names):
+        return tp.plan_of(specs, "split", blocks=q_names + kv_names,
+                          partial=norms)
+    if (h // kv) % (h // t) == 0:
+        return tp.plan_of(specs, "kv_whole", blocks=q_names,
+                          partial=norms + kv_names)
+    return tp.whole_plan(specs)
 
 
 def _head_rmsnorm(x, scale, eps):
@@ -243,14 +284,29 @@ def attn_forward(ctx: Ctx, p, x, *, positions, cache=None,
     cfg = ctx.cfg
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mode = tp.layer_mode(ctx, "attn", attn_tp)
+    wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    if mode != "whole":
+        t = tp.size(ctx)
+        x = tp.copy_to_model(x, ctx.mesh)
+        h //= t
+        if mode == "split":
+            kv //= t
+        else:   # the one KV head that this rank's query heads read
+            first = tp.rank(ctx.mesh) * h // (h * t // kv) * hd
+            c = slice(first, first + hd)
+            kv = 1
+            wk, wv = wk[:, c], wv[:, c]
+            if cfg.qkv_bias:
+                bk, bv = bk[c], bv[c]
 
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x @ wk
+    v = x @ wv
     if cfg.qkv_bias:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + bk
+        v = v + bv
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kv, hd)
     v = v.reshape(b, s, kv, hd)
@@ -291,4 +347,6 @@ def attn_forward(ctx: Ctx, p, x, *, positions, cache=None,
                          "length": torch.tensor(s, dtype=torch.int32,
                                                 device=x.device)}
     y = out.reshape(b, s, h * hd) @ p["wo"]
+    if mode != "whole":
+        y = tp.reduce_from_model(y, ctx.mesh)
     return y, new_cache

@@ -1,21 +1,29 @@
 """Decoder blocks: port of ``repro/models/blocks.py`` — a pre-norm mixer
 (attention, RG-LRU or Mamba SSM) and, after attention and RG-LRU mixers, a
 pre-norm gated MLP: dense, or the MoE of ``models/moe.py`` when the config
-has one (SSM blocks are mixer-only)."""
+has one (SSM blocks are mixer-only).
+
+Split over ``"model"`` (:func:`block_tp`), each mixer and MLP splits its
+own products and sums them over ``"model"`` before the residual add: the
+residual stream and the norms stay whole on every ``"model"`` rank.  The
+reference's sequence-parallel residual (``act_seq_sp``) changes memory,
+not numbers, and is ROADMAP A.16e."""
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.models.attention import attn_forward, attn_specs
+from repro_torch.models.attention import attn_forward, attn_specs, attn_tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Ctx, rmsnorm, rmsnorm_specs
-from repro_torch.models.mlp import mlp_forward, mlp_specs
-from repro_torch.models.moe import moe_forward, moe_specs
+from repro_torch.models.mlp import mlp_forward, mlp_specs, mlp_tp
+from repro_torch.models.moe import moe_forward, moe_specs, moe_tp
 from repro_torch.models.params import ParamSpec
-from repro_torch.models.rglru import rglru_forward, rglru_specs
-from repro_torch.models.ssm import ssm_forward, ssm_specs
+from repro_torch.models.rglru import rglru_forward, rglru_specs, rglru_tp
+from repro_torch.models.ssm import ssm_forward, ssm_specs, ssm_tp
+from repro_torch.sharding import tensor_parallel as tp
 
 _MIXERS = {"attn": attn_specs, "rglru": rglru_specs, "ssm": ssm_specs}
+_MIXER_TP = {"attn": attn_tp, "rglru": rglru_tp, "ssm": ssm_tp}
 
 
 def _check(kind: str) -> None:
@@ -33,6 +41,20 @@ def block_specs(cfg: ModelConfig, kind: str, serve: bool = False) -> dict:
                                   and cfg.quant_experts_serve)
                         if cfg.moe is not None else mlp_specs(cfg))
     return specs
+
+
+def block_tp(cfg: ModelConfig, kind: str, rules) -> dict:
+    """Each leaf's :class:`~repro_torch.sharding.tensor_parallel.LeafPlan`
+    in a block of ``kind`` under ``rules`` (the tree of
+    :func:`block_specs`)."""
+    whole = tp.LeafPlan()
+    out = {"norm1": {"scale": whole},
+           kind: _MIXER_TP[kind](cfg, rules).leaves}
+    if kind != "ssm":
+        out["norm2"] = {"scale": whole}
+        out["mlp"] = (moe_tp if cfg.moe is not None else mlp_tp)(
+            cfg, rules).leaves
+    return out
 
 
 def attn_cache_len(cfg: ModelConfig, seq_len: int) -> int:

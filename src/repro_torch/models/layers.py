@@ -1,15 +1,19 @@
 """Shared layers: port of ``repro/models/layers.py`` (norms, embeddings,
 RoPE, the forward context).  The reference's ``Ctx.constrain`` (a GSPMD
 placement hint that leaves the numbers as they are) has no counterpart:
-the port places each tensor explicitly (``models/params.py``)."""
+the port places each tensor explicitly (``models/params.py``) and splits
+each layer's compute over ``"model"`` by hand
+(``sharding/tensor_parallel.py``)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, leaf_view
+from repro_torch.sharding import tensor_parallel as tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,17 +23,28 @@ class Ctx:
     each layer under activation checkpointing where ``cfg.remat``, and the
     attention kernel through its autograd function), the kernels' pin
     (``force``: auto | ref | kernel, as on every kernel wrapper) and what
-    the loss needs to know about the ranks: ``mesh``, a ``DeviceMesh``
+    the forward needs to know about the ranks: ``mesh``, a ``DeviceMesh``
     whose ``"data"`` dim splits the batch, or None (the whole batch is
     here).  With a mesh, :func:`~repro_torch.models.model.loss_fn` returns
     this rank's share of the loss over the global batch (the mask count
     and the MoE load statistics summed over ``"data"``), so the shares and
     their gradients sum over ``"data"`` to the global loss and its
-    gradient."""
+    gradient.  ``rules`` (with a mesh whose ``"model"`` dim is above 1):
+    the train rules that placed the leaves, from which each layer reads
+    whether ``"model"`` splits each of its leaves and so the mode it runs
+    (``sharding/tensor_parallel.py``); the forward then takes
+    :class:`~repro_torch.models.params.MeshLeaf` leaves."""
     cfg: ModelConfig
     mode: str = "train"
     force: str = "auto"
     mesh: object = None
+    rules: object = None
+
+    @functools.cached_property
+    def tp_modes(self) -> dict:
+        """{layer kind: the mode it runs over ``"model"``}, each read from
+        its plan once (:func:`~repro_torch.sharding.tensor_parallel.layer_mode`)."""
+        return {}
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -62,15 +77,37 @@ def embed_specs(cfg: ModelConfig) -> dict:
     return out
 
 
+def embed_tp(cfg: ModelConfig, rules) -> tp.Plan:
+    """``"vocab"`` where ``"model"`` splits the token table and the head
+    by vocab rows (each rank's vocab range), else ``"whole"``."""
+    specs = embed_specs(cfg)
+    if tp.rules_size(rules) == 1 or not specs:
+        return tp.whole_plan(specs)
+    dims = tp.split_dims(specs, rules)
+    if all(dims[k] == {"tok": 0, "out": 1}[k] for k in specs):
+        return tp.plan_of(specs, "vocab", blocks=tuple(specs))
+    return tp.whole_plan(specs)
+
+
 def embed_tokens(ctx: Ctx, p, tokens):
-    """Rows of the embedding table (stored in the compute dtype)."""
-    return p["tok"][tokens]
+    """Rows of the embedding table (stored in the compute dtype).  Split
+    over ``"model"`` by vocab: the rows in this rank's range, zeros
+    elsewhere, summed over ``"model"`` (one term nonzero: exact)."""
+    tok = leaf_view(p["tok"], "embed")
+    if tp.layer_mode(ctx, "embed", embed_tp) == "whole":
+        return tok[tokens]
+    n = tok.shape[0]
+    local = tokens - tp.rank(ctx.mesh) * n
+    inside = (local >= 0) & (local < n)
+    rows = torch.where(inside[..., None], tok[local.clamp(0, n - 1)], 0)
+    return tp.reduce_from_model(rows, ctx.mesh)
 
 
 def output_weights(cfg: ModelConfig, embed_params):
+    """The head (d, vocab), or this rank's vocab columns of it."""
     if cfg.tie_embeddings:
-        return embed_params["tok"].T      # (d, vocab)
-    return embed_params["out"]
+        return leaf_view(embed_params["tok"], "head").T      # (d, vocab)
+    return leaf_view(embed_params["out"], "head")
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):

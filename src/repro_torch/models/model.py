@@ -10,32 +10,56 @@ a Python loop over the stacked layers, each leaf split into its layers by
 ``unbind`` (views, no copy).  In ``train`` mode with ``cfg.remat`` each unit runs under
 ``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
 in the backward, the reference's ``jax.checkpoint(nothing_saveable)``.
+
+Training on a mesh (``Ctx.rules``; the leaves
+:class:`~repro_torch.models.params.MeshLeaf` objects): each unit gathers its
+layer's weights over ``"data"`` (and the leaves its plan reads whole over
+``"model"``) just before it runs, in the compute dtype.  Under remat the
+gather runs again in the recompute; without it the autograd nodes keep the
+rank's blocks and gather again in the backward (``keep_blocks``).  Either
+way at most one layer's gathered copy is alive at a time, as in the
+reference's scan.  Each layer splits its products over ``"model"``
+(:func:`model_plan`), and so does the cross-entropy: vocab-parallel, each
+chunk's local logits reduced by a max over ``"model"`` (exact), a
+rank-ordered sum of ``exp`` and the label logit from the rank that owns
+it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.blocks import block_apply, block_cache_specs, block_specs
+from repro_torch.models.blocks import (
+    block_apply,
+    block_cache_specs,
+    block_specs,
+    block_tp,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     Ctx,
     embed_specs,
     embed_tokens,
+    embed_tp,
     output_weights,
     rmsnorm,
     rmsnorm_specs,
 )
 from repro_torch.models.params import (
+    MeshLeaf,
     ParamSpec,
+    keep_blocks,
     leaf_dtype,
+    materialize,
     tree_leaves,
     tree_map,
 )
-from repro_torch.sharding.collectives import psum_ordered
+from repro_torch.sharding import tensor_parallel as tp
+from repro_torch.sharding.collectives import pmax, psum_ordered
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -76,6 +100,17 @@ def model_specs(cfg: ModelConfig, serve: bool = False) -> dict:
             "final_norm": rmsnorm_specs(cfg.d_model)}
 
 
+def model_plan(cfg: ModelConfig, rules) -> dict:
+    """Each leaf's :class:`~repro_torch.sharding.tensor_parallel.LeafPlan`
+    under ``rules`` (the tree of :func:`model_specs`; a stacked leaf's
+    plan is its layers')."""
+    return {"embed": embed_tp(cfg, rules).leaves,
+            "segments": [{f"pos{i}": block_tp(cfg, kind, rules)
+                          for i, kind in enumerate(pattern)}
+                         for pattern, _ in build_segments(cfg)],
+            "final_norm": {"scale": tp.LeafPlan()}}
+
+
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     check_supported(cfg)
     segments = [{f"pos{i}": _stack_specs(
@@ -93,8 +128,10 @@ def _layer(tree, i: int):
 def _unstack(tree, n: int) -> list:
     """The ``n`` layers of a stacked parameter tree, one ``unbind`` a leaf:
     views, whose backward is one ``stack`` a leaf (``n`` indexings would
-    each scatter their gradient into a zero tensor of the stacked size)."""
-    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    each scatter their gradient into a zero tensor of the stacked size);
+    a :class:`MeshLeaf` into its layers' (ungathered)."""
+    parts = [t.layers() if isinstance(t, MeshLeaf) else t.unbind(0)
+             for t in tree_leaves(tree)]
     layers = []
     for i in range(n):
         it = iter([p[i] for p in parts])
@@ -120,8 +157,10 @@ def _default_positions(cfg: ModelConfig, mode: str, length, b: int, s: int,
 
 
 def _unit(ctx: Ctx, pattern, layer_p, x, positions, length, layer_c,
-          emit_cache: bool, given: bool):
-    """One repeat of the layer pattern -> (x, its new caches, summed aux)."""
+          emit_cache: bool, given: bool, tag=None):
+    """One repeat of the layer pattern -> (x, its new caches, summed aux).
+    Mesh leaves are gathered here (under ``tag``), inside the unit."""
+    layer_p = materialize(layer_p, tag)
     new_c, aux = {}, 0.0
     for j, kind in enumerate(pattern):
         key = f"pos{j}"
@@ -161,6 +200,7 @@ def forward(ctx: Ctx, params: dict, inputs: dict, *,
     positions = inputs["positions"] if given else _default_positions(
         cfg, ctx.mode, length, b, s, x.device)
     remat = cfg.remat and ctx.mode == "train"
+    on_mesh = isinstance(params["final_norm"]["scale"], MeshLeaf)
 
     new_segments, aux_total = [], 0.0
     for seg_idx, (pattern, n) in enumerate(build_segments(cfg)):
@@ -170,9 +210,12 @@ def forward(ctx: Ctx, params: dict, inputs: dict, *,
         for i, layer_p in enumerate(_unstack(seg_params, n)):
             args = (ctx, pattern, layer_p, x, positions,
                     length, _layer(seg_cache, i) if seg_cache is not None
-                    else None, emit_cache, given)
-            x, new_c, aux = (checkpoint(_unit, *args, use_reentrant=False)
-                             if remat else _unit(*args))
+                    else None, emit_cache, given, (seg_idx, i))
+            if remat:
+                x, new_c, aux = checkpoint(_unit, *args, use_reentrant=False)
+            else:
+                with keep_blocks() if on_mesh else contextlib.nullcontext():
+                    x, new_c, aux = _unit(*args)
             aux_total = aux_total + aux
             emitted.append(new_c)
         if seg_cache is not None:
@@ -183,7 +226,8 @@ def forward(ctx: Ctx, params: dict, inputs: dict, *,
         else:
             new_segments.append(None)
 
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = rmsnorm(materialize(params["final_norm"], "final_norm"), x,
+                cfg.norm_eps)
     new_cache = None
     if any(sg is not None for sg in new_segments):
         new_len = length + s if length is not None else torch.tensor(
@@ -200,6 +244,24 @@ def _ce_chunk(x_blk, w, l_blk, m_blk):
     return ((lse - tgt) * m_blk).sum()
 
 
+def _ce_chunk_split(x_blk, w, l_blk, m_blk, mesh):
+    """:func:`_ce_chunk` with the head's columns (``w``) this rank's vocab
+    range: the max over ``"model"`` (exact), the rank-ordered sum of the
+    ranks' sums of ``exp``, the label logit from the rank that owns it.
+    The same on every ``"model"`` rank."""
+    logits = (tp.copy_to_model(x_blk, mesh) @ w).float()     # (B, c, V/T)
+    m = pmax(logits.detach().amax(dim=-1), mesh, tp.MODEL)
+    total = tp.reduce_from_model(torch.exp(logits - m[..., None]).sum(dim=-1),
+                                 mesh)
+    lse = torch.log(total) + m
+    n = logits.shape[-1]
+    local = l_blk.long() - tp.rank(mesh) * n
+    inside = (local >= 0) & (local < n)
+    tgt = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    tgt = tp.reduce_from_model(torch.where(inside, tgt, 0.0), mesh)
+    return ((lse - tgt) * m_blk).sum()
+
+
 def chunked_ce_loss(ctx: Ctx, x, w_out, labels, mask=None):
     """Fused lm-head + cross-entropy over sequence chunks of
     ``cfg.loss_chunk`` (the reference's scan): each chunk's logits (B,
@@ -208,7 +270,8 @@ def chunked_ce_loss(ctx: Ctx, x, w_out, labels, mask=None):
     (``torch.utils.checkpoint``), never saved.  Returns the masked mean
     over the tokens (float32 0-d); with ``ctx.mesh``, this rank's masked
     sum over the mask count summed over ``"data"`` (its share of the
-    global mean)."""
+    global mean).  Split over ``"model"`` by vocab (``w_out`` this rank's
+    columns), each chunk is :func:`_ce_chunk_split`."""
     b, s, _ = x.shape
     chunk = min(ctx.cfg.loss_chunk, s)
     if s % chunk:
@@ -217,12 +280,14 @@ def chunked_ce_loss(ctx: Ctx, x, w_out, labels, mask=None):
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
     w = w_out.to(ctx.compute_dtype)
+    split = tp.layer_mode(ctx, "head", embed_tp) == "vocab"
+    fn, more = (_ce_chunk_split, (ctx.mesh,)) if split else (_ce_chunk, ())
     total = denom = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
         m_blk = mask[:, sl].float()
-        total = total + checkpoint(_ce_chunk, x[:, sl], w, labels[:, sl],
-                                   m_blk, use_reentrant=False)
+        total = total + checkpoint(fn, x[:, sl], w, labels[:, sl], m_blk,
+                                   *more, use_reentrant=False)
         denom = denom + m_blk.sum()
     if ctx.mesh is not None:
         denom = psum_ordered(denom, ctx.mesh, "data")
@@ -242,8 +307,8 @@ def compute_params(cfg: ModelConfig, params):
     a step, as the reference casts each weight inside its products
     (``.astype(dt)``); leaves already in their dtype are not copied."""
     dt = getattr(torch, cfg.compute_dtype)
-    return tree_map(lambda spec, t: t.to(leaf_dtype(spec, dt)),
-                    model_specs(cfg), params)
+    return tree_map(lambda spec, t: t if isinstance(t, MeshLeaf) else
+                    t.to(leaf_dtype(spec, dt)), model_specs(cfg), params)
 
 
 def loss_fn(ctx: Ctx, params, batch, aux_weight: float = 0.01):
@@ -252,7 +317,9 @@ def loss_fn(ctx: Ctx, params, batch, aux_weight: float = 0.01):
     optional float ``mask`` (B, S); ``params`` in any float dtype (float32
     masters train a bf16 model: :func:`compute_params`).  With
     ``ctx.mesh``, the three are this rank's shares: their sums over
-    ``"data"`` are the global batch's values."""
+    ``"data"`` are the global batch's values.  ``params`` may be
+    :class:`MeshLeaf` leaves (the trainer on a mesh), each gathered where it
+    is read."""
     params = compute_params(ctx.cfg, params)
     x, _, aux = forward(ctx, params, batch)
     w_out = output_weights(ctx.cfg, params["embed"])

@@ -27,6 +27,18 @@ summed over ``"data"`` and the rank returns its share
 E · Σ_e density_e · (Σ of its tokens' router probabilities of e) / T, T
 the global token count, whose sum over ``"data"`` is the global loss.
 
+Split over ``"model"`` (training on a mesh, :func:`moe_tp`): routing,
+capacity and the dispatch table are computed whole on every rank (cheap,
+and they must equal the reference's); each rank runs the grouped products
+of its ``E/T`` experts' rows of the (E, cap) table (``"experts"``), or,
+where the rules split each expert's MLP dim instead (Mixtral's
+``sharding_overrides``), every expert on its ``f/T`` columns
+(``"expert_mlp"``).  The combine is the rank's partial sum over its slots,
+summed over ``"model"`` in rank order: its order of summation differs
+from one device's sum over k.  The combine weights enter the split region
+through ``copy_to_model``, so the router's gradient is whole on every
+rank; the load-balancing loss stays as above.
+
 Top-k ties: ``jax.lax.top_k`` returns the lower expert index first among
 equal logits, which fixes the capacity order and the order of the sum over
 k; ``torch.topk`` promises no order among ties, so the port takes the first
@@ -42,6 +54,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Ctx
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding import tensor_parallel as tp
 from repro_torch.sharding.collectives import psum_ordered, shard_count
 
 _EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
@@ -127,6 +140,23 @@ def route(cfg: ModelConfig, logits):
     return flat_ids, flat_w, pos, pos < cap, cap, ids
 
 
+def moe_tp(cfg: ModelConfig, rules) -> tp.Plan:
+    """``"experts"`` where ``"model"`` splits the expert weights by
+    expert, ``"expert_mlp"`` where it splits each expert's MLP dim, else
+    ``"whole"``.  The router is read whole outside the split region."""
+    specs = moe_specs(cfg)
+    if tp.rules_size(rules) > 1:
+        dims = tp.split_dims(specs, rules)
+        experts = [n for n in specs if n != "router"]
+        for mode, want in (("experts", {"w_gate": 0, "w_up": 0,
+                                        "w_down": 0}),
+                           ("expert_mlp", {"w_gate": 2, "w_up": 2,
+                                           "w_down": 1})):
+            if all(dims[n] == want[n] for n in want):
+                return tp.plan_of(specs, mode, blocks=experts)
+    return tp.whole_plan(specs)
+
+
 def moe_forward(ctx: Ctx, p, x):
     """x: (B, S, d) -> (y (B, S, d), the load-balancing loss (float32
     scalar))."""
@@ -134,6 +164,7 @@ def moe_forward(ctx: Ctx, p, x):
     dt = ctx.compute_dtype
     b, s, d = x.shape
     t, k, n_exp = b * s, cfg.moe.top_k, cfg.moe.num_experts
+    mode = tp.layer_mode(ctx, "moe", moe_tp)
     xt = x.reshape(t, d)
     logits = (xt @ p["router"].to(dt)).float()
     flat_ids, flat_w, pos, keep, cap, ids = route(cfg, logits)
@@ -145,18 +176,30 @@ def moe_forward(ctx: Ctx, p, x):
     table = torch.full((n_exp * cap + 1,), t, dtype=torch.long,
                        device=x.device)
     table.scatter_(0, slot, tokens)
+    table = table[:-1].view(n_exp, cap)
+    first, mine = 0, keep
+    if mode != "whole":
+        xt = tp.copy_to_model(xt, ctx.mesh)
+        flat_w = tp.copy_to_model(flat_w, ctx.mesh)
+    if mode == "experts":           # this rank's experts' rows of the table
+        n = p["w_gate"].shape[0]
+        first = tp.rank(ctx.mesh) * n
+        table = table[first:first + n]
+        mine = keep & (flat_ids >= first) & (flat_ids < first + n)
     x_pad = torch.cat([xt, xt.new_zeros((1, d))])
-    x_exp = x_pad[table[:-1].view(n_exp, cap)]                  # (E, cap, d)
+    x_exp = x_pad[table]                                        # (E, cap, d)
 
     g = torch.bmm(x_exp, _expert_w(p, "w_gate", dt))
     u = torch.bmm(x_exp, _expert_w(p, "w_up", dt))
     y_exp = torch.bmm(F.silu(g) * u, _expert_w(p, "w_down", dt))
 
     # the gather back per slot and the weighted sum over k
-    y_slots = y_exp[torch.where(keep, flat_ids, 0),
+    y_slots = y_exp[torch.where(mine, flat_ids - first, 0),
                     torch.clamp(pos, 0, cap - 1)]               # (t·k, d)
-    y_slots = torch.where(keep[:, None], y_slots, 0)
+    y_slots = torch.where(mine[:, None], y_slots, 0)
     y = (y_slots * flat_w[:, None].to(dt)).reshape(t, k, d).sum(dim=1)
+    if mode != "whole":
+        y = tp.reduce_from_model(y, ctx.mesh)
     return y.reshape(b, s, d), _load_balance_loss(logits, ids, n_exp,
                                                   ctx.mesh)
 

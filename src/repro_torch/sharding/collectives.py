@@ -140,9 +140,13 @@ def psum_ordered(x: torch.Tensor, mesh, axis: str = "data",
     operand before the sum, which then reads only what the caller keeps:
     the sum of the slices is the slice of the sum, bit for bit.  Staged
     through the host, the sum is taken there (IEEE float addition, the
-    device's bits) and only its result comes back."""
+    device's bits) and only its result comes back.  A group of one sums
+    nothing: the caller's part is copied where it lies."""
     group = mesh.get_group(axis)
     _record("psum_ordered", x)
+    if dist.get_world_size(group) == 1:
+        out = x if take is None else take(x)
+        return out.clone(memory_format=torch.contiguous_format)
     staged = _staged(group, x)
     with _timed():
         y = _to_host(x.contiguous(), staged)

@@ -19,21 +19,27 @@ cfg.sharding_overrides["train"])``):
   moments and the error-feedback buffers are each rank's blocks of the
   leaves (``params.shardings``), drawn whole on every rank from the seeded
   generator and cut;
-* compute is data-parallel over ``"data"`` and replicated over
-  ``"model"``: a step gathers each leaf whole in the dtype the loss reads
-  it in, runs the forward and backward on this rank's rows of the global
-  batch (its loss is its share of the global loss, ``Ctx.mesh``), sums the
-  float32 gradient over ``"data"`` in rank order (``psum_ordered``: two
-  runs of one world give the same bits) and keeps its block; the global
-  norm, the compression's absmax and AdamW then work on blocks;
+* compute is data-parallel over ``"data"`` and tensor-parallel over
+  ``"model"``: each layer gathers its weights over ``"data"`` just before
+  it runs, in the dtype the loss reads them in (``MeshLeaf``: no step
+  gathers the whole tree, at most one layer's copy is alive), and splits
+  its products over ``"model"`` by heads, MLP columns, experts, SSM and
+  RG-LRU channels and vocab, with rank-ordered partial sums
+  (``models/model.py``, ``sharding/tensor_parallel.py``).  The forward and
+  backward run on this rank's rows of the global batch (its loss is its
+  share of the global loss, ``Ctx.mesh``); the gradient of each leaf's
+  compute view is summed over ``"model"`` in rank order where a rank's is
+  partial (a leaf read whole inside a split region, ``LeafPlan.partial``),
+  then in float32 over ``"data"`` in rank order (``psum_ordered``: two
+  runs of one world give the same bits), and the rank keeps its block;
+  the global norm, the compression's absmax and AdamW then work on
+  blocks;
 * checkpoints are sharded: each rank writes its blocks, and a restore onto
   any mesh (a survivor mesh after a ``NodeFailure``) assembles each new
   block from the blocks on disk.
 
-Tensor-parallel compute over ``"model"`` (heads, MLP, vocab and experts
-split with partial-sum collectives, gathering a layer at a time) is
-ROADMAP queue A.16d: the reference gets it from GSPMD, the port must write
-it by hand.
+The prefill and serve steps under the serve rules (the decode cache split
+by sequence over ``"model"``) are ROADMAP queue A.16e.
 """
 from __future__ import annotations
 
@@ -47,10 +53,10 @@ from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import Ctx
-from repro_torch.models.model import loss_fn, model_specs
+from repro_torch.models.model import loss_fn, model_plan, model_specs
 from repro_torch.models.params import (
-    block_view,
-    gather_leaf,
+    MeshLeaf,
+    axis_block,
     init_params,
     leaf_dtype,
     shardings,
@@ -140,12 +146,19 @@ class Trainer:
         self.mesh = mesh
         self.rules = rules
         self.device = resolve_device(device)
-        self.ctx = Ctx(cfg=cfg, mode="train", force=force, mesh=mesh)
+        self.ctx = Ctx(cfg=cfg, mode="train", force=force, mesh=mesh,
+                       rules=rules)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep)
         self.failure_injector = failure_injector
         self.specs = model_specs(cfg)
-        self.placements = (None if mesh is None
-                           else shardings(self.specs, mesh, rules))
+        self.placements = self.plan = None
+        if mesh is not None:
+            self.placements = shardings(self.specs, mesh, rules)
+            for pl in tree_leaves(self.placements):
+                if any(len(axes) > 1 for axes in pl.dims):
+                    raise ValueError(f"a leaf of {pl.shape} has a dim split "
+                                     f"by several mesh dims: {pl.dims}")
+            self.plan = model_plan(cfg, rules)
         self.step = 0
 
     # ------------------------------------------------------------------
@@ -162,22 +175,44 @@ class Trainer:
                        params) if self.tcfg.grad_compression else None
         return params, _opt.init(params), err
 
-    def _compute_leaves(self, params):
-        """Every leaf whole, in the dtype the loss reads it in (gathered in
-        that dtype)."""
-        dt = getattr(torch, self.cfg.compute_dtype)
-        return tree_map(lambda spec, blk, pl: gather_leaf(
-            blk.to(leaf_dtype(spec, dt)), pl, self.mesh),
-            self.specs, params, self.placements)
+    def _grads(self, params, batch):
+        """(loss, metrics, grads) of this rank's loss share: on one device
+        :func:`grads_of`; on a mesh the gradient of each leaf's compute
+        view (its ``"model"`` block, or the whole leaf where its plan reads
+        it whole, whole over ``"data"``), in the dtype the loss reads it
+        in, each layer gathered inside the forward (``MeshLeaf``)."""
+        if self.mesh is None:
+            return grads_of(self.ctx, params, batch)
+        dt = self.ctx.compute_dtype
+        leaves = tree_map(lambda spec, blk, pl, lp: MeshLeaf.new(
+            blk, pl, self.mesh, leaf_dtype(spec, dt), lp.whole),
+            self.specs, params, self.placements, self.plan)
+        loss, metrics = loss_fn(self.ctx, leaves, batch)
+        sinks = [leaf.sink for leaf in tree_leaves(leaves)]
+        grads = iter(torch.autograd.grad(loss, sinks, materialize_grads=True))
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            tree_map(lambda _: next(grads), leaves)
 
     def _reduce(self, grads, loss, metrics):
         """The rank's gradients of its loss share -> its blocks of the
-        global gradient (the float32 sum over ``"data"``, in rank order);
-        the loss and metrics summed the same way."""
+        global gradient: a partial gradient summed over ``"model"`` (in
+        rank order, each part cut to the rank's ``"model"`` block), a whole
+        one cut to it, then the float32 sum over ``"data"`` in rank order
+        cut to the rank's block; the loss and metrics summed over
+        ``"data"``."""
         mesh = self.mesh
-        grads = tree_map(lambda g, pl: psum_ordered(
-            g.float(), mesh, "data",
-            take=lambda t: block_view(t, pl, mesh)), grads, self.placements)
+
+        def reduce(g, pl, lp):
+            g = g.float()
+            if lp.partial:
+                g = psum_ordered(g, mesh, "model", take=lambda t: axis_block(
+                    t, pl, mesh, "model"))
+            elif lp.whole:
+                g = axis_block(g, pl, mesh, "model")
+            return psum_ordered(g, mesh, "data", take=lambda t: axis_block(
+                t, pl, mesh, "data"))
+
+        grads = tree_map(reduce, grads, self.placements, self.plan)
         return (grads, psum_ordered(loss, mesh, "data"),
                 {k: psum_ordered(v, mesh, "data")
                  for k, v in metrics.items()})
@@ -189,8 +224,6 @@ class Trainer:
         if asked, then AdamW in place.  On a mesh ``batch`` is this rank's
         rows (:meth:`_device_batch`) and every tree holds its blocks."""
         tcfg = self.tcfg
-        leaves = params if self.mesh is None else \
-            self._compute_leaves(params)
         if tcfg.grad_accum > 1:
             m = tcfg.grad_accum
             b = next(iter(batch.values())).shape[0]
@@ -201,15 +234,14 @@ class Trainer:
             for i in range(m):
                 micro = {k: v[i * (b // m):(i + 1) * (b // m)]
                          for k, v in batch.items()}
-                loss, _, g = grads_of(self.ctx, leaves, micro)
+                loss, _, g = self._grads(params, micro)
                 gsum = tree_map(torch.Tensor.float, g) if gsum is None \
                     else tree_map(torch.add, gsum, g)
                 loss_sum = loss_sum + loss
             grads = tree_map(lambda g: g / m, gsum)
             loss, metrics = loss_sum / m, {}
         else:
-            loss, metrics, grads = grads_of(self.ctx, leaves, batch)
-        del leaves
+            loss, metrics, grads = self._grads(params, batch)
         if self.mesh is not None:
             grads, loss, metrics = self._reduce(grads, loss, metrics)
         if tcfg.grad_compression:
