@@ -354,6 +354,42 @@ Phases, one JSON line each; any failure exits non-zero:
                  mamba_scan_bwd 2 launches a step a rank, every scan on
                  4096 of the 8192 channels, both steps' losses within 1e-3
                  of the one-device steps on the same cut (run here first).
+19. ``serve_ranks`` the prefill and serve steps under the serve rules
+                 (``make_prefill_step`` / ``make_serve_step`` with
+                 ``rules_for(cfg, mesh, kind)``) on two gloo ranks sharing
+                 the card at mesh (1, 2): Qwen3-8B at full width in bf16,
+                 8 of its 36 layers, weights from a seed; a prefill of 8
+                 prompts of 3000 tokens into a cache of 3016 entries, split
+                 by sequence into two ranges of 1508, each row's length
+                 then set to 3000, 3000, 2400, 1800, 1508, 1500, 1493 and
+                 1000, then 16 decode steps: rows at 3000 and 2400 hold
+                 live entries in both ranges, 1508 writes the second range
+                 from step 1 (a one-entry range), 1500 crosses into it at
+                 step 9 and 1493 at step 16, 1000 never.  The same cut
+                 runs first on one device through the kernels, here, with
+                 greedy ids, and again in float32 (the same bf16 weights)
+                 fed those ids; the ranks take those ids.  Launch counters
+                 zeroed before the ranks' run and read after: per rank
+                 flash_attention 8 (on 16 of the 32 heads) and
+                 decode_attention_partial 8 × 16, each over 1508 entries,
+                 and no serving decode_attention launch.  The bound comes
+                 from the float32 witness: each step's largest |logit gap|
+                 to the one-device run at most √2 times the one-device
+                 run's to float32, and its rms gap to float32 at most √2
+                 times the one-device run's (bf16 rounding alone puts the
+                 one-device run past 2e-2 at small logits); the greedy ids
+                 equal wherever the one-device top-2 margin exceeds 0.125,
+                 the same bits on both ranks.  Per rank: prefill s, decode
+                 ms a step, seconds in collectives, bytes through the host,
+                 peak GB.  The kernels phase holds decode_attention_partial
+                 (the partial launch: float32 output and each range's
+                 log-sum-exp) against its plain version at this shape and
+                 at SMOKE ones, empty and one-entry ranges among them (bf16
+                 out within 2^-8 of the softmax-weighted mean of |v|, lse
+                 within 1e-3), checks that the plain version one entry
+                 short fails that bound, and times it with every row's
+                 range full beside the library's efficient attention with
+                 the log-sum-exp.
 
 The last three lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  ``--out DIR`` also
@@ -644,6 +680,19 @@ def warm_solve_master_inputs(prob, z, aq, warm_y):
     finally:
         robust.ccg_master = master
     return calls
+
+
+def on_host(torch, fn, *args, **kw):
+    """``fn`` on CPU copies of its tensor arguments, its results moved back
+    to the card: the plain C6 repair that the kernel is compared with, run
+    where its float32 prefix sums are sequential and give the same bits
+    every run (a comparison on the card once found two whole runs apart
+    and no round of them apart when rerun, so one side had not repeated
+    itself; ``plain_on_card_runs_bitequal`` records the card's side)."""
+    dev = next(a.device for a in (*args, *kw.values()) if torch.is_tensor(a))
+    cpu = lambda a: a.cpu() if torch.is_tensor(a) else a
+    out = fn(*map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
+    return tuple(o.to(dev) for o in out)
 
 
 def max_abs(torch, got, want) -> float:
@@ -1057,6 +1106,10 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
     def plain(args, budget, k=rounds):
         return c6_repair(*args, budget, n_fps=nz, rounds=k, force="ref")
 
+    def host(args, budget, k=rounds):      # the plain repair compared with
+        return on_host(torch, c6_repair, *args, budget, n_fps=nz, rounds=k,
+                       force="ref")
+
     def per_round(args, budget):
         tail = lambda *a, n_fps: c6_tail(*a, n_fps=n_fps, force="kernel")
         return repair_rounds(tail, *args, budget, nz, rounds)
@@ -1064,11 +1117,11 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
     err, hist_rel = 0.0, 0.0
     for (m, what), (args, budget) in cases.items():
         out = compare_repairs(lambda k: kernel(args, budget, k),
-                              lambda k: plain(args, budget, k), rounds, args,
+                              lambda k: host(args, budget, k), rounds, args,
                               budget, nz)
         if not out["within"]:
             raise AssertionError(f"c6_repair ({what}, M={m}) vs plain: {out}")
-        got, want = kernel(args, budget), plain(args, budget)
+        got, want = kernel(args, budget), host(args, budget)
         err = max(err, max_abs(torch, got[:2], want[:2]))
         hist_rel = max(hist_rel, out["hist_max_rel"])
 
@@ -1124,7 +1177,7 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
                                      f"differs from plain")
             continue
         out = compare_repairs(lambda k: kernel(big_args, big_budget, k),
-                              lambda k: plain(big_args, big_budget, k),
+                              lambda k: host(big_args, big_budget, k),
                               rounds, big_args, big_budget, nz)
         again = kernel(big_args, big_budget)
         if not out["within"] or not all(torch.equal(g, a) for g, a in
@@ -1132,9 +1185,14 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
             raise AssertionError(f"c6_repair at M={m} (cluster): {out}, "
                                  f"two launches bit-equal: "
                                  f"{all(map(torch.equal, got, again))}")
-        rec = {"tasks": m, "max_abs_err": max_abs(torch, got[:2], plain(
+        on_card = [plain(big_args, big_budget) for _ in range(3)]
+        rec = {"tasks": m, "max_abs_err": max_abs(torch, got[:2], host(
             big_args, big_budget)[:2]), "hist_max_rel_err":
-            out["hist_max_rel"], "two_launches_bitequal": True}
+            out["hist_max_rel"], "two_launches_bitequal": True,
+            # whether three runs of the plain repair on the card repeat
+            "plain_on_card_runs_bitequal": all(
+                torch.equal(x, y) for run in on_card[1:]
+                for x, y in zip(on_card[0], run))}
         for what in ("demoting", "main_path"):
             a_, b_ = c6_repair_tiled(cases, what, m)
             nbytes, flops, rounds_run, sorted_counts = c6_repair_work(
@@ -1424,6 +1482,162 @@ def attention_rows(torch, dev):
                                "pos_q >= pos_k)")
     rows["flash_attention"]["positions"] = pos_row
     return rows
+
+
+def partial_row(torch, dev):
+    """decode_attention_partial (the partial launch: one range of each
+    row's cache, float32 output and the range's log-sum-exp) against its
+    plain version at ``serve_ranks``' shape (Qwen3-8B, 8 rows, a range of
+    SERVE_RANGE entries, bf16 and float32; ragged lengths and every row
+    full) and at the SMOKE head dims (16 and 8), lengths 0 (an empty range)
+    and 1 among each case's.  bf16: out within 2^-8 of the softmax-weighted
+    mean of |v| (the kernel rounds each probability to bf16 before P·V, at
+    most 2^-9 of it) + 1e-6, the finite lse within 1e-3; float32: both
+    within ``ATTN_TOL``; -inf lse where the plain one is.  Each case's
+    plain version one entry short (every length less one) must fail the
+    same check.  Then timed with every row's range full, beside the
+    library's efficient attention with a length bias and the log-sum-exp
+    (K/V expanded to every query head outside the timed call)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention_partial, split_rule
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_partial_ref
+
+    gen = torch.Generator(dev).manual_seed(12)
+    b = SERVE["batch"]
+
+    def case(cfg, dtype, s, lengths):
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, s, kv, d), generator=gen, device=dev).to(
+            dtype).permute(0, 2, 1, 3) for _ in range(2))
+        return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+    def within(args, got, want):
+        """-> (every value within the bound, per row; out and finite lse
+        max |diff|)."""
+        (got_o, got_l), (want_o, want_l) = got, want
+        diff = (got_o.double() - want_o.double()).abs()
+        empty = torch.isinf(want_l)
+        l_diff = torch.where(empty, 0.0, got_l.double() - want_l.double()
+                             ).abs()
+        if args[0].dtype == torch.bfloat16:
+            q, k, v, length = args
+            w, _ = decode_attention_partial_ref(q, k, v.abs(), length)
+            ok = diff <= 2.0 ** -8 * w.double() + 1e-6
+            ok_l = l_diff <= 1e-3
+        else:
+            tol = ATTN_TOL["float32"]
+            ok = diff <= tol + tol * want_o.double().abs()
+            ok_l = l_diff <= tol + tol * torch.where(
+                empty, 0.0, want_l.double()).abs()
+        ok_l &= torch.isinf(got_l) == empty
+        ok_l &= torch.where(empty, got_l == -torch.inf, True)
+        rows = ok.flatten(1).all(1) & ok_l.all(1) & ~torch.isnan(
+            got_o).flatten(1).any(1)
+        return rows, float(diff.max()), float(l_diff.max())
+
+    serve_cfg = get_config(SERVE["arch"])
+    ragged = [0, 1, 7, 100, 1000, 1500, SERVE_RANGE - 1, SERVE_RANGE]
+    cases = [(f"serve {str(dt)[6:]} ragged",
+              case(serve_cfg, dt, SERVE_RANGE, ragged))
+             for dt in (torch.bfloat16, torch.float32)]
+    cases.append(("serve bfloat16 full", case(
+        serve_cfg, torch.bfloat16, SERVE_RANGE, [SERVE_RANGE] * b)))
+    for arch in ("qwen3-8b", "qwen1.5-0.5b"):
+        for dt in (torch.bfloat16, torch.float32):
+            cases.append((f"{arch} smoke {str(dt)[6:]}", case(
+                get_smoke_config(arch), dt, 37,
+                [0, 1, 2, 16, 17, 36, 37, 5])))
+    errs = {"bfloat16": 0.0, "float32": 0.0}
+    lse_err, short_rejected = 0.0, {}
+    for name, args in cases:
+        got = decode_attention_partial(*args, force="kernel")
+        want = decode_attention_partial(*args, force="ref")
+        torch.cuda.synchronize()
+        rows, o_err, l_err = within(args, got, want)
+        if not bool(rows.all()):
+            raise AssertionError(
+                f"decode_attention_partial ({name}): kernel vs plain out max "
+                f"|diff| {o_err}, lse {l_err}; rows off: "
+                f"{(~rows).nonzero().flatten().tolist()}")
+        dt = str(args[0].dtype)[6:]
+        errs[dt] = max(errs[dt], o_err)
+        lse_err = max(lse_err, l_err)
+        # the negative control: the plain version one entry short
+        q, k, v, length = args
+        short = decode_attention_partial(
+            q, k, v, torch.clamp_min(length - 1, 0).to(torch.int32),
+            force="ref")
+        rows, _, _ = within(args, got, short)
+        short_rejected[name] = int((~rows).sum())
+        if bool(rows.all()):
+            raise AssertionError(
+                f"decode_attention_partial ({name}): the check passes the "
+                f"plain version one entry short")
+    # timed with every row's range full (the "serve bfloat16 full" case);
+    # bytes: q, the K/V entries, out and lse (float32), lengths; 4·H·D
+    # operations an entry
+    h, kv, d = serve_cfg.num_heads, serve_cfg.num_kv_heads, \
+        serve_cfg.head_dim
+    q, k, v, length = cases[2][1]
+    call = lambda: decode_attention_partial(q, k, v, length, force="kernel")
+    n_kv = float(length.double().sum())
+    nbytes = 2 * b * h * d + 2 * 2 * n_kv * kv * d + 4 * b * h * (d + 1) \
+        + 4 * b
+    t_bound, by = bound(nbytes, 4 * n_kv * h * d, BF16_FLOP_PER_S)
+    ms = device_ms(torch, call, "decode_attention_kernel")
+    # the library: memory-efficient attention with a length bias (its last
+    # dim's stride a multiple of 16) returns out (bf16) and the natural-log
+    # lse; an empty range is outside its domain (NaN)
+    kx, vx = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
+    pad = -(-SERVE_RANGE // 16) * 16
+    bias = torch.zeros((b, h, 1, pad), dtype=q.dtype, device=dev)[
+        ..., :SERVE_RANGE]
+    bias.masked_fill_(torch.arange(SERVE_RANGE, device=dev)
+                      >= length[:, None, None, None], -torch.inf)
+    library = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        q[:, :, None], kx, vx, bias, True)
+    lib_o, lib_l = library()[:2]
+    want_o, want_l = decode_attention_partial(q, k, v, length, force="ref")
+    sdpa = lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                                   enable_gqa=True)
+    return {
+        "name": "decode_attention_partial", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+        "max_abs_err": errs["bfloat16"],
+        "max_abs_err_float32": errs["float32"], "lse_max_abs_err": lse_err,
+        "tolerance": "bf16: out 2^-8·(softmax-weighted |v|) + 1e-6, lse "
+                     "1e-3; float32: 2e-5 + 2e-5·|plain| (out and lse); "
+                     "-inf lse equal",
+        "cases_compared": [name for name, _ in cases],
+        "one_entry_short_rows_rejected": short_rejected,
+        "ms": ms if ms is not None else event_ms(torch, call, reps=100),
+        "ms_from": "profiler" if ms is not None else "cuda_events",
+        "call_ms": event_ms(torch, call, reps=100),
+        "plain_ms": event_ms(torch, lambda: decode_attention_partial(
+            q, k, v, length, force="ref"), reps=20),
+        "library_ms": event_ms(torch, library, reps=100),
+        "library_device_ms": device_ms(torch, library),
+        "library_call": "torch.ops.aten._scaled_dot_product_efficient_"
+                        "attention(q, k, v expanded to 32 heads, length "
+                        "bias, compute_log_sumexp=True)",
+        "library_max_abs_err": float((lib_o[:, :, 0].double()
+                                      - want_o.double()).abs().max()),
+        "library_lse_max_abs_err": float((lib_l[:, :, 0].double()
+                                          - want_l.double()).abs().max()),
+        "sdpa_output_only_ms": event_ms(torch, sdpa, reps=100),
+        "bytes": nbytes, "flops": 4 * n_kv * h * d,
+        "bound_ms": t_bound, "bound_by": by,
+        "shape": f"B={b} S={SERVE_RANGE} H={h} KV={kv} D={d} bf16, every "
+                 f"row's range full",
+        "splits": split_rule(b * kv, SERVE_RANGE,
+                             torch.cuda.get_device_properties(
+                                 dev).multi_processor_count)}
 
 
 def scan_rows(torch, dev, names=("mamba_scan", "rglru_scan")):
@@ -2988,7 +3202,8 @@ def scenarios_phase(torch, dev, counts_reset, counts_read, rows):
                              if k not in ("force", "rounds")}
     out = compare_repairs(
         lambda k: c6_repair(*args, **dict(rest, rounds=k, force="kernel")),
-        lambda k: c6_repair(*args, **dict(rest, rounds=k, force="ref")),
+        lambda k: on_host(torch, c6_repair, *args,
+                          **dict(rest, rounds=k, force="ref")),
         kw["rounds"], args[:9], budget, kw["n_fps"], task_mask=mask)
     if not out["within"]:
         raise AssertionError(f"c6_repair with the alive mask vs plain: "
@@ -3013,8 +3228,8 @@ def scenarios_phase(torch, dev, counts_reset, counts_read, rows):
         out = compare_repairs(
             lambda k: c6_repair(*top, half, **dict(rest, rounds=k,
                                                   force="kernel")),
-            lambda k: c6_repair(*top, half, **dict(rest, rounds=k,
-                                                  force="ref")),
+            lambda k: on_host(torch, c6_repair, *top, half,
+                              **dict(rest, rounds=k, force="ref")),
             kw["rounds"], top, half, kw["n_fps"], task_mask=mask)
         if not out["within"] or not out.get("rounds_demoting", 1):
             raise AssertionError(f"c6_repair, masked demoting case: {out}")
@@ -3082,7 +3297,8 @@ def trace_pools(torch, pools: dict, reps: int = 5) -> dict:
     the profiler costs ~1.5 s a call of a few thousand device activities
     and ~50 s a plain Falcon-Mamba-7B prefill (the selective scan a Python
     loop over the steps of every layer) on an H100's host, against 0.05
-    and ~1 s unprofiled."""
+    and ~1 s unprofiled: a Mamba pool's plain prefill keeps its wall times
+    and leaves out its profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3116,6 +3332,13 @@ def trace_pools(torch, pools: dict, reps: int = 5) -> dict:
         for path in ("kernels", "plain", "plain", "kernels"):
             walls[path].append(wall_ms(calls[path][what]))
         for path in pools:
+            if what == "prefill_8x80" and path == "plain" \
+                    and pools[path].cfg.ssm is not None:
+                out[f"{path}_{what}"] = {
+                    "wall_ms": walls[path],
+                    "profile": "not taken (the profiler's ~50 s of a "
+                               "Python-loop scan)"}
+                continue
             t0 = time.perf_counter()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -5332,10 +5555,271 @@ def train_ranks_phase(torch, dev, counts_reset, counts_read):
         "launches": dict(total)}
 
 
+SERVE = {"arch": "qwen3-8b", "layers": 8, "batch": 8, "prompt": 3000,
+         "steps": 16, "mesh": (1, 2), "seed": 0,
+         # each row's length after the prefill (its prompt's first so many
+         # tokens stay live)
+         "lengths": (3000, 3000, 2400, 1800, 1508, 1500, 1493, 1000)}
+# the cache holds the prompt and the steps: 3016 entries, two ranges of
+# 1508.  Rows at 3000 and 2400 hold comparable mass in both ranges; 1508
+# starts the second range at step 1 (a one-entry range), 1500 crosses into
+# it at step 9 and 1493 at step 16 (empty ranges before); 1000 never
+# reaches it
+SERVE_CACHE = SERVE["prompt"] + SERVE["steps"]
+SERVE_RANGE = SERVE_CACHE // SERVE["mesh"][1]
+
+
+def serve_setup():
+    """The ``serve_ranks`` cut: Qwen3-8B at full width, ``SERVE["layers"]``
+    layers, a cache of SERVE_CACHE entries (prompt + steps); and the seeded
+    prompts (CPU int32)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SERVE["arch"])
+    cfg = dataclasses.replace(cfg, num_layers=SERVE["layers"],
+                              decode_headroom=SERVE["steps"])
+    gen = torch.Generator().manual_seed(SERVE["seed"])
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (SERVE["batch"], SERVE["prompt"]), generator=gen,
+                           dtype=torch.int32)
+    return cfg, tokens
+
+
+def serve_weights(torch, cfg, dev):
+    """The whole serve weights of the cut, drawn from the seed on ``dev``
+    in bf16 (the same draws in every process)."""
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params
+
+    return init_params(model_specs(cfg, serve=True),
+                       torch.Generator(dev).manual_seed(SERVE["seed"]), dev,
+                       torch.bfloat16)
+
+
+def serve_run(torch, prefill_step, serve_step, params, tokens, ids=None):
+    """A prefill, each row's length set to ``SERVE["lengths"]``, then
+    ``SERVE["steps"]`` decode steps, each fed ``ids[i]`` or (``ids`` None)
+    the greedy id of the step before -> (the logits of every step on the
+    CPU, the ids fed (numpy), prefill s, decode ms a step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache["length"] = torch.tensor(SERVE["lengths"], dtype=torch.int32,
+                                   device=logits.device)
+    out, fed, step_ms = [logits.cpu()], [], []
+    for i in range(SERVE["steps"]):
+        nxt = logits.argmax(-1) if ids is None else torch.from_numpy(
+            ids[i]).to(logits.device)
+        fed.append(nxt.cpu().numpy())
+        t0 = time.perf_counter()
+        logits, cache = serve_step(params, cache,
+                                   {"tokens": nxt[:, None].to(torch.int32)})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits.cpu())
+    return out, fed, prefill_s, step_ms
+
+
+def serve_ranks_rank(device: str, ids) -> dict:
+    """One of two gloo ranks sharing the card at ``SERVE["mesh"]``: the
+    cut's prefill and serve steps under ``rules_for``, fed the one-device
+    run's ``ids``; its launches (counted from zero just before the run),
+    the heads of every flash_attention call and the range of every
+    decode_attention_partial call, the modes its layers ran, logits (rank
+    0) and their digest, prefill s, decode ms a step, seconds in
+    collectives, bytes through the host, peak GB."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_prefill_step, \
+        make_serve_step, rules_for
+    from repro_torch.models.model import serve_params
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding.collectives import COLLECTIVES, TRAFFIC
+
+    dev = torch.device(device)
+    seen = collections.Counter()
+    flash, partial = flash_ops.flash_attention, \
+        decode_ops.decode_attention_partial
+
+    def flash_seen(q, *a, **kw):        # q: (B, heads, S, D)
+        seen[f"flash_attention heads {q.shape[1]}"] += 1
+        return flash(q, *a, **kw)
+
+    def partial_seen(q, k_blk, *a, **kw):   # k_blk: (B, KV, entries, D)
+        seen[f"decode_attention_partial entries {k_blk.shape[2]}"] += 1
+        return partial(q, k_blk, *a, **kw)
+
+    flash_ops.flash_attention = flash_seen
+    decode_ops.decode_attention_partial = partial_seen
+    mesh = make_host_mesh(SERVE["mesh"])
+    cfg, tokens = serve_setup()
+    prefill_rules = rules_for(cfg, mesh, "prefill")
+    serve_rules = rules_for(cfg, mesh, "decode")
+    params = serve_params(cfg, serve_weights(torch, cfg, dev), serve_rules)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tp.MODES.clear()
+    start, traffic0 = len(COLLECTIVES), dict(TRAFFIC)
+    with torch.no_grad():
+        reset_launch_counts()
+        logits, _, prefill_s, step_ms = serve_run(
+            torch, make_prefill_step(cfg, prefill_rules),
+            make_serve_step(cfg, serve_rules), params, tokens.to(dev), ids)
+        launches = launch_counts()
+    logits = [t.numpy() for t in logits]    # no tensor through the queue
+    digest = hashlib.sha256()
+    for t in logits:
+        digest.update(t.tobytes())
+    rank = torch.distributed.get_rank()
+    return {"rank": rank, "launches": launches, "seen": dict(seen),
+            "modes": {f"{k} {m}": n for (k, m), n in tp.MODES.items()},
+            "logits": logits if rank == 0 else None,
+            "logits_sha256": digest.hexdigest(),
+            "prefill_s": prefill_s, "decode_step_ms": step_ms,
+            "collective_s": TRAFFIC["seconds"] - traffic0["seconds"],
+            "host_bytes": TRAFFIC["host_bytes"] - traffic0["host_bytes"],
+            "collectives": dict(collections.Counter(
+                op for op, _, _ in COLLECTIVES[start:])),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def serve_gaps(got, want):
+    """Per step: the largest |got - want| and its root mean square over
+    every row's logits."""
+    out = []
+    for g, w in zip(got, want):
+        d = g.double() - w.double()
+        out.append((float(d.abs().max()), float(d.square().mean().sqrt())))
+    return out
+
+
+def serve_ranks_phase(torch, dev):
+    """The prefill and serve steps under the serve rules (see the module
+    doc): the cut on one device here in bf16, and in float32 fed the same
+    ids (the witness: the same bf16 weights, every activation in float32),
+    then on two gloo ranks sharing the card -> (the ranks' launches, the
+    record).  The record is printed before a failed check raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.params import tree_map
+
+    t_start = time.perf_counter()
+    free_device_memory(torch)
+    cfg, tokens = serve_setup()
+    params = serve_weights(torch, cfg, dev)
+    with torch.no_grad():
+        want, ids, one_prefill_s, one_step_ms = serve_run(
+            torch, make_prefill_step(cfg, None), make_serve_step(cfg, None),
+            params, tokens.to(dev))
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        params = tree_map(lambda t: t.float(), params)
+        exact, _, _, _ = serve_run(
+            torch, make_prefill_step(cfg32, None),
+            make_serve_step(cfg32, None), params, tokens.to(dev), ids)
+    del params
+    free_device_memory(torch)
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(serve_ranks_rank, 2, backend="gloo", timeout=600,
+                      threads=None, args=(str(dev), ids))
+    ranks_s = time.perf_counter() - t0
+    t = SERVE["mesh"][1]
+    attn = collections.Counter(cfg.layer_kinds())["attn"]
+    want_launches = {"flash_attention": attn,
+                     "decode_attention_partial": attn * SERVE["steps"]}
+    want_seen = {f"flash_attention heads {cfg.num_heads // t}": attn,
+                 f"decode_attention_partial entries {SERVE_RANGE}":
+                     attn * SERVE["steps"]}
+    failures = []
+    total = collections.Counter()
+    for r in ranks:
+        if r["launches"] != want_launches or r["seen"] != want_seen:
+            failures.append(
+                f"rank {r['rank']}: launches {r['launches']} on "
+                f"{r['seen']}, want {want_launches} on {want_seen}")
+        if r["logits_sha256"] != ranks[0]["logits_sha256"]:
+            failures.append("the ranks' logits differ")
+        if r["modes"].get("attn_cache seq", 0) == 0:
+            failures.append(f"rank {r['rank']}: the cache was not split by "
+                            f"sequence: {r['modes']}")
+        total.update(r["launches"])
+    got = [torch.from_numpy(g) for g in ranks[0].pop("logits")]
+    # the bound, from the float32 witness: bf16 rounding alone moves the
+    # one-device run's logits by max|one - f32| a step (0.036-0.038 on an
+    # H100 at 8 layers, over ATTN_TOL's 2e-2 at small logits); the split
+    # rounds in another order, so it may differ from the one-device run by
+    # as much again, independent errors of equal size adding to √2 times
+    # one (in largest |diff| and in rms); a dropped or misweighted range
+    # moves both by ~2x (a range left out, on an H100)
+    split_gaps = serve_gaps(got, want)
+    split_exact = serve_gaps(got, exact)
+    one_exact = serve_gaps(want, exact)
+    ratios = [s[1] / o[1] for s, o in zip(split_exact, one_exact)]
+    tol = ATTN_TOL["bfloat16"]
+    compared, flips, over_attn_tol = 0, 0, []
+    for step, (g, w) in enumerate(zip(got, want)):
+        limit = math.sqrt(2) * one_exact[step][0]
+        if split_gaps[step][0] > limit:
+            failures.append(f"step {step}: logits off the one-device run by "
+                            f"{split_gaps[step][0]}, over √2 · its gap to "
+                            f"float32 ({limit})")
+        if ratios[step] > math.sqrt(2):
+            failures.append(f"step {step}: the split's rms gap to float32 "
+                            f"{ratios[step]} times the one-device run's")
+        diff = (g.double() - w.double()).abs()
+        over_attn_tol.append(int((diff > tol + tol * w.double().abs()
+                                  ).sum()))
+        top2 = w.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LOGIT_MARGIN
+        compared += int(clear.sum())
+        flips += int((g.argmax(-1) != w.argmax(-1))[clear].sum())
+    if flips:
+        failures.append(f"{flips} of {compared} greedy ids with a margin "
+                        f"over {LOGIT_MARGIN} differ")
+    rec = {"phase": "serve_ranks", "arch": cfg.name,
+           "layers": SERVE["layers"],
+           "layers_of_config": get_config(SERVE["arch"]).num_layers,
+           "dtype": "bfloat16", "mesh": list(SERVE["mesh"]),
+           "batch": SERVE["batch"], "prompt": SERVE["prompt"],
+           "lengths_after_prefill": list(SERVE["lengths"]),
+           "cache_entries": SERVE_CACHE, "range_entries": SERVE_RANGE,
+           "steps": SERVE["steps"],
+           "tolerance": "each step: max |split - one device| ≤ √2 · max "
+                        "|one device - float32|; rms |split - float32| ≤ √2 "
+                        "· rms |one device - float32|",
+           "logits_max_abs_err": [m for m, _ in split_gaps],
+           "logits_rms_err": [q for _, q in split_gaps],
+           "witness_float32": {
+               "split_max_rms": split_exact, "one_device_bf16_max_rms":
+                   one_exact, "rms_ratio": ratios},
+           "logits_over_attn_tol": over_attn_tol,
+           "greedy_ids_compared": compared, "greedy_ids_differ": flips,
+           "one_device": {"prefill_s": one_prefill_s,
+                          "decode_step_ms": one_step_ms},
+           "ranks_s": ranks_s, "ranks": ranks, "failures": failures,
+           "seconds_in_phase": time.perf_counter() - t_start}
+    if failures:
+        emit(rec)
+        raise AssertionError(f"serve_ranks: {failures}")
+    return dict(total), rec
+
+
 PHASES = ("kernels", "gate_cell_bwd", "flash_attention_bwd", "main_path",
           "solve_ccg", "policies", "decide", "finetune", "scenarios", "sharded", "dispatch",
           "dispatch_recurrent", "dispatch_moe", "front_end", "train",
-          "train_recurrent", "train_ranks", "mamba_scan_bwd",
+          "train_recurrent", "train_ranks", "serve_ranks", "mamba_scan_bwd",
           "rglru_scan_bwd")
 
 
@@ -5425,6 +5909,7 @@ def main() -> int:
             "earlier_ms"]
         rows["c6_tail"]["cluster_repair"] = cluster
         rows.update(attention_rows(torch, dev))
+        rows["decode_attention_partial"] = partial_row(torch, dev)
         rows.update(scan_rows(torch, dev))
     if only & {"kernels", "flash_attention_bwd"}:
         rows["flash_attention_bwd"] = flash_bwd_row(torch, dev, first_design)
@@ -5510,6 +5995,9 @@ def main() -> int:
         record(rec)
     if "train_ranks" in only:
         phases["train_ranks"], rec = train_ranks_phase(torch, dev, *counted)
+        record(rec)
+    if "serve_ranks" in only:
+        phases["serve_ranks"], rec = serve_ranks_phase(torch, dev)
         record(rec)
     for name, row in rows.items():
         by_phase = {ph: c[name] for ph, c in phases.items() if c.get(name)}

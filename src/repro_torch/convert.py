@@ -21,7 +21,7 @@ from repro_torch.core.router import RouterState
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import cache_specs, model_specs
-from repro_torch.models.params import leaf_dtype, tree_map
+from repro_torch.models.params import leaf_dtype, shard_leaf, tree_map
 from repro_torch.serving.policy import HistoryState, RDAPState, SniperState
 from repro_torch.train.optimizer import AdamWState
 
@@ -147,20 +147,33 @@ def opt_state_to_numpy(state: AdamWState) -> dict:
             "nu": tree_to_numpy(state.nu)}
 
 
-def cache_from_numpy(cache, cfg: ModelConfig, device="cuda") -> dict:
+def cache_from_numpy(cache, cfg: ModelConfig, device="cuda", *,
+                     placements=None, mesh=None) -> dict:
     """A reference cache or slab ({length, segments}) -> the port's: each
     leaf in its cache spec's dtype (K/V and convolution states in the
     compute dtype, recurrent states ``h`` in float32), ``length`` (scalar
-    or (B,)) int32."""
+    or (B,)) int32.  With ``placements`` (``model.cache_placements`` of the
+    whole cache's shapes) and ``mesh``: this rank's block of each leaf, and
+    ``"cache_len"`` the whole attention cache's length, as a prefill under
+    the serve rules emits them."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.compute_dtype)
     specs = cache_specs(cfg, 1, 1)["segments"]     # dtypes, not shapes
-    return {
+
+    def leaf(spec, x, pl=None):
+        t = torch.from_numpy(_f32(x)).to(dtype=leaf_dtype(spec, dt))
+        return (t if pl is None else shard_leaf(t, pl, mesh)).to(dev)
+
+    more = () if placements is None else (placements["segments"],)
+    out = {
         "length": torch.from_numpy(np.array(cache["length"], np.int32)).to(dev),
-        "segments": tree_map(lambda spec, x: torch.from_numpy(_f32(x)).to(
-            device=dev, dtype=leaf_dtype(spec, dt)), specs,
-            cache["segments"]),
+        "segments": tree_map(leaf, specs, cache["segments"], *more),
     }
+    k_shapes = [layer["k"].shape for seg in (placements or {}).get(
+        "segments", ()) for layer in seg.values() if "k" in layer]
+    if k_shapes:        # a stacked K: (layers, B, C, KV, D)
+        out["cache_len"] = k_shapes[0][2]
+    return out
 
 
 def tree_to_numpy(tree):
@@ -168,5 +181,6 @@ def tree_to_numpy(tree):
     leaves such as int8 expert weights in their own dtype), which
     later in-place writes of the port (a decode step into its slab) leave
     unchanged."""
-    return tree_map(lambda t: np.array((t.float() if t.is_floating_point()
-                                        else t).cpu()), tree)
+    return tree_map(lambda t: t if not isinstance(t, torch.Tensor) else
+                    np.array((t.float() if t.is_floating_point()
+                              else t).cpu()), tree)

@@ -81,6 +81,10 @@ _SIGNATURES = {
     # q, k, v, length, out, q strides (b, h), k and v strides (b, h, s),
     # B, H, KV, S, D, splits, scale, dtype, stream
     "decode_attention_launch": [_P] * 5 + [_L] * 8 + [_I] * 6 + [_F, _I, _P],
+    # q, k, v, length, out (float32), lse (float32 (B, H)), q strides (b, h),
+    # k and v strides (b, h, s), B, H, KV, S, D, splits, scale, dtype, stream
+    "decode_attention_partial_launch": [_P] * 6 + [_L] * 8 + [_I] * 6
+    + [_F, _I, _P],
     # q, k, v, positions (int32 (B, S), or null), out, lse (or null), q/k/v
     # strides (b, h, s), B, H, KV, Sq, Sk, D, BQ, window, causal, scale,
     # dtype, stream

@@ -56,6 +56,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 
@@ -187,11 +188,16 @@ __device__ __forceinline__ void store_vec(T* p, const float* x) {
 // The cluster's combine: every block has left its split's (m, l) per row in
 // m_s / l_s and its P·V sums, (G, D) float, in acc_s; block `split` adds
 // every splits-th output piece of kVec values over the splits, in split
-// order, and stores acc / max(l, 1e-30) into out (B, H, D)
-template <typename T, int kVec>
+// order, and stores acc / max(l, 1e-30) into out (B, H, D), of the input
+// type (the serving launch) or float (the partial launch).  With lse (the
+// partial launch, (B, H) float), the item of each row's first piece also
+// stores the range's natural-log log-sum-exp of the scaled scores,
+// ln 2 · (m + log2 l), and -inf where the range is empty (l = 0)
+template <typename TO, int kVec>
 __device__ __forceinline__ void combine_store(float* m_s, float* l_s,
-                                              float* acc_s, T* out, int b,
-                                              int kh, int H, int G, int D) {
+                                              float* acc_s, TO* out,
+                                              float* lse, int b, int kh,
+                                              int H, int G, int D) {
   const int split = blockIdx.x, splits = gridDim.x, tid = threadIdx.x;
   const int C = D / kVec;
   cg::cluster_group cluster = cg::this_cluster();
@@ -227,18 +233,23 @@ __device__ __forceinline__ void combine_store(float* m_s, float* l_s,
     const float inv_l = 1.0f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) y[e] *= inv_l;
-    store_vec<T, kVec>(out + ((long long)b * H + kh * G + g) * D + c * kVec, y);
+    store_vec<TO, kVec>(out + ((long long)b * H + kh * G + g) * D + c * kVec,
+                        y);
+    if ((lse != nullptr) & (c == 0))
+      lse[(long long)b * H + kh * G + g] =
+          l > 0.0f ? (m + log2f(l)) * 0.6931471805599453f : -INFINITY;
   }
   cluster.sync();                            // peers done reading this block
 }
 
 // kVec: values of T per piece, 16 bytes on the aligned path (8 bf16, 4
 // float), 4 bytes on the generic one (a bf16 pair, one float)
-template <typename T, int kVec>
+template <typename T, typename TO, int kVec>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
-                            const int* __restrict__ length, T* __restrict__ out,
+                            const int* __restrict__ length,
+                            TO* __restrict__ out, float* __restrict__ lse,
                             long long q_sb, long long q_sh, long long k_sb,
                             long long k_sh, long long k_ss, long long v_sb,
                             long long v_sh, long long v_ss, int H, int KV,
@@ -417,7 +428,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < kVec; ++e) q_s[g * D + c * kVec + e] = acc[it][e];
     }
   }
-  combine_store<T, kVec>(m_s, l_s, q_s, out, b, kh, H, G, D);
+  combine_store<TO, kVec>(m_s, l_s, q_s, out, lse, b, kh, H, G, D);
 }
 
 // ----------------------------------------- bfloat16 on the tensor cores
@@ -503,13 +514,13 @@ __host__ __device__ inline MmaLayout make_mma_layout(int G, int D,
   return o;
 }
 
-template <int D>
+template <int D, typename TO>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel_mma(
         const __nv_bfloat16* __restrict__ q,
         const __nv_bfloat16* __restrict__ k,
         const __nv_bfloat16* __restrict__ v, const int* __restrict__ length,
-        __nv_bfloat16* __restrict__ out, long long q_sb, long long q_sh,
+        TO* __restrict__ out, float* __restrict__ lse, long long q_sb, long long q_sh,
         long long k_sb, long long k_sh, long long k_ss, long long v_sb,
         long long v_sh, long long v_ss, int H, int KV, int S, int stage,
         float scale) {
@@ -676,7 +687,7 @@ __global__ void __launch_bounds__(kThreads)
       acc_s[(gq + 8) * D + col + 1] = o[f][3];
     }
   }
-  combine_store<__nv_bfloat16, 8>(m_s, l_s, acc_s, out, b, kh, H, G, D);
+  combine_store<TO, 8>(m_s, l_s, acc_s, out, lse, b, kh, H, G, D);
 }
 
 // one launch of `kernel` on a (splits, bkv) grid, each (row, KV head)'s
@@ -707,9 +718,9 @@ int launch_clusters(void (*kernel)(Params...), int splits, int bkv,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename TO>
 int launch_mma(const void* q, const void* k, const void* v,
-               const void* length, void* out, long long q_sb, long long q_sh,
+               const void* length, void* out, float* lse, long long q_sb, long long q_sh,
                long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                long long v_sh, long long v_ss, int B, int H, int KV, int S,
                int splits, float scale, cudaStream_t stream) {
@@ -719,16 +730,16 @@ int launch_mma(const void* q, const void* k, const void* v,
   const MmaLayout lay = make_mma_layout(H / KV, D,
                                         (stage + kTile - 1) / kTile * kTile);
   return launch_clusters(
-      decode_attention_kernel_mma<D>, splits, B * KV, kThreads, lay.total,
-      stream,
+      decode_attention_kernel_mma<D, TO>, splits, B * KV, kThreads,
+      lay.total, stream,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)length, (__nv_bfloat16*)out, q_sb,
+      (const __nv_bfloat16*)v, (const int*)length, (TO*)out, lse, q_sb,
       q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, H, KV, S, stage, scale);
 }
 
-template <typename T, int kVec>
+template <typename T, typename TO, int kVec>
 int launch(const void* q, const void* k, const void* v, const void* length,
-           void* out, long long q_sb, long long q_sh, long long k_sb,
+           void* out, float* lse, long long q_sb, long long q_sh, long long k_sb,
            long long k_sh, long long k_ss, long long v_sb, long long v_sh,
            long long v_ss, int B, int H, int KV, int S, int D, int splits,
            float scale, cudaStream_t stream) {
@@ -737,9 +748,9 @@ int launch(const void* q, const void* k, const void* v, const void* length,
   const int stage = min(chunk, max(kTile, kStageBytes / (2 * D * (int)sizeof(T))));
   const Layout lay = make_layout(H / KV, D, stage, sizeof(T));
   return launch_clusters(
-      decode_attention_kernel<T, kVec>, splits, B * KV, kThreads, lay.total,
-      stream, (const T*)q, (const T*)k,
-      (const T*)v, (const int*)length, (T*)out, q_sb, q_sh, k_sb, k_sh, k_ss,
+      decode_attention_kernel<T, TO, kVec>, splits, B * KV, kThreads,
+      lay.total, stream, (const T*)q, (const T*)k,
+      (const T*)v, (const int*)length, (TO*)out, lse, q_sb, q_sh, k_sb, k_sh, k_ss,
       v_sb, v_sh, v_ss, H, KV, S, D, stage, scale);
 }
 
@@ -754,6 +765,42 @@ bool aligned16(const void* q, const void* k, const void* v,
   return true;
 }
 
+// The launch of one call: the serving launch (kPartial false: out in the
+// input type, no lse) or the partial launch (out float, lse (B, H) float)
+template <bool kPartial>
+int run(const void* q, const void* k, const void* v, const void* length,
+        void* out, float* lse, long long q_sb, long long q_sh, long long k_sb,
+        long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+        long long v_ss, int B, int H, int KV, int S, int D, int splits,
+        float scale, int dtype, void* stream) {
+  if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxGroup || D < 2 || D % 2 ||
+      D > kMaxD || S < 1 || splits < 1 || splits > kMaxSplits || splits > S ||
+      (long long)B * KV > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long strides[8] = {q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  using Bf = __nv_bfloat16;
+  using BfOut = typename std::conditional<kPartial, float, Bf>::type;
+  const bool fast = aligned16(q, k, v, strides, 8, D, dtype == 0 ? 4 : 2);
+  // aligned bf16 at the tiers' head dims: the tensor cores
+  if (dtype == 1 && fast && (D == 64 || D == 128 || D == 256)) {
+    auto fn = D == 64    ? launch_mma<64, BfOut>
+              : D == 128 ? launch_mma<128, BfOut>
+                         : launch_mma<256, BfOut>;
+    return fn(q, k, v, length, out, lse, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb,
+              v_sh, v_ss, B, H, KV, S, splits, scale, st);
+  }
+  if (dtype == 0) {
+    auto fn = fast ? launch<float, float, 4> : launch<float, float, 1>;
+    return fn(q, k, v, length, out, lse, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb,
+              v_sh, v_ss, B, H, KV, S, D, splits, scale, st);
+  }
+  auto fn = fast ? launch<Bf, BfOut, 8> : launch<Bf, BfOut, 2>;
+  return fn(q, k, v, length, out, lse, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb,
+            v_sh, v_ss, B, H, KV, S, D, splits, scale, st);
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  Strides in elements; out is (B, H, D)
@@ -765,27 +812,24 @@ extern "C" int decode_attention_launch(
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, int B,
     int H, int KV, int S, int D, int splits, float scale, int dtype,
     void* stream) {
-  if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxGroup || D < 2 || D % 2 ||
-      D > kMaxD || S < 1 || splits < 1 || splits > kMaxSplits || splits > S ||
-      (long long)B * KV > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long strides[8] = {q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const bool fast = aligned16(q, k, v, strides, 8, D, dtype == 0 ? 4 : 2);
-  // aligned bf16 at the tiers' head dims: the tensor cores
-  if (dtype == 1 && fast && (D == 64 || D == 128 || D == 256)) {
-    auto fn = D == 64 ? launch_mma<64> : D == 128 ? launch_mma<128>
-                                                  : launch_mma<256>;
-    return fn(q, k, v, length, out, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh,
-              v_ss, B, H, KV, S, splits, scale, st);
-  }
-  if (dtype == 0) {
-    auto fn = fast ? launch<float, 4> : launch<float, 1>;
-    return fn(q, k, v, length, out, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh,
-              v_ss, B, H, KV, S, D, splits, scale, st);
-  }
-  auto fn = fast ? launch<__nv_bfloat16, 8> : launch<__nv_bfloat16, 2>;
-  return fn(q, k, v, length, out, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh,
-            v_ss, B, H, KV, S, D, splits, scale, st);
+  return run<false>(q, k, v, length, out, nullptr, q_sb, q_sh, k_sb, k_sh,
+                    k_ss, v_sb, v_sh, v_ss, B, H, KV, S, D, splits, scale,
+                    dtype, stream);
+}
+
+// The partial launch: one range of each row's cache (a rank's sequence
+// block), length[b] in 0..S of its entries valid.  out (B, H, D) float32,
+// the range's normalised output (zeros for an empty range); lse (B, H)
+// float32, the range's log-sum-exp of the scaled scores (natural log; -inf
+// for an empty range), for a combine across the ranges.
+extern "C" int decode_attention_partial_launch(
+    const void* q, const void* k, const void* v, const void* length, void* out,
+    void* lse, long long q_sb, long long q_sh, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss, int B,
+    int H, int KV, int S, int D, int splits, float scale, int dtype,
+    void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return run<true>(q, k, v, length, out, (float*)lse, q_sb, q_sh, k_sb, k_sh,
+                   k_ss, v_sb, v_sh, v_ss, B, H, KV, S, D, splits, scale,
+                   dtype, stream);
 }

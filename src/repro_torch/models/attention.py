@@ -33,6 +33,21 @@ evenly (the placement leaves ``wk``/``wv`` whole or cuts them mid-head)
 they are read whole and each rank takes the KV head its query heads read
 (``"kv_whole"``); where the query heads do not split, the layer runs whole
 on every rank.
+
+Under the serve rules (a prefill or decode step on a mesh, the weights the
+rank's blocks as plain tensors) the projections split as above, and the
+KV cache is split by sequence over ``"model"``: rank r of T holds entries
+``[r·C/T, (r+1)·C/T)`` of every row's cache of C entries (``Ctx.cache_len``),
+or all of it where T does not divide C (``fitted_spec`` drops the split).
+The prefill runs the attention on the rank's heads and emits the gathered
+K/V's range.  A decode step (:func:`_decode_split`) gathers the new
+token's q, k and v to all heads, writes k/v on the rank that owns slot
+``length mod C``, attends over the rank's range with
+``decode_attention_partial`` and merges the ranges with
+``combine_partials`` (by their log-sum-exps, in rank order); the rank then
+takes back its heads for the row-parallel ``wo``.  A kv_whole layer
+computes every KV head from its whole ``wk``/``wv`` (the cache holds them
+all) and attends with the one its query heads read.
 """
 from __future__ import annotations
 
@@ -272,6 +287,60 @@ def _decode_attention(ctx: Ctx, q, k_cache, v_cache, length):
     return decode_attention(q, k_cache, v_cache, length=length)
 
 
+def _seq_block(ctx: Ctx, t):
+    """This rank's range of a whole (B, C, KV, D) cache tensor, or all of
+    it where the cache stays whole; the mode recorded in ``tp.MODES``."""
+    tp.MODES[("attn_cache", "seq" if ctx.cache_split else "whole")] += 1
+    if not ctx.cache_split:
+        return t
+    n = ctx.cache_len // tp.size(ctx)
+    return t.narrow(1, tp.rank(ctx.mesh) * n, n).contiguous()
+
+
+def _decode_split(ctx: Ctx, mode: str, q, k, v, cache):
+    """A decode step's attention under the serve rules: q (B, 1, h, D) on
+    the rank's heads (all of them in a whole layer), k/v (B, 1, kv, D) the
+    rank's KV heads (every one in kv_whole and whole layers); ``cache`` the
+    rank's block {k, v: (B, C/T or C, KV, D), length}.  Returns (out
+    (B, 1, h, D) on the rank's heads, the cache written in place)."""
+    mesh, t, r = ctx.mesh, tp.size(ctx), tp.rank(ctx.mesh)
+    h_loc = q.shape[2]
+    if mode != "whole":
+        q = tp.gather_from_model(q, mesh, dim=2)
+    if mode == "split":
+        k = tp.gather_from_model(k, mesh, dim=2)
+        v = tp.gather_from_model(v, mesh, dim=2)
+    idx = cache["length"]
+    k_cache, v_cache = cache["k"], cache["v"]
+    b, n = q.shape[0], k_cache.shape[1]
+    total, split = ctx.cache_len, ctx.cache_split
+    if n != (total // t if split else total):
+        raise ValueError(f"a rank's cache of {n} entries for a whole cache "
+                         f"of {total} on {t} ranks")
+    tp.MODES[("attn_cache", "seq" if split else "whole")] += 1
+    first = r * n if split else 0
+    lengths = torch.broadcast_to(torch.atleast_1d(idx), (b,))
+    # rolling-window write position (== length for full caches), written
+    # by the rank whose range holds it
+    wpos = torch.remainder(lengths, total).long()
+    mine = (wpos >= first) & (wpos < first + n)
+    slot = torch.where(mine, wpos - first, 0)
+    rows = torch.arange(b, device=q.device)
+    for c_, new in ((k_cache, k), (v_cache, v)):
+        c_[rows, slot] = torch.where(mine[:, None, None], new[:, 0],
+                                     c_[rows, slot])
+    local = torch.clamp(torch.clamp_max(lengths + 1, total) - first, 0, n)
+    out, lse = decode_ops.decode_attention_partial(
+        q[:, 0], k_cache.permute(0, 2, 1, 3), v_cache.permute(0, 2, 1, 3),
+        local.to(torch.int32), force=ctx.force)
+    if split:
+        out, _ = tp.combine_partials(out, lse, mesh)
+    out = out.to(q.dtype)[:, None]
+    if mode != "whole":
+        out = out[:, :, r * h_loc:(r + 1) * h_loc]
+    return out, {"k": k_cache, "v": v_cache, "length": idx + 1}
+
+
 def attn_forward(ctx: Ctx, p, x, *, positions, cache=None,
                  cache_out_len: Optional[int] = None,
                  positions_given: bool = False):
@@ -286,12 +355,15 @@ def attn_forward(ctx: Ctx, p, x, *, positions, cache=None,
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     mode = tp.layer_mode(ctx, "attn", attn_tp)
     wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    kv_head = None      # serving kv_whole: the KV head this rank attends with
     if mode != "whole":
         t = tp.size(ctx)
         x = tp.copy_to_model(x, ctx.mesh)
         h //= t
         if mode == "split":
             kv //= t
+        elif ctx.mode != "train":   # every KV head, for the cache
+            kv_head = tp.rank(ctx.mesh) * h // (h * t // kv)
         else:   # the one KV head that this rank's query heads read
             first = tp.rank(ctx.mesh) * h // (h * t // kv) * hd
             c = slice(first, first + hd)
@@ -323,7 +395,9 @@ def attn_forward(ctx: Ctx, p, x, *, positions, cache=None,
         pos_scalar = positions
 
     new_cache = None
-    if ctx.mode == "decode":
+    if ctx.mode == "decode" and tp.size(ctx) > 1:
+        out, new_cache = _decode_split(ctx, mode, q, k, v, cache)
+    elif ctx.mode == "decode":
         idx = cache["length"]            # scalar or (B,) per-row progress
         k_cache, v_cache = cache["k"], cache["v"]
         # rolling-window write position (== idx for full caches)
@@ -335,14 +409,23 @@ def attn_forward(ctx: Ctx, p, x, *, positions, cache=None,
         out = _decode_attention(ctx, q, k_cache, v_cache, idx + 1)
         new_cache = {"k": k_cache, "v": v_cache, "length": idx + 1}
     else:
-        out = _prefill_attention(ctx, q, k, v, pos_scalar, positions_given)
+        k_att, v_att = (k, v) if kv_head is None else (
+            k[:, :, kv_head:kv_head + 1], v[:, :, kv_head:kv_head + 1])
+        out = _prefill_attention(ctx, q, k_att, v_att, pos_scalar,
+                                 positions_given)
         if cache_out_len is not None:
             keep = min(cache_out_len, s)
             k_keep, v_keep = k[:, s - keep:], v[:, s - keep:]
+            if mode == "split":                         # every KV head
+                k_keep, v_keep = (tp.gather_from_model(t_, ctx.mesh, dim=2)
+                                  for t_ in (k_keep, v_keep))
             if keep < cache_out_len:
                 pad = (0, 0, 0, 0, 0, cache_out_len - keep)
                 k_keep = torch.nn.functional.pad(k_keep, pad)
                 v_keep = torch.nn.functional.pad(v_keep, pad)
+            if tp.size(ctx) > 1:        # the rank's range of the sequence
+                k_keep, v_keep = (_seq_block(ctx, t_)
+                                  for t_ in (k_keep, v_keep))
             new_cache = {"k": k_keep, "v": v_keep,
                          "length": torch.tensor(s, dtype=torch.int32,
                                                 device=x.device)}

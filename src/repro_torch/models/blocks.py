@@ -7,7 +7,10 @@ Split over ``"model"`` (:func:`block_tp`), each mixer and MLP splits its
 own products and sums them over ``"model"`` before the residual add: the
 residual stream and the norms stay whole on every ``"model"`` rank.  The
 reference's sequence-parallel residual (``act_seq_sp``) changes memory,
-not numbers, and is ROADMAP A.16e."""
+not numbers, and is ROADMAP A.16e.  Under the serve rules the same split
+runs on the rank's blocks, and each cache leaf is the rank's block of the
+whole one (:func:`~repro_torch.models.model.cache_placements`): the K/V
+by sequence, the recurrent states by channel."""
 from __future__ import annotations
 
 from typing import Optional
@@ -43,17 +46,18 @@ def block_specs(cfg: ModelConfig, kind: str, serve: bool = False) -> dict:
     return specs
 
 
-def block_tp(cfg: ModelConfig, kind: str, rules) -> dict:
+def block_tp(cfg: ModelConfig, kind: str, rules, serve: bool = False
+             ) -> dict:
     """Each leaf's :class:`~repro_torch.sharding.tensor_parallel.LeafPlan`
     in a block of ``kind`` under ``rules`` (the tree of
-    :func:`block_specs`)."""
+    :func:`block_specs`; ``serve``: of the serve-time specs)."""
     whole = tp.LeafPlan()
     out = {"norm1": {"scale": whole},
            kind: _MIXER_TP[kind](cfg, rules).leaves}
     if kind != "ssm":
         out["norm2"] = {"scale": whole}
-        out["mlp"] = (moe_tp if cfg.moe is not None else mlp_tp)(
-            cfg, rules).leaves
+        out["mlp"] = (moe_tp(cfg, rules, serve and cfg.quant_experts_serve)
+                      if cfg.moe is not None else mlp_tp(cfg, rules)).leaves
     return out
 
 

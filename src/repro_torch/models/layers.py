@@ -33,12 +33,21 @@ class Ctx:
     the train rules that placed the leaves, from which each layer reads
     whether ``"model"`` splits each of its leaves and so the mode it runs
     (``sharding/tensor_parallel.py``); the forward then takes
-    :class:`~repro_torch.models.params.MeshLeaf` leaves."""
+    :class:`~repro_torch.models.params.MeshLeaf` leaves.  Under the serve
+    rules (a prefill or decode step on a mesh) the leaves are the rank's
+    blocks as plain tensors, the cache the rank's block of it,
+    ``cache_len`` the length of the whole attention cache that the rank's
+    K/V blocks are cut from and ``cache_split`` whether the rules split it
+    by sequence (both set once a step by ``forward``): a rank holds the
+    range ``[r·C/T, (r+1)·C/T)`` of it where ``"model"`` (T ranks) divides
+    C, else all of it."""
     cfg: ModelConfig
     mode: str = "train"
     force: str = "auto"
     mesh: object = None
     rules: object = None
+    cache_len: object = None
+    cache_split: bool = False
 
     @functools.cached_property
     def tp_modes(self) -> dict:

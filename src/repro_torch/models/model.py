@@ -11,6 +11,13 @@ a Python loop over the stacked layers, each leaf split into its layers by
 ``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
 in the backward, the reference's ``jax.checkpoint(nothing_saveable)``.
 
+Serving on a mesh (the prefill and decode steps under the serve rules,
+``launch/steps.py``): the leaves are the rank's blocks
+(:func:`serve_params`), each layer splits over ``"model"`` as in
+training, the cache is the rank's block (:func:`cache_placements`; its
+``"cache_len"`` entry the whole attention cache's length) and the logits
+are gathered over the vocab split.
+
 Training on a mesh (``Ctx.rules``; the leaves
 :class:`~repro_torch.models.params.MeshLeaf` objects): each unit gathers its
 layer's weights over ``"data"`` (and the leaves its plan reads whole over
@@ -34,6 +41,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import (
+    attn_cache_len,
     block_apply,
     block_cache_specs,
     block_specs,
@@ -55,6 +63,8 @@ from repro_torch.models.params import (
     keep_blocks,
     leaf_dtype,
     materialize,
+    shard_leaf,
+    shardings,
     tree_leaves,
     tree_map,
 )
@@ -100,15 +110,47 @@ def model_specs(cfg: ModelConfig, serve: bool = False) -> dict:
             "final_norm": rmsnorm_specs(cfg.d_model)}
 
 
-def model_plan(cfg: ModelConfig, rules) -> dict:
+def model_plan(cfg: ModelConfig, rules, serve: bool = False) -> dict:
     """Each leaf's :class:`~repro_torch.sharding.tensor_parallel.LeafPlan`
-    under ``rules`` (the tree of :func:`model_specs`; a stacked leaf's
-    plan is its layers')."""
+    under ``rules`` (the tree of :func:`model_specs` of ``serve``; a
+    stacked leaf's plan is its layers')."""
     return {"embed": embed_tp(cfg, rules).leaves,
-            "segments": [{f"pos{i}": block_tp(cfg, kind, rules)
+            "segments": [{f"pos{i}": block_tp(cfg, kind, rules, serve)
                           for i, kind in enumerate(pattern)}
                          for pattern, _ in build_segments(cfg)],
             "final_norm": {"scale": tp.LeafPlan()}}
+
+
+def serve_params(cfg: ModelConfig, params, rules, mesh=None) -> dict:
+    """This rank's serve weights from a whole serve parameter tree (of
+    :func:`model_specs` ``(cfg, serve=True)``, e.g. from
+    ``convert.model_params_from_numpy(..., serve=True)``): each leaf its
+    ``"model"`` block under the serve placements (``params.shard_leaf``)
+    where the layer's plan reads the block, whole where it reads the leaf
+    whole (``kv_whole``'s ``wk``/``wv``, Mamba's ``in_proj``, the norms,
+    every leaf of a layer that runs whole).  Under the serve rules no
+    weight is split over ``"data"``: nothing is gathered."""
+    mesh = mesh if mesh is not None else rules.mesh
+
+    def leaf(pl, plan, t):
+        if plan.whole:
+            return t
+        if set(pl.split_axes) - {tp.MODEL}:
+            raise ValueError(f"a serve weight of {pl.shape} split over "
+                             f"{pl.dims}: only \"model\" splits weights")
+        return shard_leaf(t, pl, mesh)
+
+    specs = model_specs(cfg, serve=True)
+    return tree_map(leaf, shardings(specs, mesh, rules),
+                    model_plan(cfg, rules, serve=True), params)
+
+
+def cache_placements(cfg: ModelConfig, rules, batch: int, seq_len: int):
+    """Each leaf's placement in the whole cache of :func:`cache_specs`
+    under the serve rules: the rows over ``"data"``, the K/V by sequence
+    over ``"model"`` where it divides the cache length, the recurrent
+    states by channel."""
+    return shardings(cache_specs(cfg, batch, seq_len), None, rules)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
@@ -196,6 +238,16 @@ def forward(ctx: Ctx, params: dict, inputs: dict, *,
         x = inputs["embeddings"].to(ctx.compute_dtype)
     b, s = x.shape[0], x.shape[1]
     length = cache["length"] if cache is not None else None
+    split = tp.size(ctx) > 1 and ctx.mode != "train"
+    if split:     # the whole attention cache that the rank's blocks are of
+        total = (cache.get("cache_len") if cache is not None
+                 else attn_cache_len(cfg, s))
+        # split by sequence unless fitted_spec drops the axis (T ∤ C); no
+        # length without attention layers
+        ctx = dataclasses.replace(
+            ctx, cache_len=total, cache_split=total is not None
+            and tp.MODEL in ctx.rules.placement(("cache_seq",),
+                                                (total,)).dims[0])
     given = "positions" in inputs
     positions = inputs["positions"] if given else _default_positions(
         cfg, ctx.mode, length, b, s, x.device)
@@ -233,6 +285,8 @@ def forward(ctx: Ctx, params: dict, inputs: dict, *,
         new_len = length + s if length is not None else torch.tensor(
             s, dtype=torch.int32, device=x.device)
         new_cache = {"length": new_len, "segments": new_segments}
+        if split and "attn" in cfg.layer_kinds():
+            new_cache["cache_len"] = ctx.cache_len
     return x, new_cache, aux_total
 
 
@@ -296,8 +350,14 @@ def chunked_ce_loss(ctx: Ctx, x, w_out, labels, mask=None):
 
 def logits_last(ctx: Ctx, x_last, w_out):
     """x_last: (B, 1, d) -> (B, V) float32 logits (the product in the
-    compute dtype, as the reference's einsum)."""
-    return (x_last @ w_out)[:, 0].float()
+    compute dtype, as the reference's einsum).  Under the serve rules with
+    the head split by vocab (``w_out`` the rank's columns) the ranks'
+    logits are gathered over ``"model"`` in rank order: whole on every
+    rank."""
+    logits = (x_last @ w_out)[:, 0].float()
+    if tp.layer_mode(ctx, "head", embed_tp) == "vocab":
+        logits = tp.gather_from_model(logits, ctx.mesh, dim=-1)
+    return logits
 
 
 def compute_params(cfg: ModelConfig, params):

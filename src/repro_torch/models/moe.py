@@ -39,6 +39,11 @@ from one device's sum over k.  The combine weights enter the split region
 through ``copy_to_model``, so the router's gradient is whole on every
 rank; the load-balancing loss stays as above.
 
+Under the serve rules (prefill and decode steps on a mesh) the same modes
+run on the rank's blocks as plain tensors, the int8 experts' scales split
+with their experts; the load-balancing loss, which a serve step drops, is
+the rank's own.
+
 Top-k ties: ``jax.lax.top_k`` returns the lower expert index first among
 equal logits, which fixes the capacity order and the order of the sum over
 k; ``torch.topk`` promises no order among ties, so the port takes the first
@@ -140,11 +145,13 @@ def route(cfg: ModelConfig, logits):
     return flat_ids, flat_w, pos, pos < cap, cap, ids
 
 
-def moe_tp(cfg: ModelConfig, rules) -> tp.Plan:
+def moe_tp(cfg: ModelConfig, rules, quantized: bool = False) -> tp.Plan:
     """``"experts"`` where ``"model"`` splits the expert weights by
     expert, ``"expert_mlp"`` where it splits each expert's MLP dim, else
-    ``"whole"``.  The router is read whole outside the split region."""
-    specs = moe_specs(cfg)
+    ``"whole"``.  The router is read whole outside the split region.
+    ``quantized``: the plan of the serve-time int8 layout, whose scales
+    are split with their experts."""
+    specs = moe_specs(cfg, quantized=quantized)
     if tp.rules_size(rules) > 1:
         dims = tp.split_dims(specs, rules)
         experts = [n for n in specs if n != "router"]
@@ -200,8 +207,9 @@ def moe_forward(ctx: Ctx, p, x):
     y = (y_slots * flat_w[:, None].to(dt)).reshape(t, k, d).sum(dim=1)
     if mode != "whole":
         y = tp.reduce_from_model(y, ctx.mesh)
-    return y.reshape(b, s, d), _load_balance_loss(logits, ids, n_exp,
-                                                  ctx.mesh)
+    # a serve step's loss is dropped: no collective for it
+    return y.reshape(b, s, d), _load_balance_loss(
+        logits, ids, n_exp, ctx.mesh if ctx.mode == "train" else None)
 
 
 def _load_balance_loss(logits, ids, num_experts: int, mesh=None):

@@ -104,6 +104,9 @@ class ShardingRules:
     mapping: Mapping[str, Axis]
     mesh_axes: tuple
     mesh_sizes: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    # the DeviceMesh the table was made for (make_rules): a split forward's
+    # collectives run over its groups
+    mesh: object = dataclasses.field(default=None, compare=False, repr=False)
 
     def axis(self, name: Optional[str]) -> Axis:
         if name is None:
@@ -168,10 +171,11 @@ def mesh_sizes(mesh) -> dict:
 def make_rules(mesh, mode: str = "train",
                overrides: Optional[Mapping[str, Axis]] = None
                ) -> ShardingRules:
-    """A rule table adapted to ``mesh`` (a ``DeviceMesh``; its dim names
-    and shape are all it reads): mesh dims it lacks are dropped from every
-    entry, and on a mesh with a ``"pod"`` dim, ``"pod"`` goes before every
-    entry that holds ``"data"``."""
+    """A rule table adapted to ``mesh`` (a ``DeviceMesh``; the table reads
+    its dim names and shape, and keeps it as ``rules.mesh`` for the step
+    builders): mesh dims it lacks are dropped from every entry, and on a
+    mesh with a ``"pod"`` dim, ``"pod"`` goes before every entry that holds
+    ``"data"``."""
     if mode not in ("train", "serve"):
         raise ValueError(f"mode must be 'train' or 'serve', got {mode!r}")
     base = dict(TRAIN_BASE if mode == "train" else SERVE_BASE)
@@ -188,7 +192,7 @@ def make_rules(mesh, mode: str = "train",
         return _entry(axes)
 
     return ShardingRules({k: adapt(v) for k, v in base.items()}, mesh_axes,
-                         sizes)
+                         sizes, mesh)
 
 
 def logical_spec(rules: ShardingRules, *logical_axes: Optional[str]) -> Spec:

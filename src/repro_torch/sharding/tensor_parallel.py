@@ -17,6 +17,11 @@ Four autograd functions over the ``"model"`` group, on the collectives of
 * :func:`scatter_to_model` — this rank's slice of a whole tensor: the
   slice forward, the ranks' slices gathered backward.
 
+Serving under the serve rules, the decode cache is split by sequence over
+``"model"``: each rank attends over its range of every row's cache
+(``decode_attention_partial``) and :func:`combine_partials` merges the
+ranges' outputs by their log-sum-exps, in rank order.
+
 Float sums over ranks go through ``psum_ordered``, never ``all_reduce``:
 two runs of one world give the same bits.  A group of one returns its
 input itself, in both directions.  With these the residual stream, the
@@ -63,17 +68,14 @@ class Plan:
 
 def size(ctx) -> int:
     """The ``"model"`` size that a forward under ``ctx`` splits over: 1
-    without a mesh and rules (one device, serving), else the mesh's.  A
-    split forward is a training one: the prefill and serve steps under the
-    serve rules (the decode cache split by sequence) are ROADMAP A.16e."""
+    without a mesh and rules (one device), else the mesh's: a training
+    forward under the train rules, or a prefill or decode step under the
+    serve rules (weights the rank's blocks, the decode cache split by
+    sequence)."""
     if ctx.mesh is None or ctx.rules is None or \
             MODEL not in (ctx.mesh.mesh_dim_names or ()):
         return 1
-    t = shard_count(ctx.mesh, MODEL)
-    if t > 1 and ctx.mode != "train":
-        raise NotImplementedError(
-            f"a {ctx.mode} forward split over \"model\" is ROADMAP A.16e")
-    return t
+    return shard_count(ctx.mesh, MODEL)
 
 
 def rules_size(rules) -> int:
@@ -189,3 +191,35 @@ def gather_from_model(x, mesh, dim: int = -1):
 
 def scatter_to_model(x, mesh, dim: int = -1):
     return x if _one(mesh) else _Scatter.apply(x, mesh, dim % x.dim())
+
+
+def merge_partials(outs, lses):
+    """The ranges' outputs (T, B, H, D) and log-sum-exps (T, B, H), in
+    rank order, merged: lse* = max + log Σ_r exp(lse_r - max) and out =
+    Σ_r exp(lse_r - lse*) · out_r, summed in rank order.  Empty ranges
+    (lse -inf) weigh nothing; a row whose ranges are all empty gives out 0
+    and lse* -inf, no NaN.  Returns (out, lse*)."""
+    top = lses.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    total = torch.zeros_like(top)
+    for r in range(lses.shape[0]):
+        total = total + torch.exp(lses[r] - top)
+    lse = top + torch.log(total)
+    out = torch.zeros_like(outs[0])
+    for r in range(lses.shape[0]):
+        w = torch.where(lses[r] == -torch.inf, 0.0, torch.exp(lses[r] - lse))
+        out = out + w[..., None] * outs[r]
+    return out, lse
+
+
+def combine_partials(out, lse, mesh):
+    """Merge the ranges of a cache split by sequence over ``"model"``:
+    ``out`` (B, H, D) float32 this rank's normalised output over its range
+    and ``lse`` (B, H) its log-sum-exp (-inf for an empty range), as
+    ``decode_attention_partial`` returns them.  One ``all_gather`` of
+    (B, H, D + 1) floats, then :func:`merge_partials` in rank order: the
+    same bits on every rank.  Returns (out, lse*)."""
+    both = torch.cat([out, lse[..., None]], dim=-1)[None]
+    if not _one(mesh):
+        both = all_gather(both, mesh, MODEL, dim=0)     # (T, B, H, D + 1)
+    return merge_partials(both[..., :-1], both[..., -1])

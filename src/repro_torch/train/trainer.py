@@ -39,7 +39,9 @@ cfg.sharding_overrides["train"])``):
   block from the blocks on disk.
 
 The prefill and serve steps under the serve rules (the decode cache split
-by sequence over ``"model"``) are ROADMAP queue A.16e.
+by sequence over ``"model"``) are ``launch/steps.py``'s; the training
+half's sequence-parallel residual and a gradient reduced a layer at a time
+are ROADMAP queue A.16e.
 """
 from __future__ import annotations
 

@@ -14,6 +14,7 @@ Tolerances: float32 2e-5 absolute and relative (sums in another order);
 bfloat16 2e-2 (one or two bf16 ulps of outputs near 1), as the reference's
 own kernel tests.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -20,6 +20,7 @@ within 1e-6 relative up to that round.  Ties are the common case (gains
 are differences of one 50-entry table): the order of the tasks demoted,
 compared exactly, is the stable descending order.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ except on lanes whose smallest margin min |f − (A^q + margin)| over the
 XLA's float32 ``exp`` differ by an ulp on some inputs.  LPT packing is the
 same float32 adds in the same order: exact.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ threshold (and, for the same reason, the accuracy argmax between two
 options tied within an ulp).  The test reports how many such lanes it saw
 and fails on any mismatch outside them.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ and the objectives tie often; some tasks have no scenario yet (η = 0), some
 have every option infeasible (y* = 0, o_down = BIG), and padded-looking
 options (BIG recourse) sit beside real ones.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

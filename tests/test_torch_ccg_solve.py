@@ -9,6 +9,7 @@ by an ulp on some inputs, which moves the accuracy surface by up to 1.2e-7
 and can flip a feasibility bit that close to its threshold.  The test
 reports how many such lanes it saw and fails on any mismatch outside them.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ prefill (8 × 80 tokens) on meta tensors, so nothing is allocated.
 ``chip_smoke.py`` is loaded by its path: the tests do not put the
 repository root on ``sys.path``.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import importlib.util
 from pathlib import Path
 

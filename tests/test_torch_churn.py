@@ -10,6 +10,7 @@ order, not XLA's).  Also the reference's own churn invariants
 (``tests/test_churn.py``): a constant pool equals the compacted dense run,
 no segment lands on a dead slot or a downed tier, and the refusals.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
 
 import jax

@@ -6,6 +6,7 @@ The accuracy surface goes through ``exp``, where torch and XLA differ by one
 ulp on some float32 inputs, so it is compared at 2.5e-7 absolute (the
 largest difference measured over a (4096, 50) grid was 1.2e-7).
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@ runs must equal a plain loop over the round function bit for bit and the
 live JAX session, at a small size and at the card's own cells (the main
 path at M = 4096, R = 16; ``churn`` at M = 4096, R = 30).
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import functools
 import dataclasses
 import gc

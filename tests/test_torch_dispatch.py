@@ -14,6 +14,7 @@ executor the models run in float32 compute (logits within ~1e-6, see
 executors must agree exactly: decoded ids, admission trace, latency
 statistics and feedback.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
 
 import numpy as np

@@ -9,10 +9,9 @@ JAX dense run.  Decisions exact, metrics within 1e-5 relative, the final
 carry equal; ranks that sat a segment out return the same outputs.  The
 JAX references run in one subprocess with 4 host devices.
 """
-import os
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import subprocess
 import sys
-import textwrap
 
 import numpy as np
 import pytest
@@ -75,10 +74,10 @@ def _prefixed(ref, prefix):
 def jax_ref(tmp_path_factory):
     path = tmp_path_factory.mktemp("jax_elastic") / "ref.npz"
     script = JAX_SCRIPT % {"cases": MESH_CASES}
-    done = subprocess.run([sys.executable, "-c", textwrap.dedent(script),
-                           str(path)], capture_output=True, text=True,
-                          timeout=300,
-                          env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    done = subprocess.run(
+        [sys.executable, "-c", torch_threads.child_script(script), str(path)],
+        capture_output=True, text=True, timeout=300,
+        env=torch_threads.subprocess_env(JAX_PLATFORMS="cpu"))
     assert done.returncode == 0, done.stderr[-3000:]
     with np.load(path) as f:
         return dict(f)

@@ -11,6 +11,7 @@ update equal the plain run bit for bit.  On the CPU each run goes through
 the session's finetune ``RoundGraph`` uncaptured: it must equal a plain
 loop over the round function (``_finetune_round``) bit for bit.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
 
 import jax

@@ -22,6 +22,7 @@ the port against the live JAX package on identical numpy inputs.
 * The kernels' branch: positions that the caller passes reach
   ``flash_attention``; positions that ``forward`` builds do not.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import collections
 import dataclasses
 

@@ -4,6 +4,7 @@
 Tolerance 1e-5 absolute: the four GEMMs sum in torch's order, not XLA's,
 and the sigmoid/tanh implementations differ in the last ulp.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
 
 import jax

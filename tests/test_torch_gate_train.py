@@ -11,6 +11,7 @@ float32); the loss 1e-5 relative and its gradient 1e-5 of each gradient's
 largest |entry|; parameters after k SGD steps 1e-6 absolute (each step
 moves them by lr·gradient, so the gradients' differences shrink by lr).
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

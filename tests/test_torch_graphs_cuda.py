@@ -20,6 +20,7 @@ gate tuned in the graph, its gradient on the backward kernel) likewise:
 replay against uncaptured run, counts, ``reset`` and an uncaptured round
 under the sync debug mode.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
 
 import numpy as np

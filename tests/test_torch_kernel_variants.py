@@ -2,6 +2,7 @@
 every edit of every variant must still find its text exactly once, or the
 tool fails on the card before it times anything.  Checked here on the CPU,
 without nvcc; the tool is loaded by its path."""
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import importlib.util
 from pathlib import Path
 

@@ -59,6 +59,7 @@ rows its CUDA-core ones.  ``lpt_queue`` walks sorted loads for times >= 0
 and a live cloud tier, else a tree argmin: both are exact, in one block's
 shared memory up to 54,656 tasks and in chunks past it.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import collections
 import dataclasses
 
@@ -88,7 +89,12 @@ from repro_torch.kernels.c6_tail.ref import c6_repair_ref
 from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention,
+    decode_attention_partial,
+)
+from repro_torch.kernels.decode_attention.ref import \
+    decode_attention_partial_ref
 from repro_torch.kernels.flash_attention.ops import (
     LOG2E,
     flash_attention,
@@ -118,6 +124,7 @@ from repro_torch.models.model import model_specs, prefill
 from repro_torch.models.params import init_params, tree_leaves
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import TrainConfig, Trainer, grads_of
+from repro_torch.sharding.tensor_parallel import merge_partials
 
 pytestmark = pytest.mark.cuda
 
@@ -862,6 +869,60 @@ def test_decode_attention_kernel_generic_pieces(dev, dtype):
     want = decode_attention(q, k_c, v_c, length, force="ref")
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d", [
+    (8, 32, 8, 3008, 128),     # a rank's range of the split Qwen3-8B cache
+    (4, 8, 2, 37, 16),         # Qwen1.5-0.5B's SMOKE head dim, ragged
+    (3, 16, 1, 80, 256),       # RecurrentGemma: MQA, G = 16
+])
+def test_decode_attention_partial_kernel(dev, dtype, b, h, kv, s, d):
+    """The partial launch over one range of each row's cache, lengths 0
+    (an empty range: out 0, lse -inf, no NaN), 1 and up to S: one launch,
+    out and the finite lse within the plain version's (float32: the
+    attention tolerance; bf16: out within 2^-8 of the softmax-weighted
+    mean of |v|, since the kernel rounds each probability to bf16 before
+    P·V, and lse within 1e-3), -inf exactly where it has it; two calls
+    bit-equal; and the ranges merged by ``merge_partials`` give the
+    serving launch's result on the whole cache."""
+    lengths = ([0, 1, s, s // 2] * b)[:b]
+    q, k_c, v_c, length = _decode_case(s + h, b, h, kv, s, d, dtype, dev,
+                                       lengths)
+    reset_launch_counts()
+    out, lse = decode_attention_partial(q, k_c, v_c, length, force="kernel")
+    assert launch_counts() == {"decode_attention_partial": 1}
+    again = decode_attention_partial(q, k_c, v_c, length, force="kernel")
+    want_out, want_lse = decode_attention_partial(q, k_c, v_c, length,
+                                                  force="ref")
+    torch.cuda.synchronize()
+    assert out.dtype == lse.dtype == torch.float32
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    empty = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), empty) and bool(
+        (lse[empty] == -torch.inf).all())
+    if dtype == torch.bfloat16:
+        w, _ = decode_attention_partial_ref(q, k_c, v_c.abs(), length)
+        assert bool(((out - want_out).abs() <= 2.0 ** -8 * w + 1e-6).all())
+        torch.testing.assert_close(lse[~empty], want_lse[~empty], atol=1e-3,
+                                   rtol=0)
+    else:
+        torch.testing.assert_close(out, want_out, **_ATTN_TOL[dtype])
+        torch.testing.assert_close(lse[~empty], want_lse[~empty],
+                                   **_ATTN_TOL[dtype])
+    # two ranges of the cache merged against the serving launch
+    cut = s // 2
+    parts = [decode_attention_partial(
+        q, k_c[:, :, lo:hi], v_c[:, :, lo:hi],
+        torch.clamp(length - lo, 0, hi - lo).to(torch.int32), force="kernel")
+        for lo, hi in ((0, cut), (cut, s))]
+    merged, _ = merge_partials(torch.stack([o for o, _ in parts]),
+                               torch.stack([x for _, x in parts]))
+    whole = decode_attention(q, k_c, v_c, length, force="kernel")
+    live = length > 0
+    torch.testing.assert_close(merged[live].to(dtype).float(),
+                               whole[live].float(), **_ATTN_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

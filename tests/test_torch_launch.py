@@ -4,6 +4,7 @@ live JAX package: ``data/video.py`` (numpy in both: equal exactly),
 frameworks' means and the population std summing in their own orders),
 and ``python -m repro_torch.launch.serve`` run on the CPU.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ halves of the sequence; and the shared causal convolution against the
 reference model's.  Tolerance: 1e-5 absolute + 1e-5 relative (float32; the
 y sum over the state runs in another order).
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ logits to 0.1 (the two frameworks round at other places; measured ~0.03).
 Greedy ids must be equal wherever the reference's top-2 logit margin
 exceeds that tolerance; lanes under it are counted and reported.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import collections
 import dataclasses
 

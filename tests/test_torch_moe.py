@@ -16,6 +16,7 @@ sides.
 * ``init_params`` draws a leaf of more than 2^32 elements one slice of its
   leading axis at a time; every leaf at or under it keeps its whole draw.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
 import math
 

@@ -2,6 +2,7 @@
 nor the JAX package, imports Triton nowhere at module level, defaults every
 entry point to CUDA (raising without a card), and never falls back from a
 pinned kernel to the plain version."""
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import ast
 import dataclasses
 from pathlib import Path
@@ -27,7 +28,10 @@ from repro_torch.kernels.c6_tail.ops import c6_repair, c6_tail
 from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention,
+    decode_attention_partial,
+)
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
     flash_attention_bwd,
@@ -210,6 +214,9 @@ def _kernel_calls():
         "decode_attention": lambda f: decode_attention(
             torch.zeros(m, 8, 64), torch.zeros(m, 2, 20, 64),
             torch.zeros(m, 2, 20, 64), torch.full((m,), 3), force=f),
+        "decode_attention_partial": lambda f: decode_attention_partial(
+            torch.zeros(m, 8, 64), torch.zeros(m, 2, 20, 64),
+            torch.zeros(m, 2, 20, 64), torch.full((m,), 3), force=f),
         "flash_attention": lambda f: flash_attention(
             torch.zeros(1, 8, 12, 64), torch.zeros(1, 2, 12, 64),
             torch.zeros(1, 2, 12, 64), force=f),
@@ -231,6 +238,7 @@ def _kernel_calls():
                                   "ccg_solve", "c6_tail",
                                   "c6_repair", "lpt_queue", "ccg_encode",
                                   "ccg_master", "decode_attention",
+                                  "decode_attention_partial",
                                   "flash_attention",
                                   "flash_attention_bwd",
                                   "mamba_scan", "rglru_scan"])

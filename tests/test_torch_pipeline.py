@@ -5,11 +5,10 @@ in ``torch_train_ranks.py``) against the sequential loop and against the
 JAX pipeline on 4 host devices (one subprocess, a mesh with an Auto
 ``"stage"`` axis), each within 1e-5; ``split_stages`` and
 ``bubble_fraction`` against the reference's."""
-import os
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import pickle
 import subprocess
 import sys
-import textwrap
 
 import jax.numpy as jnp
 import numpy as np
@@ -68,10 +67,10 @@ def runs(inputs, tmp_path_factory):
     with open(tmp / "in.pkl", "wb") as f:
         pickle.dump(inputs, f)
     proc = subprocess.Popen(
-        [sys.executable, "-c", textwrap.dedent(JAX_SCRIPT),
+        [sys.executable, "-c", torch_threads.child_script(JAX_SCRIPT),
          str(tmp / "in.pkl"), str(tmp / "out.pkl")],
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-        env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        env=torch_threads.subprocess_env(JAX_PLATFORMS="cpu"))
     try:
         port = run_ranks(pipeline_rank, S, backend="gloo", timeout=120,
                          args=(*inputs, S))

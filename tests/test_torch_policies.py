@@ -11,6 +11,7 @@ some inputs): the test reports such lanes.  Metrics must agree to 1e-5
 relative on every round whose decisions all match, the bar of the slice-1
 session test.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ interpret mode (on tile multiples, as ``tests/test_kernels.py`` runs it),
 with the state carried across two halves of the sequence.  Tolerance:
 1e-5 absolute + 1e-5 relative (float32; exp and sqrt of two libraries).
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@
   the plain VJP) against autograd through the plain scans, with a
   cotangent on y, on h or on both, and a stride-0 ``dy`` from ``y.sum()``.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ exactly, metrics to 1e-5 relative, the fused solve exactly (the same bar as
 threshold), and the golden rows at rtol = atol = 2e-3, the tolerance of the
 reference's own golden test (``tests/test_scenarios.py``).
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
 import json
 from pathlib import Path

@@ -11,6 +11,7 @@ excluded; the test reports such lanes.  Metrics must agree to 1e-5 relative
 on every round where all decisions match (realization couples lanes through
 the fair share and the LPT queue); τ and the final carry to 1e-5 absolute.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ Needs an NVIDIA GPU and nvcc; skipped where CUDA is absent.  Run on the
 card with ``PYTHONPATH=src python -m pytest -q --noconftest
 tests/test_torch_sharded_cuda.py``.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
 
 import pytest

@@ -17,11 +17,10 @@ versions on the CPU, ranks on gloo) against the JAX package.
 The JAX references run in one subprocess (the device count is fixed when
 JAX starts; this process's JAX has one device) that writes them to an npz.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
-import os
 import subprocess
 import sys
-import textwrap
 
 import numpy as np
 import pytest
@@ -120,10 +119,10 @@ def _prefixed(ref, prefix):
 def jax_ref(tmp_path_factory):
     path = tmp_path_factory.mktemp("jax_sharded") / "ref.npz"
     script = JAX_SCRIPT % {"keys": STREAM_KEYS, "live": LIVE}
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    done = subprocess.run([sys.executable, "-c", textwrap.dedent(script),
-                           str(path)], capture_output=True, text=True,
-                          timeout=300, env=env)
+    env = torch_threads.subprocess_env(JAX_PLATFORMS="cpu")
+    done = subprocess.run(
+        [sys.executable, "-c", torch_threads.child_script(script), str(path)],
+        capture_output=True, text=True, timeout=300, env=env)
     assert done.returncode == 0, done.stderr[-3000:]
     with np.load(path) as f:
         return dict(f)

@@ -13,10 +13,9 @@ at D = 2, 4 and 8 is held to the reference's host-loop oracle (live JAX
 ``subbudget_from_stats`` and ``enforce_bandwidth`` per shard): r and p
 exact, and the oracle's invariants.
 """
-import os
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import subprocess
 import sys
-import textwrap
 
 import jax.numpy as jnp
 import numpy as np
@@ -219,10 +218,10 @@ def _target_cases(d):
 def jax_solve(tmp_path_factory):
     base = str(tmp_path_factory.mktemp("jax_solve") / "sol")
     np.save(base + ".in.npy", np.stack(_tasks(64, 42)))
-    done = subprocess.run([sys.executable, "-c", textwrap.dedent(JAX_SOLVE),
-                           base], capture_output=True, text=True,
-                          timeout=300,
-                          env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    done = subprocess.run(
+        [sys.executable, "-c", torch_threads.child_script(JAX_SOLVE), base],
+        capture_output=True, text=True, timeout=300,
+        env=torch_threads.subprocess_env(JAX_PLATFORMS="cpu"))
     assert done.returncode == 0, done.stderr[-3000:]
     with np.load(base + ".npz") as f:
         return dict(f)

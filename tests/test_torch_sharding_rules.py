@@ -11,11 +11,10 @@ and ``repro.models.params.shardings``.
   reference's ``params.shardings`` on 4 host devices at (data, model) =
   (4, 1), (2, 2) and (1, 4), from one JAX subprocess.
 """
-import os
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import pickle
 import subprocess
 import sys
-import textwrap
 import types
 
 import numpy as np
@@ -159,10 +158,10 @@ with open(sys.argv[1], "wb") as f:
 @pytest.fixture(scope="module")
 def jax_shardings(tmp_path_factory):
     path = tmp_path_factory.mktemp("jax_rules") / "ref.pkl"
-    done = subprocess.run([sys.executable, "-c", textwrap.dedent(JAX_SCRIPT),
-                           str(path)], capture_output=True, text=True,
-                          timeout=300,
-                          env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    done = subprocess.run(
+        [sys.executable, "-c", torch_threads.child_script(JAX_SCRIPT),
+         str(path)], capture_output=True, text=True, timeout=300,
+        env=torch_threads.subprocess_env(JAX_PLATFORMS="cpu"))
     assert done.returncode == 0, done.stderr[-3000:]
     with open(path, "rb") as f:
         return pickle.load(f)

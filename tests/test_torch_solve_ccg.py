@@ -10,6 +10,7 @@ some inputs); the test reports how many such lanes it saw.  The port's two
 master forms — the running (M, F) η max and the slab master — must agree
 with each other bit for bit on every lane.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

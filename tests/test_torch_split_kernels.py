@@ -14,6 +14,7 @@ ties; both must pick the first index of the minimum as the reference's
 its per-server starting loads (the reference's ``avail``) are held to the
 reference on the plain path.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import numpy as np
 import pytest
 import torch

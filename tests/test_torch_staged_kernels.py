@@ -14,6 +14,7 @@ and the robust problem's cached lookup everywhere, and a solve that reads
 every accuracy base and recourse value from the tables must equal the
 plain version and the live JAX ``ccg_solve`` exactly.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import numpy as np
 import pytest
 import torch

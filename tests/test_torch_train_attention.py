@@ -15,6 +15,7 @@ backward) against ``jax.nn.logsumexp`` of the same scores built in jnp, for
 the same mask modes, within 1e-5 of max(1, |entry|); ``FlashAttentionFn``
 on the plain path saves it in log2 units, as the kernel path does.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ bf16 compute, ``TokenPipeline`` batches of 4 × 64, AdamW at lr 2e-3.
 * Training with int8 error-feedback gradient compression also lowers the
   loss over 30 steps.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import numpy as np
 import pytest
 

@@ -14,6 +14,7 @@
 * Remat on and off give the same gradient, bit for bit (the CPU recomputes
   the same operations in the same order).
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
 
 import numpy as np

@@ -18,6 +18,7 @@ checkpoints against the live JAX package and the reference's own tests.
   previous checkpoint whole, restore onto a named device and into the
   target's dtypes.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import json
 import os
 

@@ -35,12 +35,12 @@ trains.
   world agree), steps 3-4 within 1e-5 relative of the uninterrupted run.
 * The launcher trains across 2 gloo ranks.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
 import os
 import pickle
 import subprocess
 import sys
-import textwrap
 import time
 
 import numpy as np
@@ -186,11 +186,12 @@ def _jax_procs(tmp, batches, g) -> list:
         with open(tmp / f"args{i}.pkl", "wb") as f:
             pickle.dump(args, f)
         procs.append((subprocess.Popen(
-            [sys.executable, "-c", textwrap.dedent(JAX_SCRIPT),
+            [sys.executable, "-c", torch_threads.child_script(JAX_SCRIPT),
              str(tmp / f"args{i}.pkl"), str(tmp / "init.pkl"),
              str(tmp / f"ref{i}.pkl")],
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-            env=dict(os.environ, JAX_PLATFORMS="cpu")), tmp / f"ref{i}.pkl"))
+            env=torch_threads.subprocess_env(i, JAX_PLATFORMS="cpu")),
+            tmp / f"ref{i}.pkl"))
     return procs
 
 

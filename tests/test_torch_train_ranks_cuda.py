@@ -16,6 +16,7 @@ Needs an NVIDIA GPU and nvcc; skipped where CUDA is absent.  Run on the
 card with ``PYTHONPATH=src python -m pytest -q --noconftest
 tests/test_torch_train_ranks_cuda.py``.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import pytest
 import torch
 from torch_train_ranks import OPT, checkpoint_roundtrip, cuda_rank_losses

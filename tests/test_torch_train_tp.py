@@ -28,11 +28,10 @@ configs, on the CPU.
   the port's one-device trainer at 1e-5 (Qwen3's per-head norms, Yi's and
   Minitron's GQA, the embedding-input Qwen2-VL and MusicGen among them).
 """
-import os
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import pickle
 import subprocess
 import sys
-import textwrap
 from types import SimpleNamespace
 
 import numpy as np
@@ -111,11 +110,11 @@ def runs(tmp_path_factory):
         with open(tmp / f"args{i}.pkl", "wb") as f:
             pickle.dump(args, f)
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", textwrap.dedent(JAX_SCRIPT),
+            [sys.executable, "-c", torch_threads.child_script(JAX_SCRIPT),
              str(tmp / f"args{i}.pkl"), str(tmp / "init.pkl"),
              str(tmp / f"ref{i}.pkl")],
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-            env=dict(os.environ, JAX_PLATFORMS="cpu")))
+            env=torch_threads.subprocess_env(i, JAX_PLATFORMS="cpu")))
     ref = {}
     try:
         _wait_for(tmp / "init.pkl", procs[0])

@@ -17,6 +17,7 @@ live JAX package, on the SMOKE Qwen1.5-0.5B config.
   ``DeviceMesh``.
 * ``python -m repro_torch.launch.train --smoke --device cpu --steps 4``.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import dataclasses
 
 import numpy as np
@@ -45,6 +46,7 @@ from repro_torch.models.layers import Ctx
 from repro_torch.models.model import model_specs, prefill
 from repro_torch.models.params import init_params, tree_leaves, tree_map
 from repro_torch.runtime.cluster import FailureInjector
+from repro_torch.sharding.rules import ShardingRules
 from repro_torch.train.optimizer import AdamWConfig, init
 from repro_torch.train.trainer import NodeFailure, TrainConfig, Trainer
 
@@ -157,9 +159,11 @@ def test_serve_step_builders_are_prefill_and_decode(tmp_path):
     for arch in ARCH_IDS:
         assert steps.applicable_shapes(get_config(arch)) == \
             j_applicable_shapes(j_get_config(arch))
+    # the prefill and serve builders take the serve rules on a mesh
+    # (tests/test_torch_serve_tp.py); a table without its mesh is refused
     for make in (steps.make_prefill_step, steps.make_serve_step):
-        with pytest.raises(NotImplementedError, match="A.16d"):
-            make(cfg, object())
+        with pytest.raises(ValueError, match="without a mesh"):
+            make(cfg, ShardingRules({}, ("data", "model")))
     with pytest.raises(NotImplementedError, match="A.16d"):
         steps.make_train_step(cfg, object(), AdamWConfig())
     with pytest.raises(TypeError, match="DeviceMesh"):

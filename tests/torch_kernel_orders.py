@@ -7,6 +7,7 @@ them.  Run on the card, an emulation gives the kernel's bits: each float32
 operation is one torch elementwise operation, rounded alone (torch does not
 contract a multiply and an add), in the kernel's order.
 """
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 import numpy as np
 import torch
 

@@ -4,6 +4,7 @@ port's sharded serving, sharded solve and elastic runs on numpy inputs,
 returning numpy results for the test process to hold against the JAX
 reference."""
 from __future__ import annotations
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 
 import dataclasses
 

@@ -4,6 +4,7 @@ port's ``Trainer`` over a ``("data", "model")`` mesh from numpy parameters,
 ``compressed_allreduce`` and the GPipe ``pipeline``, returning numpy
 results for the test process to hold against the JAX reference."""
 from __future__ import annotations
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 
 import dataclasses
 

@@ -5,6 +5,7 @@ autograd collectives of ``sharding/tensor_parallel.py``, the
 vocab-parallel cross-entropy and a checkpoint moved between meshes,
 returning numpy results for the test process to hold."""
 from __future__ import annotations
+import torch_threads  # noqa: F401  (first: caps this process's CPU threads)
 
 import dataclasses
 
