@@ -80,10 +80,16 @@ Phases, one JSON line each; any failure exits non-zero:
                  case that demotes in >= 2 rounds, held to its plain
                  version (r, p equal outside the boundary exemption, the
                  draw history within 1e-6), and above its one-block cap
-                 on the demoting case tiled to M = 53,248 and 262,144,
-                 where one launch of the cluster kernel runs every round
-                 (held to the plain version the same way, two launches
-                 bit-equal), and to 262,145, past the cluster's cap, where
+                 on the demoting case tiled to M = 20,000 (the cluster's
+                 last block partial), 53,248 and 262,144, where one launch
+                 of the cluster kernel runs every round (held to the plain
+                 version the same way; on the demoting case and the main
+                 path's round tiled, 100 more launches bit-equal to the
+                 first and 5 runs of the plain repair on the card
+                 bit-equal, each side's count of runs that differ
+                 recorded; the plain repair's prefix_sum at 262,144 the
+                 same bits on 100 calls, and torch.cumsum's differing
+                 calls recorded), and to 262,145, past the cluster's cap, where
                  it takes the per-round path: one c6_tail launch a round,
                  counted, equal to the plain version; the cluster kernel
                  and the per-round path timed in turns at 53,248 and
@@ -354,6 +360,20 @@ Phases, one JSON line each; any failure exits non-zero:
                  mamba_scan_bwd 2 launches a step a rank, every scan on
                  4096 of the 8192 channels, both steps' losses within 1e-3
                  of the one-device steps on the same cut (run here first).
+                 In (e) and (f) the residual between layers is each rank's
+                 half of the sequence (the train rules map act_seq_sp onto
+                 "model"; every layer records mode ``residual seq`` and
+                 remat saves 256 of the 512 rows at its edge).  (e') (e)
+                 again for 2 steps with act_seq_sp mapped to None (every
+                 layer ``residual whole``): its losses and every block of
+                 the masters and moments after step 2 bit-equal (digests)
+                 to (e)'s.  In (b), (e), (e') and (f), per rank: the most
+                 view-shaped gradient bytes the reducer held at once
+                 (``params.VIEW_GRADS``, each layer's reduced inside the
+                 backward; at most the largest unit's views), beside all
+                 the views' bytes, which a reduce after the whole backward
+                 held, and the bytes that remat saved at the layers' edges
+                 a step (``model.EDGE_SAVES``).
 19. ``serve_ranks`` the prefill and serve steps under the serve rules
                  (``make_prefill_step`` / ``make_serve_step`` with
                  ``rules_for(cfg, mesh, kind)``) on two gloo ranks sharing
@@ -587,6 +607,9 @@ def ccg_chain_ms(iters: int, n_opts: int, n_poles: int,
 
 REPAIR_THREADS = 1024             # c6_repair's one block
 CLUSTER_M = 53248                 # the gathered sharded run's M: a cluster
+CLUSTER_PARTIAL_M = 20000         # a cluster whose last block is partial
+REPEAT_LAUNCHES = 100             # cluster launches held to the first
+REPEAT_PLAIN = 5                  # plain repairs on the card held to the first
 
 
 def c6_repair_chain_ms(m: int, rounds_run: int, sorted_counts,
@@ -685,14 +708,37 @@ def warm_solve_master_inputs(prob, z, aq, warm_y):
 def on_host(torch, fn, *args, **kw):
     """``fn`` on CPU copies of its tensor arguments, its results moved back
     to the card: the plain C6 repair that the kernel is compared with, run
-    where its float32 prefix sums are sequential and give the same bits
-    every run (a comparison on the card once found two whole runs apart
-    and no round of them apart when rerun, so one side had not repeated
-    itself; ``plain_on_card_runs_bitequal`` records the card's side)."""
+    where its float32 prefix sums are sequential.  (A comparison on the
+    card once found two whole runs apart and no round of them apart when
+    rerun: the plain repair's ``torch.cumsum`` on the card gave other bits
+    on other calls.  Its ``prefix_sum`` now repeats; ``repair_repeats``
+    holds both sides to their first runs.)"""
     dev = next(a.device for a in (*args, *kw.values()) if torch.is_tensor(a))
     cpu = lambda a: a.cpu() if torch.is_tensor(a) else a
     out = fn(*map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
     return tuple(o.to(dev) for o in out)
+
+
+def repair_repeats(torch, run_kernel, run_plain, first) -> dict:
+    """The C6 repair launched ``REPEAT_LAUNCHES`` more times on the inputs
+    of its launch ``first``, each launch's r, p and draw history held
+    bit-equal to that one's, and the plain repair run ``REPEAT_PLAIN``
+    times on the card, held to its first run: which side, if either, gives
+    other bits on another call."""
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    differ = [i + 1 for i in range(REPEAT_LAUNCHES)
+              if not same(run_kernel(), first)]
+    runs = [run_plain() for _ in range(REPEAT_PLAIN)]
+    plain_differ = [i for i, run in enumerate(runs[1:], 1)
+                    if not same(run, runs[0])]
+    return {"launches_compared": REPEAT_LAUNCHES,
+            "launches_differing": len(differ),
+            "first_differing_launch": differ[0] if differ else None,
+            "plain_on_card_runs": REPEAT_PLAIN,
+            "plain_on_card_runs_differing": len(plain_differ),
+            "first_differing_plain_run": (plain_differ[0] if plain_differ
+                                          else None),
+            "plain_on_card_runs_bitequal": not plain_differ}
 
 
 def max_abs(torch, got, want) -> float:
@@ -1094,6 +1140,7 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
     from repro_torch.kernels.c6_tail.ref import (
         c6_tail_ref,
         compare_repairs,
+        prefix_sum,
         repair_rounds,
     )
 
@@ -1153,14 +1200,15 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
                              f"{timing['demoting']['rounds_demoting']} "
                              f"demoting rounds, want >= 2")
 
-    # above the one-block cap: the cases tiled to the cluster's sizes, one
-    # cluster launch each, and past the cluster's cap (the per-round path:
-    # a c6_tail a round)
+    # above the one-block cap: the cases tiled to the cluster's sizes (one
+    # whose last block is partial), one cluster launch each, and past the
+    # cluster's cap (the per-round path: a c6_tail a round)
     above, cluster = collections.Counter(), {}
-    for m in (CLUSTER_M, CLUSTER_CAP, CLUSTER_CAP + 1):
+    sizes = (CLUSTER_PARTIAL_M, CLUSTER_M, CLUSTER_CAP, CLUSTER_CAP + 1)
+    for m in sizes:
         big_args, big_budget = c6_repair_tiled(cases, "demoting", m)
         counts_reset()
-        got = kernel(big_args, big_budget)
+        got = [t.clone() for t in kernel(big_args, big_budget)]
         torch.cuda.synchronize()
         launched = counts_read()
         above.update(launched)
@@ -1176,23 +1224,27 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
                 raise AssertionError(f"c6_repair at M={m} (per round) "
                                      f"differs from plain")
             continue
+        # the first launch at this M, then the repeats of both tiles: a
+        # recurrence of a whole comparison that no round repeats names the
+        # side that moved
+        repeats = {}
+        for what in ("demoting", "main_path"):
+            a_, b_ = c6_repair_tiled(cases, what, m)
+            first = got if what == "demoting" else [
+                t.clone() for t in kernel(a_, b_)]
+            repeats[what] = repair_repeats(
+                torch, lambda: kernel(a_, b_), lambda: plain(a_, b_), first)
         out = compare_repairs(lambda k: kernel(big_args, big_budget, k),
                               lambda k: host(big_args, big_budget, k),
                               rounds, big_args, big_budget, nz)
-        again = kernel(big_args, big_budget)
-        if not out["within"] or not all(torch.equal(g, a) for g, a in
-                                        zip(got, again)):
+        if not out["within"] or any(
+                r["launches_differing"] or r["plain_on_card_runs_differing"]
+                for r in repeats.values()):
             raise AssertionError(f"c6_repair at M={m} (cluster): {out}, "
-                                 f"two launches bit-equal: "
-                                 f"{all(map(torch.equal, got, again))}")
-        on_card = [plain(big_args, big_budget) for _ in range(3)]
+                                 f"repeats (the side that moved): {repeats}")
         rec = {"tasks": m, "max_abs_err": max_abs(torch, got[:2], host(
             big_args, big_budget)[:2]), "hist_max_rel_err":
-            out["hist_max_rel"], "two_launches_bitequal": True,
-            # whether three runs of the plain repair on the card repeat
-            "plain_on_card_runs_bitequal": all(
-                torch.equal(x, y) for run in on_card[1:]
-                for x, y in zip(on_card[0], run))}
+            out["hist_max_rel"], "repeats": repeats}
         for what in ("demoting", "main_path"):
             a_, b_ = c6_repair_tiled(cases, what, m)
             nbytes, flops, rounds_run, sorted_counts = c6_repair_work(
@@ -1222,6 +1274,27 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
                                  f"case demotes in < 2 rounds")
         cluster[m] = rec
 
+    # the plain repair's prefix sums at the cluster's cap: prefix_sum (the
+    # same bits every call) against torch.cumsum of the 1-D CUDA tensor,
+    # which it replaced (recorded, not held: torch does not promise it)
+    big_args, big_budget = c6_repair_tiled(cases, "demoting", CLUSTER_CAP)
+    _, gain, _ = c6_tail_ref(*big_args, nz)
+    g = gain[torch.argsort(-gain, stable=True)]
+    g = g[g > 0]
+    prefix = {}
+    for name, fn in (("prefix_sum", prefix_sum),
+                     ("torch_cumsum", lambda t: torch.cumsum(t, 0))):
+        first = fn(g)
+        prefix[name] = sum(not torch.equal(fn(g), first)
+                           for _ in range(REPEAT_LAUNCHES))
+    if prefix["prefix_sum"]:
+        raise AssertionError(f"c6_repair: the plain repair's prefix_sum gave "
+                             f"other bits on {prefix['prefix_sum']} of "
+                             f"{REPEAT_LAUNCHES} calls")
+    prefix_ms = event_ms_turns(torch, {
+        "prefix_sum": lambda: prefix_sum(g),
+        "torch_cumsum": lambda: torch.cumsum(g, 0)}, reps=20)
+
     row = {
         "name": "c6_repair", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/c6_tail.cu",
@@ -1231,7 +1304,7 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
         "tolerance": "r, p equal outside the boundary exemption "
                      "(c6_tail/ref.py repair_boundary); bw_history within "
                      "1e-6 relative",
-        "cases_compared": len(cases) + 3,
+        "cases_compared": len(cases) + len(sizes),
         **{k: v for k, v in timing["main_path"].items()
            if k not in ("rounds_demoting", "feasible_demotions")},
         "inputs": "the main path's round 0: the gate-mode policy's decisions "
@@ -1248,8 +1321,12 @@ def c6_repair_row(torch, stream, dev, counts_reset, counts_read):
         "max_active_clusters": {
             blocks: _build.library().c6_repair_max_clusters(blocks)
             for blocks in (8, CLUSTER_CAP // REPAIR_CAP)},
-        "above_cap": {"tasks": [CLUSTER_M, CLUSTER_CAP, CLUSTER_CAP + 1],
-                      "launches": dict(above), "within_plain": True},
+        "above_cap": {"tasks": list(sizes), "launches": dict(above),
+                      "within_plain": True},
+        "plain_prefix_calls_differing": {
+            "tasks": CLUSTER_CAP, "keys": g.numel(),
+            "calls": REPEAT_LAUNCHES, **prefix,
+            "call_ms": prefix_ms},
     }
     return row, dict(above), cluster
 
@@ -5099,6 +5176,35 @@ def region_digest(torch, t, start, shape) -> str:
                                         for a, n in zip(start, shape))])
 
 
+def view_grad_bytes(tr) -> int:
+    """The bytes of every leaf's view gradient, in the dtype the loss
+    reads the leaf in: what a reduce after the whole backward held at
+    once."""
+    from repro_torch.models.params import leaf_dtype, tree_leaves, view_shape
+
+    dt = tr.ctx.compute_dtype
+    return sum(math.prod(view_shape(pl, tr.mesh, lp.whole))
+               * leaf_dtype(spec, dt).itemsize
+               for spec, pl, lp in zip(tree_leaves(tr.specs),
+                                       tree_leaves(tr.placements),
+                                       tree_leaves(tr.plan)))
+
+
+def grad_memory(tr, steps: int, peaks: list) -> dict:
+    """What a rank's split trainer held: the most view-gradient bytes the
+    reducer held at once (the largest of ``peaks``, each step's
+    ``VIEW_GRADS`` reading (peak, largest unit)), all the views' bytes,
+    and what remat saved at the layers' edges a step (``EDGE_SAVES``
+    since it was reset before the steps)."""
+    from repro_torch.models.model import EDGE_SAVES
+
+    return {"view_grad_peak_bytes": max(p for p, _ in peaks),
+            "view_grad_largest_unit_bytes": max(u for _, u in peaks),
+            "view_grad_all_bytes": view_grad_bytes(tr),
+            "remat_edge_bytes_per_step": EDGE_SAVES.bytes / steps,
+            "remat_edge_shapes": sorted(set(EDGE_SAVES.shapes))}
+
+
 def train_ranks_rank(device: str, ckpt_dir: str) -> dict:
     """One of two gloo ranks sharing the card (``run_ranks``): Qwen1.5-0.5B
     at mesh (2, 1), 4 steps of the phase's batches (4 of the 8 rows a
@@ -5113,6 +5219,8 @@ def train_ranks_rank(device: str, ckpt_dir: str) -> dict:
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import make_host_mesh, mesh_device_type
+    from repro_torch.models.model import EDGE_SAVES
+    from repro_torch.models.params import VIEW_GRADS
     from repro_torch.sharding.collectives import COLLECTIVES, TRAFFIC, \
         shard_index
     from repro_torch.sharding.pipeline import bubble_fraction, pipeline, \
@@ -5131,14 +5239,16 @@ def train_ranks_rank(device: str, ckpt_dir: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    EDGE_SAVES.reset()
     start, traffic0 = len(COLLECTIVES), dict(TRAFFIC)
-    losses, step_ms, digests = [], [], None
+    losses, step_ms, digests, peaks = [], [], None, []
     for i, b in enumerate(batches):
         t0 = time.perf_counter()
         state, hist = tr.run(iter([b]), n_steps=1, state=state)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(hist[-1]["loss"])
+        peaks.append((VIEW_GRADS.peak, VIEW_GRADS.largest_unit))
         if tr.step == 2:        # each rank writes its blocks
             t0 = time.perf_counter()
             tr.save(state)
@@ -5147,6 +5257,7 @@ def train_ranks_rank(device: str, ckpt_dir: str) -> dict:
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ops = collections.Counter(op for op, _, _ in COLLECTIVES[start:])
+    memory = grad_memory(tr, len(batches), peaks)
     del state
     torch.cuda.empty_cache()
 
@@ -5210,7 +5321,7 @@ def train_ranks_rank(device: str, ckpt_dir: str) -> dict:
                                       - traffic0["seconds"]) / steps,
             "host_bytes_per_step": (TRAFFIC["host_bytes"]
                                     - traffic0["host_bytes"]) / steps,
-            "collectives": dict(ops), "digests": digests,
+            "collectives": dict(ops), **memory, "digests": digests,
             "compressed_allreduce": car, "pipeline": pipe}
 
 
@@ -5234,12 +5345,18 @@ def tp_setup(arch, layers, steps):
     return cfg, opt, [next(it) for _ in range(steps)]
 
 
+TP_WHOLE_STEPS = 2       # (e'): (e)'s first steps, act_seq_sp mapped to None
+
+
 def tp_cases():
+    """{case: (arch, layers kept, steps, the train rules' overrides)}."""
     from repro_torch.configs import get_config
 
     qwen = get_config("qwen1.5-0.5b")
-    return {"e": ("qwen1.5-0.5b", qwen.num_layers, RANKS_STEPS),
-            "f": TP_MAMBA}
+    return {"e": ("qwen1.5-0.5b", qwen.num_layers, RANKS_STEPS, {}),
+            "e_prime": ("qwen1.5-0.5b", qwen.num_layers, TP_WHOLE_STEPS,
+                        {"act_seq_sp": None}),
+            "f": (*TP_MAMBA, {})}
 
 
 def train_tp_rank(device: str, ckpt_dir: str) -> dict:
@@ -5258,9 +5375,11 @@ def train_tp_rank(device: str, ckpt_dir: str) -> dict:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.params import GATHERED
+    from repro_torch.models.model import EDGE_SAVES
+    from repro_torch.models.params import GATHERED, VIEW_GRADS
     from repro_torch.sharding import tensor_parallel as tp
     from repro_torch.sharding.collectives import COLLECTIVES, TRAFFIC
+    from repro_torch.sharding.rules import make_rules
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     dev = torch.device(device)
@@ -5280,27 +5399,33 @@ def train_tp_rank(device: str, ckpt_dir: str) -> dict:
     scan_ops.selective_scan_autograd = scan_seen
     mesh = make_host_mesh(TP_MESH)
     out = {"rank": torch.distributed.get_rank()}
-    for name, (arch, layers, steps) in tp_cases().items():
+    for name, (arch, layers, steps, overrides) in tp_cases().items():
         cfg, opt, batches = tp_setup(arch, layers, steps)
+        rules = make_rules(mesh, "train", {**cfg.sharding_overrides.get(
+            "train", {}), **overrides})
         tr = Trainer(cfg, TrainConfig(steps=steps, ckpt_every=steps + 1,
                                       ckpt_dir=f"{ckpt_dir}/{name}",
                                       log_every=1, opt=opt),
-                     mesh=mesh, device=dev)
+                     mesh=mesh, rules=rules, device=dev)
         state = tr.init_state(torch.Generator(dev).manual_seed(0))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         seen.clear()
         tp.MODES.clear()
         GATHERED.reset()
+        EDGE_SAVES.reset()
         start, traffic0 = len(COLLECTIVES), dict(TRAFFIC)
         reset_launch_counts()
-        losses, step_ms = [], []
+        losses, step_ms, peaks, digests = [], [], [], None
         for b in batches:
             t0 = time.perf_counter()
             state, hist = tr.run(iter([b]), n_steps=1, state=state)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(hist[-1]["loss"])
+            peaks.append((VIEW_GRADS.peak, VIEW_GRADS.largest_unit))
+            if tr.step == TP_WHOLE_STEPS and name != "f":
+                digests = block_digests(torch, tr, state)
         launches = launch_counts()
         out[name] = {
             "arch": arch, "layers": layers, "steps": steps,
@@ -5315,7 +5440,8 @@ def train_tp_rank(device: str, ckpt_dir: str) -> dict:
             "host_bytes_per_step": (TRAFFIC["host_bytes"]
                                     - traffic0["host_bytes"]) / steps,
             "collectives": dict(collections.Counter(
-                op for op, _, _ in COLLECTIVES[start:]))}
+                op for op, _, _ in COLLECTIVES[start:])),
+            **grad_memory(tr, steps, peaks), "digests": digests}
         del state, tr
         torch.cuda.empty_cache()
     return out
@@ -5343,7 +5469,8 @@ def train_tp_parts(torch, dev, one_losses, root):
     for b in batches:
         *state, m = one._step(*state, one._device_batch(b))
         f_losses.append(float(m["loss"]))
-    want_loss = {"e": one_losses, "f": f_losses}
+    want_loss = {"e": one_losses, "e_prime": one_losses[:TP_WHOLE_STEPS],
+                 "f": f_losses}
     del state, one, m
     free_device_memory(torch)
 
@@ -5353,7 +5480,7 @@ def train_tp_parts(torch, dev, one_losses, root):
     ranks_s = time.perf_counter() - t0
     total = collections.Counter()
     rec = {"mesh": list(TP_MESH), "ranks_s": ranks_s}
-    for name, (arch, layers, steps) in tp_cases().items():
+    for name, (arch, layers, steps, overrides) in tp_cases().items():
         cfg = tp_setup(arch, layers, 1)[0]
         kinds = collections.Counter(cfg.layer_kinds())
         t = TP_MESH[1]
@@ -5381,6 +5508,22 @@ def train_tp_parts(torch, dev, one_losses, root):
                 raise AssertionError(f"train_ranks ({name}): gathered copies "
                                      f"of {r['gathered_units_peak']} units "
                                      f"alive at once")
+            # every layer's residual: the rank's half of the sequence under
+            # the train rules, whole with act_seq_sp mapped to None
+            mode = "whole" if overrides else "seq"
+            rows = 512 if overrides else 512 // t
+            if set(k for k in r["modes"] if k.startswith("residual")) != {
+                    f"residual {mode}"} or {sh[1] for sh in r[
+                    "remat_edge_shapes"]} != {rows}:
+                raise AssertionError(f"train_ranks ({name}): residual modes "
+                                     f"{r['modes']}, edges "
+                                     f"{r['remat_edge_shapes']}")
+            if not 0 < r["view_grad_peak_bytes"] <= r[
+                    "view_grad_largest_unit_bytes"]:
+                raise AssertionError(f"train_ranks ({name}): view gradients "
+                                     f"held {r['view_grad_peak_bytes']}, "
+                                     f"largest unit "
+                                     f"{r['view_grad_largest_unit_bytes']}")
             total.update(r["launches"])
         gaps = [abs(x - y) / abs(y) for x, y in zip(got[0]["losses"],
                                                    want_loss[name])]
@@ -5391,8 +5534,23 @@ def train_tp_parts(torch, dev, one_losses, root):
                                  f"{RANKS_TOL})")
         rec[name] = {"arch": arch, "layers": layers,
                      "layers_of_config": get_config(arch).num_layers,
-                     "steps": steps, "gaps_vs_one_device": gaps,
+                     "steps": steps, "overrides": overrides,
+                     "gaps_vs_one_device": gaps,
                      "one_device_losses": want_loss[name], "ranks": got}
+    # (e'): act_seq_sp mapped to None gives (e)'s bits
+    for e, e1 in zip(rec["e"]["ranks"], rec["e_prime"]["ranks"]):
+        if e1["losses"] != e["losses"][:TP_WHOLE_STEPS] or \
+                e1["digests"] != e["digests"]:
+            raise AssertionError(
+                f"train_ranks (e'): losses {e1['losses']} vs (e)'s "
+                f"{e['losses'][:TP_WHOLE_STEPS]}; blocks equal "
+                f"{e1['digests'] == e['digests']}")
+    rec["e_prime"]["bit_equal_to_e"] = {
+        "losses": TP_WHOLE_STEPS, "blocks": len(rec["e"]["ranks"][0][
+            "digests"])}
+    for name in ("e", "e_prime", "f"):
+        for r in rec[name]["ranks"]:
+            r.pop("digests")
     rec["seconds"] = time.perf_counter() - t_start
     return dict(total), rec
 

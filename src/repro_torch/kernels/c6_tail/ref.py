@@ -42,6 +42,38 @@ def c6_tail_ref(bw_panel, r, p, v, route, z, acc_thr, rn, pn, n_fps: int):
     return bw, gain, can_p
 
 
+SCAN_ROW = 1024     # entries a row of prefix_sum's scan on CUDA
+
+
+def prefix_sum(x):
+    """``torch.cumsum(x, 0)`` of a 1-D float tensor, with the same bits on
+    every call.  On the CPU torch's own scan, which runs in order.  On
+    CUDA torch scans a 1-D tensor in one pass whose float association
+    depends on which tiles' sums are ready first, so a call may give other
+    bits than the last (on an H100 every one of 100 calls at 262,144
+    entries differed from the first), and a repair could demote a task at
+    the boundary on one call and not on the next.  There the entries are
+    scanned in rows of ``SCAN_ROW`` (a scan along a tensor's last dim with
+    at least two rows: each row in a fixed order), the rows' totals
+    scanned the same way, and each row's prefix added
+    (:func:`row_scan`)."""
+    return row_scan(x) if x.device.type == "cuda" else torch.cumsum(x, 0)
+
+
+def row_scan(x):
+    """The inclusive prefix sum of a 1-D tensor by rows of ``SCAN_ROW``
+    (:func:`prefix_sum`'s order on CUDA; on any device)."""
+    n = x.shape[0]
+    rows = max(2, -(-n // SCAN_ROW))
+    pad = torch.zeros(rows * SCAN_ROW, dtype=x.dtype, device=x.device)
+    pad[:n] = x
+    scan = pad.view(rows, SCAN_ROW).cumsum(1)
+    totals = torch.stack([scan[:, -1], torch.zeros_like(scan[:, -1])])
+    ends = totals.cumsum(1)[0]                      # each row's inclusive end
+    before = torch.cat([ends.new_zeros(1), ends[:-1]])
+    return (scan + before[:, None]).reshape(-1)[:n]
+
+
 def repair_rounds(tail, bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
                   n_fps: int, rounds: int, task_mask=None):
     """``rounds`` C6 demotion rounds with ``tail`` (``c6_tail_ref`` or the
@@ -54,7 +86,8 @@ def repair_rounds(tail, bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
     active and over budget, so no round reads a flag back to the host: the
     reference's ``lax.cond`` skip, exact because a skipped round is a
     no-op.  The budget sum is ``torch.sum`` over the (M,) draws and the
-    prefix ``torch.cumsum``: float32 in PyTorch's order, not XLA's.
+    prefix :func:`prefix_sum`: float32 in PyTorch's order, not XLA's, and
+    the same bits on every call.
     ``task_mask``: optional (M,) bool alive mask; a dead lane draws 0 and
     its gain is 0, so it is never demoted (the reference's masked repair).
     """
@@ -80,7 +113,7 @@ def repair_rounds(tail, bw_panel, r, p, v, route, z, acc_thr, rn, pn, budget,
             gain = torch.where(task_mask, gain, 0.0)
         order = torch.argsort(-gain, stable=True)
         gain_sorted = gain[order]
-        cum_before = torch.cat([zero, torch.cumsum(gain_sorted, 0)[:-1]])
+        cum_before = torch.cat([zero, prefix_sum(gain_sorted)[:-1]])
         demote_sorted = (cum_before < excess) & (gain_sorted > 0)
         demote = torch.zeros((m,), dtype=torch.bool, device=dev)
         demote[order] = demote_sorted

@@ -42,10 +42,9 @@ def rules_for(cfg: ModelConfig, mesh, kind: str) -> ShardingRules:
     ``mesh``: the train rules for training, the serve rules otherwise,
     each with the config's ``sharding_overrides`` of its mode.  An
     attention-only prefill also maps ``act_seq_sp`` onto ``"model"`` (the
-    reference's sequence-parallel residual at layer boundaries): the port
-    records it in the table and changes no numbers by it, since the
-    residual stream stays whole on every ``"model"`` rank (ROADMAP
-    A.16e)."""
+    reference's sequence-parallel residual at layer boundaries): between
+    two layer-pattern units each rank holds its range of the sequence
+    (``models/model.py``), which changes no numbers."""
     mode = "train" if kind == "train" else "serve"
     overrides = dict(cfg.sharding_overrides.get(mode, {}))
     if kind == "prefill" and cfg.ssm is None and cfg.rglru is None:

@@ -5,9 +5,10 @@ has one (SSM blocks are mixer-only).
 
 Split over ``"model"`` (:func:`block_tp`), each mixer and MLP splits its
 own products and sums them over ``"model"`` before the residual add: the
-residual stream and the norms stay whole on every ``"model"`` rank.  The
-reference's sequence-parallel residual (``act_seq_sp``) changes memory,
-not numbers, and is ROADMAP A.16e.  Under the serve rules the same split
+residual stream and the norms are whole on every ``"model"`` rank inside a
+block.  Between layer-pattern units the residual may be the rank's range
+of the sequence (``act_seq_sp``, ``models/model.py`` ``_unit``), gathered
+whole before the unit's first block.  Under the serve rules the same split
 runs on the rank's blocks, and each cache leaf is the rank's block of the
 whole one (:func:`~repro_torch.models.model.cache_placements`): the K/V
 by sequence, the recurrent states by channel."""

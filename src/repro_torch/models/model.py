@@ -25,11 +25,22 @@ layer's weights over ``"data"`` (and the leaves its plan reads whole over
 gather runs again in the recompute; without it the autograd nodes keep the
 rank's blocks and gather again in the backward (``keep_blocks``).  Either
 way at most one layer's gathered copy is alive at a time, as in the
-reference's scan.  Each layer splits its products over ``"model"``
-(:func:`model_plan`), and so does the cross-entropy: vocab-parallel, each
-chunk's local logits reduced by a max over ``"model"`` (exact), a
-rank-ordered sum of ``exp`` and the label logit from the rank that owns
-it.
+reference's scan, and the backward hands each view's gradient to the
+trainer's reducer as it reaches it.  Each layer splits its products over
+``"model"`` (:func:`model_plan`), and so does the cross-entropy:
+vocab-parallel, each chunk's local logits reduced by a max over
+``"model"`` (exact), a rank-ordered sum of ``exp`` and the label logit
+from the rank that owns it.
+
+Where the rules map ``act_seq_sp`` onto ``"model"`` and T ranks divide the
+sequence (``tensor_parallel.residual_mode``; the train rules, and an
+attention-only prefill under ``rules_for``), every unit takes the rank's
+S/T range of the residual, gathers it over ``"model"`` when it starts and
+keeps its range of its output: the reference's constraint on the scan
+carry (``repro/models/model.py:94``).  The embedding's output is whole
+and is cut to the range before the first unit; the last unit's output is
+whole.  The numbers are those of the whole residual, bit for bit; under
+remat each unit's checkpoint saves its range (:data:`EDGE_SAVES`).
 """
 from __future__ import annotations
 
@@ -198,10 +209,45 @@ def _default_positions(cfg: ModelConfig, mode: str, length, b: int, s: int,
     return positions
 
 
+class EdgeSaves:
+    """What remat keeps at each unit's edge: the floating tensors that
+    ``torch.utils.checkpoint`` saves as a unit starts (its inputs, the
+    residual among them), seen by a ``saved_tensors_hooks`` around the
+    call, their shapes and bytes since :meth:`reset`."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.shapes, self.bytes = [], 0
+
+    def _pack(self, t):
+        if t.is_floating_point() and t.numel():
+            self.shapes.append(tuple(t.shape))
+            self.bytes += t.numel() * t.element_size()
+        return t
+
+    def hooks(self):
+        return torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                        lambda t: t)
+
+
+EDGE_SAVES = EdgeSaves()
+
+
 def _unit(ctx: Ctx, pattern, layer_p, x, positions, length, layer_c,
-          emit_cache: bool, given: bool, tag=None):
+          emit_cache: bool, given: bool, tag=None, residual="whole",
+          last=True):
     """One repeat of the layer pattern -> (x, its new caches, summed aux).
-    Mesh leaves are gathered here (under ``tag``), inside the unit."""
+    Mesh leaves are gathered here (under ``tag``), inside the unit.  With
+    ``residual`` ``"seq"`` ``x`` is the rank's range of the sequence,
+    gathered over ``"model"`` here, and the unit returns its range of the
+    output unless it is the ``last``."""
+    seq = residual == "seq"
+    if tp.size(ctx) > 1:
+        tp.MODES[("residual", residual)] += 1
+    if seq:
+        x = tp.gather_from_model(x, ctx.mesh, dim=1)
     layer_p = materialize(layer_p, tag)
     new_c, aux = {}, 0.0
     for j, kind in enumerate(pattern):
@@ -213,6 +259,8 @@ def _unit(ctx: Ctx, pattern, layer_p, x, positions, length, layer_c,
         if nc is not None:
             new_c[key] = nc
         aux = aux + a
+    if seq and not last:
+        x = tp.scatter_to_model(x, ctx.mesh, dim=1)
     return x, new_c, aux
 
 
@@ -253,18 +301,27 @@ def forward(ctx: Ctx, params: dict, inputs: dict, *,
         cfg, ctx.mode, length, b, s, x.device)
     remat = cfg.remat and ctx.mode == "train"
     on_mesh = isinstance(params["final_norm"]["scale"], MeshLeaf)
+    residual = tp.residual_mode(ctx, x.shape)
+    if residual == "seq":       # the first unit takes the rank's range too
+        x = tp.scatter_to_model(x, ctx.mesh, dim=1)
+    segments = build_segments(cfg)
+    n_units = sum(n for _, n in segments)
 
-    new_segments, aux_total = [], 0.0
-    for seg_idx, (pattern, n) in enumerate(build_segments(cfg)):
+    new_segments, aux_total, done = [], 0.0, 0
+    for seg_idx, (pattern, n) in enumerate(segments):
         seg_params = params["segments"][seg_idx]
         seg_cache = cache["segments"][seg_idx] if cache is not None else None
         emitted = []
         for i, layer_p in enumerate(_unstack(seg_params, n)):
+            done += 1
             args = (ctx, pattern, layer_p, x, positions,
                     length, _layer(seg_cache, i) if seg_cache is not None
-                    else None, emit_cache, given, (seg_idx, i))
+                    else None, emit_cache, given, (seg_idx, i), residual,
+                    done == n_units)
             if remat:
-                x, new_c, aux = checkpoint(_unit, *args, use_reentrant=False)
+                with EDGE_SAVES.hooks():
+                    x, new_c, aux = checkpoint(_unit, *args,
+                                               use_reentrant=False)
             else:
                 with keep_blocks() if on_mesh else contextlib.nullcontext():
                     x, new_c, aux = _unit(*args)

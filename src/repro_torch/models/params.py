@@ -30,7 +30,12 @@ numbers.
 A split forward reads a leaf through its compute view (:func:`compute_view`:
 this rank's ``"model"`` block gathered over ``"data"`` only, or the whole
 leaf where the layer's plan reads it whole), one layer of a stacked leaf at
-a time (:class:`MeshLeaf`): no caller gathers the whole tree.
+a time (:class:`MeshLeaf`): no caller gathers the whole tree.  The
+backward hands each view's gradient to a :class:`GradReducer`, which
+reduces a unit's views (a layer, the embedding, the head) as soon as the
+backward has made all of their gradients, into the rank's float32
+gradient blocks: no step holds the whole model's view gradients
+(:data:`VIEW_GRADS`).
 """
 from __future__ import annotations
 
@@ -42,8 +47,8 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.sharding.collectives import all_gather, shard_count, \
-    shard_index
+from repro_torch.sharding.collectives import all_gather, psum_ordered, \
+    shard_count, shard_index
 from repro_torch.sharding.rules import Placement, ShardingRules
 
 
@@ -286,20 +291,189 @@ def _released(key: int, tag):
     GATHERED.drop(tag)
 
 
+class ViewGradLive:
+    """The view-shaped gradient bytes that the reducer holds (handed over
+    by the backward, not yet reduced), the most at once since
+    :meth:`reset`, and the largest unit's views (their bytes in one
+    micro-batch) for comparison."""
+
+    def __init__(self):
+        self.live = self.peak = self.largest_unit = 0
+
+    def reset(self):
+        self.peak, self.largest_unit = self.live, 0
+
+    def add(self, nbytes: int):
+        self.live += nbytes
+        self.peak = max(self.peak, self.live)
+
+    def drop(self, nbytes: int):
+        self.live -= nbytes
+
+
+VIEW_GRADS = ViewGradLive()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _packed_psum(items, mesh, axis: str) -> list:
+    """``psum_ordered`` of several leaves' gradients ``items`` = [(leaf,
+    g)] over ``axis`` in one call: flattened into one buffer, each rank's
+    part cut to every leaf's block along ``axis`` (``take``), the sum
+    unpacked into one tensor a leaf.  The sum of a packed buffer is the
+    packing of the sums, bit for bit."""
+    def cut(leaf, t):
+        return axis_block(t, leaf.placement, mesh, axis)
+
+    shapes = [cut(leaf, g).shape for leaf, g in items]
+    sizes = [g.numel() for _, g in items]
+
+    def take(buf):
+        parts, at = [], 0
+        for (leaf, g), n in zip(items, sizes):
+            parts.append(cut(leaf, buf[at:at + n].view(g.shape)).reshape(-1))
+            at += n
+        return torch.cat(parts)
+
+    flat = torch.cat([g.reshape(-1) for _, g in items]) if len(items) > 1 \
+        else items[0][1].reshape(-1)
+    summed = psum_ordered(flat, mesh, axis, take=take)
+    out, at = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append(summed[at:at + n].view(shape))
+        at += n
+    return out
+
+
+class GradBlock:
+    """A leaf's float32 gradient block on this rank (all layers of a
+    stacked leaf), made when the backward first adds into it, so that it
+    takes no memory before its first layer's gradient is made: a whole
+    leaf's first gradient is kept as it comes (a reduce's result, a tensor
+    of its own), a stacked leaf's block starts from zeros; ``t`` a tensor
+    to add into instead (a gradient accumulated so far)."""
+
+    def __init__(self, shape, device, t=None):
+        self.shape, self.device, self.t = tuple(shape), device, t
+
+    def add(self, x, index=None):
+        if self.t is None and index is None:
+            self.t = x
+            return
+        if self.t is None:
+            self.t = torch.zeros(self.shape, dtype=torch.float32,
+                                 device=self.device)
+        (self.t if index is None else self.t[index]).add_(x)
+
+    def value(self) -> torch.Tensor:
+        """The gradient: zeros where nothing was added."""
+        if self.t is None:
+            self.t = torch.zeros(self.shape, dtype=torch.float32,
+                                 device=self.device)
+        return self.t
+
+
+class GradReducer:
+    """Reduces the gradients of a split forward's compute views into the
+    rank's float32 gradient blocks (each :class:`MeshLeaf`'s
+    :class:`GradBlock`) while the backward runs, a unit at a time: a
+    partial gradient (``LeafPlan.partial``) summed over ``"model"`` in
+    rank order and cut to the rank's ``"model"`` block, a whole one cut to
+    it, then the float32 rank-ordered sum over ``"data"`` cut to the
+    rank's block, added into the block.  A unit's leaves go in one packed
+    buffer a mesh dim (one ``psum_ordered`` a unit and mesh dim).
+
+    The forward names each view's unit (:meth:`expect`); a leaf belongs to
+    the unit that viewed it first, and the views that a remat recompute
+    makes again are not counted twice.  A leaf viewed more than once
+    (a tied embedding, read by the embedding and the head) gets its views'
+    gradients summed in the view's dtype, as autograd sums a tensor's uses,
+    before the reduce.  :meth:`backward` runs the backward and then
+    reduces any unit that the loss did not reach in full (in the order the
+    forward viewed them), so every rank makes the same collectives."""
+
+    def __init__(self, mesh, device):
+        self.mesh = mesh
+        # every view's input that requires grad: its outputs then do
+        self.anchor = torch.zeros((), device=device, requires_grad=True)
+        self.units: dict = {}       # tag -> leaves first viewed under it
+        self.owner: dict = {}       # leaf -> its unit's tag
+        self.left: dict = {}        # leaf -> view gradients still to come
+        self.got: dict = {}         # leaf -> its views' gradients summed
+        self.seen: set = set()      # (tag, leaf) viewed
+
+    def expect(self, leaf, tag):
+        if (tag, leaf) in self.seen:    # the recompute's view
+            return
+        self.seen.add((tag, leaf))
+        if leaf not in self.owner:
+            self.owner[leaf] = tag
+            self.units.setdefault(tag, []).append(leaf)
+        self.left[leaf] = self.left.get(leaf, 0) + 1
+
+    def deliver(self, leaf, g):
+        VIEW_GRADS.add(_nbytes(g))
+        prev = self.got.get(leaf)
+        if prev is not None:            # one tensor of the two
+            g = prev + g
+            VIEW_GRADS.drop(_nbytes(g))
+        self.got[leaf] = g
+        self.left[leaf] -= 1
+        tag = self.owner[leaf]
+        if all(self.left[lf] == 0 for lf in self.units[tag]):
+            self._reduce(tag)
+
+    def _reduce(self, tag):
+        leaves = [lf for lf in self.units.pop(tag) if lf in self.got]
+        items = [(lf, self.got.pop(lf)) for lf in leaves]
+        held = sum(_nbytes(g) for _, g in items)
+        VIEW_GRADS.largest_unit = max(VIEW_GRADS.largest_unit, held)
+        if not items:
+            return
+        mesh = self.mesh
+        items = [(lf, g.float()) for lf, g in items]
+        partial = [i for i, (lf, _) in enumerate(items) if lf.plan.partial]
+        if partial:
+            summed = _packed_psum([items[i] for i in partial], mesh, "model")
+            for i, t in zip(partial, summed):
+                items[i] = (items[i][0], t)
+        items = [(lf, axis_block(g, lf.placement, mesh, "model")
+                  if lf.plan.whole and not lf.plan.partial else g)
+                 for lf, g in items]
+        for (lf, _), t in zip(items, _packed_psum(items, mesh, "data")):
+            lf.grad.add(t, lf.index)
+        VIEW_GRADS.drop(held)
+
+    def backward(self, loss):
+        """The backward of ``loss``, each unit reduced as its views'
+        gradients are made, then the units it did not reach in full.  The
+        leaves are let go after it: they hold the reducer, and a cycle
+        would keep the step's gradient blocks alive until Python's cyclic
+        collector ran (a gigabyte a step on the card)."""
+        loss.backward()
+        for tag in list(self.units):
+            self._reduce(tag)
+        for book in (self.units, self.owner, self.left, self.got, self.seen):
+            book.clear()
+
+
 class _ViewFn(torch.autograd.Function):
-    """The compute view of a block, its gradient delivered to ``sink``
-    (a zero-stride tensor of the view's shape that requires grad): the
-    gradient of a split forward with respect to each rank's view, which
-    the trainer then sums into its blocks."""
+    """The compute view of a block; its gradient handed to the leaf's
+    reducer (:meth:`GradReducer.deliver`) as the backward reaches it."""
 
     @staticmethod
-    def forward(ctx, block, sink, make):
+    def forward(ctx, anchor, leaf, make):
+        ctx.leaf = leaf
         out = make()
-        return out.view_as(out) if out is block else out
+        return out.view_as(out) if out is leaf.block else out
 
     @staticmethod
     def backward(ctx, g):
-        return None, g, None
+        ctx.leaf.reducer.deliver(ctx.leaf, g)
+        return None, None, None
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -308,37 +482,38 @@ def _storage(t: torch.Tensor) -> int:
 
 class MeshLeaf:
     """A leaf on a mesh as a split forward reads it: this rank's float32
-    ``block`` (all layers of a stacked leaf), its ``placement``, whether
-    the view is ``whole`` over ``"model"``, and the ``sink`` that receives
-    the gradient of the view (:meth:`new` makes one)."""
+    ``block`` (all layers of a stacked leaf), its ``placement``, the
+    layer's ``plan`` for it (a ``LeafPlan``: the view whole over
+    ``"model"`` or the rank's block, the gradient partial or not), the
+    ``reducer`` that takes the view's gradient, and ``grad``, the
+    :class:`GradBlock` that the reducer adds it into (at ``index``, the
+    layer, for one layer of a stacked leaf)."""
 
-    def __init__(self, block, sink, placement: Placement, mesh,
-                 dtype: torch.dtype, whole: bool):
-        self.block, self.sink, self.placement = block, sink, placement
-        self.mesh, self.dtype, self.whole = mesh, dtype, whole
-
-    @classmethod
-    def new(cls, block, placement: Placement, mesh, dtype, whole: bool):
-        sink = torch.zeros((), dtype=dtype, device=block.device).expand(
-            view_shape(placement, mesh, whole)).requires_grad_(True)
-        return cls(block, sink, placement, mesh, dtype, whole)
+    def __init__(self, block, placement: Placement, mesh, dtype: torch.dtype,
+                 plan, reducer, grad, index=None):
+        self.block, self.placement, self.mesh = block, placement, mesh
+        self.dtype, self.plan, self.reducer = dtype, plan, reducer
+        self.grad, self.index = grad, index
 
     def layers(self) -> list:
-        """One leaf a layer of a stacked leaf (views of the block and the
-        sink: the sink's gradient is their stack)."""
+        """One leaf a layer of a stacked leaf (views of the block; each
+        adds into its layer of the gradient block)."""
         pl = layer_placement(self.placement)
-        return [MeshLeaf(b, s, pl, self.mesh, self.dtype, self.whole)
-                for b, s in zip(self.block.unbind(0), self.sink.unbind(0))]
+        return [MeshLeaf(b, pl, self.mesh, self.dtype, self.plan,
+                         self.reducer, self.grad, i)
+                for i, b in enumerate(self.block.unbind(0))]
 
     def _make(self):
         return compute_view(self.block, self.placement, self.mesh,
-                            self.dtype, self.whole)
+                            self.dtype, self.plan.whole)
 
     def view(self, tag):
-        """The differentiable compute view.  A copy (gathered or cast) is
-        counted under ``tag`` in :data:`GATHERED` while it lives, and
-        :func:`keep_blocks` makes it again where a backward needs it."""
-        out = _ViewFn.apply(self.block, self.sink, self._make)
+        """The differentiable compute view, its unit ``tag`` told to the
+        reducer.  A copy (gathered or cast) is counted under ``tag`` in
+        :data:`GATHERED` while it lives, and :func:`keep_blocks` makes it
+        again where a backward needs it."""
+        self.reducer.expect(self, tag)
+        out = _ViewFn.apply(self.reducer.anchor, self, self._make)
         key = _storage(out)
         if key != _storage(self.block):
             _REMAKE[key] = self._make

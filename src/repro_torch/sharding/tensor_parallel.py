@@ -17,6 +17,14 @@ Four autograd functions over the ``"model"`` group, on the collectives of
 * :func:`scatter_to_model` — this rank's slice of a whole tensor: the
   slice forward, the ranks' slices gathered backward.
 
+Where the rules map ``act_seq_sp`` onto ``"model"`` (the train rules, an
+attention-only prefill under ``rules_for``), the residual that one
+layer-pattern unit hands the next is the rank's range of the sequence
+(:func:`residual_mode`): the unit gathers it over ``"model"`` when it
+starts (:func:`gather_from_model` along the sequence dim) and keeps its
+range of its output (:func:`scatter_to_model`), so the numbers are those
+of the whole residual and remat saves S/T rows at each unit's edge.
+
 Serving under the serve rules, the decode cache is split by sequence over
 ``"model"``: each rank attends over its range of every row's cache
 (``decode_attention_partial``) and :func:`combine_partials` merges the
@@ -119,6 +127,19 @@ def layer_mode(ctx, kind: str, plan_fn) -> str:
         mode = ctx.tp_modes[kind] = plan_fn(ctx.cfg, ctx.rules).mode
     MODES[(kind, mode)] += 1
     return mode
+
+
+def residual_mode(ctx, shape) -> str:
+    """How the residual ``(B, S, d)`` between two layer-pattern units lies
+    on the ``"model"`` ranks: ``"seq"``, each rank its S/T range, where the
+    rules map ``act_seq_sp`` onto ``"model"`` (T > 1 ranks) and T divides
+    S (the reference's constraint on the carry, ``("batch", "act_seq_sp",
+    "act_embed")``, fitted to the shape); else ``"whole"``."""
+    if size(ctx) == 1:
+        return "whole"
+    dims = ctx.rules.placement(("batch", "act_seq_sp", "act_embed"),
+                               tuple(shape)).dims
+    return "seq" if MODEL in dims[1] else "whole"
 
 
 def rank(mesh) -> int:

@@ -25,23 +25,29 @@ cfg.sharding_overrides["train"])``):
   gathers the whole tree, at most one layer's copy is alive), and splits
   its products over ``"model"`` by heads, MLP columns, experts, SSM and
   RG-LRU channels and vocab, with rank-ordered partial sums
-  (``models/model.py``, ``sharding/tensor_parallel.py``).  The forward and
-  backward run on this rank's rows of the global batch (its loss is its
-  share of the global loss, ``Ctx.mesh``); the gradient of each leaf's
-  compute view is summed over ``"model"`` in rank order where a rank's is
-  partial (a leaf read whole inside a split region, ``LeafPlan.partial``),
-  then in float32 over ``"data"`` in rank order (``psum_ordered``: two
-  runs of one world give the same bits), and the rank keeps its block;
-  the global norm, the compression's absmax and AdamW then work on
-  blocks;
+  (``models/model.py``, ``sharding/tensor_parallel.py``).  The residual
+  between two layers is the rank's range of the sequence where the rules
+  map ``act_seq_sp`` onto ``"model"`` (the train rules do), gathered
+  inside each layer: the same numbers, and remat saves S/T rows at each
+  layer's edge.  The forward and backward run on this rank's rows of the
+  global batch (its loss is its share of the global loss, ``Ctx.mesh``);
+  as the backward makes each layer's gradients, the gradient of each
+  leaf's compute view is summed over ``"model"`` in rank order where a
+  rank's is partial (a leaf read whole inside a split region,
+  ``LeafPlan.partial``), then in float32 over ``"data"`` in rank order
+  (``psum_ordered``: two runs of one world give the same bits), and added
+  into the rank's float32 gradient block (``params.GradReducer``, one
+  collective a layer and mesh dim): at most about one layer's view
+  gradients are held at once.  With ``grad_accum`` each micro-batch's
+  reduced gradient is added in micro-batch order, as the reference's scan
+  adds them.  The global norm, the compression's absmax and AdamW then
+  work on blocks;
 * checkpoints are sharded: each rank writes its blocks, and a restore onto
   any mesh (a survivor mesh after a ``NodeFailure``) assembles each new
   block from the blocks on disk.
 
 The prefill and serve steps under the serve rules (the decode cache split
-by sequence over ``"model"``) are ``launch/steps.py``'s; the training
-half's sequence-parallel residual and a gradient reduced a layer at a time
-are ROADMAP queue A.16e.
+by sequence over ``"model"``) are ``launch/steps.py``'s.
 """
 from __future__ import annotations
 
@@ -57,8 +63,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import Ctx
 from repro_torch.models.model import loss_fn, model_plan, model_specs
 from repro_torch.models.params import (
+    VIEW_GRADS,
+    GradBlock,
+    GradReducer,
     MeshLeaf,
-    axis_block,
     init_params,
     leaf_dtype,
     shardings,
@@ -177,55 +185,50 @@ class Trainer:
                        params) if self.tcfg.grad_compression else None
         return params, _opt.init(params), err
 
-    def _grads(self, params, batch):
-        """(loss, metrics, grads) of this rank's loss share: on one device
-        :func:`grads_of`; on a mesh the gradient of each leaf's compute
-        view (its ``"model"`` block, or the whole leaf where its plan reads
-        it whole, whole over ``"data"``), in the dtype the loss reads it
-        in, each layer gathered inside the forward (``MeshLeaf``)."""
-        if self.mesh is None:
-            return grads_of(self.ctx, params, batch)
+    def mesh_leaves(self, params, reducer, grads=None):
+        """The :class:`MeshLeaf` tree of this rank's blocks ``params``:
+        each leaf read in the dtype the loss reads it in, its view's
+        gradient handed to ``reducer`` and added into its
+        :class:`~repro_torch.models.params.GradBlock` of ``grads`` (new
+        ones where None)."""
         dt = self.ctx.compute_dtype
-        leaves = tree_map(lambda spec, blk, pl, lp: MeshLeaf.new(
-            blk, pl, self.mesh, leaf_dtype(spec, dt), lp.whole),
-            self.specs, params, self.placements, self.plan)
-        loss, metrics = loss_fn(self.ctx, leaves, batch)
-        sinks = [leaf.sink for leaf in tree_leaves(leaves)]
-        grads = iter(torch.autograd.grad(loss, sinks, materialize_grads=True))
+        if grads is None:
+            grads = tree_map(lambda p: GradBlock(p.shape, p.device), params)
+        return tree_map(lambda spec, blk, pl, lp, g: MeshLeaf(
+            blk, pl, self.mesh, leaf_dtype(spec, dt), lp, reducer, g),
+            self.specs, params, self.placements, self.plan, grads)
+
+    def _grads(self, params, batch, acc=None):
+        """(loss, metrics, grads) of this rank's loss share: on one device
+        :func:`grads_of`; on a mesh this rank's float32 blocks of the
+        gradient, each layer's reduced over the mesh as the backward makes
+        it (:class:`~repro_torch.models.params.GradReducer`; each layer
+        gathered inside the forward, ``MeshLeaf``), each block allocated
+        when its first gradient is added.  ``acc``: float32 gradients to
+        add this one into (in place on a mesh), else new ones."""
+        if self.mesh is None:
+            loss, metrics, grads = grads_of(self.ctx, params, batch)
+            if acc is not None:
+                grads = tree_map(torch.add, acc, grads)
+            return loss, metrics, grads
+        blocks = tree_map(lambda p, *g: GradBlock(p.shape, p.device, *g),
+                          params, *(() if acc is None else (acc,)))
+        reducer = GradReducer(self.mesh, self.device)
+        loss, metrics = loss_fn(self.ctx, self.mesh_leaves(
+            params, reducer, blocks), batch)
+        reducer.backward(loss)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            tree_map(lambda _: next(grads), leaves)
-
-    def _reduce(self, grads, loss, metrics):
-        """The rank's gradients of its loss share -> its blocks of the
-        global gradient: a partial gradient summed over ``"model"`` (in
-        rank order, each part cut to the rank's ``"model"`` block), a whole
-        one cut to it, then the float32 sum over ``"data"`` in rank order
-        cut to the rank's block; the loss and metrics summed over
-        ``"data"``."""
-        mesh = self.mesh
-
-        def reduce(g, pl, lp):
-            g = g.float()
-            if lp.partial:
-                g = psum_ordered(g, mesh, "model", take=lambda t: axis_block(
-                    t, pl, mesh, "model"))
-            elif lp.whole:
-                g = axis_block(g, pl, mesh, "model")
-            return psum_ordered(g, mesh, "data", take=lambda t: axis_block(
-                t, pl, mesh, "data"))
-
-        grads = tree_map(reduce, grads, self.placements, self.plan)
-        return (grads, psum_ordered(loss, mesh, "data"),
-                {k: psum_ordered(v, mesh, "data")
-                 for k, v in metrics.items()})
+            tree_map(GradBlock.value, blocks)
 
     def _step(self, params, opt_state: AdamWState, err, batch: dict):
         """One update -> (params, opt_state, err, metrics): the batch's
         gradient (the mean over ``grad_accum`` microbatches of its leading
-        dim, summed in float32 in order), compressed with error feedback
-        if asked, then AdamW in place.  On a mesh ``batch`` is this rank's
-        rows (:meth:`_device_batch`) and every tree holds its blocks."""
+        dim, each one's added in float32 in order), compressed with error
+        feedback if asked, then AdamW in place.  On a mesh ``batch`` is
+        this rank's rows (:meth:`_device_batch`), every tree holds its
+        blocks and the loss and metrics are summed over ``"data"``."""
         tcfg = self.tcfg
+        VIEW_GRADS.reset()
         if tcfg.grad_accum > 1:
             m = tcfg.grad_accum
             b = next(iter(batch.values())).shape[0]
@@ -236,16 +239,16 @@ class Trainer:
             for i in range(m):
                 micro = {k: v[i * (b // m):(i + 1) * (b // m)]
                          for k, v in batch.items()}
-                loss, _, g = self._grads(params, micro)
-                gsum = tree_map(torch.Tensor.float, g) if gsum is None \
-                    else tree_map(torch.add, gsum, g)
+                loss, _, gsum = self._grads(params, micro, gsum)
                 loss_sum = loss_sum + loss
             grads = tree_map(lambda g: g / m, gsum)
             loss, metrics = loss_sum / m, {}
         else:
             loss, metrics, grads = self._grads(params, batch)
         if self.mesh is not None:
-            grads, loss, metrics = self._reduce(grads, loss, metrics)
+            loss = psum_ordered(loss, self.mesh, "data")
+            metrics = {k: psum_ordered(v, self.mesh, "data")
+                       for k, v in metrics.items()}
         if tcfg.grad_compression:
             grads, err = ef_compress_grads(grads, err, self.placements,
                                            self.mesh)

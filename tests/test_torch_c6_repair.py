@@ -47,7 +47,8 @@ from repro_torch.kernels.c6_tail.ops import (
     c6_repair,
     repair_path,
 )
-from repro_torch.kernels.c6_tail.ref import EPS, c6_repair_ref, c6_tail_ref
+from repro_torch.kernels.c6_tail.ref import EPS, c6_repair_ref, c6_tail_ref, \
+    prefix_sum, row_scan
 
 JSYS, TSYS = jcm.SystemConfig(), tcm.SystemConfig()
 JL, TL = JLat.build(JSYS), TLat.build(TSYS, "cpu")
@@ -314,3 +315,20 @@ def test_c6_repair_path_by_task_count(m, path, blocks, tasks):
     if path == "cluster":
         assert cluster_shape(m) == (blocks, tasks)
         assert (blocks - 1) * tasks < m <= blocks * tasks
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 1025, 53248])
+def test_row_scan_is_a_prefix_sum(n):
+    """The plain repair's prefix sum on CUDA (``row_scan``: rows of 1024
+    scanned, the rows' totals scanned, each row's prefix added) run here:
+    every entry within the float32 bound of the float64 prefix sum; on the
+    CPU ``prefix_sum`` is ``torch.cumsum``'s bits."""
+    g = torch.from_numpy(np.random.default_rng(n).uniform(
+        0.0, 3.0, n).astype(np.float32))
+    got = row_scan(g)
+    assert got.shape == g.shape and got.dtype == g.dtype
+    exact = torch.cumsum(g.double(), 0)
+    bound = 2 * max(n, 1) * EPS * float(g.double().sum())
+    gap = (got.double() - exact).abs()
+    assert n == 0 or float(gap.max()) <= bound
+    assert torch.equal(prefix_sum(g), torch.cumsum(g, 0))

@@ -85,7 +85,8 @@ from repro_torch.kernels.c6_tail.ops import (
     c6_tail,
     repair_path,
 )
-from repro_torch.kernels.c6_tail.ref import c6_repair_ref
+from repro_torch.kernels.c6_tail.ref import c6_repair_ref, c6_tail_ref, \
+    prefix_sum
 from repro_torch.kernels.ccg_encode.ops import ccg_encode
 from repro_torch.kernels.ccg_master.ops import ccg_master
 from repro_torch.kernels.ccg_solve.ops import ccg_solve
@@ -497,6 +498,69 @@ def test_c6_repair_kernel_captured(dev, m):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m", [20000, 53248, CLUSTER_CAP, CLUSTER_CAP + 1])
+def test_c6_repair_repeats_its_bits(dev, m):
+    """A repair is held to its plain version only if each side repeats
+    itself: 100 more launches (one cluster, a partial last block at
+    20,000 tasks; past the cluster's cap the per-round path) give r, p and
+    the history of the first bit for bit, and 5 runs of the plain repair
+    on the card give the same bits."""
+    args, budget = _repair_case(dev, m, True, seed=11)
+    run = lambda: c6_repair(*args, budget, n_fps=5, rounds=8,
+                            force="kernel")
+    first = [t.clone() for t in run()]
+    for i in range(100):
+        assert all(map(torch.equal, run(), first)), f"launch {i + 1}"
+    plain = [c6_repair_ref(*args, budget, n_fps=5, rounds=8)
+             for _ in range(5)]
+    for i, p in enumerate(plain[1:], 1):
+        assert all(map(torch.equal, p, plain[0])), f"plain run {i}"
+
+
+def test_c6_repair_cluster_with_a_block_without_keys(dev):
+    """A demoting repair at 53,248 tasks (16 blocks of 3,328) whose first
+    block holds no task that can demote (r = p = 0 there: every round its
+    key count is 0, its keys one pad and its prefix 0) while the others
+    sort and demote: held to the plain version as ``test_c6_repair_kernel``
+    holds it, that block's tasks untouched, and 100 more launches
+    bit-equal to the first."""
+    m, rounds = 53248, 8
+    args, budget = _repair_case(dev, m, True, seed=13)
+    r, p = args[1].clone(), args[2].clone()
+    r[:m // 16] = 0
+    p[:m // 16] = 0
+    args = (args[0], r, p, *args[3:])
+    run_k = lambda k: c6_repair(*args, budget, n_fps=5, rounds=k,
+                                force="kernel")
+    run_r = lambda k: c6_repair_ref(*args, budget, n_fps=5, rounds=k)
+    reset_launch_counts()
+    first = [t.clone() for t in run_k(rounds)]
+    assert launch_counts() == {"c6_repair": 1}
+    assert compare_runs(run_k, run_r, rounds, args, budget) >= 1
+    assert not first[0][:m // 16].any() and not first[1][:m // 16].any()
+    assert bool((first[0] != r).any() or (first[1] != p).any())
+    for i in range(100):
+        assert all(map(torch.equal, run_k(rounds), first)), f"launch {i + 1}"
+
+
+def test_plain_repair_prefix_sum_repeats(dev):
+    """The plain repair's prefix of the sorted gains (``prefix_sum``) at
+    the cluster's cap gives the same bits on 200 calls, within the float32
+    bound of the float64 sum.  On an H100 ``torch.cumsum`` of this 1-D
+    CUDA tensor, which the plain repair used before, gave bits other than
+    its first call's on every one of 100 calls."""
+    args, budget = _repair_case(dev, CLUSTER_CAP, True, seed=11)
+    _, gain, _ = c6_tail_ref(*args, n_fps=5)
+    g = gain[torch.argsort(-gain, stable=True)]
+    g = g[g > 0]
+    first = prefix_sum(g)
+    for i in range(200):
+        assert torch.equal(prefix_sum(g), first), f"call {i + 1}"
+    exact = torch.cumsum(g.double(), 0)
+    bound = 2 * g.numel() * 2.0 ** -24 * float(g.double().sum())
+    assert float((first.double() - exact).abs().max()) <= bound
 
 
 def test_c6_repair_cluster_fits_the_card(dev):

@@ -20,13 +20,19 @@ left a jax 0.9 process's matrix products on about three cores of an
 8-core CPU.  The
 ranks that ``repro_torch.launch.mesh.run_ranks`` spawns are pinned to one
 torch thread there.
+
+Where torch is not installed, importing this module skips the importing
+test file at collection (``pytest.importorskip``), so a run of ``tests/``
+collects the JAX package's tests alone.
 """
 from __future__ import annotations
 
 import os
 import textwrap
 
-import torch
+import pytest
+
+torch = pytest.importorskip("torch")
 
 
 def workers() -> int:

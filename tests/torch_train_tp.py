@@ -17,7 +17,7 @@ from torch_train_ranks import OPT, run_steps, smoke_f32, state_from_numpy, \
 from repro_torch.configs import get_config
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.layers import Ctx
-from repro_torch.models.model import chunked_ce_loss
+from repro_torch.models.model import chunked_ce_loss, loss_fn
 from repro_torch.models.params import GATHERED
 from repro_torch.sharding import tensor_parallel as tp
 from repro_torch.sharding.rules import make_rules
@@ -55,19 +55,41 @@ def train_case(case: dict, params_np, batches, tmp: str) -> dict:
     return out
 
 
+class ViewGradTap:
+    """A reducer that keeps each view's gradient as the backward hands it
+    over (no sum over ranks), by the block it views."""
+
+    def __init__(self):
+        self.anchor = torch.zeros((), requires_grad=True)
+        self.got = {}
+
+    def expect(self, leaf, tag):
+        pass
+
+    def deliver(self, leaf, g):
+        key = leaf.block.data_ptr()
+        self.got[key] = g if key not in self.got else self.got[key] + g
+
+
 def view_grads(arch: str, params_np, batch, shape, names, tmp: str) -> dict:
     """The rank's gradients of its compute views (before any sum over
-    ranks) of the leaves at ``names`` (paths of keys)."""
+    ranks) of the leaves at ``names`` (paths of keys; each a stacked leaf,
+    its layers' gradients stacked)."""
     tr = trainer(smoke_f32(arch), make_host_mesh(shape), f"{tmp}/grads")
     params = state_from_numpy(tr, params_np)[0]
-    _, _, grads = tr._grads(params, tr._device_batch(batch))
+    tap = ViewGradTap()
+    leaves = tr.mesh_leaves(params, tap, None)
+    loss, _ = loss_fn(tr.ctx, leaves, tr._device_batch(batch))
+    loss.backward()
 
     def at(tree, path):
         for k in path:
             tree = tree[k]
         return tree
 
-    return {"/".join(map(str, p)): at(grads, p).numpy() for p in names}
+    return {"/".join(map(str, p)): torch.stack([
+        tap.got[b.data_ptr()] for b in at(params, p).unbind(0)]).numpy()
+        for p in names}
 
 
 def world(inits: dict, batches: dict, cases, grad_case, tmp: str) -> dict:
